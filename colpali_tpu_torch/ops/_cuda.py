@@ -1,0 +1,149 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+The sources in ``colpali_tpu_torch/csrc/*.cu`` export plain C entry points.
+At first use they are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library under ``build/kernels/`` at the repository root, named by a hash of
+the sources and flags, and loaded with ``ctypes``. Each entry point returns
+the launch's ``cudaError_t``; :meth:`CudaKernel.__call__` raises on any
+non-zero value. A missing ``nvcc``, a failed build or a failed launch
+raises: nothing falls back to the plain PyTorch versions.
+
+Nothing here runs at import: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_build_lock = threading.Lock()
+_library: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [
+        str(Path(cuda_home) / "bin" / "nvcc") if cuda_home else None,
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ]
+    for cand in candidates:
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the port's kernels are built from colpali_tpu_torch/csrc")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libcolpali_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile every ``csrc/*.cu`` into one library unless it is built
+    already. The compiler's register and shared-memory report
+    (``-Xptxas -v``) is kept beside it as ``<name>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    sources = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _library
+    with _build_lock:
+        if _library is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.colpali_error_string.argtypes = [ctypes.c_int]
+            lib.colpali_error_string.restype = ctypes.c_char_p
+            _library = lib
+    return _library
+
+
+P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
+class CudaKernel:
+    """One C entry point of the kernel library and its launch count.
+
+    ``argtypes`` lists the arguments before the trailing stream pointer.
+    ``launches`` counts successful launches; nothing else changes it but
+    :meth:`reset`."""
+
+    def __init__(self, symbol: str, argtypes: list):
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+
+    def reset(self) -> None:
+        self.launches = 0
+
+    def __call__(self, device: torch.device, *args) -> None:
+        if self._fn is None:
+            fn = getattr(library(), self.symbol)
+            fn.argtypes = [*self.argtypes, P]
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        with torch.cuda.device(device):
+            err = self._fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            msg = library().colpali_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol} failed to launch: CUDA error {err} ({msg})")
+        self.launches += 1
+
+
+SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block can use
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (the plain versions run), False for a CUDA
+    tensor (the kernels run); any other device raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type == "cpu"
+
+
+def check_smem(name: str, nbytes: int) -> None:
+    """Raise if a launch would need more shared memory than a block has."""
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{name} needs {nbytes} bytes of shared memory per block (max {SMEM_LIMIT})")
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device``."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,52 @@
+"""Padding helpers for variable-length multi-vector embeddings (numpy).
+
+Counterpart of :mod:`colpali_tpu.utils.tensor_utils`: padded rows are
+all-zero vectors, which MaxSim scores as 0.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+
+
+def round_up(x: int, multiple: int) -> int:
+    """Round ``x`` up to the nearest multiple of ``multiple``."""
+    if multiple <= 0:
+        raise ValueError(f"multiple must be positive, got {multiple}")
+    return ((x + multiple - 1) // multiple) * multiple
+
+
+def pad_sequences(
+    sequences: Sequence[np.ndarray],
+    pad_value: float = 0.0,
+    pad_to: int | None = None,
+    pad_multiple: int = 1,
+    padding_side: str = "right",
+) -> np.ndarray:
+    """Stack variable-length ``(len_i, dim)`` arrays into ``(batch, max_len, dim)``.
+
+    ``pad_to`` sets the target length (at least the longest sequence);
+    ``pad_multiple`` rounds it up to a multiple.
+    """
+    if len(sequences) == 0:
+        raise ValueError("No sequences provided")
+    if padding_side not in ("left", "right"):
+        raise ValueError("padding_side must be either 'left' or 'right'.")
+
+    seqs = [np.asarray(s) for s in sequences]
+    max_len = max(s.shape[0] for s in seqs)
+    target = pad_to if pad_to is not None else max_len
+    if target < max_len:
+        raise ValueError(f"pad_to={target} is smaller than longest sequence ({max_len})")
+    target = round_up(target, pad_multiple)
+
+    trailing = seqs[0].shape[1:]
+    out = np.full((len(seqs), target, *trailing), pad_value, dtype=seqs[0].dtype)
+    for i, s in enumerate(seqs):
+        if padding_side == "right":
+            out[i, : s.shape[0]] = s
+        else:
+            out[i, target - s.shape[0] :] = s
+    return out
