@@ -5,25 +5,24 @@ The JAX package's ``ColPali`` params (a nested dict with numpy leaves, as
 :class:`colpali_tpu_torch.models.paligemma.ColPali`:
 
 - flax ``Dense`` kernels ``(in, out)`` become ``nn.Linear`` weights ``(out, in)``;
-- ``embed_tokens/embedding`` becomes ``embed_tokens.weight``;
+- the SigLIP patch ``Conv`` kernel ``(p, p, 3, hidden)`` (HWIO) becomes the
+  im2col ``nn.Linear`` weight ``(hidden, p * p * 3)``;
+- ``embedding`` leaves (token and position embeddings) become ``weight``;
+- flax ``LayerNorm`` ``scale`` becomes ``weight`` (``bias`` stays);
 - unrolled ``layers_{i}`` become ``layers.{i}``.
 
-Only ``model/language_model/*`` and ``head/*`` are converted; the subtrees
-of the document-embedding slice (the vision tower and the projector) are
-skipped and their names returned. bf16 leaves (``ml_dtypes.bfloat16``) are
-taken bit for bit.
+bf16 leaves (``ml_dtypes.bfloat16``) are taken bit for bit.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
-SKIPPED_SUBTREES = ("model/vision_tower", "model/multi_modal_projector")
-_CONVERTED = ("model/language_model/", "head/")
+_CONVERTED = ("model/language_model/", "model/vision_tower/", "model/multi_modal_projector/", "head/")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
@@ -44,19 +43,13 @@ def _to_tensor(leaf: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-def colpali_state_dict_from_jax(params: Mapping[str, Any]) -> Tuple[Dict[str, torch.Tensor], List[str]]:
-    """JAX ColPali params (with or without the top ``"params"`` level) ->
-    ``(state_dict, skipped subtree names)``."""
+def colpali_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ColPali params (with or without the top ``"params"`` level) -> state dict."""
     if set(params) == {"params"}:
         params = params["params"]
     state: Dict[str, torch.Tensor] = {}
-    skipped = set()
     for path, leaf in _flatten(params).items():
         joined = "/".join(path)
-        top = next((s for s in SKIPPED_SUBTREES if joined.startswith(s + "/")), None)
-        if top is not None:
-            skipped.add(top)
-            continue
         if not joined.startswith(_CONVERTED):
             raise ValueError(f"unexpected ColPali parameter {joined!r}")
         if "layers" in path:
@@ -65,9 +58,9 @@ def colpali_state_dict_from_jax(params: Mapping[str, Any]) -> Tuple[Dict[str, to
         tensor = _to_tensor(leaf)
         *parts, last = path
         if last == "kernel":
-            tensor, last = tensor.T.contiguous(), "weight"
-        elif last == "embedding":
+            tensor, last = tensor.reshape(-1, tensor.shape[-1]).T.contiguous(), "weight"
+        elif last in ("embedding", "scale"):
             last = "weight"
         name = ".".join(re.sub(r"^layers_(\d+)$", r"layers.\1", p) for p in (*parts, last))
         state[name] = tensor
-    return state, sorted(skipped)
+    return state

@@ -10,30 +10,47 @@
 // in fp32, queries not quantized. The TPU path gathers the (c, Np, D) docs
 // into HBM first; here nothing but the (B, c) scores is written.
 //
-// What bounds it on an H100: latency of the scattered reads. A candidate is
-// Np rows of D bytes, each 128 * D bytes apart in the tile-major store, so
-// the c = 1024 shortlist is 8 MB of 128-byte reads spread over the corpus;
-// the fp32 products (Nq * Np * D per candidate) are small beside it.
+// What bounds it on an H100: at Np = 64 the latency of the scattered reads.
+// A candidate is Np rows of D bytes, each 128 * D bytes apart in the
+// tile-major store, so the c = 1024 shortlist is 8 MB of 128-byte reads
+// spread over the corpus. At a full page (Np = 1,040, Nq = 64) the fp32
+// products, 8.5 M FMA per candidate on the CUDA cores, outweigh its 133 KB.
 //
-// Design: one block per (query, candidate). The block dequantizes its
-// candidate's rows into shared memory (rows padded by one float so the dot
-// products read conflict-free), stages the fp32 query, computes the
-// (Nq, Np) similarities, takes the max over doc tokens and sums over query
-// tokens in query order. An id outside the store writes NaN instead of
-// reading out of bounds. Offsets are 64-bit.
+// Design: one block of 128 threads per (query, candidate). The block stages
+// the fp32 query once (zero rows up to a multiple of kQBlock query tokens),
+// then streams the candidate's doc tokens through shared memory in chunks of
+// kChunk rows, dequantized on the way in, so shared memory does not grow with
+// Np: a full page (Np = 1,040) takes 17 chunks, the bench's Np = 64 one. Each
+// thread owns a 4 x 8 register tile of dot products, query tokens tq + 16 i
+// against doc tokens tt + 8 j (tq = tid / 8, tt = tid % 8), read as float4
+// along D from rows padded by 4 floats: 12 conflict-free 16-byte loads feed
+// 128 FMAs, where one product per thread would read two words per FMA. Each
+// dot product accumulates in dimension order with fmaf. The tile's max over
+// doc tokens is reduced across the 8 token lanes by warp shuffles and folded
+// into a running max per query token in shared memory; the maxima are summed
+// over query tokens in query order. D must be a multiple of 4. An id outside
+// the store writes NaN instead of reading out of bounds. Offsets are 64-bit.
 
 #include "common.cuh"
 
-__global__ void gather_rerank_kernel(const float* __restrict__ q,        // (B, Nq, D)
-                                     const int8_t* __restrict__ store,   // (nt, Np, 128, D)
-                                     const float* __restrict__ scales,   // (nt, Np, 128)
-                                     const int32_t* __restrict__ cand,   // (B, c)
-                                     float* __restrict__ out,            // (B, c)
-                                     int nq, int c, int np_, int d, int64_t n_tiles) {
+#include <math_constants.h>
+
+constexpr int kChunk = 64;   // doc tokens per shared-memory chunk: 8 token lanes x 8
+constexpr int kQBlock = 64;  // query tokens per pass over a chunk: 16 query lanes x 4
+
+__global__ void __launch_bounds__(128)
+    gather_rerank_kernel(const float* __restrict__ q,        // (B, Nq, D)
+                         const int8_t* __restrict__ store,   // (nt, Np, 128, D)
+                         const float* __restrict__ scales,   // (nt, Np, 128)
+                         const int32_t* __restrict__ cand,   // (B, c)
+                         float* __restrict__ out,            // (B, c)
+                         int nq, int c, int np_, int d, int64_t n_tiles) {
   extern __shared__ int4 smem_raw[];
-  float* s_doc = reinterpret_cast<float*>(smem_raw);  // (Np, D + 1)
-  float* s_q = s_doc + np_ * (d + 1);                 // (Nq, D)
-  float* s_sim = s_q + nq * d;                        // (Nq, Np + 1)
+  const int ld = d + 4;
+  const int nq_pad = (nq + kQBlock - 1) / kQBlock * kQBlock;
+  float* s_doc = reinterpret_cast<float*>(smem_raw);  // (kChunk, ld)
+  float* s_q = s_doc + kChunk * ld;                   // (nq_pad, ld)
+  float* s_best = s_q + nq_pad * ld;                  // (nq_pad) running max over doc tokens
   const int64_t pair = blockIdx.x;
   const int64_t bi = pair / c;
   const int tid = threadIdx.x;
@@ -44,38 +61,66 @@ __global__ void gather_rerank_kernel(const float* __restrict__ q,        // (B, 
   }
   const int64_t tile = id / DOC_TILE;
   const int64_t lane = id % DOC_TILE;
+  const int tq = tid >> 3, tt = tid & 7;
 
-  for (int e = tid; e < np_ * d; e += blockDim.x) {
-    const int t = e / d;
-    const int k = e % d;
-    const int64_t row = (tile * np_ + t) * DOC_TILE + lane;
-    s_doc[t * (d + 1) + k] = static_cast<float>(store[row * d + k]) * scales[row];
+  for (int e = tid; e < nq_pad * d; e += blockDim.x) {
+    const int n = e / d;
+    s_q[n * ld + e % d] = n < nq ? q[bi * nq * d + e] : 0.0f;
   }
-  for (int e = tid; e < nq * d; e += blockDim.x) s_q[e] = q[bi * nq * d + e];
-  __syncthreads();
+  for (int n = tid; n < nq_pad; n += blockDim.x) s_best[n] = -CUDART_INF_F;
 
-  for (int p = tid; p < nq * np_; p += blockDim.x) {
-    const int n = p / np_;
-    const int t = p % np_;
-    const float* qr = s_q + n * d;
-    const float* dr = s_doc + t * (d + 1);
-    float acc = 0.0f;
-    for (int k = 0; k < d; ++k) acc = fmaf(qr[k], dr[k], acc);
-    s_sim[n * (np_ + 1) + t] = acc;
-  }
-  __syncthreads();
+  for (int t0 = 0; t0 < np_; t0 += kChunk) {
+    const int nt = min(kChunk, np_ - t0);
+    __syncthreads();  // the previous chunk is consumed (and the query staged)
+    for (int e = tid; e < nt * d; e += blockDim.x) {
+      const int t = e / d;
+      const int k = e % d;
+      const int64_t row = (tile * np_ + t0 + t) * DOC_TILE + lane;
+      s_doc[t * ld + k] = static_cast<float>(store[row * d + k]) * scales[row];
+    }
+    __syncthreads();
 
-  for (int n = tid; n < nq; n += blockDim.x) {
-    const float* row = s_sim + n * (np_ + 1);
-    float best = row[0];
-    for (int t = 1; t < np_; ++t) best = fmaxf(best, row[t]);
-    s_sim[n * (np_ + 1) + np_] = best;
+    for (int qb = 0; qb < nq_pad; qb += kQBlock) {
+      float acc[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+      for (int k = 0; k < d; k += 4) {
+        float4 a[4], b[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(s_q + (qb + tq + 16 * i) * ld + k);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(s_doc + (tt + 8 * j) * ld + k);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float x = fmaf(a[i].x, b[j].x, acc[i][j]);
+            x = fmaf(a[i].y, b[j].y, x);
+            x = fmaf(a[i].z, b[j].z, x);
+            acc[i][j] = fmaf(a[i].w, b[j].w, x);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float m = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (tt + 8 * j < nt) m = fmaxf(m, acc[i][j]);  // rows past nt hold a stale chunk
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+        const int n = qb + tq + 16 * i;
+        if (tt == 0) s_best[n] = fmaxf(s_best[n], m);
+      }
+    }
   }
   __syncthreads();
 
   if (tid == 0) {
     float total = 0.0f;
-    for (int n = 0; n < nq; ++n) total += s_sim[n * (np_ + 1) + np_];
+    for (int n = 0; n < nq; ++n) total += s_best[n];
     out[pair] = total;
   }
 }
@@ -83,8 +128,9 @@ __global__ void gather_rerank_kernel(const float* __restrict__ q,        // (B, 
 extern "C" int colpali_gather_rerank(const void* q, const void* store, const void* scales,
                                      const void* cand, void* out, int b, int nq, int c, int np_,
                                      int d, int64_t n_tiles, void* stream) {
-  const size_t smem = (static_cast<size_t>(np_) * (d + 1) + static_cast<size_t>(nq) * d +
-                       static_cast<size_t>(nq) * (np_ + 1)) * sizeof(float);
+  if (d % 4 != 0) return cudaErrorInvalidValue;
+  const size_t nq_pad = (static_cast<size_t>(nq) + kQBlock - 1) / kQBlock * kQBlock;
+  const size_t smem = ((kChunk + nq_pad) * (d + 4) + nq_pad) * sizeof(float);
   cudaError_t err = colpali_allow_smem(gather_rerank_kernel, smem);
   if (err != cudaSuccess) return err;
   const int64_t blocks = static_cast<int64_t>(b) * c;

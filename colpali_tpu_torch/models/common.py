@@ -1,33 +1,55 @@
-"""Retrieval heads and weight initialization shared by the model families
-(counterpart of :mod:`colpali_tpu.models.common`)."""
+"""Retrieval heads, the image-feature merge and weight initialization shared
+by the model families (counterpart of :mod:`colpali_tpu.models.common`)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
-from colpali_tpu_torch.models.layers import Device, RMSNorm, l2_normalize
+from colpali_tpu_torch.models.layers import Device, LayerNorm, RMSNorm, l2_normalize
+
+
+def merge_image_embeddings(
+    inputs_embeds: torch.Tensor,
+    image_token_mask: torch.Tensor,
+    image_features: torch.Tensor,
+) -> torch.Tensor:
+    """Splice ``image_features (B, n_img, D)`` into ``inputs_embeds (B, S, D)``
+    at the image-token slots of ``image_token_mask (B, S)``: the k-th True
+    position of row b takes ``image_features[b, k]`` (indices clipped to
+    ``n_img - 1``, as in the JAX package)."""
+    n_img = image_features.shape[1]
+    idx = (torch.cumsum(image_token_mask.long(), dim=1) - 1).clamp(0, n_img - 1)
+    scattered = torch.gather(image_features, 1, idx[..., None].expand(-1, -1, image_features.shape[2]))
+    return torch.where(image_token_mask[..., None], scattered.to(inputs_embeds.dtype), inputs_embeds)
 
 
 class MultiVectorHead(nn.Module):
-    """Late-interaction head: linear -> L2 normalize -> zero the padding."""
+    """Late-interaction head: linear -> L2 normalize -> zero the padding
+    (and, given ``image_token_mask``, every non-image token)."""
 
-    def __init__(self, hidden_size: int, dim: int = 128, device: Device = None,
+    def __init__(self, hidden_size: int, dim: int = 128, device: Device = "cuda",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.custom_text_proj = nn.Linear(hidden_size, dim, bias=True, device=device, dtype=dtype)
 
-    def forward(self, hidden_states: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden_states: torch.Tensor, attention_mask: torch.Tensor,
+                image_token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         proj = l2_normalize(self.custom_text_proj(hidden_states))
-        return proj * attention_mask[..., None].to(proj.dtype)
+        proj = proj * attention_mask[..., None].to(proj.dtype)
+        if image_token_mask is not None:
+            proj = proj * image_token_mask[..., None].to(proj.dtype)
+        return proj
 
 
 @torch.no_grad()
 def hf_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights in the HF convention, in place on the weights' own
     device: linear and embedding weights from normal(0, 0.02), biases zero,
-    RMSNorm weights zero (the norm adds a unit offset). ``generator`` must
-    be on that device."""
+    RMSNorm weights zero (the norm adds a unit offset), LayerNorm weights one
+    and biases zero. ``generator`` must be on that device."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Embedding)):
             m.weight.normal_(0.0, 0.02, generator=generator)
@@ -35,4 +57,7 @@ def hf_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.bias.zero_()
         elif isinstance(m, RMSNorm):
             m.weight.zero_()
+        elif isinstance(m, LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
     return module

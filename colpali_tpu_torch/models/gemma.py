@@ -18,7 +18,7 @@ from colpali_tpu_torch.models.layers import Attention, Device, GatedMLP, RMSNorm
 
 
 class GemmaDecoderLayer(nn.Module):
-    def __init__(self, config: GemmaConfig, device: Device = None, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: GemmaConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = config
         kw = dict(device=device, dtype=dtype)
@@ -39,7 +39,7 @@ class GemmaDecoderLayer(nn.Module):
 class GemmaDecoder(nn.Module):
     """Gemma transformer stack over pre-merged input embeddings."""
 
-    def __init__(self, config: GemmaConfig, device: Device = None, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: GemmaConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
         self.dtype = dtype
@@ -66,6 +66,7 @@ class GemmaDecoder(nn.Module):
         rope = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
         normalizer = torch.tensor(cfg.hidden_size**0.5, dtype=self.dtype, device=inputs_embeds.device)
         x = inputs_embeds.to(self.dtype) * normalizer
+        attention_mask = attention_mask.to(torch.int32)  # the segment ids K6 takes, converted once
         for layer in self.layers:
             x = layer(x, attention_mask, rope)
         return self.norm(x)

@@ -1,14 +1,17 @@
 """Transformer building blocks in PyTorch (counterparts of
-:mod:`colpali_tpu.models.layers`, the subset the text tower uses).
+:mod:`colpali_tpu.models.layers`, the subset ColPali uses).
 
-Every block takes its parameters' ``device`` and ``dtype``; numerically
-sensitive reductions (normalization statistics, softmax, rotary phases) run
-in float32 as in the JAX package.
+Every block takes its parameters' ``device`` (the card unless the caller
+asks for the CPU) and ``dtype``; numerically sensitive reductions
+(normalization statistics, softmax, rotary phases) run in float32 as in the
+JAX package.
 
-Attention is the JAX einsum path: fp32 logits, additive mask bias, fp32
-softmax cast back to the compute dtype, MQA/GQA by grouping query heads.
-Query encodes never reach the TPU flash kernel (their padding tax fails
-``flash_auto_ok``), so no kernel of this repository runs here.
+Attention runs kernel K6 (:mod:`colpali_tpu_torch.ops.flash_attention`) on
+the card and its plain version, the segment-masked einsum, on the CPU: fp32
+logits and softmax, MQA/GQA by grouping query heads. A token-validity mask
+is passed as segment ids, so valid tokens attend to valid tokens exactly as
+under the JAX package's additive mask, and pad rows (masked downstream)
+attend to pad tokens.
 """
 
 from __future__ import annotations
@@ -19,11 +22,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-Device = Optional[torch.device | str]
+from colpali_tpu_torch.ops import flash_attention as fa
+
+Device = torch.device | str
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """gelu_pytorch_tanh, the activation Gemma uses."""
+    """gelu_pytorch_tanh, the activation Gemma and SigLIP use."""
     return F.gelu(x, approximate="tanh")
 
 
@@ -31,7 +36,7 @@ class RMSNorm(nn.Module):
     """RMS normalization with fp32 statistics, Gemma convention: the weight
     is stored as its deviation from 1."""
 
-    def __init__(self, dim: int, eps: float = 1e-6, device: Device = None, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, eps: float = 1e-6, device: Device = "cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
@@ -40,6 +45,25 @@ class RMSNorm(nn.Module):
         xf = x.float()
         xf = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + self.eps)
         return (xf * (1.0 + self.weight.float())).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with flax's statistics: fp32 mean and ``E[x^2] - mean^2``
+    variance (clamped at 0), ``(x - mean) * rsqrt(var + eps) * weight + bias``
+    in fp32, cast back to the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, device: Device = "cuda", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf.square().mean(dim=-1, keepdim=True) - mean.square()).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((xf - mean) * mul + self.bias.float()).to(x.dtype)
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
@@ -62,52 +86,49 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
-def make_attention_bias(attention_mask: torch.Tensor) -> torch.Tensor:
-    """Additive fp32 ``(B, 1, 1, S)`` bias from a ``(B, S)`` key-validity mask:
-    0 where valid, ``finfo(float32).min`` elsewhere (full attention, the
-    PaliGemma prefix)."""
-    neg = torch.finfo(torch.float32).min
-    zero = torch.zeros((), dtype=torch.float32, device=attention_mask.device)
-    return torch.where(attention_mask[:, None, None, :] > 0, zero, neg)
-
-
 class Attention(nn.Module):
-    """Multi-head attention with optional GQA/MQA and rotary embeddings: fp32
-    softmax, ``head_dim**-0.5`` scaling, additive bias mask."""
+    """Multi-head attention with optional GQA/MQA, projection biases and
+    rotary embeddings, ``head_dim**-0.5`` scaling, through K6.
 
-    def __init__(self, hidden_size: int, num_heads: int, head_dim: int, num_kv_heads: int,
-                 device: Device = None, dtype: torch.dtype = torch.float32):
+    ``segments`` (B, S) ids or a ``mask`` (B, S) of token validity select
+    the keys each query sees (neither: full attention)."""
+
+    def __init__(self, hidden_size: int, num_heads: int, head_dim: int, num_kv_heads: Optional[int] = None,
+                 use_bias: bool = False, out_bias: Optional[bool] = None,
+                 device: Device = "cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
-        self.num_kv_heads = num_kv_heads
+        self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = head_dim
         self.scale = head_dim**-0.5
-        kw = dict(bias=False, device=device, dtype=dtype)
-        self.q_proj = nn.Linear(hidden_size, num_heads * head_dim, **kw)
-        self.k_proj = nn.Linear(hidden_size, self.num_kv_heads * head_dim, **kw)
-        self.v_proj = nn.Linear(hidden_size, self.num_kv_heads * head_dim, **kw)
-        self.o_proj = nn.Linear(num_heads * head_dim, hidden_size, **kw)
+        kw = dict(device=device, dtype=dtype)
+        kv = self.num_kv_heads * head_dim
+        self.q_proj = nn.Linear(hidden_size, num_heads * head_dim, bias=use_bias, **kw)
+        self.k_proj = nn.Linear(hidden_size, kv, bias=use_bias, **kw)
+        self.v_proj = nn.Linear(hidden_size, kv, bias=use_bias, **kw)
+        self.o_proj = nn.Linear(num_heads * head_dim, hidden_size, bias=use_bias if out_bias is None else out_bias,
+                                **kw)
 
     def forward(
         self,
         x: torch.Tensor,
-        rope: tuple[torch.Tensor, torch.Tensor],
-        mask: torch.Tensor,
+        rope: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+        mask: Optional[torch.Tensor] = None,
+        segments: Optional[torch.Tensor] = None,
+        causal: bool = False,
     ) -> torch.Tensor:
         b, s, _ = x.shape
-        kv, hd = self.num_kv_heads, self.head_dim
-        groups = self.num_heads // kv
+        hd = self.head_dim
         q = self.q_proj(x).view(b, s, self.num_heads, hd)
-        k = self.k_proj(x).view(b, s, kv, hd)
-        v = self.v_proj(x).view(b, s, kv, hd)
-        q = apply_rope(q, *rope)
-        k = apply_rope(k, *rope)
-        qg = q.view(b, s, kv, groups, hd)
-        # (B, kv, groups, Sq, Sk) logits with fp32 products and sums
-        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * self.scale
-        logits = logits + make_attention_bias(mask)[:, :, None]
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+        k = self.k_proj(x).view(b, s, self.num_kv_heads, hd)
+        v = self.v_proj(x).view(b, s, self.num_kv_heads, hd)
+        if rope is not None:
+            q = apply_rope(q, *rope)
+            k = apply_rope(k, *rope)
+        seg = segments if segments is not None else mask
+        if seg is None:
+            seg = torch.ones((b, s), dtype=torch.int32, device=x.device)
+        out = fa.flash_attention(q, k, v, seg.to(torch.int32).contiguous(), self.scale, causal)
         return self.o_proj(out.reshape(b, s, self.num_heads * hd))
 
 
@@ -115,7 +136,7 @@ class GatedMLP(nn.Module):
     """Gated MLP: ``down(gelu_tanh(gate(x)) * up(x))``, Gemma style."""
 
     def __init__(self, hidden_size: int, intermediate_size: int,
-                 device: Device = None, dtype: torch.dtype = torch.float32):
+                 device: Device = "cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
         kw = dict(bias=False, device=device, dtype=dtype)
         self.gate_proj = nn.Linear(hidden_size, intermediate_size, **kw)
@@ -124,6 +145,19 @@ class GatedMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(gelu_tanh(self.gate_proj(x)) * self.up_proj(x))
+
+
+class MLP(nn.Module):
+    """Two-layer MLP with biases, SigLIP style: ``fc2(gelu_tanh(fc1(x)))``."""
+
+    def __init__(self, hidden_size: int, intermediate_size: int,
+                 device: Device = "cuda", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = nn.Linear(hidden_size, intermediate_size, device=device, dtype=dtype)
+        self.fc2 = nn.Linear(intermediate_size, hidden_size, device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(gelu_tanh(self.fc1(x)))
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -1,12 +1,12 @@
-"""PaliGemma text path and the ColPali retriever in PyTorch (counterpart of
+"""PaliGemma backbone and the ColPali retriever in PyTorch (counterpart of
 :mod:`colpali_tpu.models.paligemma`).
 
-This slice ports the query forward: token ids (image token id -> 0 before
-the embedding) -> Gemma with full attention over valid tokens and
-1-indexed positions -> 128-d L2-normalized, mask-zeroed token embeddings.
-The SigLIP tower and the projector that embed document pages belong to
-the document-embedding slice, which is not ported yet: passing
-``pixel_values`` raises ``NotImplementedError``.
+Pages: SigLIP over the pixels -> the linear projector -> divided by
+``sqrt(text hidden)`` as a constant in the compute dtype (45.25 in bf16) ->
+spliced into the ``<image>`` token slots. Queries skip the vision tower.
+Both then run Gemma with full attention over valid tokens and 1-indexed
+positions, and ColPali's head gives 128-d L2-normalized, mask-zeroed token
+embeddings.
 """
 
 from __future__ import annotations
@@ -16,26 +16,24 @@ from typing import Optional
 import torch
 from torch import nn
 
-from colpali_tpu_torch.models.common import MultiVectorHead
+from colpali_tpu_torch.models.common import MultiVectorHead, merge_image_embeddings
 from colpali_tpu_torch.models.configs import PaliGemmaConfig
 from colpali_tpu_torch.models.gemma import GemmaDecoder
 from colpali_tpu_torch.models.layers import Device
-
-
-def _no_pixels(pixel_values) -> None:
-    if pixel_values is not None:
-        raise NotImplementedError(
-            "pixel_values: the SigLIP vision tower and projector (the document-embedding "
-            "slice) are not ported yet; only text (query) inputs run")
+from colpali_tpu_torch.models.siglip import SiglipVisionTower
 
 
 class PaliGemmaBackbone(nn.Module):
-    """Gemma over PaliGemma's token stream; returns last hidden states."""
+    """SigLIP + projector + Gemma; returns last hidden states."""
 
-    def __init__(self, config: PaliGemmaConfig, device: Device = None, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: PaliGemmaConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
-        self.language_model = GemmaDecoder(config.text, device=device, dtype=dtype)
+        self.dtype = dtype
+        kw = dict(device=device, dtype=dtype)
+        self.vision_tower = SiglipVisionTower(config.vision, **kw)
+        self.multi_modal_projector = nn.Linear(config.vision.hidden_size, config.projection_dim, **kw)
+        self.language_model = GemmaDecoder(config.text, **kw)
 
     def forward(
         self,
@@ -43,11 +41,16 @@ class PaliGemmaBackbone(nn.Module):
         attention_mask: torch.Tensor,
         pixel_values: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """``(B, S)`` ids and mask (1 = real token) -> ``(B, S, hidden)``."""
-        _no_pixels(pixel_values)
+        """``(B, S)`` ids and mask (1 = real token), optional ``(B, H, W, 3)``
+        normalized pixels -> ``(B, S, hidden)``."""
+        cfg = self.config
+        image_mask = input_ids == cfg.image_token_index
         # image tokens may lie past the vocab; they embed as id 0
-        safe_ids = torch.where(input_ids == self.config.image_token_index, 0, input_ids)
-        inputs_embeds = self.language_model.embed(safe_ids)
+        inputs_embeds = self.language_model.embed(torch.where(image_mask, 0, input_ids))
+        if pixel_values is not None:
+            features = self.multi_modal_projector(self.vision_tower(pixel_values))
+            features = features / torch.tensor(cfg.text.hidden_size**0.5, dtype=self.dtype, device=features.device)
+            inputs_embeds = merge_image_embeddings(inputs_embeds, image_mask, features)
         b, s = input_ids.shape
         position_ids = torch.arange(1, s + 1, device=input_ids.device).expand(b, s)  # 1-indexed
         return self.language_model(inputs_embeds, attention_mask, position_ids)
@@ -55,12 +58,15 @@ class PaliGemmaBackbone(nn.Module):
 
 class ColPali(nn.Module):
     """Late-interaction multi-vector retriever over PaliGemma: ``(B, S, dim)``
-    L2-normalized, mask-zeroed per-token embeddings."""
+    L2-normalized, mask-zeroed per-token embeddings. With
+    ``mask_non_image_embeddings``, page inputs also zero every non-image
+    token."""
 
-    def __init__(self, config: PaliGemmaConfig, dim: int = 128,
-                 device: Device = None, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: PaliGemmaConfig, dim: int = 128, mask_non_image_embeddings: bool = False,
+                 device: Device = "cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
+        self.mask_non_image_embeddings = mask_non_image_embeddings
         self.model = PaliGemmaBackbone(config, device=device, dtype=dtype)
         self.head = MultiVectorHead(config.text.hidden_size, dim=dim, device=device, dtype=dtype)
 
@@ -71,4 +77,7 @@ class ColPali(nn.Module):
         pixel_values: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         hidden = self.model(input_ids, attention_mask, pixel_values)
-        return self.head(hidden, attention_mask)
+        image_mask = None
+        if pixel_values is not None and self.mask_non_image_embeddings:
+            image_mask = input_ids == self.config.image_token_index
+        return self.head(hidden, attention_mask, image_mask)

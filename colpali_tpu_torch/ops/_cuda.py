@@ -5,8 +5,10 @@ At first use they are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library under ``build/kernels/`` at the repository root, named by a hash of
 the sources and flags, and loaded with ``ctypes``. Each entry point returns
 the launch's ``cudaError_t``; :meth:`CudaKernel.__call__` raises on any
-non-zero value. A missing ``nvcc``, a failed build or a failed launch
-raises: nothing falls back to the plain PyTorch versions.
+non-zero value. The entry points size their own shared memory, so a launch
+that would need more than a block has fails there and raises too. A
+missing ``nvcc``, a failed build or a failed launch raises: nothing falls
+back to the plain PyTorch versions.
 
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -89,7 +91,7 @@ def library() -> ctypes.CDLL:
     return _library
 
 
-P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+P, I32, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
 
 class CudaKernel:
@@ -122,21 +124,12 @@ class CudaKernel:
         self.launches += 1
 
 
-SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block can use
-
-
 def on_cpu(t: torch.Tensor) -> bool:
     """True for a CPU tensor (the plain versions run), False for a CUDA
     tensor (the kernels run); any other device raises."""
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {t.device}")
     return t.device.type == "cpu"
-
-
-def check_smem(name: str, nbytes: int) -> None:
-    """Raise if a launch would need more shared memory than a block has."""
-    if nbytes > SMEM_LIMIT:
-        raise ValueError(f"{name} needs {nbytes} bytes of shared memory per block (max {SMEM_LIMIT})")
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.device) -> None:

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from colpali_tpu_torch.ops._cuda import I32, I64, P, CudaKernel, check_cuda, check_smem, on_cpu
+from colpali_tpu_torch.ops._cuda import I32, I64, P, CudaKernel, check_cuda, on_cpu
 from colpali_tpu_torch.ops.maxsim_tiled import DOC_TILE, _tile_step
 
 BINARY_MAXSIM = CudaKernel("colpali_binary_maxsim", [P, P, P, P, I32, I32, I32, I32, I32, I64])
@@ -98,7 +98,6 @@ def binary_maxsim_tiled(
     check_cuda("query_words", query_words, torch.int32, dev)
     check_cuda("query_valid", query_valid, torch.float32, dev)
     check_cuda("doc_words_tiled", doc_words_tiled, torch.int32, dev)
-    check_smem("binary_maxsim", 4 * (n_words * np_ * DOC_TILE + b * nq * n_words + b * nq))
     out = torch.empty((b, n_tiles * DOC_TILE), dtype=torch.float32, device=dev)
     BINARY_MAXSIM(dev, query_words.data_ptr(), query_valid.data_ptr(), doc_words_tiled.data_ptr(),
                   out.data_ptr(), b, nq, n_words, np_, dim, n_tiles)

@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from colpali_tpu_torch.ops._cuda import I32, I64, P, CudaKernel, check_cuda, check_smem, on_cpu
+from colpali_tpu_torch.ops._cuda import I32, I64, P, CudaKernel, check_cuda, on_cpu
 
 DOC_TILE = 128  # docs per tile == the tile-major lane axis
 _PLAIN_CHUNK_ELEMS = 1 << 26  # bound on a plain version's fp32 intermediates
@@ -107,7 +107,6 @@ def maxsim_int8mxu_tiled(
     check_cuda("scales", scales, torch.float32, dev)
     if d not in (64, 128, 256):
         raise ValueError(f"the int8 kernel takes dim 64, 128 or 256, got {d}")
-    check_smem("maxsim_int8", nq * d + nq * 4 + nq * DOC_TILE * 4)
     out = torch.empty((b, nt * DOC_TILE), dtype=torch.float32, device=dev)
     MAXSIM_INT8(dev, query_int8.data_ptr(), query_scales.data_ptr(), store.data_ptr(),
                 scales.data_ptr(), out.data_ptr(), b, nq, np_, d, nt)
@@ -162,7 +161,8 @@ def gather_rerank_int8(
     check_cuda("scales", scales, torch.float32, dev)
     check_cuda("cand", cand, torch.int32, dev)
     c = cand.shape[1]
-    check_smem("gather_rerank", 4 * (np_ * (d + 1) + nq * d + nq * (np_ + 1)))
+    if d % 4:
+        raise ValueError(f"the rerank kernel reads float4 rows: dim must be a multiple of 4, got {d}")
     out = torch.empty((b, c), dtype=torch.float32, device=dev)
     if b * c:
         GATHER_RERANK(dev, queries.data_ptr(), store.data_ptr(), scales.data_ptr(),

@@ -71,7 +71,8 @@ class CorpusIndex:
         doc_tokens: pad every doc to this many tokens (default: the longest
             doc, rounded up to a multiple of 16). Shorter than the longest
             doc is an error unless ``truncate=True``.
-        device: where the index lives and is scored.
+        device: where the index lives and is scored (the card unless the
+            caller asks for the CPU).
         quantize_queries: int8 indexes score int8-quantized queries (kernel
             K3); False keeps bf16 queries (TPU kernel K4, plain on the CPU
             only so far).
@@ -93,7 +94,7 @@ class CorpusIndex:
         doc_embeddings: ArrayLike,
         dtype: str = "bf16",
         doc_tokens: Optional[int] = None,
-        device: Device = "cpu",
+        device: Device = "cuda",
         quantize_queries: bool = True,
         truncate: bool = False,
         prefilter: Optional[str] = None,
@@ -263,7 +264,7 @@ class CorpusIndex:
         np.savez(path, **payload)
 
     @classmethod
-    def load(cls, path: str, device: Device = "cpu", quantize_queries: bool = True) -> "CorpusIndex":
+    def load(cls, path: str, device: Device = "cuda", quantize_queries: bool = True) -> "CorpusIndex":
         """Restore an index written by :meth:`save` (of either package) onto ``device``."""
         with np.load(path) as data:
             dtype = bytes(data["dtype"]).decode()

@@ -7,13 +7,18 @@ JAX-side conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerance: K1 exactly equal; K2 and K3 rtol=1e-5, atol=1e-4 (fp32 sums in
-another order than the plain versions).
+another order than the plain versions); K6 elementwise rtol=1.6e-2 (two bf16
+ulps: both round the output, the kernel rounds unnormalized probabilities to
+bf16 and divides at the end, the plain version rounds normalized ones) and
+atol=2e-2 times the RMS of the plain output (random q, k and v give outputs
+of RMS about sqrt(e / S), far below 1).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from colpali_tpu_torch.ops.flash_attention import FLASH_ATTENTION, flash_attention, flash_attention_plain
 from colpali_tpu_torch.ops.maxsim_binary import BINARY_MAXSIM, binary_maxsim_tiled, binary_maxsim_tiled_plain
 from colpali_tpu_torch.ops.maxsim_tiled import (
     GATHER_RERANK,
@@ -30,6 +35,7 @@ from colpali_tpu_torch.retrieval.store import CorpusIndex
 
 pytestmark = pytest.mark.cuda
 RTOL, ATOL = 1e-5, 1e-4
+K6_RTOL, K6_ATOL_RMS = 1.6e-2, 2e-2
 
 
 @pytest.fixture
@@ -53,7 +59,8 @@ def _store(dev, n_tiles, np_, d, seed=0):
     return store, scales
 
 
-@pytest.mark.parametrize("b,nq,w,npc", [(1, 32, 4, 16), (4, 64, 4, 16), (2, 5, 2, 64), (64, 64, 4, 16)])
+@pytest.mark.parametrize("b,nq,w,npc", [(1, 32, 4, 16), (4, 64, 4, 16), (2, 5, 2, 64), (64, 64, 4, 16),
+                                        (4, 64, 4, 260), (3, 50, 4, 1040), (1, 7, 2, 33)])
 def test_k1_equals_plain(dev, b, nq, w, npc):
     g = _gen(dev, b + nq)
     qw = torch.randint(-(2**31), 2**31 - 1, (b, nq, w), generator=g, device=dev, dtype=torch.int32)
@@ -72,7 +79,8 @@ def test_k3_matches_plain(dev, d, b, nq, np_):
     torch.testing.assert_close(got, maxsim_int8mxu_tiled_plain(qi, qs, store, scales), rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("d,b,nq,np_,c", [(128, 1, 32, 64, 300), (64, 3, 7, 16, 50), (128, 2, 64, 64, 1)])
+@pytest.mark.parametrize("d,b,nq,np_,c", [(128, 1, 32, 64, 300), (64, 3, 7, 16, 50), (128, 2, 64, 64, 1),
+                                           (128, 1, 64, 1040, 200), (128, 4, 64, 1040, 30), (64, 2, 9, 65, 40)])
 def test_k2_matches_plain(dev, d, b, nq, np_, c):
     store, scales = _store(dev, 6, np_, d)
     q = torch.randn((b, nq, d), generator=_gen(dev, 2), device=dev)
@@ -129,7 +137,7 @@ def test_index_on_card_matches_index_on_cpu(dev, coarse_pool):
     kw = dict(dtype="int8", prefilter="binary", coarse_pool=coarse_pool)
     # built in two parts through extend (the /add path) on both devices: a
     # repacked tail tile's sign sketch may differ from a one-shot build
-    cpu, gpu = CorpusIndex(list(docs[:500]), **kw), CorpusIndex(list(docs[:500]), device=dev, **kw)
+    cpu, gpu = CorpusIndex(list(docs[:500]), device="cpu", **kw), CorpusIndex(list(docs[:500]), device=dev, **kw)
     for index in (cpu, gpu):
         index.extend(list(docs[500:]))
     for ours, theirs in ((gpu._store, cpu._store), (gpu._scales, cpu._scales), (gpu._bwords, cpu._bwords)):
@@ -151,3 +159,47 @@ def test_index_save_load_on_card(dev, tmp_path):
     assert loaded._store.device == dev and loaded.nbytes == index.nbytes
     for a, b in zip(loaded.search(docs[:2], k=5), index.search(docs[:2], k=5)):
         np.testing.assert_array_equal(a, b)
+
+
+K6_CASES = [
+    # b, s, h, hkv, d, pad, causal
+    (2, 1024, 16, 16, 72, 0, False),  # SigLIP-So400m
+    (2, 1029, 8, 1, 256, 0, False),  # Gemma-2B over a page
+    (8, 32, 8, 1, 256, 13, False),  # a padded query batch
+    (2, 200, 4, 2, 72, 17, True),  # GQA, causal, ragged last tile
+    (3, 33, 2, 2, 256, 4, False),  # one partial tile
+]
+
+
+def _assert_k6_close(got, want):
+    atol = K6_ATOL_RMS * want.float().pow(2).mean().sqrt().item()
+    torch.testing.assert_close(got, want, rtol=K6_RTOL, atol=atol)
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,pad,causal", K6_CASES)
+def test_k6_matches_plain(dev, b, s, h, hkv, d, pad, causal):
+    g = _gen(dev, s + d)
+    q, k, v = (torch.randn((b, s, n, d), generator=g, device=dev).to(torch.bfloat16) for n in (h, hkv, hkv))
+    seg = torch.ones((b, s), dtype=torch.int32, device=dev)
+    if pad:
+        seg[-1, s - pad :] = 0  # pad keys and rows in segment 0
+    got = flash_attention(q, k, v, seg, d**-0.5, causal)
+    _assert_k6_close(got, flash_attention_plain(q, k, v, seg, d**-0.5, causal))
+
+
+def test_k6_reads_strided_views_and_counts_launches(dev):
+    """q, k and v as head slices of one fused projection (no copies)."""
+    b, s, h, hkv, d = 2, 130, 8, 1, 256
+    qkv = torch.randn((b, s, h + 2 * hkv, d), generator=_gen(dev, 5), device=dev).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h : h + hkv], qkv[:, :, h + hkv :]
+    seg = torch.ones((b, s), dtype=torch.int32, device=dev)
+    before = FLASH_ATTENTION.launches
+    got = flash_attention(q, k, v, seg, d**-0.5)
+    want = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), seg, d**-0.5)
+    assert FLASH_ATTENTION.launches == before + 1
+    _assert_k6_close(got, want)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention(q.float(), k.float(), v.float(), seg, d**-0.5)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :64], k[..., :64], v[..., :64], seg, 64**-0.5)
+    assert FLASH_ATTENTION.launches == before + 1

@@ -78,3 +78,13 @@ def test_wrapper_checks_shapes():
         tb.binary_maxsim_tiled(torch.from_numpy(qw), torch.from_numpy(qv), torch.from_numpy(dw), 2 * DIM)
     with pytest.raises(ValueError, match="query_valid"):
         tb.binary_maxsim_tiled(torch.from_numpy(qw), torch.from_numpy(qv[:, :2]), torch.from_numpy(dw), DIM)
+
+
+@pytest.mark.parametrize("np_", [260, 1040])  # a full page (1,040 tokens) pooled by 4, and unpooled
+def test_plain_equals_xla_at_full_page(np_):
+    """256 docs of full-page sketches: the length at which the card kernel
+    streams its doc tokens in chunks."""
+    qw, qv, dw = _case(np_, 2, 16, 2, np_)
+    got = tb.binary_maxsim_tiled(torch.from_numpy(qw), torch.from_numpy(qv), torch.from_numpy(dw), DIM)
+    want = jb.binary_maxsim_xla_tiled(jnp.asarray(qw), jnp.asarray(qv), jnp.asarray(dw), DIM)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

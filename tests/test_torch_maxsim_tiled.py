@@ -148,3 +148,17 @@ def test_plain_maxsim_and_score_multi_vector_match():
     ps = [rng.normal(size=(n, 32)).astype(np.float32) for n in (4, 11, 2)]
     np.testing.assert_allclose(tm.score_multi_vector(qs, ps, batch_size=2),
                                jm.score_multi_vector(qs, ps, batch_size=2), rtol=RTOL, atol=ATOL)
+
+
+def test_k2_plain_matches_gather_rerank_at_full_page():
+    """256 docs of 1,040 tokens (a ColPali page rounded up to 16), D=128:
+    the length at which the card kernel streams its doc tokens in chunks."""
+    store, scales = _store(11, 2, 1040, 128)
+    rng = np.random.default_rng(12)
+    q = _queries(13, 2, 16, 128)
+    cand = rng.integers(0, 256, size=(2, 24)).astype(np.int32)
+    want = np.asarray(jax_gather_rerank(jnp.asarray(q), jnp.asarray(store), jnp.asarray(scales),
+                                        jnp.asarray(cand), use_kernel=False))
+    got = tt.gather_rerank_int8(torch.from_numpy(q), torch.from_numpy(store), torch.from_numpy(scales),
+                                torch.from_numpy(cand))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)

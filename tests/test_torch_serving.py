@@ -30,13 +30,14 @@ sys.path.insert(0, str(REPO / "scripts"))
 
 from colpali_tpu.models.configs import GemmaConfig as JaxGemmaConfig  # noqa: E402
 from colpali_tpu.models.configs import PaliGemmaConfig as JaxPaliGemmaConfig  # noqa: E402
+from colpali_tpu.models.configs import SiglipVisionConfig as JaxSiglipVisionConfig  # noqa: E402
 from colpali_tpu.models.paligemma import ColPali as JaxColPali  # noqa: E402
 from colpali_tpu.processors.colpali import ColPaliProcessor as JaxProcessor  # noqa: E402
 from colpali_tpu.retrieval.serving import QueryEncoder as JaxQueryEncoder  # noqa: E402
 from colpali_tpu.retrieval.store import CorpusIndex as JaxIndex  # noqa: E402
 from colpali_tpu_torch import serve  # noqa: E402
 from colpali_tpu_torch.core.from_jax import colpali_state_dict_from_jax  # noqa: E402
-from colpali_tpu_torch.models.configs import GemmaConfig, PaliGemmaConfig  # noqa: E402
+from colpali_tpu_torch.models.configs import GemmaConfig, PaliGemmaConfig, SiglipVisionConfig  # noqa: E402
 from colpali_tpu_torch.models.paligemma import ColPali  # noqa: E402
 from colpali_tpu_torch.processors.colpali import ColPaliProcessor  # noqa: E402
 from colpali_tpu_torch.retrieval.serving import EncodeBatcher, MicroBatcher, QueryEncoder, route  # noqa: E402
@@ -46,6 +47,8 @@ RTOL = 1e-4
 QUERIES = ["find document page 0 quarterly report", "what is the total revenue ?", "figure with chart data"]
 TEXT = dict(vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
             num_attention_heads=4, num_key_value_heads=1, head_dim=16)
+VISION = dict(hidden_size=32, intermediate_size=64, num_hidden_layers=1, num_attention_heads=2, image_size=28,
+              patch_size=14)  # the smallest tower: only the text path runs here
 IMAGE_TOKEN = 4  # the word tokenizer's <image> id
 PLANTED = [17, 150, 260]
 
@@ -78,14 +81,16 @@ def stacks(tmp_path_factory):
     vc._save_paligemma_word_tokenizer(str(tok_dir))
     tokenizer = AutoTokenizer.from_pretrained(str(tok_dir))
 
-    jax_model = JaxColPali(JaxPaliGemmaConfig(text=JaxGemmaConfig(**TEXT), image_token_index=IMAGE_TOKEN),
+    jax_model = JaxColPali(JaxPaliGemmaConfig(vision=JaxSiglipVisionConfig(**VISION), text=JaxGemmaConfig(**TEXT),
+                                              projection_dim=64, image_token_index=IMAGE_TOKEN),
                            dim=32, dtype=jnp.float32)
     ids = jnp.ones((1, 8), jnp.int32)
-    variables = jax.jit(jax_model.init)(jax.random.PRNGKey(0), ids, ids)
+    variables = jax.jit(jax_model.init)(jax.random.PRNGKey(0), ids, ids, jnp.zeros((1, 28, 28, 3)))
     jax_encoder = JaxQueryEncoder(jax_model, variables, JaxProcessor(tokenizer))
 
-    state, _ = colpali_state_dict_from_jax(jax.tree.map(np.asarray, variables))
-    model = ColPali(PaliGemmaConfig(text=GemmaConfig(**TEXT), image_token_index=IMAGE_TOKEN), dim=32)
+    state = colpali_state_dict_from_jax(jax.tree.map(np.asarray, variables))
+    model = ColPali(PaliGemmaConfig(vision=SiglipVisionConfig(**VISION), text=GemmaConfig(**TEXT), projection_dim=64,
+                                    image_token_index=IMAGE_TOKEN), dim=32, device="cpu")
     model.load_state_dict(state)
     encoder = QueryEncoder(model, ColPaliProcessor(tokenizer))
 
@@ -97,7 +102,7 @@ def stacks(tmp_path_factory):
     kw = dict(dtype="int8", prefilter="binary", coarse_pool=2)
     files = [f"page_{i}" for i in range(len(docs))]
     jax_httpd, jax_url = _serve(jax_serve.make_handler(JaxIndex(docs, **kw), list(files), encoder=jax_encoder))
-    index = CorpusIndex(docs, **kw)
+    index = CorpusIndex(docs, device="cpu", **kw)
     httpd, url = _serve(serve.make_handler(index, list(files), encoder=encoder))
     yield dict(jax_url=jax_url, url=url, encoder=encoder, jax_encoder=jax_encoder, index=index, model=model)
     jax_httpd.shutdown()
@@ -163,7 +168,7 @@ def test_tune_and_add(stacks):
 
 def test_search_text_without_encoder_is_an_error():
     docs = [np.ones((4, 32), np.float32)] * 3
-    httpd, url = _serve(serve.make_handler(CorpusIndex(docs, dtype="int8"), ["a", "b", "c"]))
+    httpd, url = _serve(serve.make_handler(CorpusIndex(docs, dtype="int8", device="cpu"), ["a", "b", "c"]))
     try:
         with pytest.raises(urllib.error.HTTPError) as err:
             _post(url, "/search_text", {"queries": ["q"]})

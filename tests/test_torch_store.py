@@ -68,17 +68,17 @@ def _same_results(a, b):
 @pytest.fixture(scope="module")
 def pair():
     kw = dict(dtype="int8", prefilter="binary", coarse_pool=2, doc_tokens=16)
-    return _jax_kernels(DOCS, **kw), CorpusIndex(DOCS, **kw)
+    return _jax_kernels(DOCS, **kw), CorpusIndex(DOCS, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("coarse_pool", [1, 4])
 def test_packed_bytes_equal(coarse_pool):
     kw = dict(dtype="int8", prefilter="binary", coarse_pool=coarse_pool)
-    _bytes_equal(JaxIndex(DOCS, **kw), CorpusIndex(DOCS, **kw))
+    _bytes_equal(JaxIndex(DOCS, **kw), CorpusIndex(DOCS, device="cpu", **kw))
 
 
 def test_bf16_packed_bytes_equal():
-    _bytes_equal(JaxIndex(DOCS, dtype="bf16"), CorpusIndex(DOCS, dtype="bf16"))
+    _bytes_equal(JaxIndex(DOCS, dtype="bf16"), CorpusIndex(DOCS, dtype="bf16", device="cpu"))
 
 
 def test_exact_search_matches(pair):
@@ -95,7 +95,7 @@ def test_tiered_search_matches(pair):
 
 def test_exact_index_search_matches():
     kw = dict(dtype="int8")
-    jax_index, index = JaxIndex(DOCS, force_kernel=True, **kw), CorpusIndex(DOCS, **kw)
+    jax_index, index = JaxIndex(DOCS, force_kernel=True, **kw), CorpusIndex(DOCS, device="cpu", **kw)
     _same_results(index.search(QUERIES, k=4), jax_index.search(QUERIES, k=4))
 
 
@@ -104,7 +104,7 @@ def test_unported_kernel_paths_run_plain_on_cpu(dtype, quantize_queries):
     """bf16 indexes (K5) and unquantized queries (K4) run their plain
     versions on the CPU and agree with the JAX kernels' math."""
     kw = dict(dtype=dtype, quantize_queries=quantize_queries)
-    jax_index, index = JaxIndex(DOCS, force_kernel=True, **kw), CorpusIndex(DOCS, **kw)
+    jax_index, index = JaxIndex(DOCS, force_kernel=True, **kw), CorpusIndex(DOCS, device="cpu", **kw)
     _same_results(index.search(QUERIES, k=3), jax_index.search(QUERIES, k=3))
 
 
@@ -118,7 +118,7 @@ def test_tune_candidates_and_recall_match(pair):
 
 def test_extend_matches():
     kw = dict(dtype="int8", prefilter="binary", coarse_pool=2, doc_tokens=16)
-    jax_index, index = _jax_kernels(DOCS[:150], **kw), CorpusIndex(DOCS[:150], **kw)
+    jax_index, index = _jax_kernels(DOCS[:150], **kw), CorpusIndex(DOCS[:150], device="cpu", **kw)
     for part in (DOCS[150:170], DOCS[170:300]):
         jax_index.extend(part)
         index.extend(part)
@@ -133,9 +133,9 @@ def test_extend_matches():
 def test_npz_cross_load(tmp_path, writer, dtype):
     kw = dict(dtype=dtype, prefilter="binary", coarse_pool=2)
     path = str(tmp_path / "index.npz")
-    saved = (JaxIndex if writer == "jax" else CorpusIndex)(DOCS, **kw)
+    saved = JaxIndex(DOCS, **kw) if writer == "jax" else CorpusIndex(DOCS, device="cpu", **kw)
     saved.save(path)
-    loaded = (CorpusIndex if writer == "jax" else JaxIndex).load(path)
+    loaded = CorpusIndex.load(path, device="cpu") if writer == "jax" else JaxIndex.load(path)
     jax_index, index = (saved, loaded) if writer == "jax" else (loaded, saved)
     assert (index.num_docs, index.doc_tokens, index.dim, index.dtype, index.coarse_pool, index.nbytes) == \
         (jax_index.num_docs, jax_index.doc_tokens, jax_index.dim, jax_index.dtype, jax_index.coarse_pool,
@@ -156,7 +156,7 @@ def test_top_k_breaks_ties_like_lax():
 
 
 def test_gather_rerank_of_planted_doc():
-    index = CorpusIndex(DOCS, dtype="int8")
+    index = CorpusIndex(DOCS, dtype="int8", device="cpu")
     q = torch.from_numpy(np.stack([DOCS[7][:5], DOCS[7][:5]]))
     cand = torch.tensor([[7, 8], [8, 7]], dtype=torch.int32)
     s = gather_rerank(q, index._store, index._scales, cand).numpy()
@@ -166,12 +166,12 @@ def test_gather_rerank_of_planted_doc():
 
 def test_validation_errors():
     with pytest.raises(ValueError, match="dtype"):
-        CorpusIndex(DOCS, dtype="fp8")
+        CorpusIndex(DOCS, dtype="fp8", device="cpu")
     with pytest.raises(ValueError, match="coarse_pool > 1 requires"):
-        CorpusIndex(DOCS, dtype="int8", coarse_pool=2)
+        CorpusIndex(DOCS, dtype="int8", coarse_pool=2, device="cpu")
     with pytest.raises(ValueError, match="truncate"):
-        CorpusIndex(DOCS, dtype="int8", doc_tokens=4)
+        CorpusIndex(DOCS, dtype="int8", doc_tokens=4, device="cpu")
     with pytest.raises(ValueError, match="candidates="):
-        CorpusIndex(DOCS[:10], dtype="int8").search(QUERIES, candidates=8)
+        CorpusIndex(DOCS[:10], dtype="int8", device="cpu").search(QUERIES, candidates=8)
     with pytest.raises(ValueError, match=".npz"):
-        CorpusIndex(DOCS[:10], dtype="int8").save("index.bin")
+        CorpusIndex(DOCS[:10], dtype="int8", device="cpu").save("index.bin")
