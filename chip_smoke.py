@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and page-embedding paths once on one GPU.
+"""Drive the PyTorch/CUDA port's serving, page-embedding and training paths once on one GPU.
 
 Run from the repository root with no arguments:
 
@@ -9,10 +9,11 @@ Phases (a few lines of output each, then two JSON lines):
 
 1. device: the card's name and power limit (``nvidia-smi``), and the build
    of the CUDA kernels from ``colpali_tpu_torch/csrc`` (``build/kernels/``);
-2. kernels: K1 (sign-sketch coarse pass), K2 (candidate gather + rerank)
-   and K3 (full-int8 exact sweep) against their plain PyTorch versions on
-   a 999,936-doc x 64-token x 128-dim int8 corpus generated on the card
-   from a seeded ``torch.Generator``; each is timed over the whole corpus
+2. kernels: K1 (sign-sketch coarse pass), K2 (candidate gather + rerank),
+   K3 (full-int8 exact sweep) and K4 (int8 store, bf16 queries) against
+   their plain PyTorch versions on a 999,936-doc x 64-token x 128-dim int8
+   corpus generated on the card from a seeded ``torch.Generator``, and K5
+   (bf16 store) on a bf16 copy of its first 262,144 docs; each is timed
    with CUDA events, kernel and plain version alike;
 3. text slice: ColPali-3B at full width (SigLIP-So400m 27 x 1152, projector
    1152 -> 2048, Gemma-2B 18 x 2048 with MQA 8/1 x 256 and vocab 257,216;
@@ -24,16 +25,27 @@ Phases (a few lines of output each, then two JSON lines):
    beside ``F.scaled_dot_product_attention`` at the shapes the path gives it
    (SigLIP over 8 pages, Gemma over 8 pages' prompts, Gemma over the 8 text
    queries as ``QueryEncoder`` pads them); one batch of 8 pages and the 8
-   text queries embedded through the K6 route and the plain route; 64 seeded 1275 x 1650 pages through
+   text queries embedded through the K6 route and the plain route; 32 seeded 1275 x 1650 pages through
    ``embed_pages_fused(transport="yuv420")``, an 8,192-doc x 1,040-token
    two-tier int8 index of them and seeded filler docs behind ``make_handler``,
    each of 8 pages found at rank 1 by its own first 32 token vectors on the
    tiered and the exact route; then K1, K2 and K3 against their plain
-   versions on that index, and a ``torch.profiler`` breakdown of one batch.
+   versions on that index, and a ``torch.profiler`` breakdown of one batch;
+5. training slice: K6's backward kernels against autograd through the plain
+   version, beside SDPA's backward, at the shapes training gives them;
+   ``ColModelTraining`` taking 4 LoRA steps (rank 32, dropout 0.1, remat,
+   pairwise CE, batch 8) over 32 seeded pages with every adapter moving and
+   the base bit-equal; one step's loss and adapter gradient through the
+   kernels against the plain route; ``evaluate()`` over 128 held-out pages
+   through a bf16 index built on the card and searched by K5 (and an int8
+   index of the same pages with bf16 queries by K4); the merged export; a
+   run resumed from the step-2 checkpoint repeating step 3's loss; 6 steps
+   on one repeated batch at the recipe's rate lowering the loss; and a train step timed with and
+   without remat (forward, backward, optimizer by CUDA events, peak memory).
 
 It exits non-zero, printing no result, when no CUDA device is visible or
 any check fails. The line before the last lists each kernel with its
-launches on the page slice; the last line is ``{"ok": true, "device": {...}}``.
+launches on its slice's path; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -60,11 +72,17 @@ from colpali_tpu_torch.ops.maxsim_binary import (
 from colpali_tpu_torch.ops.maxsim_tiled import (
     DOC_TILE,
     GATHER_RERANK,
+    MAXSIM_BF16,
     MAXSIM_INT8,
+    MAXSIM_INT8_BF16,
     gather_rerank_int8,
     gather_rerank_plain,
+    maxsim_int8_tiled,
+    maxsim_int8_tiled_plain,
     maxsim_int8mxu_tiled,
     maxsim_int8mxu_tiled_plain,
+    maxsim_tiled,
+    maxsim_tiled_plain,
 )
 from colpali_tpu_torch.ops.quant import binarize_words, quantize_per_token
 
@@ -77,7 +95,8 @@ QUERY_TOKENS = 32  # bench.py's query length
 SERVED_TOKENS = 64  # MicroBatcher.query_token_pad: every served sweep pads queries to it
 CANDIDATES = 1024
 CHECK_TILES = 64  # tiles at each end of the corpus compared with the plain version
-RTOL, ATOL = 1e-5, 1e-4  # K2/K3 vs plain: fp32 sums in another order
+BF16_DOCS = 262_144  # K5's corpus: a bf16 copy of the first 2,048 tiles (4.3 GB)
+RTOL, ATOL = 1e-5, 1e-4  # K2-K5 vs plain: fp32 sums in another order
 KERNELS = {
     "binary_maxsim": dict(counter=BINARY_MAXSIM, route="cuda",
                           source="colpali_tpu_torch/csrc/binary_maxsim.cu",
@@ -88,10 +107,23 @@ KERNELS = {
     "maxsim_int8": dict(counter=MAXSIM_INT8, route="cuda",
                         source="colpali_tpu_torch/csrc/maxsim_int8.cu",
                         replaces="colpali_tpu/ops/maxsim_pallas.py:465"),
+    "maxsim_int8_bf16": dict(counter=MAXSIM_INT8_BF16, route="cuda",
+                             source="colpali_tpu_torch/csrc/maxsim_bf16.cu",
+                             replaces="colpali_tpu/ops/maxsim_pallas.py:418"),
+    "maxsim_bf16": dict(counter=MAXSIM_BF16, route="cuda",
+                        source="colpali_tpu_torch/csrc/maxsim_bf16.cu",
+                        replaces="colpali_tpu/ops/maxsim_pallas.py:364"),
     "flash_attention": dict(counter=fa.FLASH_ATTENTION, route="cuda",
                             source="colpali_tpu_torch/csrc/flash_attention.cu",
                             replaces="colpali_tpu/models/layers.py:389"),
+    "flash_attention_bwd": dict(counter=fa.FLASH_ATTENTION_BWD, route="cuda",
+                                source="colpali_tpu_torch/csrc/flash_attention_bwd.cu",
+                                replaces="colpali_tpu/models/layers.py:380"),
 }
+SERVING_KERNELS = ("binary_maxsim", "gather_rerank", "maxsim_int8", "flash_attention")  # the paths of phases 3-4
+TRAINING_KERNELS = ("maxsim_bf16", "flash_attention", "flash_attention_bwd")  # phase 5's: the steps and the eval
+# K4 (maxsim_int8_bf16) is on no training path: evaluate() builds a bf16 index. Its path is CorpusIndex.search on
+# an int8 index with quantize_queries=False, driven and counted on its own in phase 5
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s and operations/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -113,12 +145,14 @@ def bound(nbytes: float, ops: float, kind: str) -> dict:
 def reset_launches() -> None:
     for spec in KERNELS.values():
         spec["counter"].reset()
+    for d in fa.BACKWARD_LAUNCHES_BY_HEAD_DIM:
+        fa.BACKWARD_LAUNCHES_BY_HEAD_DIM[d] = 0
 
 
-def read_launches(phase: str) -> dict:
-    """Each kernel's launches since :func:`reset_launches`; every kernel of
-    the path must have run."""
-    launches = {name: spec["counter"].launches for name, spec in KERNELS.items()}
+def read_launches(phase: str, names=SERVING_KERNELS) -> dict:
+    """The launches of the kernels ``names`` since :func:`reset_launches`;
+    every kernel of the path must have run."""
+    launches = {name: KERNELS[name]["counter"].launches for name in names}
     if not all(launches.values()):
         raise AssertionError(f"{phase}: a kernel of the path was not launched: {launches}")
     return launches
@@ -141,7 +175,7 @@ def time_ms(fn, reps: int = 5) -> float:
 # -- phase 1 -------------------------------------------------------------------
 
 
-def phase_device() -> None:
+def phase_device() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -160,6 +194,7 @@ def phase_device() -> None:
     for line in ptxas.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    return smi
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -200,7 +235,8 @@ def phase_kernels(device: torch.device) -> dict:
     log(f"phase kernels: corpus {CORPUS_DOCS} docs x {DOC_TOKENS} x {DIM} int8 "
         f"({store.numel() / 2**30:.2f} GiB, sketch pool {COARSE_POOL}) made in {time.perf_counter() - t0:.1f} s")
     ends = [slice(0, CHECK_TILES), slice(n_tiles - CHECK_TILES, n_tiles)]
-    errs = {name: 0.0 for name in KERNELS}
+    errs = {name: 0.0 for name in ("binary_maxsim", "gather_rerank", "maxsim_int8", "maxsim_int8_bf16",
+                                   "maxsim_bf16")}
 
     def queries(b, nq):
         q = torch.randn((b, nq, DIM), generator=gen, device=device)
@@ -238,6 +274,29 @@ def phase_kernels(device: torch.device) -> dict:
         for sl in ends:
             check("maxsim_int8", full[:, cols(sl)], maxsim_int8mxu_tiled_plain(qi, qs, store[sl], scales[sl]))
 
+    for shape in [(1, QUERY_TOKENS), (8, QUERY_TOKENS)]:  # K4 on the int8 corpus
+        full = maxsim_int8_tiled(q[shape], store, scales)
+        for sl in ends:
+            check("maxsim_int8_bf16", full[:, cols(sl)], maxsim_int8_tiled_plain(q[shape], store[sl], scales[sl]))
+    # K5 on a bf16 copy (the dequantized values rounded to bf16) of the corpus's head
+    bf16_tiles = BF16_DOCS // DOC_TILE
+    bstore = torch.empty((bf16_tiles, DOC_TOKENS, DOC_TILE, DIM), dtype=torch.bfloat16, device=device)
+    for s0 in range(0, bf16_tiles, 256):
+        bstore[s0 : s0 + 256] = (store[s0 : s0 + 256].float() * scales[s0 : s0 + 256, ..., None]).to(torch.bfloat16)
+    bends = [slice(0, CHECK_TILES), slice(bf16_tiles - CHECK_TILES, bf16_tiles)]
+    for shape in [(1, QUERY_TOKENS), (8, QUERY_TOKENS)]:
+        full = maxsim_tiled(q[shape], bstore)
+        for sl in bends:
+            check("maxsim_bf16", full[:, cols(sl)], maxsim_tiled_plain(q[shape], bstore[sl]))
+
+    def k4(shape, plain=False):
+        fn = maxsim_int8_tiled_plain if plain else maxsim_int8_tiled
+        return lambda: fn(q[shape], store, scales)
+
+    def k5(shape, plain=False):
+        fn = maxsim_tiled_plain if plain else maxsim_tiled
+        return lambda: fn(q[shape], bstore)
+
     def k1(shape, plain=False):
         fn = binary_maxsim_tiled_plain if plain else binary_maxsim_tiled
         return lambda: fn(*words[shape], bwords, DIM)
@@ -262,6 +321,12 @@ def phase_kernels(device: torch.device) -> dict:
                             ms_served=time_ms(k3(s8)),
                             shape=f"B=1 and B=8 Nq={QUERY_TOKENS} (served: B=8 Nq={SERVED_TOKENS}) "
                                   f"Np={DOC_TOKENS} C={CORPUS_DOCS}"),
+        "maxsim_int8_bf16": dict(ms=time_ms(k4(b1), reps=3), plain_ms=time_ms(k4(b1, True), reps=2),
+                                 ms_b8=time_ms(k4(b8), reps=3), plain_ms_b8=time_ms(k4(b8, True), reps=2),
+                                 shape=f"B=1 and B=8 Nq={QUERY_TOKENS} Np={DOC_TOKENS} C={CORPUS_DOCS}"),
+        "maxsim_bf16": dict(ms=time_ms(k5(b1), reps=3), plain_ms=time_ms(k5(b1, True), reps=2),
+                            ms_b8=time_ms(k5(b8), reps=3), plain_ms_b8=time_ms(k5(b8, True), reps=2),
+                            shape=f"B=1 and B=8 Nq={QUERY_TOKENS} Np={DOC_TOKENS} C={BF16_DOCS} bf16"),
     }
     w, npc, nq, c = DIM // 32, DOC_TOKENS // COARSE_POOL, QUERY_TOKENS, CORPUS_DOCS
     results["binary_maxsim"].update(bound(c * w * npc * 4 + nq * (w + 1) * 4 + c * 4, 2 * nq * c * npc * DIM, "int8"))
@@ -269,14 +334,23 @@ def phase_kernels(device: torch.device) -> dict:
                                           2 * nq * CANDIDATES * DOC_TOKENS * DIM, "fp32"))
     results["maxsim_int8"].update(bound(c * DOC_TOKENS * (DIM + 4) + nq * (DIM + 4) + c * 4,
                                         2 * nq * c * DOC_TOKENS * DIM, "int8"))
+    # K4 and K5 at B=1: the store's bytes against bf16 operations; their B=8 bounds ride along
+    for name, docs, per_token in (("maxsim_int8_bf16", c, DIM + 4), ("maxsim_bf16", BF16_DOCS, 2 * DIM)):
+        results[name].update(bound(docs * DOC_TOKENS * per_token + nq * DIM * 2 + docs * 4,
+                                   2 * nq * docs * DOC_TOKENS * DIM, "bf16"))
+        b8_bound = bound(docs * DOC_TOKENS * per_token + 8 * nq * DIM * 2 + 8 * docs * 4,
+                         2 * 8 * nq * docs * DOC_TOKENS * DIM, "bf16")
+        results[name].update(bound_ms_b8=b8_bound["bound_ms"], bound_by_b8=b8_bound["bound_by"])
     for name, r in results.items():
         r["max_abs_err"] = errs[name]
         r["library_ms"] = None  # no single PyTorch call computes these
         extra = f", B=8 kernel {r['ms_b8']:.3f} ms, plain {r['plain_ms_b8']:.3f} ms" if "ms_b8" in r else ""
+        if "bound_ms_b8" in r:
+            extra += f", B=8 bound {r['bound_ms_b8']:.4f} ms ({r['bound_by_b8']})"
+        served = f"served shape {r['ms_served']:.3f} ms, " if "ms_served" in r else ""
         log(f"  {name} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms{extra}, "
-            f"served shape {r['ms_served']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"max_abs_err {r['max_abs_err']:.3g}")
-    del store, scales, bwords
+            f"{served}bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g}")
+    del store, scales, bwords, bstore
     torch.cuda.empty_cache()
     return results
 
@@ -467,7 +541,7 @@ def phase_slice(device: torch.device, encoder) -> dict:
 
 # -- phase 4 -------------------------------------------------------------------
 
-PAGES = 64
+PAGES = 32  # four batches of 8
 PAGE_HW = (1650, 1275)  # a US-letter page at 150 dpi, height x width
 PAGE_BATCH = 8
 PAGE_INDEX_DOCS = 8_192
@@ -749,24 +823,483 @@ def phase_pages(device: torch.device, model, processor, encoder) -> tuple:
     return launches, k6, page, dict(pages_per_min=PAGES / t_embed * 60, forward_check=fwd)
 
 
+# -- phase 5 -------------------------------------------------------------------
+
+TRAIN_PAGES = 32
+EVAL_PAGES = 128
+TRAIN_BATCH = 8
+TRAIN_STEPS = 4
+RESUME_AT = 2
+# six steps on one repeated batch at the recipe's rate. At lr 1e-3 Adam's first, sign-like updates move all
+# 39 M adapter weights by 1e-3 at once and overshoot on this model (0.716 -> 0.753 -> 0.737 -> 0.721 ... on the
+# H100); at 5e-5 the loss fell at every step (0.7158 -> 0.6995)
+DIRECTION_STEPS, DIRECTION_LR = 6, 5e-5
+# K6 backward, element by element by the forward's rule, against autograd through the plain version on the
+# inputs upcast to fp32 (the exact gradient of the same bf16 q, k, v and dO). The plain version in bf16 rounds
+# the probabilities and dP to bf16 itself and sits at 40-80% of this tolerance from the fp32 gradient, so the
+# kernel against it (two independent roundings) ranged 0.6-1.4 over seeds on the H100; its share is printed.
+# The kernels are also held, by the same rule, to flash_attention_backward_plain: the same roundings (Delta from
+# the forward's bf16 output, P and dS to bf16) written out in plain PyTorch, which differs only in sum order
+K6_BWD_RTOL, K6_BWD_ATOL_RMS = K6_RTOL, K6_ATOL_RMS
+# one train step through the kernels vs through the plain route (K6 swapped for its plain version), from the
+# same state, batch and dropout masks: the loss relative, and the cosine of the flattened adapter gradients.
+# The recipe's loss picks the hardest negative page and, per query token, the best page token. Where the two
+# routes pick differently the gradient flows through other tokens and turns, so on the recipe loss only the
+# value is held; the picks that differ are counted and the cosine printed. The gradient is held on the same
+# loss with the picks frozen to the plain route's (the function the recipe loss is around that point), and on
+# a smooth probe (InfoNCE over the smooth max, no argmax anywhere): both carry the backward through all 18
+# layers. Limits at about 3x the gaps of the first run on the H100 (loss 3.6e-4 and 3.5e-3 relative; 1 - cosine
+# 1.3e-3 with frozen picks, where each query token's gradient reaches one page token, and 1.2e-4 on the smooth
+# probe, which averages over all of them). In that run the routes picked another hardest negative for 1 of 8
+# queries and another best page token for 28 of 224 query tokens, and the recipe loss's cosine was 0.896
+PLAIN_ROUTE_LOSS_RTOL, PLAIN_ROUTE_FROZEN_GRAD_COS, PLAIN_ROUTE_SMOOTH_GRAD_COS = 1e-2, 0.996, 0.9996
+RESUME_LOSS_RTOL = 1e-5  # a resumed run repeats the loss of step 3: every kernel sums in a fixed order
+
+
+def k6_bwd_case(gen: torch.Generator, device: torch.device, b: int, s: int, h: int, hkv: int, d: int,
+                lengths, alone: bool = False) -> dict:
+    """K6's backward kernels against autograd through the plain version on
+    the inputs upcast to fp32, with the same dO (valid rows), timed beside
+    the plain version's backward in bf16 and the backward of SDPA with the
+    equivalent mask. ``alone`` puts token 3 of row 0 in a segment of its
+    own: its only key is itself, so its probability is 1 and its dq zero."""
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=device).to(torch.bfloat16).requires_grad_()
+               for n in (h, hkv, hkv))
+    d_out = torch.randn((b, s, h, d), generator=gen, device=device).to(torch.bfloat16)
+    seg = torch.ones((b, s), dtype=torch.int32, device=device)
+    if lengths is not None:
+        seg = (torch.arange(s, device=device)[None] < torch.tensor(lengths, device=device)[:, None]).to(torch.int32)
+    if alone:
+        seg[0, 3] = 7
+    d_out = d_out * (seg != 0)[:, :, None, None].to(d_out.dtype)  # pad rows are masked downstream: no gradient
+    scale = d**-0.5
+    before = fa.FLASH_ATTENTION_BWD.launches
+    out = fa.flash_attention(q, k, v, seg, scale)
+    got = torch.autograd.grad(out, (q, k, v), d_out)
+    if fa.FLASH_ATTENTION_BWD.launches != before + 1:
+        raise AssertionError("autograd did not reach the backward kernels")
+    plain_out = fa.flash_attention_plain(q, k, v, seg, scale)
+    plain = torch.autograd.grad(plain_out, (q, k, v), d_out, retain_graph=True)
+    q32, k32, v32 = (x.detach().float().requires_grad_() for x in (q, k, v))
+    want = torch.autograd.grad(fa.flash_attention_plain(q32, k32, v32, seg, scale), (q32, k32, v32), d_out.float())
+    del q32, k32, v32
+    with torch.no_grad():  # the backward in plain PyTorch with the kernels' roundings, from the forward kernel's output
+        fwd_out, lse = fa._forward_cuda(q, k, v, seg, scale, False, True)
+        rounded = fa.flash_attention_backward_plain(q, k, v, seg, d_out, scale, out=fwd_out, lse=lse)
+    rows = seg != 0
+
+    def share(x, w, atol):  # of the tolerance, at the worst element
+        return ((x - w).abs() / (atol + K6_BWD_RTOL * w.abs())).max().item()
+
+    shares, plain_shares, rounded_shares, errs = {}, {}, {}, {}
+    for name, g, p, r, w in zip(("dq", "dk", "dv"), got, plain, rounded, want):
+        g, p, r, w = g[rows].float(), p[rows].float(), r[rows].float(), w[rows]
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"K6 backward: {name} has non-finite values")
+        atol = K6_BWD_ATOL_RMS * w.pow(2).mean().sqrt().item()
+        shares[name], plain_shares[name], rounded_shares[name] = share(g, w, atol), share(p, w, atol), share(g, r, atol)
+        errs[name] = (g - w).abs().max().item()
+        torch.testing.assert_close(g, r, rtol=K6_BWD_RTOL, atol=atol,
+                                   msg=lambda m: f"K6 backward {name} vs the same roundings in plain PyTorch: {m}")
+        torch.testing.assert_close(g, w, rtol=K6_BWD_RTOL, atol=atol, msg=lambda m: f"K6 backward {name}: {m}")
+        if alone and name == "dq" and got[0][0, 3].float().abs().max().item() > atol:
+            raise AssertionError("K6 backward: a token alone in its segment must get dq = 0")
+    del want, plain, rounded
+
+    with torch.no_grad():
+        ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, seg, fwd_out, lse, d_out, scale))
+    plain_ms = time_ms(lambda: torch.autograd.grad(plain_out, (q, k, v), d_out, retain_graph=True), reps=2)
+    allowed = seg[:, :, None] == seg[:, None, :]
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed[:, None], scale=scale, enable_gqa=h != hkv)
+    d_out_t = d_out.transpose(1, 2)
+    library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), d_out_t, retain_graph=True))
+    pairs = allowed.sum().item()
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * seg.numel() + 4 * b * h * s  # q, o, dO, dq; k, v, dk, dv
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=max(errs.values()),
+                limit_share=max(shares.values()), shares=shares, plain_shares=plain_shares,
+                rounded_shares=rounded_shares,
+                **bound(nbytes, 2.5 * 4 * pairs * h * d, "bf16"),
+                shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}" + (" key padding" if lengths is not None else "")
+                      + (" + a token alone in its segment" if alone else ""))
+
+
+def page_dataset(n: int, seed: int, first: int = 0):
+    """``n`` seeded noise pages with the queries "synthetic query i"."""
+    from colpali_tpu_torch.data.dataset import ColPaliEngineDataset
+
+    pages = make_pages(n, seed)
+    return ColPaliEngineDataset([{"query": f"synthetic query {first + i}", "pos_target": page}
+                                 for i, page in enumerate(pages)])
+
+
+def adapter_gradient(state, batch, loss_fn, peft, seed: int):
+    """Loss and flattened adapter gradient of one batch at the state's step
+    (masks drawn from ``(seed, step)``), without an update."""
+    from colpali_tpu_torch.training import trainer
+
+    trainer.begin_step(state, peft, seed)
+    loss, q, d = trainer.compute_loss(state.model, batch, loss_fn, False)
+    loss.backward()
+    flat = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).flatten().float() for p in state.params])
+    state.optimizer.zero_grad(set_to_none=True)
+    return loss.item(), flat, q.detach().float(), d.detach().float()
+
+
+def recipe_picks(q: torch.Tensor, d: torch.Tensor):
+    """What the gradient of ``ColbertPairwiseCELoss`` flows through, from
+    ``q (B, Nq, D)`` and ``d (B, S, D)``: per query its hardest negative page
+    ``(B,)``, and per query token the best token of the positive page and of
+    that negative ``(B, 2, Nq)``; and which query tokens are not padding."""
+    best, tok = torch.einsum("bnd,csd->bcns", q, d).max(dim=3)  # (B, C, Nq)
+    valid = q[:, :, 0] != 0
+    scores = (best * valid[:, None]).sum(dim=-1)
+    rows = torch.arange(q.shape[0], device=q.device)
+    scores[rows, rows] = float("-inf")
+    neg = scores.argmax(dim=1)
+    return neg, torch.stack([tok[rows, rows], tok[rows, neg]], dim=1), valid
+
+
+def frozen_pairwise_loss(neg: torch.Tensor, tok: torch.Tensor):
+    """``ColbertPairwiseCELoss`` with its picks fixed to ``neg`` and ``tok``
+    (as :func:`recipe_picks` returns them): no max is taken, so two routes
+    differentiate the same smooth function."""
+    def loss_fn(q, d):
+        q, d = q.float(), d.float()
+        rows = torch.arange(q.shape[0], device=q.device)
+        lengths = (q[:, :, 0] != 0).sum(dim=1)
+        pos = (q * d[rows[:, None], tok[:, 0]]).sum(dim=(1, 2)) / lengths
+        hardest = (q * d[neg[:, None], tok[:, 1]]).sum(dim=(1, 2)) / lengths
+        return F.softplus(hardest - pos).mean()
+
+    return loss_fn
+
+
+def timed_steps(state, batch, loss_fn, peft, seed: int, steps: int) -> dict:
+    """``steps`` train steps on one batch with CUDA events between forward,
+    backward and optimizer (after one step of warm-up); means in ms."""
+    from colpali_tpu_torch.training import trainer
+
+    sums = dict(forward=0.0, backward=0.0, optimizer=0.0, wall=0.0)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.begin_step(state, peft, seed)
+        ev[0].record()
+        loss, _, _ = trainer.compute_loss(state.model, batch, loss_fn, False)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        state.apply_gradients()
+        ev[3].record()
+        torch.cuda.synchronize()
+        if i:  # the first step warms up
+            sums["wall"] += (time.perf_counter() - t0) * 1e3
+            for key, (e0, e1) in zip(("forward", "backward", "optimizer"), zip(ev, ev[1:])):
+                sums[key] += e0.elapsed_time(e1)
+    out = {k: v / steps for k, v in sums.items()}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def phase_training(device: torch.device, model, processor, smi: str) -> tuple:
+    """Drive the training path: ``ColModelTraining`` steps, eval, save and
+    resume at full width. Returns the launches over the path, the timings
+    of K6's backward and of K4/K5 on the eval index, and the step metrics."""
+    import tempfile
+
+    from colpali_tpu_torch.losses import ColbertPairwiseCELoss
+    from colpali_tpu_torch.retrieval.store import DeviceIndexBuilder
+    from colpali_tpu_torch.training import trainer
+    from colpali_tpu_torch.training.lora import LoraAdapters, LoraSpec
+    from colpali_tpu_torch.training.orchestrator import ColModelTraining, ColModelTrainingConfig
+
+    v, t = model.config.vision, model.config.text
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    collated = processor.process_queries([f"synthetic query {i}" for i in range(TRAIN_BATCH)])
+    page = processor._tokenize([processor._expand_image_prompt(processor.visual_prompt_prefix)])
+    gemma = (t.num_attention_heads, t.num_key_value_heads, t.head_dim)
+    q_len = collated["input_ids"].shape[1]
+    cases = {
+        "gemma_page": (TRAIN_BATCH, page["input_ids"].shape[1], *gemma, None, False),
+        "gemma_query": (TRAIN_BATCH, q_len, *gemma, [int(n) for n in collated["attention_mask"].sum(axis=1)], False),
+        "gemma_query_padded": (TRAIN_BATCH, 32, *gemma, [32, 19, 32, 7, 25, 32, 11, 30], True),
+        "siglip": (TRAIN_BATCH, v.num_patches, v.num_attention_heads, v.num_attention_heads, v.head_dim, None, False),
+    }
+    k6_bwd = {name: k6_bwd_case(gen, device, *shape) for name, shape in cases.items()}
+    for name, r in k6_bwd.items():
+        log(f"phase training: K6 backward {name} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"SDPA backward {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
+            f"{r['max_abs_err']:.3g}, share of the tolerance dq {r['shares']['dq']:.0%} dk {r['shares']['dk']:.0%} "
+            f"dv {r['shares']['dv']:.0%} (the bf16 plain version's own: {r['plain_shares']['dq']:.0%} "
+            f"{r['plain_shares']['dk']:.0%} {r['plain_shares']['dv']:.0%}; the kernels from the same roundings in plain "
+            f"PyTorch: {r['rounded_shares']['dq']:.0%} {r['rounded_shares']['dk']:.0%} {r['rounded_shares']['dv']:.0%})")
+    torch.cuda.empty_cache()
+
+    peft = LoraSpec(rank=32, alpha=32, dropout=0.1)
+    loss_fn = ColbertPairwiseCELoss()
+    train_config = trainer.TrainConfig(learning_rate=5e-5, warmup_steps=0, total_steps=2500)
+    train_set = page_dataset(TRAIN_PAGES, SEED + 6)
+    eval_set = page_dataset(EVAL_PAGES, SEED + 7, first=TRAIN_PAGES)
+    model.set_remat(True)
+    sampled = ["model.language_model.layers.0.self_attn.q_proj.weight",
+               f"model.language_model.layers.{t.num_hidden_layers - 1}.mlp.down_proj.weight",
+               f"model.vision_tower.layers.{v.num_hidden_layers // 2}.mlp.fc1.weight", "head.custom_text_proj.weight"]
+    base_before = {k: model.state_dict()[k].clone() for k in sampled}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def make_app(out, **kw):
+            return ColModelTraining(ColModelTrainingConfig(
+                model=model, loss_func=loss_fn, train_datasets=[train_set], processor=processor,
+                eval_dataset=eval_set, eval_batch_size=TRAIN_BATCH, output_dir=out, global_batch_size=TRAIN_BATCH,
+                log_steps=1, save_steps=RESUME_AT, save_total_limit=TRAIN_STEPS, peft=peft, train=train_config,
+                seed=SEED, device=device, **kw))
+
+        # -- the trainer takes steps ---------------------------------------
+        app = make_app(f"{tmp}/run", max_steps=TRAIN_STEPS)
+        n_adapters = len(app.state.adapters.paths)
+        n_trainable = sum(p.numel() for p in app.state.params)
+        seen, moved_after_one = [], []
+
+        def on_step(step, metrics):
+            seen.append((step, float(metrics["loss"]), float(metrics["grad_norm"])))
+            if step == 1:
+                moved_after_one.extend(bool(b.detach().abs().max() > 0) for b in app.state.adapters.b)
+
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        summary = app.train(on_step=on_step)
+        torch.cuda.synchronize()
+        train_launches = {name: KERNELS[name]["counter"].launches for name in ("flash_attention", "flash_attention_bwd")}
+        by_dim = dict(fa.BACKWARD_LAUNCHES_BY_HEAD_DIM)
+        peak_train = torch.cuda.max_memory_allocated() / 2**30
+        if [s for s, _, _ in seen] != list(range(1, TRAIN_STEPS + 1)):
+            raise AssertionError(f"steps taken: {seen}")
+        if not all(np.isfinite(l) and l > 0 and np.isfinite(g) and g > 0 for _, l, g in seen):
+            raise AssertionError(f"loss or grad_norm not finite and positive: {seen}")
+        if len(moved_after_one) != n_adapters or not all(moved_after_one):
+            raise AssertionError(f"{moved_after_one.count(False)} of {n_adapters} adapters did not move in step 1")
+        if not all(torch.equal(model.state_dict()[k], w) for k, w in base_before.items()):
+            raise AssertionError("a frozen base weight changed")
+        passes = TRAIN_STEPS * 2  # a query and a doc forward per step need a gradient
+        if train_launches["flash_attention_bwd"] < passes * t.num_hidden_layers or by_dim[v.head_dim] != 0 \
+                or by_dim[t.head_dim] != train_launches["flash_attention_bwd"]:
+            raise AssertionError(f"K6 launches over {TRAIN_STEPS} steps: {train_launches}, backward by head dim {by_dim}")
+        log(f"  trained: {n_adapters} adapted layers, {n_trainable / 1e6:.1f} M trainable parameters; "
+            + ", ".join(f"step {s} loss {l:.4f} grad_norm {g:.4f}" for s, l, g in seen)
+            + f"; {summary['train_samples_per_second']:.2f} examples/s with collation and checkpoints ({smi}); "
+            f"launches K6 forward {train_launches['flash_attention']}, backward {train_launches['flash_attention_bwd']} "
+            f"(by head dim {by_dim}); peak memory {peak_train:.2f} GiB")
+
+        # -- one step through the kernels against the plain route -------------
+        batch = trainer.to_device(next(iter(app.batches(0))), device)
+        from colpali_tpu_torch.losses import ColbertLoss
+
+        def both_routes(fn):
+            kernel = adapter_gradient(app.state, batch, fn, peft, SEED)
+            with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
+                plain = adapter_gradient(app.state, batch, fn, peft, SEED)
+            return kernel, plain, dict(loss_relative=abs(kernel[0] - plain[0]) / abs(plain[0]),
+                                       grad_cos=F.cosine_similarity(kernel[1], plain[1], dim=0).item(),
+                                       grad_norm_ratio=(kernel[1].norm() / plain[1].norm()).item())
+
+        kernel, plain, recipe = both_routes(loss_fn)
+        (neg_k, tok_k, valid), (neg_p, tok_p, _) = recipe_picks(*kernel[2:]), recipe_picks(*plain[2:])
+        recipe.update(negatives_picked_differently=int((neg_k != neg_p).sum()), queries=len(neg_p),
+                      tokens_picked_differently=int(((tok_k != tok_p) & valid[:, None]).sum()),
+                      token_picks=2 * int(valid.sum()))
+        log(f"  kernel route vs plain route, recipe loss, one step from the same state: loss {kernel[0]:.6f} vs "
+            f"{plain[0]:.6f} (relative {recipe['loss_relative']:.2e}, limit {PLAIN_ROUTE_LOSS_RTOL}); the routes pick "
+            f"another hardest negative for {recipe['negatives_picked_differently']} of {recipe['queries']} queries and "
+            f"another best page token for {recipe['tokens_picked_differently']} of {recipe['token_picks']} query "
+            f"tokens, adapter gradient cosine {recipe['grad_cos']:.6f} (not held: it follows the picks)")
+        if not recipe["loss_relative"] <= PLAIN_ROUTE_LOSS_RTOL:
+            raise AssertionError(f"kernel route vs plain route, recipe loss: {kernel[0]} vs {plain[0]}")
+        route = {"recipe loss": recipe}
+        recipe_plain_loss = plain[0]
+        del kernel, plain
+        for name, fn, limit in (("recipe loss with the plain route's picks", frozen_pairwise_loss(neg_p, tok_p),
+                                 PLAIN_ROUTE_FROZEN_GRAD_COS),
+                                ("smooth probe", ColbertLoss(use_smooth_max=True), PLAIN_ROUTE_SMOOTH_GRAD_COS)):
+            kernel, plain, r = both_routes(fn)
+            route[name] = r
+            log(f"  kernel route vs plain route, {name}: loss {kernel[0]:.6f} vs {plain[0]:.6f} (relative "
+                f"{r['loss_relative']:.2e}, limit {PLAIN_ROUTE_LOSS_RTOL}), adapter gradient cosine {r['grad_cos']:.6f} "
+                f"(limit {limit}), norm ratio {r['grad_norm_ratio']:.4f}")
+            if not (r["loss_relative"] <= PLAIN_ROUTE_LOSS_RTOL and r["grad_cos"] >= limit):
+                raise AssertionError(f"kernel route vs plain route, {name}: loss {kernel[0]} vs {plain[0]}, "
+                                     f"gradient cosine {r['grad_cos']}")
+            if name.startswith("recipe") and abs(plain[0] - recipe_plain_loss) > 1e-4 * recipe_plain_loss:
+                raise AssertionError(f"the loss with frozen picks is {plain[0]} on the plain route, the recipe loss "
+                                     f"{recipe_plain_loss}")
+            del kernel, plain
+
+        # -- eval: a bf16 index built on the card, searched by K5 --------------
+        reset_launches()  # the comparison above launched K6 too: it does not count
+        t0 = time.perf_counter()
+        metrics = app.evaluate()
+        t_eval = time.perf_counter() - t0
+        slice_launches = {"maxsim_bf16": MAXSIM_BF16.launches, "flash_attention_bwd": train_launches["flash_attention_bwd"],
+                          "flash_attention": train_launches["flash_attention"] + fa.FLASH_ATTENTION.launches}
+        index = app.eval_index
+        wanted = {"eval_loss", "eval_ndcg@1", "eval_ndcg@5"}
+        if not wanted <= set(metrics) or not all(np.isfinite(metrics[k]) for k in metrics):
+            raise AssertionError(f"evaluate(): {metrics}")
+        if (index.dtype, index.num_docs, index.doc_tokens, index._store.device.type) != \
+                ("bf16", EVAL_PAGES, PAGE_DOC_TOKENS, device.type):
+            raise AssertionError(f"eval index: {index.dtype} {index.num_docs} x {index.doc_tokens} on {index._store.device}")
+        queries = index._prep_queries(app.eval_queries)
+        got, want = maxsim_tiled(queries, index._store), maxsim_tiled_plain(queries, index._store)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        k5_eval = dict(max_abs_err=(got - want).abs().max().item(),
+                       ms=time_ms(lambda: maxsim_tiled(queries, index._store)),
+                       plain_ms=time_ms(lambda: maxsim_tiled_plain(queries, index._store), reps=2),
+                       **bound(index._store.numel() * 2 + queries.numel() * 2 + got.numel() * 4,
+                               2 * queries.shape[0] * queries.shape[1] * index.padded_docs * index.doc_tokens * DIM,
+                               "bf16"),
+                       shape=f"B={queries.shape[0]} Nq={queries.shape[1]} Np={index.doc_tokens} C={index.padded_docs}")
+        if not all(slice_launches[name] for name in TRAINING_KERNELS):
+            raise AssertionError(f"training slice: a kernel of the path was not launched: {slice_launches}")
+        # K4's own path, not part of the training slice: the same pages as an int8 index with unquantized
+        # queries, searched through CorpusIndex.search; its count is set to 0 before and read after that search
+        index_builder = DeviceIndexBuilder(doc_tokens=index.doc_tokens, dim=DIM, dtype="int8", quantize_queries=False)
+        index_builder.add(index._store.float().permute(0, 2, 1, 3).reshape(-1, index.doc_tokens, DIM)[:EVAL_PAGES])
+        int8_index = index_builder.build()
+        _, ids_bf16 = index.search(app.eval_queries, k=1)
+        MAXSIM_INT8_BF16.reset()
+        _, ids_int8 = int8_index.search(app.eval_queries, k=1)
+        int8_search_launches = MAXSIM_INT8_BF16.launches
+        if not int8_search_launches:
+            raise AssertionError("the search of an int8 index with quantize_queries=False did not launch K4")
+        agree = float((ids_bf16 == ids_int8).mean())
+        got4 = maxsim_int8_tiled(queries, int8_index._store, int8_index._scales)
+        want4 = maxsim_int8_tiled_plain(queries, int8_index._store, int8_index._scales)
+        torch.testing.assert_close(got4, want4, rtol=RTOL, atol=ATOL)
+        k4_eval = dict(max_abs_err=(got4 - want4).abs().max().item(),
+                       ms=time_ms(lambda: maxsim_int8_tiled(queries, int8_index._store, int8_index._scales)),
+                       plain_ms=time_ms(lambda: maxsim_int8_tiled_plain(queries, int8_index._store,
+                                                                        int8_index._scales), reps=2),
+                       **bound(int8_index._store.numel() + int8_index._scales.numel() * 4 + queries.numel() * 2
+                               + got4.numel() * 4,
+                               2 * queries.shape[0] * queries.shape[1] * index.padded_docs * index.doc_tokens * DIM,
+                               "bf16"), shape=k5_eval["shape"])
+        if agree < 0.9:
+            raise AssertionError(f"int8 (K4) and bf16 (K5) eval indexes agree on {agree:.0%} of the top-1 pages")
+        log(f"  evaluate(): {EVAL_PAGES} held-out pages in {t_eval:.1f} s, bf16 index {index.num_docs} x "
+            f"{index.doc_tokens} x {index.dim} built on the card, "
+            + ", ".join(f"{k} {metrics[k]:.4f}" for k in sorted(wanted)) + f"; launches over the steps and the eval "
+            f"{slice_launches}. Apart from that slice, CorpusIndex.search on the same pages as an int8 index with "
+            f"unquantized queries launched K4 {int8_search_launches} time(s) and agrees on {agree:.0%} of the top-1 pages")
+        for name, r in (("K5 maxsim_bf16", k5_eval), ("K4 maxsim_int8_bf16", k4_eval)):
+            log(f"  {name} on the eval index [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g}")
+        del int8_index, index_builder
+
+        # -- save: the merged export ------------------------------------------
+        t0 = time.perf_counter()
+        app.save()
+        adapters = app.state.adapters
+        i = adapters.module_names.index(f"model.language_model.layers.{t.num_hidden_layers // 2}.mlp.up_proj")
+        name = f"{adapters.module_names[i]}.weight"
+        merged = torch.load(f"{tmp}/run/model.pt", mmap=True, weights_only=True)
+        base_w = model.state_dict()[name]
+        expect = base_w + ((adapters.a[i] @ adapters.b[i]).T * (peft.alpha / peft.rank)).to(base_w.dtype)
+        if set(merged) != set(model.state_dict()) or not torch.equal(merged[name].to(device), expect):
+            raise AssertionError(f"save(): {name} is not W + (alpha/r) A @ B")
+        log(f"  save(): merged weights of {len(merged)} tensors written and read back in "
+            f"{time.perf_counter() - t0:.1f} s; {name} equals W + (alpha/r) A @ B")
+        del merged, expect
+        app.close()
+
+        # -- resume from the step-2 checkpoint ---------------------------------
+        import os
+        import shutil
+
+        os.makedirs(f"{tmp}/resumed/checkpoints")
+        shutil.copy(f"{tmp}/run/checkpoints/step_{RESUME_AT}.pt", f"{tmp}/resumed/checkpoints/")
+        resumed = make_app(f"{tmp}/resumed", max_steps=RESUME_AT + 1, resume_from_checkpoint=True)
+        if resumed.state.step != RESUME_AT:
+            raise AssertionError(f"resumed at step {resumed.state.step}, expected {RESUME_AT}")
+        tail = []
+        resumed.train(on_step=lambda step, m: tail.append((step, float(m["loss"]))))
+        resumed.close()
+        first_loss = seen[RESUME_AT][1]
+        if [s for s, _ in tail] != [RESUME_AT + 1] or abs(tail[0][1] - first_loss) > RESUME_LOSS_RTOL * abs(first_loss):
+            raise AssertionError(f"resumed run: {tail}, the first run's step {RESUME_AT + 1} loss {first_loss}")
+        log(f"  resumed from step {RESUME_AT}: step {RESUME_AT + 1} loss {tail[0][1]:.8f} vs {first_loss:.8f} in the "
+            f"first run (limit {RESUME_LOSS_RTOL} relative)")
+
+    # -- gradient direction: one repeated batch, fresh adapters --------------------
+    adapters = LoraAdapters(model, peft, seed=SEED + 1)
+    state = trainer.create_train_state(
+        model, trainer.TrainConfig(learning_rate=DIRECTION_LR, warmup_steps=0, total_steps=1000), adapters)
+    step = trainer.make_train_step(loss_fn, peft=peft, seed=SEED)
+    losses = [step(state, batch)["loss"].item() for _ in range(DIRECTION_STEPS)]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{DIRECTION_STEPS} steps on one batch at lr {DIRECTION_LR} did not lower the loss: {losses}")
+    log(f"  {DIRECTION_STEPS} steps on one repeated batch at lr {DIRECTION_LR}: loss "
+        + " -> ".join(f"{l:.4f}" for l in losses))
+
+    # -- where a step's time goes, with and without remat ------------------------
+    steps = {}
+    for remat in (True, False):
+        model.set_remat(remat)
+        steps["remat" if remat else "no_remat"] = r = timed_steps(state, batch, loss_fn, peft, SEED, steps=3)
+        log(f"  train step, batch {TRAIN_BATCH}, remat {'on' if remat else 'off'} ({smi}): {r['wall']:.1f} ms/step "
+            f"({TRAIN_BATCH / r['wall'] * 1e3:.2f} examples/s without collation), forward {r['forward']:.1f} ms, "
+            f"backward {r['backward']:.1f} ms, optimizer {r['optimizer']:.1f} ms, host and idle "
+            f"{r['wall'] - r['forward'] - r['backward'] - r['optimizer']:.1f} ms, peak memory {r['peak_gib']:.2f} GiB")
+    log(f"  recompute under remat: backward {steps['remat']['backward'] - steps['no_remat']['backward']:.1f} ms longer "
+        f"than without")
+    adapters.detach()
+    model.set_remat(False)
+    model.eval()
+    extra = dict(losses=[l for _, l, _ in seen], grad_norms=[g for _, _, g in seen], eval=metrics,
+                 examples_per_s_end_to_end=summary["train_samples_per_second"], step_ms=steps,
+                 plain_route=route, peak_train_gib=peak_train,
+                 launches_per_train_step={k: n // TRAIN_STEPS for k, n in train_launches.items()},
+                 int8_search_launches=int8_search_launches)
+    return slice_launches, train_launches, k6_bwd, dict(maxsim_bf16=k5_eval, maxsim_int8_bf16=k4_eval), extra
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script only runs on a GPU", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
-    phase_device()
+    smi = phase_device()
     timings = phase_kernels(device)
     model, processor, encoder = build_model(device)
     text_launches = phase_slice(device, encoder)
     launches, k6, page, extra = phase_pages(device, model, processor, encoder)
+    del encoder
+    train_slice, train_steps, k6_bwd, eval_index, train_extra = phase_training(device, model, processor, smi)
     timings["flash_attention"] = dict(k6["siglip"], gemma_page=k6["gemma_page"], gemma_query=k6["gemma_query"])
+    timings["flash_attention_bwd"] = dict(k6_bwd["gemma_page"], gemma_query=k6_bwd["gemma_query"],
+                                          gemma_query_padded=k6_bwd["gemma_query_padded"], siglip=k6_bwd["siglip"])
     for name, r in page.items():
         timings[name]["full_page"] = dict(r, shape=f"Np={PAGE_DOC_TOKENS}")
-    kernels = [dict(name=name, route=spec["route"], source=spec["source"], replaces=spec["replaces"],
-                    launches=launches[name], launches_text_slice=text_launches[name], **timings[name])
-               for name, spec in KERNELS.items()]
+    for name, r in eval_index.items():
+        timings[name]["eval_index"] = r
+    kernels = []
+    for name, spec in KERNELS.items():
+        entry = dict(name=name, route=spec["route"], source=spec["source"], replaces=spec["replaces"])
+        if name in SERVING_KERNELS:  # its launches over the page slice, and over the text slice
+            entry.update(launches=launches[name], launches_text_slice=text_launches[name])
+        if name in TRAINING_KERNELS:  # over the training slice: the 4 steps and the eval (comparisons not counted)
+            entry["launches_training_slice"] = train_slice[name]
+            entry.setdefault("launches", train_slice[name])
+        if name == "maxsim_int8_bf16":  # on no slice's path: counted over its own search of an int8 index (phase 5)
+            entry.update(launches=train_extra["int8_search_launches"], launches_training_slice=0,
+                         launches_over="CorpusIndex.search, int8 index with quantize_queries=False, apart from the "
+                                       "training slice")
+        if name in train_steps:
+            entry["launches_train_steps"] = train_steps[name]
+        kernels.append(dict(entry, **timings[name]))
     print(json.dumps({"kernels": kernels, "pages_per_min": extra["pages_per_min"],
-                      "forward_check": extra["forward_check"]}))
+                      "forward_check": extra["forward_check"], "training": train_extra}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

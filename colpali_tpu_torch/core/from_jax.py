@@ -12,6 +12,8 @@ The JAX package's ``ColPali`` params (a nested dict with numpy leaves, as
 - unrolled ``layers_{i}`` become ``layers.{i}``.
 
 bf16 leaves (``ml_dtypes.bfloat16``) are taken bit for bit.
+
+:func:`lora_from_jax` carries a JAX LoRA adapter tree over likewise.
 """
 
 from __future__ import annotations
@@ -64,3 +66,22 @@ def colpali_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Te
         name = ".".join(re.sub(r"^layers_(\d+)$", r"layers.\1", p) for p in (*parts, last))
         state[name] = tensor
     return state
+
+
+def lora_from_jax(lora_tree: Mapping[str, Mapping[str, Any]]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX LoRA tree ``{kernel path: {"a": (in, r), "b": (r, out)}}``
+    (``init_lora_params`` or a trained ``state.params``, numpy leaves) ->
+    the same mapping with fp32 tensors, which
+    :meth:`colpali_tpu_torch.training.lora.LoraAdapters.load_tree` takes.
+    Paths and layouts are shared: the port matches adapters by the JAX
+    kernel paths and keeps ``a`` and ``b`` in the same orientation."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for path, adapter in lora_tree.items():
+        if set(adapter) != {"a", "b"}:
+            raise ValueError(f"{path!r}: expected leaves 'a' and 'b', got {sorted(adapter)}")
+        a, b = _to_tensor(adapter["a"]).float(), _to_tensor(adapter["b"]).float()
+        if a.ndim != 2 or b.ndim != 2:
+            raise ValueError(f"{path!r}: stacked (scanned) adapters are not supported; "
+                             "build the JAX model with scan_layers=False")
+        out[str(path)] = {"a": a, "b": b}
+    return out

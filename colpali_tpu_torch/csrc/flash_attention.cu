@@ -37,10 +37,9 @@
 // Not yet done here (later work): cp.async/TMA double buffering of the K/V
 // tiles, wgmma, and skipping key tiles that share no segment with the block.
 
-#include <cuda_bf16.h>
 #include <math_constants.h>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -48,53 +47,12 @@ constexpr int kBlockQ = 64;  // query rows per CTA: 4 warps x 16 rows
 constexpr int kBlockK = 64;  // keys per K/V tile
 constexpr int kThreads = 128;
 
-struct Strides {
-  int64_t b, s, h;  // element strides of the batch, sequence and head axes
-};
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Four 8x8 b16 matrices from shared memory, transposed: the B fragments
-// (b0, b1) of two neighbouring m16n8k16 n-tiles of a row-major (key, dim) tile.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                                  const __nv_bfloat16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 template <int DP>  // head dim rounded up to what the tiles hold (a multiple of 16)
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ seg,
                            __nv_bfloat16* __restrict__ out,  // (B, S, H, D) contiguous
+                           float* __restrict__ lse,          // (B, H, S) or null
                            Strides qs, Strides ks, Strides vs, int s, int h, int hkv, int d, float scale_log2,
                            int causal) {
   constexpr int LD = DP + 8;        // row stride of the Q, K and V tiles
@@ -235,6 +193,11 @@ __global__ void __launch_bounds__(kThreads)
   l_hi = quad_sum(l_hi);
   const float inv_lo = l_lo > 0.0f ? 1.0f / l_lo : 0.0f;
   const float inv_hi = l_hi > 0.0f ? 1.0f / l_hi : 0.0f;
+  if (lse != nullptr && tg == 0) {  // base-2 log-sum-exp of the scaled logits; -inf for a row with no key
+    float* lse_row = lse + (bi * h + head) * s;
+    if (row_lo < s) lse_row[row_lo] = l_lo > 0.0f ? m_lo + log2f(l_lo) : -CUDART_INF_F;
+    if (row_hi < s) lse_row[row_hi] = l_hi > 0.0f ? m_hi + log2f(l_hi) : -CUDART_INF_F;
+  }
   const int64_t row_stride = static_cast<int64_t>(h) * d;
   __nv_bfloat16* o_base = out + bi * s * row_stride + static_cast<int64_t>(head) * d;
 #pragma unroll
@@ -249,7 +212,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* seg, void* out, int b, int s, int h,
+cudaError_t launch(const void* q, const void* k, const void* v, const void* seg, void* out, void* lse, int b, int s,
+                   int h,
                    int hkv, int d, Strides qs, Strides ks, Strides vs, float scale_log2, int causal,
                    cudaStream_t stream) {
   static_assert(DP % 16 == 0, "the tiles hold a multiple of 16 head dims");
@@ -261,7 +225,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* seg,
   flash_attention_kernel<DP><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(seg), static_cast<__nv_bfloat16*>(out),
-      qs, ks, vs, s, h, hkv, d, scale_log2, causal);
+      static_cast<float*>(lse), qs, ks, vs, s, h, hkv, d, scale_log2, causal);
   return cudaGetLastError();
 }
 
@@ -269,17 +233,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* seg,
 
 // Strides are in elements; the head dim of q, k and v must be contiguous,
 // d one of 72 and 256, and every row 16-byte aligned (the wrapper checks all
-// of it).
+// of it). lse, when not null, receives each row's log-sum-exp of the scaled
+// logits in base 2 as (B, H, S) fp32, which the backward kernels read.
 extern "C" int colpali_flash_attention(const void* q, const void* k, const void* v, const void* seg, void* out,
-                                       int b, int s, int h, int hkv, int d, int64_t q_sb, int64_t q_ss,
+                                       void* lse, int b, int s, int h, int hkv, int d, int64_t q_sb, int64_t q_ss,
                                        int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
                                        int64_t v_ss, int64_t v_sh, float scale, int causal, void* stream) {
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   const float scale_log2 = scale * 1.4426950408889634f;  // softmax in base 2
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {  // the head dims of the models that run it
-    case 72: return launch<80>(q, k, v, seg, out, b, s, h, hkv, d, qs, ks, vs, scale_log2, causal, st);   // SigLIP
-    case 256: return launch<256>(q, k, v, seg, out, b, s, h, hkv, d, qs, ks, vs, scale_log2, causal, st);  // Gemma
+    case 72: return launch<80>(q, k, v, seg, out, lse, b, s, h, hkv, d, qs, ks, vs, scale_log2, causal, st);   // SigLIP
+    case 256: return launch<256>(q, k, v, seg, out, lse, b, s, h, hkv, d, qs, ks, vs, scale_log2, causal, st);  // Gemma
     default: return cudaErrorInvalidValue;
   }
 }

@@ -3,7 +3,10 @@
 RMSNorm with unit offset and fp32 statistics, rotary theta 10000 over the
 full head, MQA/GQA attention scaled by ``head_dim**-0.5``, gelu-tanh gated
 MLP, and the ``sqrt(hidden_size)`` embedding normalizer applied in the
-activation dtype. Layers are unrolled (no scan, no remat).
+activation dtype. Layers are unrolled (no scan). With ``remat`` each layer
+runs under ``torch.utils.checkpoint`` while a gradient is recorded: its
+activations are dropped after the forward and recomputed in the backward
+(the JAX package's ``remat_layer``, policy "full").
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 from torch import nn
 
 from colpali_tpu_torch.models.configs import GemmaConfig
-from colpali_tpu_torch.models.layers import Attention, Device, GatedMLP, RMSNorm, rope_cos_sin
+from colpali_tpu_torch.models.layers import Attention, Device, GatedMLP, RMSNorm, run_layer, rope_cos_sin
 
 
 class GemmaDecoderLayer(nn.Module):
@@ -39,10 +42,12 @@ class GemmaDecoderLayer(nn.Module):
 class GemmaDecoder(nn.Module):
     """Gemma transformer stack over pre-merged input embeddings."""
 
-    def __init__(self, config: GemmaConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32):
+    def __init__(self, config: GemmaConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        self.remat = remat
         self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size, device=device, dtype=dtype)
         self.layers = nn.ModuleList(
             GemmaDecoderLayer(config, device=device, dtype=dtype) for _ in range(config.num_hidden_layers)
@@ -68,5 +73,5 @@ class GemmaDecoder(nn.Module):
         x = inputs_embeds.to(self.dtype) * normalizer
         attention_mask = attention_mask.to(torch.int32)  # the segment ids K6 takes, converted once
         for layer in self.layers:
-            x = layer(x, attention_mask, rope)
+            x = run_layer(layer, self.remat, x, attention_mask, rope)
         return self.norm(x)

@@ -27,6 +27,24 @@ from colpali_tpu_torch.ops import flash_attention as fa
 Device = torch.device | str
 
 
+def run_layer(layer: nn.Module, remat: bool, *args):
+    """``layer(*args)``, checkpointed when ``remat`` is set and autograd is
+    recording: the layer's activations are recomputed in the backward
+    instead of kept (``torch.utils.checkpoint``, non-reentrant). Random
+    draws a layer needs (LoRA dropout masks) must be made before this call:
+    the recompute replays the global generator only."""
+    if remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(layer, *args, use_reentrant=False)
+    return layer(*args)
+
+
+def frozen(module: nn.Module) -> bool:
+    """True when no parameter of ``module`` takes a gradient."""
+    return not any(p.requires_grad for p in module.parameters())
+
+
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """gelu_pytorch_tanh, the activation Gemma and SigLIP use."""
     return F.gelu(x, approximate="tanh")

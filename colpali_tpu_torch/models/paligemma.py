@@ -7,6 +7,11 @@ spliced into the ``<image>`` token slots. Queries skip the vision tower.
 Both then run Gemma with full attention over valid tokens and 1-indexed
 positions, and ColPali's head gives 128-d L2-normalized, mask-zeroed token
 embeddings.
+
+For training, ``remat`` checkpoints every transformer layer, and the vision
+tower and the projector run without recording a gradient whenever none of
+their parameters takes one (LoRA never targets them), so their activations
+are not kept.
 """
 
 from __future__ import annotations
@@ -19,21 +24,31 @@ from torch import nn
 from colpali_tpu_torch.models.common import MultiVectorHead, merge_image_embeddings
 from colpali_tpu_torch.models.configs import PaliGemmaConfig
 from colpali_tpu_torch.models.gemma import GemmaDecoder
-from colpali_tpu_torch.models.layers import Device
+from colpali_tpu_torch.models.layers import Device, frozen
 from colpali_tpu_torch.models.siglip import SiglipVisionTower
 
 
 class PaliGemmaBackbone(nn.Module):
     """SigLIP + projector + Gemma; returns last hidden states."""
 
-    def __init__(self, config: PaliGemmaConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32):
+    def __init__(self, config: PaliGemmaConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
         kw = dict(device=device, dtype=dtype)
-        self.vision_tower = SiglipVisionTower(config.vision, **kw)
+        self.vision_tower = SiglipVisionTower(config.vision, remat=remat, **kw)
         self.multi_modal_projector = nn.Linear(config.vision.hidden_size, config.projection_dim, **kw)
-        self.language_model = GemmaDecoder(config.text, **kw)
+        self.language_model = GemmaDecoder(config.text, remat=remat, **kw)
+
+    def image_features(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        """Projected, scaled image features; no gradient is recorded when the
+        tower and the projector are frozen."""
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not (frozen(self.vision_tower) and frozen(self.multi_modal_projector))):
+            features = self.multi_modal_projector(self.vision_tower(pixel_values))
+            scale = torch.tensor(self.config.text.hidden_size**0.5, dtype=self.dtype, device=features.device)
+            return features / scale
 
     def forward(
         self,
@@ -48,9 +63,7 @@ class PaliGemmaBackbone(nn.Module):
         # image tokens may lie past the vocab; they embed as id 0
         inputs_embeds = self.language_model.embed(torch.where(image_mask, 0, input_ids))
         if pixel_values is not None:
-            features = self.multi_modal_projector(self.vision_tower(pixel_values))
-            features = features / torch.tensor(cfg.text.hidden_size**0.5, dtype=self.dtype, device=features.device)
-            inputs_embeds = merge_image_embeddings(inputs_embeds, image_mask, features)
+            inputs_embeds = merge_image_embeddings(inputs_embeds, image_mask, self.image_features(pixel_values))
         b, s = input_ids.shape
         position_ids = torch.arange(1, s + 1, device=input_ids.device).expand(b, s)  # 1-indexed
         return self.language_model(inputs_embeds, attention_mask, position_ids)
@@ -63,12 +76,17 @@ class ColPali(nn.Module):
     token."""
 
     def __init__(self, config: PaliGemmaConfig, dim: int = 128, mask_non_image_embeddings: bool = False,
-                 device: Device = "cuda", dtype: torch.dtype = torch.float32):
+                 device: Device = "cuda", dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.config = config
         self.mask_non_image_embeddings = mask_non_image_embeddings
-        self.model = PaliGemmaBackbone(config, device=device, dtype=dtype)
+        self.model = PaliGemmaBackbone(config, device=device, dtype=dtype, remat=remat)
         self.head = MultiVectorHead(config.text.hidden_size, dim=dim, device=device, dtype=dtype)
+
+    def set_remat(self, remat: bool) -> None:
+        """Turn the per-layer checkpointing of both towers on or off."""
+        self.model.vision_tower.remat = remat
+        self.model.language_model.remat = remat
 
     def forward(
         self,

@@ -3,7 +3,8 @@
 Patch embedding, learned position embedding, pre-LN encoder layers
 (attention with biases through kernel K6, gelu-tanh MLP with biases) and a
 final ``post_layernorm``; no CLS token and no pooling head, as PaliGemma
-uses it. Pixels are NHWC, as in the JAX package.
+uses it. Pixels are NHWC, as in the JAX package. ``remat`` checkpoints each
+layer while a gradient is recorded, as in :mod:`colpali_tpu_torch.models.gemma`.
 
 The patch embedding is the JAX package's VALID convolution with stride =
 kernel = ``patch_size``, taken as im2col + one matmul: ``patch_embedding``
@@ -17,7 +18,7 @@ import torch
 from torch import nn
 
 from colpali_tpu_torch.models.configs import SiglipVisionConfig
-from colpali_tpu_torch.models.layers import MLP, Attention, Device, LayerNorm
+from colpali_tpu_torch.models.layers import MLP, Attention, Device, LayerNorm, run_layer
 
 
 class SiglipEncoderLayer(nn.Module):
@@ -38,11 +39,13 @@ class SiglipEncoderLayer(nn.Module):
 class SiglipVisionTower(nn.Module):
     """``(B, H, W, 3)`` pixel values -> ``(B, num_patches, hidden)``."""
 
-    def __init__(self, config: SiglipVisionConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32):
+    def __init__(self, config: SiglipVisionConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         cfg = config
         self.config = config
         self.dtype = dtype
+        self.remat = remat
         kw = dict(device=device, dtype=dtype)
         self.patch_embedding = nn.Linear(cfg.patch_size * cfg.patch_size * 3, cfg.hidden_size, **kw)
         self.position_embedding = nn.Embedding(cfg.num_patches, cfg.hidden_size, **kw)
@@ -65,5 +68,5 @@ class SiglipVisionTower(nn.Module):
             raise ValueError(f"{x.shape[1]} patches, the position embedding has {self.config.num_patches}")
         x = x + self.position_embedding.weight
         for layer in self.layers:
-            x = layer(x)
+            x = run_layer(layer, self.remat, x)
         return self.post_layernorm(x)

@@ -1,7 +1,8 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources in ``colpali_tpu_torch/csrc/*.cu`` export plain C entry points.
-At first use they are compiled with ``nvcc`` for ``sm_90a`` into one shared
+At first use they are compiled with ``nvcc`` for ``sm_90a`` (one compiler
+process per source, all started together, then one link) into one shared
 library under ``build/kernels/`` at the repository root, named by a hash of
 the sources and flags, and loaded with ``ctypes``. Each entry point returns
 the launch's ``cudaError_t``; :meth:`CudaKernel.__call__` raises on any
@@ -30,7 +31,7 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _build_lock = threading.Lock()
@@ -61,21 +62,35 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile every ``csrc/*.cu`` into one library unless it is built
-    already. The compiler's register and shared-memory report
-    (``-Xptxas -v``) is kept beside it as ``<name>.log``."""
+    """Compile every ``csrc/*.cu`` (in parallel, one ``nvcc -c`` each) and
+    link the objects into one library, unless it is built already. The
+    compiler's register and shared-memory report (``-Xptxas -v``) is kept
+    beside it as ``<name>.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    sources = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    stem = f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    objects = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objects)]
+    logs = [proc.communicate()[0] for proc in procs]
+    try:
+        for src, proc, text in zip(sources, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src.name}:\n{text}")
+        tmp = out.with_name(f"{stem}.tmp")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{link.stderr}")
+        out.with_suffix(".log").write_text("".join(logs))
+        os.replace(tmp, out)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return out
 
 

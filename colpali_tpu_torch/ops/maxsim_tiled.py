@@ -1,4 +1,4 @@
-"""Exact MaxSim over the tile-major serving store: kernels K3 and K2.
+"""Exact MaxSim over the tile-major serving store: kernels K2 to K5.
 
 The serving store is ``(C // DOC_TILE, Np, DOC_TILE, D)``: 128-doc tiles,
 each one contiguous block (counterpart of the tile-major part of
@@ -10,11 +10,14 @@ each one contiguous block (counterpart of the tile-major part of
   gathered and dequantized inside the kernel (``csrc/gather_rerank.cu``;
   replaces ``gather_candidates_pallas`` plus the rerank of
   ``retrieval/store.py::gather_rerank``).
+- K5, :func:`maxsim_tiled`, and K4, :func:`maxsim_int8_tiled`: bf16 queries
+  against a bf16 store, or an int8 store dequantized to bf16 inside the
+  kernel (``csrc/maxsim_bf16.cu``, one template over the store's type;
+  replace ``maxsim_pallas_tiled`` and ``maxsim_pallas_int8_tiled``).
 
 Each wrapper takes its plain PyTorch version (``*_plain``) only when given
-CPU tensors; for CUDA tensors it launches its kernel or raises. The bf16
-paths (TPU kernels K4 and K5) are not ported yet: their plain versions run
-on the CPU and the CUDA wrappers raise ``NotImplementedError``.
+CPU tensors; for CUDA tensors it launches its kernel or raises. K2 over a
+bf16 store is not ported yet and raises ``NotImplementedError`` on CUDA.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ _PLAIN_CHUNK_ELEMS = 1 << 26  # bound on a plain version's fp32 intermediates
 
 MAXSIM_INT8 = CudaKernel("colpali_maxsim_int8", [P, P, P, P, P, I32, I32, I32, I32, I64])
 GATHER_RERANK = CudaKernel("colpali_gather_rerank", [P, P, P, P, P, I32, I32, I32, I32, I32, I64])
+MAXSIM_BF16 = CudaKernel("colpali_maxsim_bf16", [P, P, P, I32, I32, I32, I32, I64])
+MAXSIM_INT8_BF16 = CudaKernel("colpali_maxsim_int8_bf16", [P, P, P, P, I32, I32, I32, I32, I64])
 
 
 def to_tile_major(doc_embeddings_tm: torch.Tensor) -> torch.Tensor:
@@ -143,8 +148,8 @@ def gather_rerank_int8(
 ) -> torch.Tensor:
     """K2: fp32 queries ``(B, Nq, D)``, candidate doc ids ``(B, c)`` int32
     into the tile-major store -> ``(B, c)`` exact fp32 MaxSim scores. On
-    CUDA only an int8 store with scales is supported (a bf16 store needs
-    the bf16 variant, not ported yet)."""
+    CUDA only an int8 store with scales is supported (K2 over a bf16 store
+    is not ported yet)."""
     b, nq, d = queries.shape
     nt, np_, _, _ = store.shape
     _check_store(store, scales, d)
@@ -153,8 +158,8 @@ def gather_rerank_int8(
     if on_cpu(store):
         return gather_rerank_plain(queries, store, scales, cand)
     if scales is None:
-        raise NotImplementedError("rerank over a bf16 store on CUDA waits for the K5 port "
-                                  "(maxsim_pallas_tiled); use an int8 index")
+        raise NotImplementedError("K2 (candidate gather + rerank) over a bf16 store is not ported to CUDA "
+                                  "yet; use an int8 index, or a bf16 index without prefilter='binary'")
     dev = store.device
     check_cuda("queries", queries, torch.float32, dev)
     check_cuda("store", store, torch.int8, dev)
@@ -170,12 +175,12 @@ def gather_rerank_int8(
     return out
 
 
-# -- not ported yet: K4 (int8 store, bf16 queries) and K5 (bf16 store) ---------
+# -- K4 (int8 store, bf16 queries) and K5 (bf16 store) --------------------------
 
 
 def maxsim_int8_tiled_plain(queries: torch.Tensor, store: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """Plain version of TPU kernel K4 (``maxsim_pallas_int8_tiled``): docs
-    dequantized in bf16, bf16 queries, fp32 sums."""
+    """K4's plain version: docs dequantized in bf16 (the product of the bf16
+    value and the bf16 scale, rounded to bf16), bf16 queries, fp32 sums."""
     b, nq, d = queries.shape
     nt, np_, t, _ = store.shape
     q2 = queries.reshape(b * nq, d).to(torch.bfloat16).float()
@@ -189,18 +194,8 @@ def maxsim_int8_tiled_plain(queries: torch.Tensor, store: torch.Tensor, scales: 
     return torch.cat(out, dim=1)
 
 
-def maxsim_int8_tiled(queries: torch.Tensor, store: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """TPU kernel K4's counterpart: plain on the CPU; not ported for CUDA."""
-    _check_store(store, scales, queries.shape[-1])
-    if on_cpu(store):
-        return maxsim_int8_tiled_plain(queries, store, scales)
-    raise NotImplementedError("an int8 index with quantize_queries=False needs TPU kernel K4 "
-                              "(maxsim_pallas_int8_tiled), not ported to CUDA yet")
-
-
 def maxsim_tiled_plain(queries: torch.Tensor, store: torch.Tensor) -> torch.Tensor:
-    """Plain version of TPU kernel K5 (``maxsim_pallas_tiled``): bf16 store,
-    bf16 queries, fp32 sums."""
+    """K5's plain version: bf16 store, bf16 queries, fp32 sums."""
     b, nq, d = queries.shape
     nt, np_, t, _ = store.shape
     q2 = queries.reshape(b * nq, d).to(torch.bfloat16).float()
@@ -214,10 +209,44 @@ def maxsim_tiled_plain(queries: torch.Tensor, store: torch.Tensor) -> torch.Tens
     return torch.cat(out, dim=1)
 
 
+def _maxsim_bf16_cuda(kernel: CudaKernel, queries: torch.Tensor, store: torch.Tensor,
+                      scales: Optional[torch.Tensor]) -> torch.Tensor:
+    b, nq, d = queries.shape
+    nt, np_, _, _ = store.shape
+    dev = store.device
+    if queries.device != dev:
+        raise ValueError(f"queries are on {queries.device}, expected {dev}")
+    if not queries.is_floating_point():
+        raise TypeError(f"queries have dtype {queries.dtype}, expected a float type")
+    if d % 16:
+        raise ValueError(f"the bf16 MaxSim kernel takes a dim that is a multiple of 16, got {d}")
+    check_cuda("store", store, torch.bfloat16 if scales is None else torch.int8, dev)
+    q = queries.to(torch.bfloat16).contiguous()
+    out = torch.empty((b, nt * DOC_TILE), dtype=torch.float32, device=dev)
+    if b * nq * nt * np_ == 0:
+        return out.zero_()
+    if scales is None:
+        kernel(dev, q.data_ptr(), store.data_ptr(), out.data_ptr(), b, nq, np_, d, nt)
+    else:
+        check_cuda("scales", scales, torch.float32, dev)
+        kernel(dev, q.data_ptr(), store.data_ptr(), scales.data_ptr(), out.data_ptr(), b, nq, np_, d, nt)
+    return out
+
+
+def maxsim_int8_tiled(queries: torch.Tensor, store: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """K4: float queries ``(B, Nq, D)`` (taken as bf16) against the int8 store
+    and its ``(nt, Np, DOC_TILE)`` fp32 scales -> ``(B, C)`` fp32 scores
+    (counterpart of ``maxsim_pallas_int8_tiled``)."""
+    _check_store(store, scales, queries.shape[-1])
+    if on_cpu(store):
+        return maxsim_int8_tiled_plain(queries, store, scales)
+    return _maxsim_bf16_cuda(MAXSIM_INT8_BF16, queries, store, scales)
+
+
 def maxsim_tiled(queries: torch.Tensor, store: torch.Tensor) -> torch.Tensor:
-    """TPU kernel K5's counterpart: plain on the CPU; not ported for CUDA."""
+    """K5: float queries ``(B, Nq, D)`` (taken as bf16) against the bf16 store
+    -> ``(B, C)`` fp32 scores (counterpart of ``maxsim_pallas_tiled``)."""
     _check_store(store, None, queries.shape[-1])
     if on_cpu(store):
         return maxsim_tiled_plain(queries, store)
-    raise NotImplementedError("a bf16 index needs TPU kernel K5 (maxsim_pallas_tiled), "
-                              "not ported to CUDA yet")
+    return _maxsim_bf16_cuda(MAXSIM_BF16, queries, store, None)

@@ -6,8 +6,11 @@ The corpus lives on ``device`` in the tile-major layout
 bf16). :meth:`CorpusIndex.search` scores it with the exact full-int8 sweep
 (kernel K3) or, on an index built with ``prefilter="binary"``, with the
 two-tier search: the packed sign-sketch coarse pass (K1), a top-``c``
-shortlist, then the fused candidate gather and exact rerank (K2). On a CPU
-device every kernel runs as its plain PyTorch version.
+shortlist, then the fused candidate gather and exact rerank (K2). An int8
+index with ``quantize_queries=False`` is swept by K4 and a bf16 index by K5.
+On a CPU device every kernel runs as its plain PyTorch version.
+:class:`DeviceIndexBuilder` packs model outputs into an index where they
+lie.
 
 The ``.npz`` written by :meth:`CorpusIndex.save` is the same format the JAX
 package writes (bf16 stored as a ``uint16`` view), so either package loads
@@ -33,17 +36,10 @@ from colpali_tpu_torch.ops.maxsim_tiled import (
     maxsim_tiled,
 )
 from colpali_tpu_torch.ops.quant import binarize_words, quantize_per_token
-from colpali_tpu_torch.utils.tensor_utils import pad_sequences, round_up
+from colpali_tpu_torch.utils.tensor_utils import pad_sequences, round_up, top_k
 
 ArrayLike = Union[np.ndarray, Sequence[np.ndarray]]
 Device = Union[str, torch.device]
-
-
-def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(values, int32 indices)`` of the ``k`` largest along the last axis,
-    ties broken toward the lower index (``jax.lax.top_k`` semantics)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k].to(torch.int32)
 
 
 def gather_rerank(
@@ -74,8 +70,8 @@ class CorpusIndex:
         device: where the index lives and is scored (the card unless the
             caller asks for the CPU).
         quantize_queries: int8 indexes score int8-quantized queries (kernel
-            K3); False keeps bf16 queries (TPU kernel K4, plain on the CPU
-            only so far).
+            K3); False keeps bf16 queries (kernel K4). A bf16 index is
+            scored by kernel K5.
         truncate: opt in to dropping tokens beyond ``doc_tokens``.
         prefilter: ``"binary"`` also stores packed sign bits and makes
             :meth:`search` two-tier.
@@ -403,3 +399,135 @@ class CorpusIndex:
             if padded.ndim == 2:
                 padded = padded[None]
         return torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)
+
+
+def _pack_tiles_device(chunk: torch.Tensor, dtype: str, prefilter: Optional[str], coarse_pool: int = 1):
+    """Pack ``(n * DOC_TILE, Np, D)`` fp32 docs into the tile-major serving
+    arrays where they lie: ``(store, scales | None, bwords | None)``.
+    Quantization is :func:`quantize_per_token` (the scale is
+    ``absmax * fp32(1/127)``, as the JAX package's jitted packer computes
+    it), which may differ in the last bit from ``_pack_host``'s numpy
+    ``absmax / 127``."""
+    c, np_, d = chunk.shape
+    tiled = chunk.reshape(c // DOC_TILE, DOC_TILE, np_, d).transpose(1, 2)
+    if dtype == "int8":
+        store, scales = quantize_per_token(tiled)
+        store, scales = store.contiguous(), scales.contiguous()
+    else:
+        store, scales = tiled.to(torch.bfloat16).contiguous(), None
+    bwords = None
+    if prefilter == "binary":
+        src = chunk
+        if coarse_pool > 1:
+            # padding tokens are zero by the add() convention, so the plain
+            # group sum is the sum over valid tokens
+            src = chunk.reshape(c, np_ // coarse_pool, coarse_pool, d).sum(dim=2)
+        words, valid = binarize_words(src)  # (c, Npc, W), (c, Npc)
+        bwords = words_to_tile_major(fill_doc_padding(words, valid)).contiguous()
+    return store, scales, bwords
+
+
+class DeviceIndexBuilder:
+    """Streaming index construction on the device (counterpart of the JAX
+    package's ``DeviceIndexBuilder``).
+
+    Model forwards hand padded ``(B, S, D)`` embeddings and validity masks
+    straight to :meth:`add`; quantization, sign packing and the tile-major
+    layout all run where the embeddings lie, and :meth:`build` returns a
+    :class:`CorpusIndex` on that device without a host round trip.
+
+    Args:
+        doc_tokens: token budget per doc (rounded up to a multiple of 16);
+            shorter batches are zero-padded, longer ones are an error.
+        dim: embedding dimension.
+        dtype / prefilter / coarse_pool / quantize_queries: as in
+            :class:`CorpusIndex`.
+        pool_factor: on-device token pooling during ingestion; not ported
+            yet (it needs ``compression/token_pooling``): anything above 1
+            raises.
+    """
+
+    def __init__(self, doc_tokens: int, dim: int, dtype: str = "int8", prefilter: Optional[str] = None,
+                 pool_factor: Optional[int] = None, coarse_pool: int = 1, quantize_queries: bool = True):
+        if pool_factor is not None and pool_factor > 1:
+            raise NotImplementedError("DeviceIndexBuilder(pool_factor > 1) needs compression/token_pooling, "
+                                      "which is not ported yet; pool upstream")
+        if dtype not in ("bf16", "int8"):
+            raise ValueError(f"Unsupported index dtype: {dtype}")
+        if prefilter not in (None, "binary"):
+            raise ValueError(f"Unsupported prefilter: {prefilter!r} (None or 'binary')")
+        if coarse_pool < 1:
+            raise ValueError(f"coarse_pool must be >= 1, got {coarse_pool}")
+        if coarse_pool > 1 and prefilter != "binary":
+            raise ValueError("coarse_pool > 1 requires prefilter='binary'")
+        self.doc_tokens = round_up(doc_tokens, 16)
+        if self.doc_tokens % coarse_pool != 0:
+            raise ValueError(f"coarse_pool={coarse_pool} must divide doc_tokens={self.doc_tokens}")
+        if prefilter == "binary" and dim % 32 != 0:
+            raise ValueError(f"binary prefilter needs dim % 32 == 0, got {dim}")
+        self.dim = dim
+        self.dtype = dtype
+        self.prefilter = prefilter
+        self.coarse_pool = coarse_pool
+        self.quantize_queries = quantize_queries
+        self.num_docs = 0
+        self._built = False
+        self._tiles: list = []  # (store, scales, bwords) per packed chunk
+        self._pending: list = []  # (B, Np, D) fp32 batches, less than one tile in all
+
+    def add(self, embeddings: torch.Tensor, mask: Optional[torch.Tensor] = None) -> None:
+        """Ingest ``(B, S, D)`` embeddings (a padded model output); tokens
+        where ``mask (B, S)`` is 0 are zeroed, the score-neutral padding."""
+        if self._built:
+            raise RuntimeError("DeviceIndexBuilder already finalized by build(); create a new one "
+                               "(or use CorpusIndex.extend) to add more docs")
+        b, s, d = embeddings.shape
+        if d != self.dim:
+            raise ValueError(f"dim mismatch: index {self.dim}, batch {d}")
+        if s > self.doc_tokens:
+            raise ValueError(f"batch has {s} tokens > doc_tokens={self.doc_tokens}; pool upstream or raise "
+                             "doc_tokens")
+        if self._pending and embeddings.device != self._pending[0].device:
+            raise ValueError(f"batch is on {embeddings.device}, earlier ones on {self._pending[0].device}")
+        x = embeddings.detach().float()
+        if mask is not None:
+            x = x * torch.as_tensor(mask, device=x.device).float()[..., None]
+        if s < self.doc_tokens:
+            x = torch.nn.functional.pad(x, (0, 0, 0, self.doc_tokens - s))
+        self.num_docs += b
+        self._pending.append(x)
+        self._flush(final=False)
+
+    def _flush(self, final: bool) -> None:
+        buffered = sum(int(p.shape[0]) for p in self._pending)
+        full = (buffered // DOC_TILE) * DOC_TILE
+        target = round_up(buffered, DOC_TILE) if final else full
+        if target == 0:
+            return
+        chunk = self._pending[0] if len(self._pending) == 1 else torch.cat(self._pending)
+        if buffered < target:
+            chunk = torch.nn.functional.pad(chunk, (0, 0, 0, 0, 0, target - buffered))
+        take, rest = chunk[:target], chunk[target:]
+        self._pending = [rest] if rest.shape[0] else []
+        self._tiles.append(_pack_tiles_device(take, self.dtype, self.prefilter, self.coarse_pool))
+
+    def build(self) -> CorpusIndex:
+        """Finalize into a :class:`CorpusIndex` on the embeddings' device."""
+        if self._built:
+            raise RuntimeError("DeviceIndexBuilder already finalized by build()")
+        if self.num_docs == 0:
+            raise ValueError("No documents added")
+        self._built = True
+        self._flush(final=True)
+        store = torch.cat([t[0] for t in self._tiles])
+        scales = None if self.dtype != "int8" else torch.cat([t[1] for t in self._tiles])
+        bwords = None if self.prefilter is None else torch.cat([t[2] for t in self._tiles])
+        self._tiles = []
+        index = object.__new__(CorpusIndex)
+        index._init_common(self.dtype, store.device, self.quantize_queries, self.prefilter, self.coarse_pool)
+        index.num_docs = self.num_docs
+        index.doc_tokens = self.doc_tokens
+        index.dim = self.dim
+        index.padded_docs = store.shape[0] * DOC_TILE
+        index._put_store(store, scales, bwords)
+        return index

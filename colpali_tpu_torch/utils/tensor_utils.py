@@ -1,4 +1,5 @@
-"""Padding helpers for variable-length multi-vector embeddings (numpy).
+"""Padding helpers for variable-length multi-vector embeddings (numpy) and
+the port's top-k.
 
 Counterpart of :mod:`colpali_tpu.utils.tensor_utils`: padded rows are
 all-zero vectors, which MaxSim scores as 0.
@@ -6,9 +7,18 @@ all-zero vectors, which MaxSim scores as 0.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
+import torch
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(values, int32 indices)`` of the ``k`` largest along the last axis,
+    ties broken toward the lower index (``jax.lax.top_k`` semantics). The
+    values carry gradients back to the entries they were taken from."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k].to(torch.int32)
 
 
 def round_up(x: int, multiple: int) -> int:

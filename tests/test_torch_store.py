@@ -20,7 +20,8 @@ import torch
 from colpali_tpu.retrieval.store import CorpusIndex as JaxIndex
 from colpali_tpu.ops.maxsim_binary import binary_maxsim_xla_tiled
 from colpali_tpu.retrieval.store import gather_rerank as jax_gather_rerank
-from colpali_tpu_torch.retrieval.store import CorpusIndex, gather_rerank, top_k
+from colpali_tpu.retrieval.store import DeviceIndexBuilder as JaxBuilder
+from colpali_tpu_torch.retrieval.store import CorpusIndex, DeviceIndexBuilder, gather_rerank, top_k
 
 RTOL, ATOL = 1e-5, 1e-5
 DIM = 64
@@ -102,7 +103,8 @@ def test_exact_index_search_matches():
 @pytest.mark.parametrize("dtype,quantize_queries", [("bf16", True), ("int8", False)])
 def test_unported_kernel_paths_run_plain_on_cpu(dtype, quantize_queries):
     """bf16 indexes (K5) and unquantized queries (K4) run their plain
-    versions on the CPU and agree with the JAX kernels' math."""
+    versions on the CPU and agree with the JAX kernels' math (on the card
+    they launch their kernels: tests/test_torch_cuda.py)."""
     kw = dict(dtype=dtype, quantize_queries=quantize_queries)
     jax_index, index = JaxIndex(DOCS, force_kernel=True, **kw), CorpusIndex(DOCS, device="cpu", **kw)
     _same_results(index.search(QUERIES, k=3), jax_index.search(QUERIES, k=3))
@@ -175,3 +177,52 @@ def test_validation_errors():
         CorpusIndex(DOCS[:10], dtype="int8", device="cpu").search(QUERIES, candidates=8)
     with pytest.raises(ValueError, match=".npz"):
         CorpusIndex(DOCS[:10], dtype="int8", device="cpu").save("index.bin")
+
+
+def _padded_batches():
+    """300 ragged docs as padded (B, 14, D) batches with masks, cut so that
+    the adds straddle the 128-doc tile boundaries: 100 + 60 + 140."""
+    padded = np.zeros((len(DOCS), 14, DIM), np.float32)
+    mask = np.zeros((len(DOCS), 14), np.float32)
+    for i, d in enumerate(DOCS):
+        padded[i, : len(d)], mask[i, : len(d)] = d, 1.0
+    padded += (1 - mask)[..., None] * 0.5  # garbage under the mask: add() must zero it
+    return [(padded[a:b], mask[a:b]) for a, b in ((0, 100), (100, 160), (160, 300))]
+
+
+@pytest.mark.parametrize("kw", [dict(dtype="int8", prefilter="binary", coarse_pool=1),
+                                dict(dtype="int8", prefilter="binary", coarse_pool=2),
+                                dict(dtype="int8"), dict(dtype="bf16")], ids=str)
+def test_device_index_builder_bytes_equal_the_jax_builder(kw):
+    ours, theirs = DeviceIndexBuilder(doc_tokens=14, dim=DIM, **kw), JaxBuilder(doc_tokens=14, dim=DIM, **kw)
+    for emb, mask in _padded_batches():
+        ours.add(torch.from_numpy(emb), mask=torch.from_numpy(mask))
+        theirs.add(jnp.asarray(emb), mask=jnp.asarray(mask))
+    index, jax_index = ours.build(), theirs.build()
+    assert (index.num_docs, index.doc_tokens, index.padded_docs, index.nbytes) == \
+        (jax_index.num_docs, jax_index.doc_tokens, jax_index.padded_docs, jax_index.nbytes) == (300, 16, 384, index.nbytes)
+    _bytes_equal(jax_index, index)
+    (scores, ids), (host_scores, host_ids) = index.search(QUERIES, k=5), \
+        CorpusIndex(DOCS, device="cpu", doc_tokens=16, **kw).search(QUERIES, k=5)
+    np.testing.assert_array_equal(ids, host_ids)  # the device-built index serves like the host-packed one
+    np.testing.assert_allclose(scores, host_scores, rtol=1e-4)
+    with pytest.raises(RuntimeError, match="finalized"):
+        ours.add(torch.zeros(1, 14, DIM))
+
+
+def test_device_index_builder_validation():
+    with pytest.raises(NotImplementedError, match="token_pooling"):
+        DeviceIndexBuilder(doc_tokens=16, dim=DIM, pool_factor=2)
+    with pytest.raises(ValueError, match="coarse_pool must be >= 1"):
+        DeviceIndexBuilder(doc_tokens=16, dim=DIM, prefilter="binary", coarse_pool=0)
+    with pytest.raises(ValueError, match="requires prefilter"):
+        DeviceIndexBuilder(doc_tokens=16, dim=DIM, coarse_pool=2)
+    with pytest.raises(ValueError, match="must divide"):
+        DeviceIndexBuilder(doc_tokens=16, dim=DIM, prefilter="binary", coarse_pool=3)
+    index_builder = DeviceIndexBuilder(doc_tokens=16, dim=DIM)
+    with pytest.raises(ValueError, match="No documents"):
+        index_builder.build()
+    with pytest.raises(ValueError, match="tokens > doc_tokens"):
+        index_builder.add(torch.zeros(2, 17, DIM))
+    with pytest.raises(ValueError, match="dim mismatch"):
+        index_builder.add(torch.zeros(2, 16, DIM + 1))
