@@ -41,7 +41,15 @@ Phases (a few lines of output each, then two JSON lines):
    index of the same pages with bf16 queries by K4); the merged export; a
    run resumed from the step-2 checkpoint repeating step 3's loss; 6 steps
    on one repeated batch at the recipe's rate lowering the loss; and a train step timed with and
-   without remat (forward, backward, optimizer by CUDA events, peak memory).
+   without remat (forward, backward, optimizer by CUDA events, peak memory);
+6. ops entry points (run between phases 2 and 3): K8, K9 and K10 (token-major
+   MaxSim) over token-major copies of phase 2's corpora at B=1 and B=8, Nq=32,
+   against their plain versions and bit-equal to K5, K4 and K3, and
+   ``maxsim_topk_tm(k=100)``; K11 (seq-major flash) at the seq-major probe's
+   shapes (ColQwen2 vision and text, SigLIP, a padded validation case, causal
+   GQA) against its plain version and beside SDPA. Phase 4 also builds a bf16
+   two-tier index of its pages (K1 and K2 over a bf16 store) and finds each
+   planted page at rank 1.
 
 It exits non-zero, printing no result, when no CUDA device is visible or
 any check fails. The line before the last lists each kernel with its
@@ -64,6 +72,8 @@ import torch.nn.functional as F
 
 from colpali_tpu_torch.ops import _cuda
 from colpali_tpu_torch.ops import flash_attention as fa
+from colpali_tpu_torch.ops import maxsim_token_major as tm
+from colpali_tpu_torch.ops.flash_seqmajor import FLASH_SEQMAJOR, flash_seqmajor, flash_seqmajor_plain
 from colpali_tpu_torch.ops.maxsim_binary import (
     BINARY_MAXSIM,
     binary_maxsim_tiled,
@@ -72,11 +82,12 @@ from colpali_tpu_torch.ops.maxsim_binary import (
 from colpali_tpu_torch.ops.maxsim_tiled import (
     DOC_TILE,
     GATHER_RERANK,
+    GATHER_RERANK_BF16,
     MAXSIM_BF16,
     MAXSIM_INT8,
     MAXSIM_INT8_BF16,
-    gather_rerank_int8,
     gather_rerank_plain,
+    gather_rerank_tiled,
     maxsim_int8_tiled,
     maxsim_int8_tiled_plain,
     maxsim_int8mxu_tiled,
@@ -85,6 +96,7 @@ from colpali_tpu_torch.ops.maxsim_tiled import (
     maxsim_tiled_plain,
 )
 from colpali_tpu_torch.ops.quant import binarize_words, quantize_per_token
+from colpali_tpu_torch.utils.tensor_utils import top_k
 
 SEED = 0
 CORPUS_DOCS = 999_936  # 7,812 tiles of 128 docs
@@ -119,9 +131,26 @@ KERNELS = {
     "flash_attention_bwd": dict(counter=fa.FLASH_ATTENTION_BWD, route="cuda",
                                 source="colpali_tpu_torch/csrc/flash_attention_bwd.cu",
                                 replaces="colpali_tpu/models/layers.py:380"),
+    "maxsim_pallas_tm": dict(counter=tm.MAXSIM_BF16_TM, route="cuda",
+                             source="colpali_tpu_torch/csrc/maxsim_bf16.cu",
+                             replaces="colpali_tpu/ops/maxsim_pallas.py:146"),
+    "maxsim_pallas_int8_tm": dict(counter=tm.MAXSIM_INT8_BF16_TM, route="cuda",
+                                  source="colpali_tpu_torch/csrc/maxsim_bf16.cu",
+                                  replaces="colpali_tpu/ops/maxsim_pallas.py:209"),
+    "maxsim_pallas_int8mxu_tm": dict(counter=tm.MAXSIM_INT8_TM, route="cuda",
+                                     source="colpali_tpu_torch/csrc/maxsim_int8.cu",
+                                     replaces="colpali_tpu/ops/maxsim_pallas.py:296"),
+    "flash_seqmajor": dict(counter=FLASH_SEQMAJOR, route="cuda",
+                           source="colpali_tpu_torch/csrc/flash_attention.cu",
+                           replaces="colpali_tpu/ops/flash_seqmajor.py:168"),
+    "gather_rerank_bf16": dict(counter=GATHER_RERANK_BF16, route="cuda",
+                               source="colpali_tpu_torch/csrc/gather_rerank.cu",
+                               replaces="colpali_tpu/ops/maxsim_pallas.py:512"),
 }
 SERVING_KERNELS = ("binary_maxsim", "gather_rerank", "maxsim_int8", "flash_attention")  # the paths of phases 3-4
 TRAINING_KERNELS = ("maxsim_bf16", "flash_attention", "flash_attention_bwd")  # phase 5's: the steps and the eval
+OPS_KERNELS = ("maxsim_pallas_tm", "maxsim_pallas_int8_tm", "maxsim_pallas_int8mxu_tm", "flash_seqmajor")  # phase 6's
+BF16_INDEX_KERNELS = ("binary_maxsim", "gather_rerank_bf16")  # the bf16 two-tier index's searches in phase 4
 # K4 (maxsim_int8_bf16) is on no training path: evaluate() builds a bf16 index. Its path is CorpusIndex.search on
 # an int8 index with quantize_queries=False, driven and counted on its own in phase 5
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s and operations/s by type
@@ -222,7 +251,7 @@ def make_corpus(gen: torch.Generator, num_docs: int, device: torch.device):
     return store, scales, bwords
 
 
-def phase_kernels(device: torch.device) -> dict:
+def phase_kernels(device: torch.device) -> tuple:
     """Each kernel against its plain version on both ends of the corpus (the
     last tiles sit past 2^31 bytes) at the bench shape (Nq=32) and at the
     shapes the served path gives it (queries padded to SERVED_TOKENS, up to
@@ -266,7 +295,7 @@ def phase_kernels(device: torch.device) -> dict:
         for sl in ends:
             check("binary_maxsim", full[:, cols(sl)], binary_maxsim_tiled_plain(qw, qv, bwords[sl], DIM))
         c = cand[: shape[0]].contiguous()
-        check("gather_rerank", gather_rerank_int8(q[shape], store, scales, c),
+        check("gather_rerank", gather_rerank_tiled(q[shape], store, scales, c),
               gather_rerank_plain(q[shape], store, scales, c))
     for shape in [(1, QUERY_TOKENS), (8, QUERY_TOKENS), (64, SERVED_TOKENS)]:
         qi, qs = quant[shape]
@@ -302,7 +331,7 @@ def phase_kernels(device: torch.device) -> dict:
         return lambda: fn(*words[shape], bwords, DIM)
 
     def k2(shape, plain=False):
-        fn = gather_rerank_plain if plain else gather_rerank_int8
+        fn = gather_rerank_plain if plain else gather_rerank_tiled
         return lambda: fn(q[shape], store, scales, cand[: shape[0]].contiguous())
 
     def k3(shape, plain=False):
@@ -350,9 +379,193 @@ def phase_kernels(device: torch.device) -> dict:
         served = f"served shape {r['ms_served']:.3f} ms, " if "ms_served" in r else ""
         log(f"  {name} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms{extra}, "
             f"{served}bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g}")
-    del store, scales, bwords, bstore
+    del bwords
     torch.cuda.empty_cache()
-    return results
+    return results, (store, scales, bstore)  # phase 6 makes token-major copies of them
+
+
+# -- phase 6: the ops entry points (run after phase 2) ------------------------------
+
+# perf/flash_seq_probe.py's shapes, (B, S, H, Hkv, D, causal, pad): the last `pad` tokens of row 0 take a pad segment
+K11_SHAPES = {
+    "colqwen2_vision": (8, 2464, 16, 16, 80, False, 0),
+    "siglip": (8, 1024, 16, 16, 72, False, 0),
+    "colqwen2_text_gqa": (8, 768, 12, 2, 128, False, 0),
+    "colqwen2_text_gqa_causal": (8, 768, 12, 2, 128, True, 0),
+    "validate": (2, 1024, 16, 16, 80, False, 31),
+}
+
+
+def token_major(tiled: torch.Tensor) -> torch.Tensor:
+    """A token-major ``(Np, C, ...)`` copy of a tile-major ``(nt, Np, 128,
+    ...)`` tensor, made a chunk of tiles at a time."""
+    nt, np_, rest = tiled.shape[0], tiled.shape[1], tiled.shape[3:]
+    out = torch.empty((np_, nt * DOC_TILE, *rest), dtype=tiled.dtype, device=tiled.device)
+    for s0 in range(0, nt, 256):
+        k = min(256, nt - s0)
+        out[:, s0 * DOC_TILE : (s0 + k) * DOC_TILE] = tiled[s0 : s0 + k].transpose(0, 1).reshape(np_, k * DOC_TILE,
+                                                                                                  *rest)
+    return out
+
+
+def k11_case(q, k, v, seg, causal: bool, got: torch.Tensor) -> dict:
+    """K11's output ``got`` against its plain version on the valid rows, by
+    K6's rule with the RMS per query row (the first rows under a causal mask
+    have a few keys and outputs of order 1); where no causal mask makes rows
+    unlike, also by K6's rule with one RMS. Timed beside SDPA with the masks
+    this case needs."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    scale = d**-0.5
+    rows = seg.bool()
+    want = flash_seqmajor_plain(q, k, v, seg, scale, causal)[rows].float()
+    g = got[rows].float()
+    err = (g - want).abs()
+    share = (err / (K6_ATOL_RMS * want.pow(2).mean(dim=(1, 2), keepdim=True).sqrt() + K6_RTOL * want.abs())).max().item()
+    share_global = (err / (K6_ATOL_RMS * want.pow(2).mean().sqrt() + K6_RTOL * want.abs())).max().item()
+    if not (share <= 1.0 and (causal or share_global <= 1.0)):
+        raise AssertionError(f"K11 B={b} S={s} H={h}/{hkv} D={d} causal={causal} vs plain: {share:.2f} of the "
+                             f"tolerance by row RMS, {share_global:.2f} by one RMS")
+    max_abs_err = err.max().item()
+    del want, g, err
+    allowed = seg[:, :, None] == seg[:, None, :]
+    if causal:
+        allowed = allowed & torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    padded = not bool(seg.all())
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed[:, None] if padded else None,
+                                              is_causal=causal and not padded, scale=scale, enable_gqa=h != hkv)
+
+    pairs = allowed.sum().item()  # (query, key) pairs that this data attends
+    return dict(ms=time_ms(lambda: flash_seqmajor(q, k, v, seg, scale, causal)),
+                plain_ms=time_ms(lambda: flash_seqmajor_plain(q, k, v, seg, scale, causal), reps=2),
+                library_ms=time_ms(sdpa), max_abs_err=max_abs_err, limit_share=share, limit_share_one_rms=share_global,
+                **bound(2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * seg.numel(), 4 * pairs * h * d, "bf16"),
+                shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}" + (" causal" if causal else "")
+                      + (f" last {s - int(seg[0].sum())} tokens of row 0 padded" if padded else ""))
+
+
+def phase_ops(device: torch.device, store: torch.Tensor, scales: torch.Tensor, bstore: torch.Tensor) -> tuple:
+    """Drive the ops entry points of K8-K11 at full width: token-major MaxSim
+    over copies of phase 2's corpora, and seq-major flash attention at the
+    probe's shapes. Returns the launches over those calls and the timings."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    docs_tm, scales_tm, bdocs_tm = token_major(store), token_major(scales), token_major(bstore)
+    torch.cuda.synchronize()
+    n_tiles, bf16_tiles = store.shape[0], bstore.shape[0]
+    log(f"phase ops: token-major copies {tuple(docs_tm.shape)} int8 + {tuple(scales_tm.shape)} scales and "
+        f"{tuple(bdocs_tm.shape)} bf16 made in {time.perf_counter() - t0:.1f} s")
+
+    def queries(b):
+        q = torch.randn((b, QUERY_TOKENS, DIM), generator=gen, device=device)
+        q[:, -3:] = 0.0  # padded query tokens
+        return q / q.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+
+    q = {b: queries(b) for b in (1, 8)}
+    quant = {b: quantize_per_token(x) for b, x in q.items()}
+    flash_in = {}
+    for case, (b, s, h, hkv, d, causal, pad) in K11_SHAPES.items():
+        qkv = [torch.randn((b, s, n, d), generator=gen, device=device).to(torch.bfloat16) for n in (h, hkv, hkv)]
+        seg = torch.ones((b, s), dtype=torch.int32, device=device)
+        if pad:
+            seg[0, s - pad :] = 0
+        flash_in[case] = (*qkv, seg, causal)
+
+    # the entry points, counted
+    reset_launches()
+    out = {}
+    for b in q:
+        out["k8", b] = tm.maxsim_pallas_tm(q[b], bdocs_tm)
+        out["k9", b] = tm.maxsim_pallas_int8_tm(q[b], docs_tm, scales_tm)
+        out["k10", b] = tm.maxsim_pallas_int8mxu_tm(*quant[b], docs_tm, scales_tm)
+    top_scores, top_ids = tm.maxsim_topk_tm(q[8], bdocs_tm, k=100)
+    flash_out = {case: flash_seqmajor(qq, kk, vv, seg, qq.shape[3] ** -0.5, causal)
+                 for case, (qq, kk, vv, seg, causal) in flash_in.items()}
+    torch.cuda.synchronize()
+    launches = read_launches("ops entry points", OPS_KERNELS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # K8-K10: against the plain versions at both ends, and bit for bit against K5, K4 and K3 in tile-major layout
+    errs = {name: 0.0 for name in OPS_KERNELS}
+
+    def check(name, got, want):
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        errs[name] = max(errs[name], (got - want).abs().max().item())
+
+    for b in q:
+        for sl in (slice(0, CHECK_TILES), slice(n_tiles - CHECK_TILES, n_tiles)):
+            cols = slice(sl.start * DOC_TILE, sl.stop * DOC_TILE)
+            check("maxsim_pallas_int8_tm", out["k9", b][:, cols],
+                  tm.maxsim_pallas_int8_tm_plain(q[b], docs_tm[:, cols], scales_tm[:, cols]))
+            check("maxsim_pallas_int8mxu_tm", out["k10", b][:, cols],
+                  tm.maxsim_pallas_int8mxu_tm_plain(*quant[b], docs_tm[:, cols], scales_tm[:, cols]))
+        for sl in (slice(0, CHECK_TILES), slice(bf16_tiles - CHECK_TILES, bf16_tiles)):
+            cols = slice(sl.start * DOC_TILE, sl.stop * DOC_TILE)
+            check("maxsim_pallas_tm", out["k8", b][:, cols], tm.maxsim_pallas_tm_plain(q[b], bdocs_tm[:, cols]))
+        for name, got, tile_major in (("K8 vs K5", out["k8", b], maxsim_tiled(q[b], bstore)),
+                                      ("K9 vs K4", out["k9", b], maxsim_int8_tiled(q[b], store, scales)),
+                                      ("K10 vs K3", out["k10", b], maxsim_int8mxu_tiled(*quant[b], store, scales))):
+            if not torch.equal(got, tile_major):
+                raise AssertionError(f"{name} at B={b}: not bit-equal, max abs diff "
+                                     f"{(got - tile_major).abs().max().item()}")
+    k5_scores, k5_ids = top_k(maxsim_tiled(q[8], bstore), 100)
+    if not (torch.equal(top_ids, k5_ids) and torch.equal(top_scores, k5_scores)):
+        raise AssertionError("maxsim_topk_tm(k=100) does not return the top-100 of K5's scores")
+    log(f"  K8, K9 and K10 over {n_tiles * DOC_TILE} (K8: {bf16_tiles * DOC_TILE}) docs at B=1 and B=8: within rtol "
+        f"{RTOL} atol {ATOL} of their plain versions on {CHECK_TILES} tiles at each end, bit-equal to K5, K4 and K3 "
+        f"in tile-major layout; maxsim_topk_tm(k=100) = K5's top-100; peak device memory {peak:.2f} GiB")
+
+    def k8(b, plain=False):
+        fn = tm.maxsim_pallas_tm_plain if plain else tm.maxsim_pallas_tm
+        return lambda: fn(q[b], bdocs_tm)
+
+    def k9(b, plain=False):
+        fn = tm.maxsim_pallas_int8_tm_plain if plain else tm.maxsim_pallas_int8_tm
+        return lambda: fn(q[b], docs_tm, scales_tm)
+
+    def k10(b, plain=False):
+        fn = tm.maxsim_pallas_int8mxu_tm_plain if plain else tm.maxsim_pallas_int8mxu_tm
+        return lambda: fn(*quant[b], docs_tm, scales_tm)
+
+    results = {}
+    c, nq = n_tiles * DOC_TILE, QUERY_TOKENS
+    for name, fn, docs, per_token, kind, tile_major in (
+            ("maxsim_pallas_tm", k8, bf16_tiles * DOC_TILE, 2 * DIM, "bf16", "K5"),
+            ("maxsim_pallas_int8_tm", k9, c, DIM + 4, "bf16", "K4"),
+            ("maxsim_pallas_int8mxu_tm", k10, c, DIM + 4, "int8", "K3")):
+        q_bytes = DIM * (1 if kind == "int8" else 2) + (4 if kind == "int8" else 0)
+        r = results[name] = dict(ms=time_ms(fn(1), reps=3), plain_ms=time_ms(fn(1, True), reps=2),
+                                 ms_b8=time_ms(fn(8), reps=3), plain_ms_b8=time_ms(fn(8, True), reps=2),
+                                 max_abs_err=errs[name], library_ms=None,
+                                 **bound(docs * DOC_TOKENS * per_token + nq * q_bytes + docs * 4,
+                                         2 * nq * docs * DOC_TOKENS * DIM, kind),
+                                 shape=f"B=1 and B=8 Nq={nq} Np={DOC_TOKENS} C={docs} token-major")
+        b8 = bound(docs * DOC_TOKENS * per_token + 8 * nq * q_bytes + 8 * docs * 4, 2 * 8 * nq * docs * DOC_TOKENS * DIM,
+                   kind)
+        r.update(bound_ms_b8=b8["bound_ms"], bound_by_b8=b8["bound_by"], bit_equal_to=tile_major)
+        log(f"  {name} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, B=8 kernel "
+            f"{r['ms_b8']:.3f} ms, plain {r['plain_ms_b8']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"B=8 bound {r['bound_ms_b8']:.4f} ms ({r['bound_by_b8']}), max_abs_err {r['max_abs_err']:.3g}")
+    del docs_tm, scales_tm, bdocs_tm, out
+    torch.cuda.empty_cache()
+
+    k11 = {case: k11_case(qq, kk, vv, seg, causal, flash_out[case])
+           for case, (qq, kk, vv, seg, causal) in flash_in.items()}
+    for case, r in k11.items():
+        log(f"  K11 {case} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, SDPA "
+            f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
+            f"{r['max_abs_err']:.3g} ({r['limit_share']:.0%} of the tolerance by row RMS, "
+            f"{r['limit_share_one_rms']:.0%} by one RMS)")
+    results["flash_seqmajor"] = dict(k11["colqwen2_vision"], max_abs_err=max(r["max_abs_err"] for r in k11.values()),
+                                     **{case: r for case, r in k11.items() if case != "colqwen2_vision"})
+    del flash_in, flash_out
+    torch.cuda.empty_cache()
+    log(f"  launches over the entry-point calls {launches}")
+    return launches, results
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -673,6 +886,48 @@ def profile_page_forward(model, processor, device: torch.device) -> None:
         log(f"    {ms:8.2f} ms  {name[:110]}")
 
 
+def bf16_index_check(device: torch.device, docs: list, planted: list, queries: list, q: torch.Tensor) -> tuple:
+    """The default dtype on the two-tier route: a bf16 index of the page
+    index's docs with the sign-sketch prefilter, searched by K1 and K2 over
+    a bf16 store; each planted page at rank 1, one query per search. Then
+    K2 over bf16 against its plain version at the served shape (``q``: 4
+    queries padded to SERVED_TOKENS) and timed. Returns the launches over
+    the searches and the timing."""
+    from colpali_tpu_torch.retrieval.store import CorpusIndex
+
+    t0 = time.perf_counter()
+    index = CorpusIndex(docs, dtype="bf16", prefilter="binary", coarse_pool=COARSE_POOL, device=device)
+    t_build = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    top = [int(index.search([e], k=10)[1][0, 0]) for e in queries]
+    search_ms = (time.perf_counter() - t0) * 1e3 / len(queries)
+    launches = read_launches("bf16 two-tier index", BF16_INDEX_KERNELS)
+    if top != planted:
+        raise AssertionError(f"bf16 index, tiered route: rank 1 {top}, planted {planted}")
+    qw, qv = binarize_words(q)
+    _, cand = top_k(binary_maxsim_tiled(qw, qv, index._bwords, DIM)[:, : index.num_docs], CANDIDATES)
+    got = gather_rerank_tiled(q, index._store, None, cand)
+    want = gather_rerank_plain(q, index._store, None, cand)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    q1, cand1 = q[:1], cand[:1].contiguous()
+    nq = q.shape[1]
+    r = dict(ms=time_ms(lambda: gather_rerank_tiled(q1, index._store, None, cand1)),
+             plain_ms=time_ms(lambda: gather_rerank_plain(q1, index._store, None, cand1), 2),
+             max_abs_err=(got - want).abs().max().item(), library_ms=None,
+             **bound(CANDIDATES * PAGE_DOC_TOKENS * 2 * DIM + nq * DIM * 4 + CANDIDATES * 8,
+                     2 * nq * CANDIDATES * PAGE_DOC_TOKENS * DIM, "fp32"),
+             shape=f"B=1 Nq={nq} c={CANDIDATES} Np={PAGE_DOC_TOKENS} bf16 store")
+    log(f"  bf16 index: {index.num_docs} docs x {index.doc_tokens} x {index.dim} bf16 + sketch pool "
+        f"{index.coarse_pool} ({index.nbytes} bytes), built on the host in {t_build:.1f} s; each of "
+        f"{len(planted)} pages at rank 1 on the tiered route ({search_ms:.1f} ms a search); launches {launches}")
+    log(f"  gather_rerank_bf16 [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g}")
+    del index
+    torch.cuda.empty_cache()
+    return launches, r
+
+
 def phase_pages(device: torch.device, model, processor, encoder) -> tuple:
     """Drive the page-embedding path: pages -> embeddings -> a served
     two-tier index. Returns the launches over the path, K6's timings, K1-K3's
@@ -682,12 +937,6 @@ def phase_pages(device: torch.device, model, processor, encoder) -> tuple:
 
     from colpali_tpu_torch import serve
     from colpali_tpu_torch.ops.maxsim_binary import binary_maxsim_tiled, binary_maxsim_tiled_plain
-    from colpali_tpu_torch.ops.maxsim_tiled import (
-        gather_rerank_int8,
-        gather_rerank_plain,
-        maxsim_int8mxu_tiled,
-        maxsim_int8mxu_tiled_plain,
-    )
     from colpali_tpu_torch.retrieval.ingest import embed_pages_fused
     from colpali_tpu_torch.retrieval.store import CorpusIndex, top_k
 
@@ -729,7 +978,7 @@ def phase_pages(device: torch.device, model, processor, encoder) -> tuple:
     t0 = time.perf_counter()
     index = CorpusIndex(docs, dtype="int8", prefilter="binary", coarse_pool=COARSE_POOL, device=device)
     t_build = time.perf_counter() - t0
-    del docs, fill, rows
+    del fill, rows  # docs stays for the bf16 index below
     if index.doc_tokens != PAGE_DOC_TOKENS:
         raise AssertionError(f"doc_tokens {index.doc_tokens} != {PAGE_DOC_TOKENS}")
     log(f"  index: {index.num_docs} docs x {index.doc_tokens} x {index.dim} int8 + sketch pool {index.coarse_pool} "
@@ -781,7 +1030,7 @@ def phase_pages(device: torch.device, model, processor, encoder) -> tuple:
     if k1_err != 0.0:
         raise AssertionError(f"K1 differs from its plain version at Np={PAGE_DOC_TOKENS}: {k1_err}")
     _, cand = top_k(coarse[:, : index.num_docs], CANDIDATES)
-    got = gather_rerank_int8(q, index._store, index._scales, cand)
+    got = gather_rerank_tiled(q, index._store, index._scales, cand)
     want = gather_rerank_plain(q, index._store, index._scales, cand)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
     k2_err = (got - want).abs().max().item()
@@ -799,7 +1048,7 @@ def phase_pages(device: torch.device, model, processor, encoder) -> tuple:
                               plain_ms=time_ms(lambda: binary_maxsim_tiled_plain(qw1, qv1, index._bwords, DIM), 2),
                               max_abs_err=k1_err,
                               **bound(c * w * npc * 4 + nq * (w + 1) * 4 + c * 4, 2 * nq * c * npc * DIM, "int8")),
-        "gather_rerank": dict(ms=time_ms(lambda: gather_rerank_int8(q1, index._store, index._scales, cand1)),
+        "gather_rerank": dict(ms=time_ms(lambda: gather_rerank_tiled(q1, index._store, index._scales, cand1)),
                               plain_ms=time_ms(lambda: gather_rerank_plain(q1, index._store, index._scales, cand1), 2),
                               max_abs_err=k2_err,
                               **bound(CANDIDATES * PAGE_DOC_TOKENS * (DIM + 4) + nq * DIM * 4 + CANDIDATES * 8,
@@ -817,10 +1066,12 @@ def phase_pages(device: torch.device, model, processor, encoder) -> tuple:
     for name, r in page.items():
         log(f"  {name} at Np={PAGE_DOC_TOKENS} [{shapes[name]}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g}")
-    profile_page_forward(model, processor, device)
     del index
     torch.cuda.empty_cache()
-    return launches, k6, page, dict(pages_per_min=PAGES / t_embed * 60, forward_check=fwd)
+    bf16 = bf16_index_check(device, docs, planted, queries, q)
+    del docs
+    profile_page_forward(model, processor, device)
+    return launches, k6, page, dict(pages_per_min=PAGES / t_embed * 60, forward_check=fwd), bf16
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -1270,10 +1521,15 @@ def main() -> int:
         return 1
     device = torch.device("cuda", 0)
     smi = phase_device()
-    timings = phase_kernels(device)
+    timings, corpora = phase_kernels(device)
+    ops_launches, ops = phase_ops(device, *corpora)
+    del corpora
+    torch.cuda.empty_cache()
+    timings.update(ops)
     model, processor, encoder = build_model(device)
     text_launches = phase_slice(device, encoder)
-    launches, k6, page, extra = phase_pages(device, model, processor, encoder)
+    launches, k6, page, extra, (bf16_launches, timings["gather_rerank_bf16"]) = phase_pages(device, model, processor,
+                                                                                           encoder)
     del encoder
     train_slice, train_steps, k6_bwd, eval_index, train_extra = phase_training(device, model, processor, smi)
     timings["flash_attention"] = dict(k6["siglip"], gemma_page=k6["gemma_page"], gemma_query=k6["gemma_query"])
@@ -1295,6 +1551,11 @@ def main() -> int:
             entry.update(launches=train_extra["int8_search_launches"], launches_training_slice=0,
                          launches_over="CorpusIndex.search, int8 index with quantize_queries=False, apart from the "
                                        "training slice")
+        if name in OPS_KERNELS:  # over phase 6's calls of the ops entry points
+            entry.update(launches=ops_launches[name], launches_over="the ops entry points, phase 6")
+        if name == "gather_rerank_bf16":  # over the bf16 page index's searches, phase 4
+            entry.update(launches=bf16_launches[name], launches_over="CorpusIndex.search on a bf16 two-tier index of "
+                                                                     "the pages, one query a search")
         if name in train_steps:
             entry["launches_train_steps"] = train_steps[name]
         kernels.append(dict(entry, **timings[name]))

@@ -1,7 +1,8 @@
-// K6: segment-masked flash attention forward, bf16 in and out.
+// K6: segment-masked flash attention forward, bf16 in and out; also K11.
 //
 // Replaces colpali_tpu/models/layers.py::flash_attention_padded, which drives
-// the stock Pallas TPU flash kernel through _flash_kernel_call. From
+// the stock Pallas TPU flash kernel through _flash_kernel_call, and
+// colpali_tpu/ops/flash_seqmajor.py::flash_seqmajor (K11). From
 // q (B, S, H, D) and k, v (B, S, Hkv, D) with H % Hkv == 0 and segment ids
 // seg (B, S) int32:
 //
@@ -33,6 +34,17 @@
 // free of bank conflicts. A row whose keys are all masked (impossible under
 // segment semantics, since a token matches itself) writes zeros instead of
 // dividing by zero. Offsets are 64-bit.
+//
+// K11 is this kernel. The seq-major TPU kernel exists to read (B, S, H, D)
+// blocks without the stock kernel's transposes, head-dim and sequence
+// padding and GQA repeat: on the TPU that glue costs HBM passes, and Mosaic
+// could not slice one head out of a seq-major block cheaply. Here the design
+// above already is that: strided seq-major reads, the KV head picked by
+// index, padding only in shared memory and masks past S. So K11 adds head
+// dims, not code: DP = 80 serves D = 80 (Qwen2-VL's vision tower; nothing is
+// zero-filled) as it serves D = 72, and DP = 128 serves D = 128 (its text
+// tower, GQA 12/2), whose O accumulator is 64 fp32 registers a thread, half
+// of D = 256's. ops/flash_seqmajor.py launches it and counts apart.
 //
 // Not yet done here (later work): cp.async/TMA double buffering of the K/V
 // tiles, wgmma, and skipping key tiles that share no segment with the block.
@@ -232,8 +244,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* seg,
 }  // namespace
 
 // Strides are in elements; the head dim of q, k and v must be contiguous,
-// d one of 72 and 256, and every row 16-byte aligned (the wrapper checks all
-// of it). lse, when not null, receives each row's log-sum-exp of the scaled
+// d one of 72, 80, 128 and 256, and every row 16-byte aligned (the wrapper
+// checks all of it). lse, when not null, receives each row's log-sum-exp of the scaled
 // logits in base 2 as (B, H, S) fp32, which the backward kernels read.
 extern "C" int colpali_flash_attention(const void* q, const void* k, const void* v, const void* seg, void* out,
                                        void* lse, int b, int s, int h, int hkv, int d, int64_t q_sb, int64_t q_ss,
@@ -242,9 +254,12 @@ extern "C" int colpali_flash_attention(const void* q, const void* k, const void*
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   const float scale_log2 = scale * 1.4426950408889634f;  // softmax in base 2
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {  // the head dims of the models that run it
-    case 72: return launch<80>(q, k, v, seg, out, lse, b, s, h, hkv, d, qs, ks, vs, scale_log2, causal, st);   // SigLIP
-    case 256: return launch<256>(q, k, v, seg, out, lse, b, s, h, hkv, d, qs, ks, vs, scale_log2, causal, st);  // Gemma
+  // the head dims of the models that run it: SigLIP 72, Qwen2-VL's vision tower 80 and text tower 128, Gemma 256
+  switch (d) {
+    case 72:
+    case 80: return launch<80>(q, k, v, seg, out, lse, b, s, h, hkv, d, qs, ks, vs, scale_log2, causal, st);
+    case 128: return launch<128>(q, k, v, seg, out, lse, b, s, h, hkv, d, qs, ks, vs, scale_log2, causal, st);
+    case 256: return launch<256>(q, k, v, seg, out, lse, b, s, h, hkv, d, qs, ks, vs, scale_log2, causal, st);
     default: return cudaErrorInvalidValue;
   }
 }

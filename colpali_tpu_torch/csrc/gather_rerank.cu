@@ -4,23 +4,26 @@
 // together with the rerank in colpali_tpu/retrieval/store.py::gather_rerank.
 // For each query b and candidate j with doc id i = cand[b, j]:
 //
-//   doc[t, :] = float(store[i / 128, t, i % 128, :]) * scales[i / 128, t, i % 128]
+//   doc[t, :] = float(store[i / 128, t, i % 128, :]) * scales[i / 128, t, i % 128]   (int8 store)
+//   doc[t, :] = float(store[i / 128, t, i % 128, :])                                 (bf16 store)
 //   out[b, j] = sum_n max_t (q[b, n, :] . doc[t, :])
 //
-// in fp32, queries not quantized. The TPU path gathers the (c, Np, D) docs
+// in fp32, queries not quantized: one template over the store's type, as the
+// JAX rerank takes either store. The TPU path gathers the (c, Np, D) docs
 // into HBM first; here nothing but the (B, c) scores is written.
 //
 // What bounds it on an H100: at Np = 64 the latency of the scattered reads.
 // A candidate is Np rows of D bytes, each 128 * D bytes apart in the
 // tile-major store, so the c = 1024 shortlist is 8 MB of 128-byte reads
 // spread over the corpus. At a full page (Np = 1,040, Nq = 64) the fp32
-// products, 8.5 M FMA per candidate on the CUDA cores, outweigh its 133 KB.
+// products, 8.5 M FMA per candidate on the CUDA cores, outweigh its 133 KB
+// (266 KB in bf16: the same products, so about the same time).
 //
 // Design: one block of 128 threads per (query, candidate). The block stages
 // the fp32 query once (zero rows up to a multiple of kQBlock query tokens),
 // then streams the candidate's doc tokens through shared memory in chunks of
-// kChunk rows, dequantized on the way in, so shared memory does not grow with
-// Np: a full page (Np = 1,040) takes 17 chunks, the bench's Np = 64 one. Each
+// kChunk rows, dequantized (or upcast) to fp32 on the way in, so shared
+// memory does not grow with Np: a full page (Np = 1,040) takes 17 chunks, the bench's Np = 64 one. Each
 // thread owns a 4 x 8 register tile of dot products, query tokens tq + 16 i
 // against doc tokens tt + 8 j (tq = tid / 8, tt = tid % 8), read as float4
 // along D from rows padded by 4 floats: 12 conflict-free 16-byte loads feed
@@ -31,17 +34,30 @@
 // over query tokens in query order. D must be a multiple of 4. An id outside
 // the store writes NaN instead of reading out of bounds. Offsets are 64-bit.
 
+#include <cuda_bf16.h>
+#include <math_constants.h>
+
 #include "common.cuh"
 
-#include <math_constants.h>
+namespace {
 
 constexpr int kChunk = 64;   // doc tokens per shared-memory chunk: 8 token lanes x 8
 constexpr int kQBlock = 64;  // query tokens per pass over a chunk: 16 query lanes x 4
 
+// element i of doc row `row` as fp32: an int8 value times its token's scale, or a bf16 value upcast
+__device__ __forceinline__ float doc_value(const int8_t* store, const float* scales, int64_t row, int64_t i) {
+  return static_cast<float>(store[i]) * scales[row];
+}
+
+__device__ __forceinline__ float doc_value(const __nv_bfloat16* store, const float*, int64_t, int64_t i) {
+  return __bfloat162float(store[i]);
+}
+
+template <typename StoreT>
 __global__ void __launch_bounds__(128)
     gather_rerank_kernel(const float* __restrict__ q,        // (B, Nq, D)
-                         const int8_t* __restrict__ store,   // (nt, Np, 128, D)
-                         const float* __restrict__ scales,   // (nt, Np, 128)
+                         const StoreT* __restrict__ store,   // (nt, Np, 128, D)
+                         const float* __restrict__ scales,   // (nt, Np, 128); unused for a bf16 store
                          const int32_t* __restrict__ cand,   // (B, c)
                          float* __restrict__ out,            // (B, c)
                          int nq, int c, int np_, int d, int64_t n_tiles) {
@@ -76,7 +92,7 @@ __global__ void __launch_bounds__(128)
       const int t = e / d;
       const int k = e % d;
       const int64_t row = (tile * np_ + t0 + t) * DOC_TILE + lane;
-      s_doc[t * ld + k] = static_cast<float>(store[row * d + k]) * scales[row];
+      s_doc[t * ld + k] = doc_value(store, scales, row, row * d + k);
     }
     __syncthreads();
 
@@ -125,19 +141,33 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-extern "C" int colpali_gather_rerank(const void* q, const void* store, const void* scales,
-                                     const void* cand, void* out, int b, int nq, int c, int np_,
-                                     int d, int64_t n_tiles, void* stream) {
+template <typename StoreT>
+cudaError_t launch(const void* q, const void* store, const void* scales, const void* cand, void* out, int b, int nq,
+                   int c, int np_, int d, int64_t n_tiles, cudaStream_t stream) {
   if (d % 4 != 0) return cudaErrorInvalidValue;
   const size_t nq_pad = (static_cast<size_t>(nq) + kQBlock - 1) / kQBlock * kQBlock;
   const size_t smem = ((kChunk + nq_pad) * (d + 4) + nq_pad) * sizeof(float);
-  cudaError_t err = colpali_allow_smem(gather_rerank_kernel, smem);
+  cudaError_t err = colpali_allow_smem(gather_rerank_kernel<StoreT>, smem);
   if (err != cudaSuccess) return err;
   const int64_t blocks = static_cast<int64_t>(b) * c;
-  gather_rerank_kernel<<<static_cast<unsigned int>(blocks), 128, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const int8_t*>(store),
-      static_cast<const float*>(scales), static_cast<const int32_t*>(cand),
-      static_cast<float*>(out), nq, c, np_, d, n_tiles);
+  gather_rerank_kernel<StoreT><<<static_cast<unsigned int>(blocks), 128, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const StoreT*>(store), static_cast<const float*>(scales),
+      static_cast<const int32_t*>(cand), static_cast<float*>(out), nq, c, np_, d, n_tiles);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// int8 store (nt, Np, 128, D) with (nt, Np, 128) fp32 scales
+extern "C" int colpali_gather_rerank(const void* q, const void* store, const void* scales,
+                                     const void* cand, void* out, int b, int nq, int c, int np_,
+                                     int d, int64_t n_tiles, void* stream) {
+  return launch<int8_t>(q, store, scales, cand, out, b, nq, c, np_, d, n_tiles, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 store (nt, Np, 128, D), no scales
+extern "C" int colpali_gather_rerank_bf16(const void* q, const void* store, const void* cand, void* out, int b,
+                                          int nq, int c, int np_, int d, int64_t n_tiles, void* stream) {
+  return launch<__nv_bfloat16>(q, store, nullptr, cand, out, b, nq, c, np_, d, n_tiles,
+                               static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,12 @@
 // K5 and K4: exact MaxSim of bf16 queries over the tile-major corpus, the
-// store held in bf16 (K5) or in int8 with per-token scales (K4).
+// store held in bf16 (K5) or in int8 with per-token scales (K4); K8 and K9:
+// the same over the token-major corpus.
 //
-// Replaces colpali_tpu/ops/maxsim_pallas.py::maxsim_pallas_tiled (K5) and
-// ::maxsim_pallas_int8_tiled (K4), which share _maxsim_body. Queries are
-// (B, Nq, D) bf16, the corpus is (n_tiles, Np, 128, D):
+// Replaces colpali_tpu/ops/maxsim_pallas.py::maxsim_pallas_tiled (K5),
+// ::maxsim_pallas_int8_tiled (K4), ::maxsim_pallas_tm (K8) and
+// ::maxsim_pallas_int8_tm (K9), which share _maxsim_body. Queries are
+// (B, Nq, D) bf16, the corpus is tile-major (n_tiles, Np, 128, D) or
+// token-major (Np, n_tiles * 128, D):
 //
 //   out[b, c] = sum_i max_t (q[b, i] . doc[c, t])      bf16 products, fp32 sums
 //
@@ -29,6 +32,14 @@
 // maxima go to shared memory and thread c sums the rows of each query for
 // doc c, in row order, so the result does not depend on scheduling. D is a
 // run-time multiple of 16. Offsets are 64-bit: a store passes 2^31 bytes.
+//
+// Layouts: both keep one doc token of a 128-doc tile as 128 contiguous rows
+// of D; only where that block starts differs. Its first row is
+// tile * tile_stride + t * token_stride: (Np * 128, 128) tile-major,
+// (128, C) token-major, and the scales follow the same two strides. So the
+// token-major kernels are this template with the other pair of strides and
+// give bit for bit the tile-major scores on the same data; only the token
+// blocks of a tile now lie C * D bytes apart instead of side by side.
 //
 // Not yet done here (later work): cp.async double buffering of the token
 // blocks, wgmma, and keeping the query fragments in registers.
@@ -65,7 +76,8 @@ __global__ void __launch_bounds__(kThreads)
                         const StoreT* __restrict__ store,     // (nt, Np, 128, D)
                         const float* __restrict__ scales,     // (nt, Np, 128); unused for a bf16 store
                         float* __restrict__ out,              // (B, nt * 128)
-                        int b, int nq, int np_, int d, int queries_per_cta, int groups, int64_t n_tiles) {
+                        int b, int nq, int np_, int d, int queries_per_cta, int groups, int64_t n_tiles,
+                        int64_t tile_stride, int64_t token_stride) {  // in rows of D: see Layouts above
   const int ld = d + 8, vec = d / 8;
   extern __shared__ int4 smem_raw[];
   __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // (kRows, ld)
@@ -100,7 +112,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 4; ++j) mx[i][j][0] = mx[i][j][1] = mx[i][j][2] = mx[i][j][3] = -CUDART_INF_F;
 
     for (int t = 0; t < np_; ++t) {
-      const int64_t token = (tile * np_ + t) * DOC_TILE;  // first doc row of this token block
+      const int64_t token = tile * tile_stride + t * token_stride;  // first doc row of this token block
       __syncthreads();  // the previous block is consumed (and the query rows stored)
       for (int e = tid; e < DOC_TILE * vec; e += kThreads) {
         const int r = e / vec, c = (e % vec) * 8;
@@ -160,7 +172,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename StoreT>
 cudaError_t launch(const void* q, const void* store, const void* scales, void* out, int b, int nq, int np_, int d,
-                   int64_t n_tiles, cudaStream_t stream) {
+                   int64_t n_tiles, bool token_major, cudaStream_t stream) {
   if (d % 16 != 0 || d <= 0 || nq <= 0) return cudaErrorInvalidValue;
   const int queries_per_cta = nq >= kRows ? 1 : kRows / nq;
   const int groups = (b + queries_per_cta - 1) / queries_per_cta;
@@ -173,9 +185,11 @@ cudaError_t launch(const void* q, const void* store, const void* scales, void* o
   if (err != cudaSuccess) return err;
   const int64_t blocks = n_tiles * groups;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int64_t tile_stride = token_major ? DOC_TILE : static_cast<int64_t>(np_) * DOC_TILE;
+  const int64_t token_stride = token_major ? n_tiles * DOC_TILE : DOC_TILE;
   maxsim_tiled_kernel<StoreT><<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const StoreT*>(store), static_cast<const float*>(scales),
-      static_cast<float*>(out), b, nq, np_, d, queries_per_cta, groups, n_tiles);
+      static_cast<float*>(out), b, nq, np_, d, queries_per_cta, groups, n_tiles, tile_stride, token_stride);
   return cudaGetLastError();
 }
 
@@ -184,11 +198,25 @@ cudaError_t launch(const void* q, const void* store, const void* scales, void* o
 // K5: q (B, Nq, D) bf16, store (n_tiles, Np, 128, D) bf16 -> out (B, n_tiles * 128) fp32.
 extern "C" int colpali_maxsim_bf16(const void* q, const void* store, void* out, int b, int nq, int np_, int d,
                                    int64_t n_tiles, void* stream) {
-  return launch<__nv_bfloat16>(q, store, nullptr, out, b, nq, np_, d, n_tiles, static_cast<cudaStream_t>(stream));
+  return launch<__nv_bfloat16>(q, store, nullptr, out, b, nq, np_, d, n_tiles, false,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // K4: the same over an int8 store with (n_tiles, Np, 128) fp32 scales.
 extern "C" int colpali_maxsim_int8_bf16(const void* q, const void* store, const void* scales, void* out, int b,
                                         int nq, int np_, int d, int64_t n_tiles, void* stream) {
-  return launch<int8_t>(q, store, scales, out, b, nq, np_, d, n_tiles, static_cast<cudaStream_t>(stream));
+  return launch<int8_t>(q, store, scales, out, b, nq, np_, d, n_tiles, false, static_cast<cudaStream_t>(stream));
+}
+
+// K8: K5 over a token-major store (Np, n_tiles * 128, D) bf16.
+extern "C" int colpali_maxsim_bf16_tm(const void* q, const void* store, void* out, int b, int nq, int np_, int d,
+                                      int64_t n_tiles, void* stream) {
+  return launch<__nv_bfloat16>(q, store, nullptr, out, b, nq, np_, d, n_tiles, true,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// K9: K4 over a token-major int8 store (Np, n_tiles * 128, D) with (Np, n_tiles * 128) fp32 scales.
+extern "C" int colpali_maxsim_int8_bf16_tm(const void* q, const void* store, const void* scales, void* out, int b,
+                                           int nq, int np_, int d, int64_t n_tiles, void* stream) {
+  return launch<int8_t>(q, store, scales, out, b, nq, np_, d, n_tiles, true, static_cast<cudaStream_t>(stream));
 }

@@ -2,7 +2,10 @@
 
 Counterpart of :mod:`colpali_tpu.ops.maxsim`: for every (query, doc) pair,
 each query token takes its max similarity over doc tokens, summed over
-query tokens. Zero-padded tokens score 0.
+query tokens. Zero-padded tokens score 0. :func:`score_single_vector` and
+:func:`score_multi_vector` are the reference library's scoring API
+(``processing_utils.py:103-187``); they take and return numpy arrays and
+compute on the CPU.
 """
 
 from __future__ import annotations
@@ -26,6 +29,13 @@ def maxsim(query_embeddings: torch.Tensor, doc_embeddings: torch.Tensor) -> torc
     return sim.reshape(b, nq, c, np_).amax(dim=3).sum(dim=1)
 
 
+def maxsim_pairwise(query_embeddings: torch.Tensor, doc_embeddings: torch.Tensor) -> torch.Tensor:
+    """Row-aligned MaxSim: query i against doc i only, ``(B, Nq, D)`` x
+    ``(B, Np, D)`` -> ``(B,)`` fp32 (products and sums in fp32)."""
+    sim = torch.einsum("bnd,bsd->bns", query_embeddings.float(), doc_embeddings.float())
+    return sim.amax(dim=2).sum(dim=1)
+
+
 def _as_list(xs: ArrayLike) -> List[np.ndarray]:
     if isinstance(xs, (list, tuple)):
         out = [np.asarray(x) for x in xs]
@@ -38,6 +48,18 @@ def _as_list(xs: ArrayLike) -> List[np.ndarray]:
     if xs.ndim == 3:
         return list(xs)
     raise ValueError("Expected a 3D array or a list of 2D arrays.")
+
+
+def score_single_vector(qs: ArrayLike, ps: ArrayLike) -> np.ndarray:
+    """Dot-product scores of single-vector (bi-encoder) embeddings ``(n_q, D)``
+    and ``(n_p, D)`` (or lists of ``(D,)`` vectors) -> ``(n_q, n_p)`` float32."""
+    def stacked(xs: ArrayLike, what: str) -> torch.Tensor:
+        arr = np.stack([np.asarray(x) for x in xs]) if isinstance(xs, (list, tuple)) and xs else np.asarray(xs)
+        if arr.shape[0] == 0:
+            raise ValueError(f"No {what} provided")
+        return torch.from_numpy(arr.astype(np.float32))
+
+    return (stacked(qs, "queries") @ stacked(ps, "passages").T).numpy()
 
 
 def score_multi_vector(

@@ -6,8 +6,9 @@ each one contiguous block (counterpart of the tile-major part of
 
 - K3, :func:`maxsim_int8mxu_tiled`: the full-int8 exact sweep over every
   doc (``csrc/maxsim_int8.cu``; replaces ``maxsim_pallas_int8mxu_tiled``).
-- K2, :func:`gather_rerank_int8`: exact fp32 MaxSim over candidate ids,
-  gathered and dequantized inside the kernel (``csrc/gather_rerank.cu``;
+- K2, :func:`gather_rerank_tiled`: exact fp32 MaxSim over candidate ids,
+  gathered and dequantized (int8 store) or upcast (bf16 store) inside the
+  kernel (``csrc/gather_rerank.cu``, one template over the store's type;
   replaces ``gather_candidates_pallas`` plus the rerank of
   ``retrieval/store.py::gather_rerank``).
 - K5, :func:`maxsim_tiled`, and K4, :func:`maxsim_int8_tiled`: bf16 queries
@@ -16,8 +17,9 @@ each one contiguous block (counterpart of the tile-major part of
   replace ``maxsim_pallas_tiled`` and ``maxsim_pallas_int8_tiled``).
 
 Each wrapper takes its plain PyTorch version (``*_plain``) only when given
-CPU tensors; for CUDA tensors it launches its kernel or raises. K2 over a
-bf16 store is not ported yet and raises ``NotImplementedError`` on CUDA.
+CPU tensors; for CUDA tensors it launches its kernel or raises. The
+token-major kernels K8 to K10 (:mod:`colpali_tpu_torch.ops.maxsim_token_major`)
+are the K5, K4 and K3 templates with the other layout.
 """
 
 from __future__ import annotations
@@ -33,8 +35,14 @@ _PLAIN_CHUNK_ELEMS = 1 << 26  # bound on a plain version's fp32 intermediates
 
 MAXSIM_INT8 = CudaKernel("colpali_maxsim_int8", [P, P, P, P, P, I32, I32, I32, I32, I64])
 GATHER_RERANK = CudaKernel("colpali_gather_rerank", [P, P, P, P, P, I32, I32, I32, I32, I32, I64])
+GATHER_RERANK_BF16 = CudaKernel("colpali_gather_rerank_bf16", [P, P, P, P, I32, I32, I32, I32, I32, I64])
 MAXSIM_BF16 = CudaKernel("colpali_maxsim_bf16", [P, P, P, I32, I32, I32, I32, I64])
 MAXSIM_INT8_BF16 = CudaKernel("colpali_maxsim_int8_bf16", [P, P, P, P, I32, I32, I32, I32, I64])
+
+
+def to_token_major(doc_embeddings: torch.Tensor) -> torch.Tensor:
+    """(C, Np, D) doc-major -> (Np, C, D) token-major (a view)."""
+    return doc_embeddings.transpose(0, 1)
 
 
 def to_tile_major(doc_embeddings_tm: torch.Tensor) -> torch.Tensor:
@@ -105,6 +113,13 @@ def maxsim_int8mxu_tiled(
         raise ValueError(f"query_scales {tuple(query_scales.shape)} != {(b, nq)}")
     if on_cpu(store):
         return maxsim_int8mxu_tiled_plain(query_int8, query_scales, store, scales)
+    return _maxsim_int8_cuda(MAXSIM_INT8, query_int8, query_scales, store, scales, np_, nt)
+
+
+def _maxsim_int8_cuda(kernel: CudaKernel, query_int8: torch.Tensor, query_scales: torch.Tensor,
+                      store: torch.Tensor, scales: torch.Tensor, np_: int, nt: int) -> torch.Tensor:
+    """Launch K3 or K10 (``kernel``) over ``nt`` tiles of ``np_`` doc tokens."""
+    b, nq, d = query_int8.shape
     dev = store.device
     check_cuda("query_int8", query_int8, torch.int8, dev)
     check_cuda("query_scales", query_scales, torch.float32, dev)
@@ -113,8 +128,8 @@ def maxsim_int8mxu_tiled(
     if d not in (64, 128, 256):
         raise ValueError(f"the int8 kernel takes dim 64, 128 or 256, got {d}")
     out = torch.empty((b, nt * DOC_TILE), dtype=torch.float32, device=dev)
-    MAXSIM_INT8(dev, query_int8.data_ptr(), query_scales.data_ptr(), store.data_ptr(),
-                scales.data_ptr(), out.data_ptr(), b, nq, np_, d, nt)
+    kernel(dev, query_int8.data_ptr(), query_scales.data_ptr(), store.data_ptr(),
+           scales.data_ptr(), out.data_ptr(), b, nq, np_, d, nt)
     return out
 
 
@@ -140,16 +155,16 @@ def gather_rerank_plain(
     return sim.amax(dim=-1).sum(dim=1)
 
 
-def gather_rerank_int8(
+def gather_rerank_tiled(
     queries: torch.Tensor,
     store: torch.Tensor,
     scales: Optional[torch.Tensor],
     cand: torch.Tensor,
 ) -> torch.Tensor:
     """K2: fp32 queries ``(B, Nq, D)``, candidate doc ids ``(B, c)`` int32
-    into the tile-major store -> ``(B, c)`` exact fp32 MaxSim scores. On
-    CUDA only an int8 store with scales is supported (K2 over a bf16 store
-    is not ported yet)."""
+    into the tile-major store -> ``(B, c)`` exact fp32 MaxSim scores. The
+    store is int8 with its ``(nt, Np, DOC_TILE)`` fp32 scales, or bf16 with
+    ``scales=None``; on CUDA each launches its instance of the kernel."""
     b, nq, d = queries.shape
     nt, np_, _, _ = store.shape
     _check_store(store, scales, d)
@@ -157,22 +172,27 @@ def gather_rerank_int8(
         raise ValueError(f"cand {tuple(cand.shape)} must be (B={b}, c)")
     if on_cpu(store):
         return gather_rerank_plain(queries, store, scales, cand)
-    if scales is None:
-        raise NotImplementedError("K2 (candidate gather + rerank) over a bf16 store is not ported to CUDA "
-                                  "yet; use an int8 index, or a bf16 index without prefilter='binary'")
     dev = store.device
     check_cuda("queries", queries, torch.float32, dev)
-    check_cuda("store", store, torch.int8, dev)
-    check_cuda("scales", scales, torch.float32, dev)
+    check_cuda("store", store, torch.bfloat16 if scales is None else torch.int8, dev)
     check_cuda("cand", cand, torch.int32, dev)
     c = cand.shape[1]
     if d % 4:
         raise ValueError(f"the rerank kernel reads float4 rows: dim must be a multiple of 4, got {d}")
     out = torch.empty((b, c), dtype=torch.float32, device=dev)
-    if b * c:
+    if b * c == 0:
+        return out
+    if scales is None:
+        GATHER_RERANK_BF16(dev, queries.data_ptr(), store.data_ptr(), cand.data_ptr(), out.data_ptr(),
+                           b, nq, c, np_, d, nt)
+    else:
+        check_cuda("scales", scales, torch.float32, dev)
         GATHER_RERANK(dev, queries.data_ptr(), store.data_ptr(), scales.data_ptr(),
                       cand.data_ptr(), out.data_ptr(), b, nq, c, np_, d, nt)
     return out
+
+
+gather_rerank_int8 = gather_rerank_tiled  # its name from before it took a bf16 store
 
 
 # -- K4 (int8 store, bf16 queries) and K5 (bf16 store) --------------------------
@@ -210,9 +230,9 @@ def maxsim_tiled_plain(queries: torch.Tensor, store: torch.Tensor) -> torch.Tens
 
 
 def _maxsim_bf16_cuda(kernel: CudaKernel, queries: torch.Tensor, store: torch.Tensor,
-                      scales: Optional[torch.Tensor]) -> torch.Tensor:
+                      scales: Optional[torch.Tensor], np_: int, nt: int) -> torch.Tensor:
+    """Launch K4, K5, K8 or K9 (``kernel``) over ``nt`` tiles of ``np_`` doc tokens."""
     b, nq, d = queries.shape
-    nt, np_, _, _ = store.shape
     dev = store.device
     if queries.device != dev:
         raise ValueError(f"queries are on {queries.device}, expected {dev}")
@@ -240,7 +260,7 @@ def maxsim_int8_tiled(queries: torch.Tensor, store: torch.Tensor, scales: torch.
     _check_store(store, scales, queries.shape[-1])
     if on_cpu(store):
         return maxsim_int8_tiled_plain(queries, store, scales)
-    return _maxsim_bf16_cuda(MAXSIM_INT8_BF16, queries, store, scales)
+    return _maxsim_bf16_cuda(MAXSIM_INT8_BF16, queries, store, scales, store.shape[1], store.shape[0])
 
 
 def maxsim_tiled(queries: torch.Tensor, store: torch.Tensor) -> torch.Tensor:
@@ -249,4 +269,4 @@ def maxsim_tiled(queries: torch.Tensor, store: torch.Tensor) -> torch.Tensor:
     _check_store(store, None, queries.shape[-1])
     if on_cpu(store):
         return maxsim_tiled_plain(queries, store)
-    return _maxsim_bf16_cuda(MAXSIM_BF16, queries, store, None)
+    return _maxsim_bf16_cuda(MAXSIM_BF16, queries, store, None, store.shape[1], store.shape[0])

@@ -1,5 +1,7 @@
 """Base processor: the public API of the retrieval processors (counterpart
-of :mod:`colpali_tpu.processors.base`). Outputs are dicts of numpy arrays."""
+of :mod:`colpali_tpu.processors.base`). Outputs are dicts of numpy arrays;
+``score*`` is the reference library's scoring API on the plain MaxSim
+(``ops.maxsim``), as in JAX."""
 
 from __future__ import annotations
 
@@ -7,6 +9,9 @@ from abc import ABC, abstractmethod
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
+
+from colpali_tpu_torch.ops.maxsim import score_multi_vector as _score_multi_vector
+from colpali_tpu_torch.ops.maxsim import score_single_vector as _score_single_vector
 
 Batch = Dict[str, np.ndarray]
 
@@ -42,3 +47,15 @@ class BaseVisualRetrieverProcessor(ABC):
         if suffix is None:
             suffix = self.query_augmentation_token * 10
         return self.process_texts([self.query_prefix + t + suffix for t in texts])
+
+    def score(self, qs, ps, **kwargs) -> np.ndarray:
+        """Default scoring: late-interaction MaxSim -> ``(n_queries, n_passages)``."""
+        return self.score_multi_vector(qs, ps, **kwargs)
+
+    @staticmethod
+    def score_single_vector(qs, ps) -> np.ndarray:
+        return _score_single_vector(qs, ps)
+
+    @staticmethod
+    def score_multi_vector(qs, ps, batch_size: int = 128, **kwargs) -> np.ndarray:
+        return _score_multi_vector(qs, ps, batch_size=batch_size, **kwargs)

@@ -30,7 +30,7 @@ import torch
 from colpali_tpu_torch.ops.maxsim_binary import binary_maxsim_tiled, fill_doc_padding, words_to_tile_major
 from colpali_tpu_torch.ops.maxsim_tiled import (
     DOC_TILE,
-    gather_rerank_int8,
+    gather_rerank_tiled,
     maxsim_int8_tiled,
     maxsim_int8mxu_tiled,
     maxsim_tiled,
@@ -53,7 +53,7 @@ def gather_rerank(
     queries ``(B, Nq, D)`` fp32; store ``(nt, Np, DOC_TILE, D)`` int8 (+
     ``(nt, Np, DOC_TILE)`` fp32 scales) or bf16; cand ``(B, c)`` int32 doc
     ids. Returns ``(B, c)`` fp32 scores through the fused kernel K2."""
-    return gather_rerank_int8(queries.float().contiguous(), store, scales, cand.contiguous())
+    return gather_rerank_tiled(queries.float().contiguous(), store, scales, cand.contiguous())
 
 
 class CorpusIndex:

@@ -7,7 +7,7 @@ all-zero vectors, which MaxSim scores as 0.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,3 +60,31 @@ def pad_sequences(
         else:
             out[i, target - s.shape[0] :] = s
     return out
+
+
+def unbind_padded_multivector_embeddings(
+    embeddings: np.ndarray,
+    padding_value: float = 0.0,
+    padding_side: str = "left",
+) -> List[np.ndarray]:
+    """Split a padded ``(batch, seq, dim)`` batch back into ragged 2D arrays.
+
+    A position is padding iff every component equals ``padding_value``. With
+    left padding everything before the first non-padding row is dropped,
+    with right padding everything after the last one; padding-valued rows
+    inside a sequence stay."""
+    embeddings = np.asarray(embeddings)
+    if embeddings.ndim != 3:
+        raise ValueError("The input must be a 3D array (batch, seq, dim).")
+    if padding_side not in ("left", "right"):
+        raise ValueError("padding_side must be either 'left' or 'right'.")
+    results: List[np.ndarray] = []
+    for seq in embeddings:
+        idx = np.nonzero(~np.all(seq == padding_value, axis=-1))[0]
+        if idx.size == 0:
+            results.append(seq[:0])
+        elif padding_side == "left":
+            results.append(seq[idx[0] :])
+        else:
+            results.append(seq[: idx[-1] + 1])
+    return results

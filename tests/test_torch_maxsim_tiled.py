@@ -135,9 +135,9 @@ def test_plain_maxsim_and_score_multi_vector_match():
     """The plain MaxSim oracle (colpali_tpu_torch.ops.maxsim) against JAX's."""
     import importlib
 
-    from colpali_tpu_torch.ops import maxsim as tm
-
-    jm = importlib.import_module("colpali_tpu.ops.maxsim")  # the package re-exports a function of that name
+    # both packages re-export a function of the module's name
+    tm = importlib.import_module("colpali_tpu_torch.ops.maxsim")
+    jm = importlib.import_module("colpali_tpu.ops.maxsim")
 
     rng = np.random.default_rng(10)
     q = rng.normal(size=(2, 5, 32)).astype(np.float32)
