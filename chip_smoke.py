@@ -51,6 +51,13 @@ Phases (a few lines of output each, then two JSON lines):
    two-tier index of its pages (K1 and K2 over a bf16 store) and finds each
    planted page at rank 1.
 
+Every K6 and K11 case prints, beside its time by CUDA events, TFLOP/s,
+the share of its bound, and SDPA with a boolean mask and, where the
+segments are all one, without one (its flash backend); each forward case
+also the kernel's device time from ``torch.profiler`` (at small shapes
+back-to-back launches measure the host). The backward is read by events
+only: its dq kernel may run on a side stream beside dkv.
+
 It exits non-zero, printing no result, when no CUDA device is visible or
 any check fails. The line before the last lists each kernel with its
 launches on its slice's path; the last line is ``{"ok": true, "device": {...}}``.
@@ -185,6 +192,22 @@ def read_launches(phase: str, names=SERVING_KERNELS) -> dict:
     if not all(launches.values()):
         raise AssertionError(f"{phase}: a kernel of the path was not launched: {launches}")
     return launches
+
+
+def device_ms(fn, calls: int = 5) -> float:
+    """Device time of ``fn`` per call from ``torch.profiler``, summed over
+    the kernels it launches: their own time, where back-to-back launches of
+    a small kernel measure the host's launch rate instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / calls
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -439,12 +462,17 @@ def k11_case(q, k, v, seg, causal: bool, got: torch.Tensor) -> dict:
                                               is_causal=causal and not padded, scale=scale, enable_gqa=h != hkv)
 
     pairs = allowed.sum().item()  # (query, key) pairs that this data attends
-    return dict(ms=time_ms(lambda: flash_seqmajor(q, k, v, seg, scale, causal)),
-                plain_ms=time_ms(lambda: flash_seqmajor_plain(q, k, v, seg, scale, causal), reps=2),
-                library_ms=time_ms(sdpa), max_abs_err=max_abs_err, limit_share=share, limit_share_one_rms=share_global,
-                **bound(2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * seg.numel(), 4 * pairs * h * d, "bf16"),
-                shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}" + (" causal" if causal else "")
-                      + (f" last {s - int(seg[0].sum())} tokens of row 0 padded" if padded else ""))
+    r = dict(ms=time_ms(lambda: flash_seqmajor(q, k, v, seg, scale, causal)),
+             device_ms=device_ms(lambda: flash_seqmajor(q, k, v, seg, scale, causal)),
+             plain_ms=time_ms(lambda: flash_seqmajor_plain(q, k, v, seg, scale, causal), reps=2),
+             library_ms=time_ms(sdpa), max_abs_err=max_abs_err, limit_share=share, limit_share_one_rms=share_global,
+             **bound(2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * seg.numel(), 4 * pairs * h * d, "bf16"),
+             shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}" + (" causal" if causal else "")
+                   + (f" last {s - int(seg[0].sum())} tokens of row 0 padded" if padded else ""))
+    if not padded and not causal:  # K6's yardstick beside it: SDPA with the segments as a boolean mask
+        r["library_masked_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=allowed[:, None], scale=scale, enable_gqa=h != hkv))
+    return dict(r, **rates(4 * pairs * h * d, r))
 
 
 def phase_ops(device: torch.device, store: torch.Tensor, scales: torch.Tensor, bstore: torch.Tensor) -> tuple:
@@ -556,8 +584,8 @@ def phase_ops(device: torch.device, store: torch.Tensor, scales: torch.Tensor, b
     k11 = {case: k11_case(qq, kk, vv, seg, causal, flash_out[case])
            for case, (qq, kk, vv, seg, causal) in flash_in.items()}
     for case, r in k11.items():
-        log(f"  K11 {case} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, SDPA "
-            f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
+        log(f"  K11 {case} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"{library_note(r)}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
             f"{r['max_abs_err']:.3g} ({r['limit_share']:.0%} of the tolerance by row RMS, "
             f"{r['limit_share_one_rms']:.0%} by one RMS)")
     results["flash_seqmajor"] = dict(k11["colqwen2_vision"], max_abs_err=max(r["max_abs_err"] for r in k11.values()),
@@ -804,17 +832,35 @@ def k6_case(gen: torch.Generator, device: torch.device, b: int, s: int, h: int, 
     allowed = seg[:, :, None] == seg[:, None, :]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed[:, None], scale=scale,
-                                              enable_gqa=h != hkv)
+    def sdpa(mask):
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=h != hkv)
 
     pairs = allowed.sum().item()  # (query, key) pairs that this data attends
-    return dict(ms=time_ms(lambda: fa.flash_attention(q, k, v, seg, scale)),
-                plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, seg, scale), reps=2),
-                library_ms=time_ms(sdpa), max_abs_err=err.max().item(), atol=atol, limit_share=limit_share,
-                **bound(2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * seg.numel(),
-                        4 * pairs * h * d, "bf16"),
-                shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}" + ("" if lengths is None else " key padding"))
+    r = dict(ms=time_ms(lambda: fa.flash_attention(q, k, v, seg, scale)),
+             device_ms=device_ms(lambda: fa.flash_attention(q, k, v, seg, scale)),
+             plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, seg, scale), reps=2),
+             library_ms=time_ms(sdpa(allowed[:, None])), max_abs_err=err.max().item(), atol=atol,
+             limit_share=limit_share,
+             **bound(2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * seg.numel(), 4 * pairs * h * d, "bf16"),
+             shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}" + ("" if lengths is None else " key padding"))
+    if lengths is None:  # one segment: SDPA without a mask (its flash backend) computes the same function
+        r["library_unmasked_ms"] = time_ms(sdpa(None))
+    return dict(r, **rates(4 * pairs * h * d, r))
+
+
+def rates(ops: float, r: dict) -> dict:
+    """Operations a second and the share of the bound that the kernel's
+    time ``r['ms']`` reaches."""
+    return dict(tflops=ops / r["ms"] / 1e9, bound_share=r["bound_ms"] / r["ms"])
+
+
+def library_note(r: dict) -> str:
+    """The yardsticks and rates of one K6/K11 case, for its log line."""
+    unmasked = f", SDPA without a mask {r['library_unmasked_ms']:.3f} ms" if "library_unmasked_ms" in r else ""
+    masked = f", SDPA with a boolean mask {r['library_masked_ms']:.3f} ms" if "library_masked_ms" in r else ""
+    device = f"device {r['device_ms']:.4f} ms (profiler), " if "device_ms" in r else ""
+    return (f"{device}SDPA {r['library_ms']:.3f} ms{unmasked}{masked}, "
+            f"{r['tflops']:.0f} TFLOP/s, {r['bound_share']:.1%} of the bound")
 
 
 def make_pages(n: int, seed: int) -> list:
@@ -843,11 +889,48 @@ def forward_check(name: str, embed) -> dict:
     return out
 
 
-def profile_page_forward(model, processor, device: torch.device) -> None:
-    """``torch.profiler`` over one forward of a batch of pages: device time
-    by kernel class and the device's idle share of the wall time."""
+def kernel_breakdown(label: str, fn) -> dict:
+    """``torch.profiler`` over one call of ``fn`` (after one warm-up call):
+    device time by kernel class, K6's forward and backward apart, and the
+    device's idle share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    total = sum(kernels.values())
+    if total == 0.0:
+        log(f"  profile: {label} {wall_ms:.1f} ms wall; the profiler saw no device time")
+        return dict(wall_ms=wall_ms)
+    classes = {"K6 forward": 0.0, "K6 backward": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, ms in kernels.items():
+        if "flash_fwd_kernel" in name:
+            classes["K6 forward"] += ms
+        elif "flash_bwd" in name or "delta_kernel" in name:
+            classes["K6 backward"] += ms
+        elif any(t in name.lower() for t in ("gemm", "cutlass", "nvjet", "xmma", "matmul")):
+            classes["matmul"] += ms
+        else:
+            classes["other"] += ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    log(f"  profile: {label} {wall_ms:.1f} ms wall, {total:.1f} ms of kernels "
+        f"(device idle {max(0.0, 1 - total / wall_ms):.1%}); "
+        + ", ".join(f"{k} {v:.1f} ms ({v / total:.1%})" for k, v in classes.items()))
+    for name, ms in top:
+        log(f"    {ms:8.2f} ms  {name[:110]}")
+    return dict(wall_ms=wall_ms, kernels_ms=total, **{k: v for k, v in classes.items()})
+
+
+def profile_page_forward(model, processor, device: torch.device) -> dict:
+    """:func:`kernel_breakdown` of one forward of a batch of pages."""
     tok = processor._tokenize([processor._expand_image_prompt(processor.visual_prompt_prefix)] * PAGE_BATCH)
     ids = torch.from_numpy(tok["input_ids"]).to(device)
     att = torch.from_numpy(tok["attention_mask"]).to(device)
@@ -855,35 +938,7 @@ def profile_page_forward(model, processor, device: torch.device) -> None:
     pixels = torch.rand((PAGE_BATCH, size, size, 3), generator=torch.Generator(device=device).manual_seed(SEED),
                         device=device) * 2 - 1
     with torch.inference_mode():
-        model(ids, att, pixels)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model(ids, att, pixels)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3
-    total = sum(kernels.values())
-    if total == 0.0:
-        log(f"  profile: one forward of {PAGE_BATCH} pages {wall_ms:.1f} ms wall; the profiler saw no device time")
-        return
-    classes = {"K6 flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
-    for name, ms in kernels.items():
-        if "flash_attention" in name:
-            classes["K6 flash_attention"] += ms
-        elif any(t in name.lower() for t in ("gemm", "cutlass", "nvjet", "xmma", "matmul")):
-            classes["matmul"] += ms
-        else:
-            classes["other"] += ms
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-    log(f"  profile: one forward of {PAGE_BATCH} pages {wall_ms:.1f} ms wall, {total:.1f} ms of kernels "
-        f"(device idle {max(0.0, 1 - total / wall_ms):.1%}); "
-        + ", ".join(f"{k} {v:.1f} ms ({v / total:.1%})" for k, v in classes.items()))
-    for name, ms in top:
-        log(f"    {ms:8.2f} ms  {name[:110]}")
+        return kernel_breakdown(f"one forward of {PAGE_BATCH} pages", lambda: model(ids, att, pixels))
 
 
 def bf16_index_check(device: torch.device, docs: list, planted: list, queries: list, q: torch.Tensor) -> tuple:
@@ -944,7 +999,7 @@ def phase_pages(device: torch.device, model, processor, encoder) -> tuple:
     k6 = {case: k6_case(gen, device, *shape) for case, shape in k6_shapes(model, processor, encoder).items()}
     for case, r in k6.items():
         log(f"phase pages: K6 {case} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-            f"SDPA {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{library_note(r)}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"max_abs_err {r['max_abs_err']:.3g} (atol {r['atol']:.3g}, {r['limit_share']:.0%} of the tolerance)")
 
     pages = make_pages(PAGES, SEED + 2)
@@ -1070,8 +1125,8 @@ def phase_pages(device: torch.device, model, processor, encoder) -> tuple:
     torch.cuda.empty_cache()
     bf16 = bf16_index_check(device, docs, planted, queries, q)
     del docs
-    profile_page_forward(model, processor, device)
-    return launches, k6, page, dict(pages_per_min=PAGES / t_embed * 60, forward_check=fwd), bf16
+    profile = profile_page_forward(model, processor, device)
+    return launches, k6, page, dict(pages_per_min=PAGES / t_embed * 60, forward_check=fwd, page_profile=profile), bf16
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -1162,17 +1217,23 @@ def k6_bwd_case(gen: torch.Generator, device: torch.device, b: int, s: int, h: i
     plain_ms = time_ms(lambda: torch.autograd.grad(plain_out, (q, k, v), d_out, retain_graph=True), reps=2)
     allowed = seg[:, :, None] == seg[:, None, :]
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed[:, None], scale=scale, enable_gqa=h != hkv)
     d_out_t = d_out.transpose(1, 2)
-    library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), d_out_t, retain_graph=True))
+
+    def sdpa_backward(mask):
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=h != hkv)
+        return time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), d_out_t, retain_graph=True))
+
     pairs = allowed.sum().item()
     nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * seg.numel() + 4 * b * h * s  # q, o, dO, dq; k, v, dk, dv
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=max(errs.values()),
-                limit_share=max(shares.values()), shares=shares, plain_shares=plain_shares,
-                rounded_shares=rounded_shares,
-                **bound(nbytes, 2.5 * 4 * pairs * h * d, "bf16"),
-                shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}" + (" key padding" if lengths is not None else "")
-                      + (" + a token alone in its segment" if alone else ""))
+    r = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_backward(allowed[:, None]), max_abs_err=max(errs.values()),
+             limit_share=max(shares.values()), shares=shares, plain_shares=plain_shares,
+             rounded_shares=rounded_shares,
+             **bound(nbytes, 2.5 * 4 * pairs * h * d, "bf16"),
+             shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}" + (" key padding" if lengths is not None else "")
+                   + (" + a token alone in its segment" if alone else ""))
+    if bool(seg.eq(1).all()):  # one segment: SDPA's backward without a mask computes the same function
+        r["library_unmasked_ms"] = sdpa_backward(None)
+    return dict(r, **rates(3.5 * 4 * pairs * h * d, r))  # the kernels' seven products, 3.5x the forward's
 
 
 def page_dataset(n: int, seed: int, first: int = 0):
@@ -1282,7 +1343,7 @@ def phase_training(device: torch.device, model, processor, smi: str) -> tuple:
     k6_bwd = {name: k6_bwd_case(gen, device, *shape) for name, shape in cases.items()}
     for name, r in k6_bwd.items():
         log(f"phase training: K6 backward {name} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-            f"SDPA backward {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
+            f"backward: {library_note(r)} (7 products), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
             f"{r['max_abs_err']:.3g}, share of the tolerance dq {r['shares']['dq']:.0%} dk {r['shares']['dk']:.0%} "
             f"dv {r['shares']['dv']:.0%} (the bf16 plain version's own: {r['plain_shares']['dq']:.0%} "
             f"{r['plain_shares']['dk']:.0%} {r['plain_shares']['dv']:.0%}; the kernels from the same roundings in plain "
@@ -1504,6 +1565,9 @@ def phase_training(device: torch.device, model, processor, smi: str) -> tuple:
             f"{r['wall'] - r['forward'] - r['backward'] - r['optimizer']:.1f} ms, peak memory {r['peak_gib']:.2f} GiB")
     log(f"  recompute under remat: backward {steps['remat']['backward'] - steps['no_remat']['backward']:.1f} ms longer "
         f"than without")
+    model.set_remat(True)
+    steps["remat_profile"] = kernel_breakdown(f"one train step, batch {TRAIN_BATCH}, remat on",
+                                              lambda: step(state, batch)["loss"].item())
     adapters.detach()
     model.set_remat(False)
     model.eval()
@@ -1560,7 +1624,8 @@ def main() -> int:
             entry["launches_train_steps"] = train_steps[name]
         kernels.append(dict(entry, **timings[name]))
     print(json.dumps({"kernels": kernels, "pages_per_min": extra["pages_per_min"],
-                      "forward_check": extra["forward_check"], "training": train_extra}))
+                      "forward_check": extra["forward_check"], "page_profile": extra["page_profile"],
+                      "training": train_extra}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -15,251 +15,387 @@
 //
 // What bounds it on an H100: tensor-core throughput. At SigLIP's shape
 // (S = 1024, D = 72) a (b, h) pair does 4 * S^2 * D = 302 MFLOP on 0.6 MB of
-// q, k, v; at Gemma's (S = 1030, D = 256, 8 query heads on one KV head)
-// 1.1 GFLOP per pair. Both sit far above the card's 295 FLOP/byte ridge.
+// q, k, v; at Gemma's (S = 1029, D = 256, 8 query heads on one KV head)
+// 1.1 GFLOP per pair. Both sit far above the card's 295 FLOP/byte ridge, so
+// the design feeds the tensor cores the way Hopper allows (hopper.cuh):
 //
-// Design: one CTA of four warps per (64-query block, head, batch row); each
-// warp owns 16 query rows. The CTA stages its Q tile once, then streams 64-key
-// tiles of K and V through shared memory, both row-major with 16-byte
-// coalesced loads and stores. S = Q K^T and O += P V run as mma.sync m16n8k16
-// on the bf16 tensor cores with fp32 accumulators: a Q or K fragment is one
-// 32-bit shared-memory load, and V's fragments come transposed from
-// ldmatrix.trans. P stays in registers (the S accumulator layout is the
-// A-fragment layout of the second product). The online softmax works in
-// base 2 with the scale folded into log2(e). Nothing is padded in device
-// memory: the kernel reads q, k and v through their (B, S, H) strides, picks
-// the KV head by index (no repeat for MQA/GQA), zero-fills head dims past D
-// up to the multiple of 16 the mma needs (72 -> 80) in shared memory only,
-// and masks keys past S. Rows are padded by 8 bf16 so the fragment loads are
-// free of bank conflicts. A row whose keys are all masked (impossible under
-// segment semantics, since a token matches itself) writes zeros instead of
-// dividing by zero. Offsets are 64-bit.
+// - A CTA is three warpgroups: two consumers of 64 query rows each, then a
+//   producer whose first warp issues every load (setmaxnreg moves registers
+//   from it to the consumers). Under MQA/GQA the consumers take two query
+//   heads of one KV head over the same rows, so Gemma's 8/1 stages each K/V
+//   tile 4 times, not 8; otherwise two neighbouring 64-row blocks of one
+//   head. A group with an odd number of heads leaves the last CTA's second
+//   consumer idle: it keeps the barrier protocol and writes nothing.
+// - K and V tiles (128 keys at D <= 128, 64 at D = 256) come through an
+//   mbarrier ring (4 stages at D = 80, 3 at 128, 2 at 256), filled by TMA
+//   from 4-D tensor maps over the tensors' own (D, H, S, B) strides: no
+//   copy, no repeat of the KV head, zeros past S and past D from the
+//   hardware. The producer also stages the tile's key segment ids. Q is
+//   loaded once.
+// - S = Q K^T is wgmma m64n128k16 (m64n64k16 at D = 256) with both operands
+//   K-major in shared memory; O += P V is wgmma with P in registers (the S
+//   accumulators packed to bf16) and V MN-major through the transpose flag,
+//   n = D in one instruction per 16 keys (n = 64 + 16 at D = 72 and 80).
+// - The online softmax as before: base 2 with the scale folded into
+//   log2(e), row max and sum in registers, the segment and causal masks on
+//   S, key tiles past the diagonal not loaded. The producer marks a tile
+//   whose keys all lie below S in one segment; where that is the rows'
+//   segment (and the tile is below the diagonal), no mask is computed.
+// - At D <= 128 (3 or 4 stages) a consumer issues S of tile t + 1 and
+//   O += P V of tile t together and computes tile t + 1's softmax while
+//   P V runs, holding two stages; and the two consumers take turns to issue
+//   their products (two named barriers), so one's softmax runs while the
+//   other's products do. At D = 256 only two stages fit, so a consumer
+//   takes one tile at a time and the producer stays a tile ahead.
+// A row whose keys are all masked (impossible under segment semantics,
+// since a token matches itself) writes zeros instead of dividing by zero.
 //
-// K11 is this kernel. The seq-major TPU kernel exists to read (B, S, H, D)
-// blocks without the stock kernel's transposes, head-dim and sequence
-// padding and GQA repeat: on the TPU that glue costs HBM passes, and Mosaic
-// could not slice one head out of a seq-major block cheaply. Here the design
-// above already is that: strided seq-major reads, the KV head picked by
-// index, padding only in shared memory and masks past S. So K11 adds head
-// dims, not code: DP = 80 serves D = 80 (Qwen2-VL's vision tower; nothing is
-// zero-filled) as it serves D = 72, and DP = 128 serves D = 128 (its text
-// tower, GQA 12/2), whose O accumulator is 64 fp32 registers a thread, half
-// of D = 256's. ops/flash_seqmajor.py launches it and counts apart.
+// K11 is this kernel: the seq-major TPU kernel exists to read (B, S, H, D)
+// blocks without the stock kernel's transposes, padding and GQA repeat,
+// which the tensor maps already do. ops/flash_seqmajor.py launches it and
+// counts apart.
 //
-// Not yet done here (later work): cp.async/TMA double buffering of the K/V
-// tiles, wgmma, and skipping key tiles that share no segment with the block.
+// What holds it back now (PERF.md): at D = 72 and 80 the softmax's
+// exponentials (one per query-key pair, 16 a clock on an SM) weigh about as
+// much as the two products (an estimate, not measured apart); at D = 256,
+// the two-stage ring; under a causal mask, the 128-key tile on the diagonal,
+// half of which a 64-row consumer masks. Not yet done here (later work): the
+// overlap inside a consumer at D = 256 (it needs a third stage, or K and V
+// in separate stages), a TMA store of O, skipping key tiles that share no
+// segment with the block, and a persistent grid.
 
 #include <math_constants.h>
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;  // query rows per CTA: 4 warps x 16 rows
-constexpr int kBlockK = 64;  // keys per K/V tile
-constexpr int kThreads = 128;
+constexpr int kRows = kConsumerRows;   // query rows of a consumer
+constexpr int kThreads = 3 * 128;      // consumers 0 and 1, then the producer
+constexpr int kConsumerRegs = 232, kProducerRegs = 40;
+constexpr int kBarTurn = 1;  // named barriers 1 and 2: consumer 0's and consumer 1's turn to issue products
 
-template <int DP>  // head dim rounded up to what the tiles hold (a multiple of 16)
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ seg,
-                           __nv_bfloat16* __restrict__ out,  // (B, S, H, D) contiguous
-                           float* __restrict__ lse,          // (B, H, S) or null
-                           Strides qs, Strides ks, Strides vs, int s, int h, int hkv, int d, float scale_log2,
-                           int causal) {
-  constexpr int LD = DP + 8;        // row stride of the Q, K and V tiles
-  constexpr int VEC = DP / 8;       // 16-byte vectors per row
-  constexpr int NK = kBlockK / 8;   // n-tiles of S per warp
-  constexpr int ND = DP / 8;        // n-tiles of O per warp
-  extern __shared__ int4 smem_raw[];
-  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // (kBlockQ, LD)
-  __nv_bfloat16* s_k = s_q + kBlockQ * LD;                            // (kBlockK, LD)
-  __nv_bfloat16* s_v = s_k + kBlockK * LD;                            // (kBlockK, LD)
-  int32_t* s_seg = reinterpret_cast<int32_t*>(s_v + kBlockK * LD);    // (kBlockK)
+struct FwdArgs {
+  const int32_t* seg;  // (B, S)
+  __nv_bfloat16* out;  // (B, S, H, D) contiguous
+  float* lse;          // (B, H, S) or null
+  int s, h, hkv, d, causal;
+  float scale_log2;
+};
 
-  const int q0 = blockIdx.x * kBlockQ;
-  const int head = blockIdx.y;
-  const int64_t bi = blockIdx.z;
-  const int kv_head = head / (h / hkv);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;  // mma fragment row and column pair
+template <int DP>
+__host__ __device__ constexpr int keys() {  // keys of a K/V tile
+  return DP == 256 ? 64 : 128;
+}
 
-  const __nv_bfloat16* q_base = q + bi * qs.b + head * qs.h;
-  const __nv_bfloat16* k_base = k + bi * ks.b + kv_head * ks.h;
-  const __nv_bfloat16* v_base = v + bi * vs.b + kv_head * vs.h;
-  const int32_t* seg_row = seg + bi * s;
+template <int DP>
+__host__ __device__ constexpr int stages() {
+  return DP == 256 ? 2 : DP == 128 ? 3 : 4;
+}
 
-  for (int e = tid; e < kBlockQ * VEC; e += kThreads) {
-    const int r = e / VEC, c = (e % VEC) * 8;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (q0 + r < s && c < d) val = *reinterpret_cast<const int4*>(q_base + (q0 + r) * qs.s + c);
-    *reinterpret_cast<int4*>(s_q + r * LD + c) = val;
-  }
+template <int DP>
+__host__ __device__ constexpr size_t smem_bytes() {
+  constexpr size_t q_tile = HeadDims<DP>::template bytes<kRows>(), kv_tile = HeadDims<DP>::template bytes<keys<DP>()>();
+  return kSmemSlack + 2 * q_tile + 2 * stages<DP>() * kv_tile + stages<DP>() * (keys<DP>() + 2) * 4 +
+         (1 + 2 * stages<DP>()) * 8;
+}
 
-  const int row_lo = q0 + warp * 16 + g, row_hi = row_lo + 8;
-  const int seg_lo = row_lo < s ? seg_row[row_lo] : 0;
-  const int seg_hi = row_hi < s ? seg_row[row_hi] : 0;
-  const __nv_bfloat16* s_qw = s_q + warp * 16 * LD;
+// The online softmax state of a thread's two rows (g and g + 8 of its
+// warp's 16), in base 2 with the scale folded into log2(e): running max m of
+// the scaled logits, per-thread partial sums l (reduced over the quad at the
+// end) and the factor the last update rescales O by.
+struct RowSoftmax {
+  float m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi;
 
-  float o[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
-  float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F, l_lo = 0.0f, l_hi = 0.0f;
-
-  const int k_end = causal ? min(s, q0 + kBlockQ) : s;
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is consumed (and the Q tile stored)
-    for (int e = tid; e < kBlockK * VEC; e += kThreads) {
-      const int r = e / VEC, c = (e % VEC) * 8;
-      int4 kv = make_int4(0, 0, 0, 0), vv = make_int4(0, 0, 0, 0);
-      if (k0 + r < s && c < d) {
-        kv = *reinterpret_cast<const int4*>(k_base + (k0 + r) * ks.s + c);
-        vv = *reinterpret_cast<const int4*>(v_base + (k0 + r) * vs.s + c);
-      }
-      *reinterpret_cast<int4*>(s_k + r * LD + c) = kv;
-      *reinterpret_cast<int4*>(s_v + r * LD + c) = vv;
-    }
-    for (int e = tid; e < kBlockK; e += kThreads) s_seg[e] = k0 + e < s ? seg_row[k0 + e] : 0;
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-    float sc[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      const __nv_bfloat16* qa = s_qw + g * LD + kk + 2 * tg;
-      const uint32_t a0 = ld_pair(qa), a1 = ld_pair(qa + 8 * LD);
-      const uint32_t a2 = ld_pair(qa + 8), a3 = ld_pair(qa + 8 * LD + 8);
-#pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        const __nv_bfloat16* kb = s_k + (n * 8 + g) * LD + kk + 2 * tg;
-        mma_bf16(sc[n], a0, a1, a2, a3, ld_pair(kb), ld_pair(kb + 8));
-      }
-    }
-
-    // mask, scale to base 2, and the online softmax update
+  // sc: this tile's raw logits on entry (N / 2 of a 64 x N tile), its
+  // unnormalized probabilities on exit. `whole`: every key of the tile is
+  // allowed for both rows, so no mask.
+  template <int N>
+  __device__ __forceinline__ void update(float (&sc)[N], bool whole, const int32_t* kseg, int k0, int row_lo,
+                                         int row_hi, int seg_lo, int seg_hi, int tg, const FwdArgs& a) {
     float mx_lo = -CUDART_INF_F, mx_hi = -CUDART_INF_F;
+    if (!whole) {
 #pragma unroll
-    for (int n = 0; n < NK; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = n * 8 + 2 * tg + (e & 1);
+      for (int i = 0; i < N; ++i) {
+        const int j = (i / 4) * 8 + 2 * tg + (i & 1);
         const int key = k0 + j;
-        const bool upper = e >= 2;
-        const bool ok = key < s && s_seg[j] == (upper ? seg_hi : seg_lo) &&
-                        (!causal || key <= (upper ? row_hi : row_lo));
-        const float x = ok ? sc[n][e] * scale_log2 : -CUDART_INF_F;
-        sc[n][e] = x;
-        if (upper) mx_hi = fmaxf(mx_hi, x);
-        else mx_lo = fmaxf(mx_lo, x);
+        const bool upper = (i & 2) != 0;
+        const bool ok = key < a.s && kseg[j] == (upper ? seg_hi : seg_lo) &&
+                        (!a.causal || key <= (upper ? row_hi : row_lo));
+        if (!ok) sc[i] = -CUDART_INF_F;
       }
     }
-    const float new_lo = fmaxf(m_lo, quad_max(mx_lo)), new_hi = fmaxf(m_hi, quad_max(mx_hi));
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (i & 2) mx_hi = fmaxf(mx_hi, sc[i]);
+      else mx_lo = fmaxf(mx_lo, sc[i]);
+    }
+    const float new_lo = fmaxf(m_lo, quad_max(mx_lo) * a.scale_log2);
+    const float new_hi = fmaxf(m_hi, quad_max(mx_hi) * a.scale_log2);
     const float base_lo = new_lo == -CUDART_INF_F ? 0.0f : new_lo;  // no key yet: keep exp2 finite
     const float base_hi = new_hi == -CUDART_INF_F ? 0.0f : new_hi;
-    const float alpha_lo = exp2f(m_lo - base_lo), alpha_hi = exp2f(m_hi - base_hi);
+    alpha_lo = fast_exp2(m_lo - base_lo);
+    alpha_hi = fast_exp2(m_hi - base_hi);
     m_lo = new_lo;
     m_hi = new_hi;
     float sum_lo = 0.0f, sum_hi = 0.0f;
 #pragma unroll
-    for (int n = 0; n < NK; ++n) {
-      sc[n][0] = exp2f(sc[n][0] - base_lo);
-      sc[n][1] = exp2f(sc[n][1] - base_lo);
-      sc[n][2] = exp2f(sc[n][2] - base_hi);
-      sc[n][3] = exp2f(sc[n][3] - base_hi);
-      sum_lo += sc[n][0] + sc[n][1];
-      sum_hi += sc[n][2] + sc[n][3];
+    for (int i = 0; i < N; ++i) {
+      const bool upper = (i & 2) != 0;
+      sc[i] = fast_exp2(fmaf(sc[i], a.scale_log2, -(upper ? base_hi : base_lo)));
+      if (upper) sum_hi += sc[i];
+      else sum_lo += sc[i];
     }
-    l_lo = l_lo * alpha_lo + sum_lo;  // per-thread partial row sums, reduced at the end
+    l_lo = l_lo * alpha_lo + sum_lo;
     l_hi = l_hi * alpha_hi + sum_hi;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      o[n][0] *= alpha_lo;
-      o[n][1] *= alpha_lo;
-      o[n][2] *= alpha_hi;
-      o[n][3] *= alpha_hi;
-    }
+  }
 
-    // O += P V, P taken from the S accumulators as bf16 A fragments
+  template <int DP>
+  __device__ __forceinline__ void rescale(float* o) const {
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      const uint32_t a0 = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-      const uint32_t a1 = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-      const uint32_t a2 = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      const uint32_t a3 = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-      // lanes 0-15 address keys kk*16 + 0..15 of dims n*8.., lanes 16-31 of dims n*8+8..
-      const __nv_bfloat16* vrow = s_v + (kk * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-#pragma unroll
-      for (int n = 0; n < ND; n += 2) {
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4_trans(b0, b1, b2, b3, vrow + n * 8);
-        mma_bf16(o[n], a0, a1, a2, a3, b0, b1);
-        mma_bf16(o[n + 1], a0, a1, a2, a3, b2, b3);
+    for (int i = 0; i < DP / 2; ++i) o[i] *= (i & 2) ? alpha_hi : alpha_lo;
+  }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ TileMaps q_maps, const __grid_constant__ TileMaps k_maps,
+                     const __grid_constant__ TileMaps v_maps, const FwdArgs a) {
+  constexpr int STAGES = stages<DP>(), BN = keys<DP>();
+  constexpr uint32_t QTILE = HeadDims<DP>::template bytes<kRows>(), KVTILE = HeadDims<DP>::template bytes<BN>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t s_q = smem_addr(smem);          // 2 tiles: one per consumer
+  const uint32_t s_k = s_q + 2 * QTILE;          // STAGES tiles
+  const uint32_t s_v = s_k + STAGES * KVTILE;    // STAGES tiles
+  int32_t* s_seg = reinterpret_cast<int32_t*>(smem + 2 * QTILE + 2 * STAGES * KVTILE);  // (STAGES, BN)
+  int32_t* s_tile = s_seg + STAGES * BN;                                                // (STAGES, 2)
+  const uint32_t bar_q = smem_addr(s_tile + 2 * STAGES);
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * STAGES;
+
+  const int bi = blockIdx.z;
+  const ConsumerRows w0 = consumer_rows(0, a.s, a.h, a.hkv, a.causal);  // always has work
+  const ConsumerRows w1 = consumer_rows(1, a.s, a.h, a.hkv, a.causal);
+  const int kv_head = w0.head / (a.h / a.hkv);
+  const int n_tiles = (max(w0.k_end, w1.k_end) + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(bar_full + 8 * i, 1);
+      mbar_init(bar_empty + 8 * i, 8);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // ---- producer ----
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x / 32 != 8) return;  // one warp issues the loads
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, (w1.active ? 2 : 1) * QTILE);
+      load_tile<DP, kRows>(s_q, q_maps, w0.head, w0.row0, bi, bar_q);
+      if (w1.active) load_tile<DP, kRows>(s_q + QTILE, q_maps, w1.head, w1.row0, bi, bar_q);
+    }
+    const int32_t* seg_row = a.seg + static_cast<int64_t>(bi) * a.s;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int stage = t % STAGES;
+      mbar_wait(bar_empty + 8 * stage, ((t / STAGES) & 1) ^ 1);
+      const int k0 = t * BN;
+      const int32_t first = seg_row[k0];
+      bool same = k0 + BN <= a.s;
+      for (int e = lane; e < BN; e += 32) {
+        const int32_t id = k0 + e < a.s ? seg_row[k0 + e] : 0;
+        s_seg[stage * BN + e] = id;
+        same = same && id == first;
+      }
+      same = __all_sync(0xffffffffu, same);
+      if (lane == 0) {
+        s_tile[2 * stage] = same;
+        s_tile[2 * stage + 1] = first;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        const uint32_t full = bar_full + 8 * stage;
+        mbar_expect_tx(full, 2 * KVTILE);
+        load_tile<DP, BN>(s_k + stage * KVTILE, k_maps, kv_head, k0, bi, full);
+        load_tile<DP, BN>(s_v + stage * KVTILE, v_maps, kv_head, k0, bi, full);
       }
     }
+    return;
   }
 
-  l_lo = quad_sum(l_lo);
-  l_hi = quad_sum(l_hi);
+  // ---- consumers ----
+  setmaxnreg_inc<kConsumerRegs>();
+  const ConsumerRows w = wg == 0 ? w0 : w1;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int row_lo = w.row0 + warp * 16 + g, row_hi = row_lo + 8;
+  const int32_t* seg_row = a.seg + static_cast<int64_t>(bi) * a.s;
+  const int seg_lo = row_lo < a.s ? seg_row[row_lo] : 0;
+  const int seg_hi = row_hi < a.s ? seg_row[row_hi] : 0;
+  const uint32_t q_tile = s_q + wg * QTILE;
+
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
+  RowSoftmax sm{-CUDART_INF_F, -CUDART_INF_F, 0.0f, 0.0f, 1.0f, 1.0f};
+  float sc[BN / 2];         // S, then P, for this warp's 16 rows x a tile's BN keys
+  uint32_t p[BN / 16][4];   // P as the bf16 A operand of O += P V
+  const int my_tiles = (w.k_end + BN - 1) / BN;
+  auto full = [&](int t) { return bar_full + 8 * (t % STAGES); };
+  auto release = [&](int t) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * (t % STAGES));
+  };
+  // the online softmax over tile t's keys, S in sc on entry, unnormalized P on exit
+  auto softmax = [&](int t) {
+    const int stage = t % STAGES, k0 = t * BN;
+    const int* tile = s_tile + 2 * stage;  // {the tile's keys all lie below S in one segment, that segment}
+    const bool whole = tile[0] && tile[1] == seg_lo && tile[1] == seg_hi && (!a.causal || k0 + BN - 1 <= row_lo);
+    sm.update(sc, whole, s_seg + stage * BN, k0, row_lo, row_hi, seg_lo, seg_hi, tg, a);
+  };
+
+  // At D <= 128 the consumers take turns to issue their products, one turn a tile (past its own tiles a
+  // consumer still takes its turns), so one's softmax runs while the other's products do; consumer 0 first.
+  auto turn_wait = [&] { named_bar_sync(kBarTurn + wg, 256); };
+  auto turn_pass = [&](int t) {
+    if (wg == 0 || t + 1 < n_tiles) named_bar_arrive(kBarTurn + 1 - wg, 256);
+  };
+
+  mbar_wait(bar_q, 0);
+  if constexpr (STAGES > 2) {
+    // O += P V of tile t runs on the tensor cores while this warpgroup computes the softmax of tile t + 1,
+    // whose S product was issued just before it. Each consumer holds two stages at a time.
+    if (wg == 1) named_bar_arrive(kBarTurn, 256);
+    if (my_tiles > 0) {
+      mbar_wait(full(0), 0);
+      turn_wait();
+      wgmma_fence();
+      product_ss<DP, BN>(sc, q_tile, s_k);
+      wgmma_commit();
+      turn_pass(0);
+      wgmma_wait_all();
+      fence_operands<BN / 2>(sc);
+      softmax(0);
+      to_a_fragments<BN>(p, sc);
+    }
+    for (int t = 0; t + 1 < my_tiles; ++t) {
+      mbar_wait(full(t + 1), ((t + 1) / STAGES) & 1);
+      turn_wait();
+      wgmma_fence();
+      product_ss<DP, BN>(sc, q_tile, s_k + ((t + 1) % STAGES) * KVTILE);
+      wgmma_commit();
+      product_rs<DP, BN>(o, p, s_v + (t % STAGES) * KVTILE);
+      wgmma_commit();
+      turn_pass(t + 1);
+      wgmma_wait_one();  // S of tile t + 1 is in; P V of tile t may still run
+      fence_operands<BN / 2>(sc);
+      softmax(t + 1);
+      wgmma_wait_all();
+      fence_operands<DP / 2>(o);
+      release(t);
+      sm.rescale<DP>(o);
+      to_a_fragments<BN>(p, sc);
+    }
+    if (my_tiles > 0) {  // the last tile's P V
+      const int t = my_tiles - 1;
+      wgmma_fence();
+      product_rs<DP, BN>(o, p, s_v + (t % STAGES) * KVTILE);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operands<DP / 2>(o);
+      release(t);
+    }
+  } else {  // two stages (D = 256): one tile at a time, so the producer loads a tile ahead
+    for (int t = 0; t < my_tiles; ++t) {
+      mbar_wait(full(t), (t / STAGES) & 1);
+      wgmma_fence();
+      product_ss<DP, BN>(sc, q_tile, s_k + (t % STAGES) * KVTILE);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operands<BN / 2>(sc);
+      softmax(t);
+      sm.rescale<DP>(o);
+      to_a_fragments<BN>(p, sc);
+      wgmma_fence();
+      product_rs<DP, BN>(o, p, s_v + (t % STAGES) * KVTILE);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operands<DP / 2>(o);
+      release(t);
+    }
+  }
+  for (int t = my_tiles; t < n_tiles; ++t) {  // tiles past this consumer's diagonal, or an idle consumer
+    mbar_wait(full(t), (t / STAGES) & 1);
+    if constexpr (STAGES > 2) {
+      turn_wait();
+      turn_pass(t);
+    }
+    release(t);
+  }
+  if (!w.active) return;
+
+  const float l_lo = quad_sum(sm.l_lo), l_hi = quad_sum(sm.l_hi);
   const float inv_lo = l_lo > 0.0f ? 1.0f / l_lo : 0.0f;
   const float inv_hi = l_hi > 0.0f ? 1.0f / l_hi : 0.0f;
-  if (lse != nullptr && tg == 0) {  // base-2 log-sum-exp of the scaled logits; -inf for a row with no key
-    float* lse_row = lse + (bi * h + head) * s;
-    if (row_lo < s) lse_row[row_lo] = l_lo > 0.0f ? m_lo + log2f(l_lo) : -CUDART_INF_F;
-    if (row_hi < s) lse_row[row_hi] = l_hi > 0.0f ? m_hi + log2f(l_hi) : -CUDART_INF_F;
+  if (a.lse != nullptr && tg == 0) {  // base-2 log-sum-exp of the scaled logits; -inf for a row with no key
+    float* lse_row = a.lse + (static_cast<int64_t>(bi) * a.h + w.head) * a.s;
+    if (row_lo < a.s) lse_row[row_lo] = l_lo > 0.0f ? sm.m_lo + log2f(l_lo) : -CUDART_INF_F;
+    if (row_hi < a.s) lse_row[row_hi] = l_hi > 0.0f ? sm.m_hi + log2f(l_hi) : -CUDART_INF_F;
   }
-  const int64_t row_stride = static_cast<int64_t>(h) * d;
-  __nv_bfloat16* o_base = out + bi * s * row_stride + static_cast<int64_t>(head) * d;
+  const int64_t row_stride = static_cast<int64_t>(a.h) * a.d;
+  __nv_bfloat16* o_base = a.out + static_cast<int64_t>(bi) * a.s * row_stride + static_cast<int64_t>(w.head) * a.d;
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
+  for (int n = 0; n < DP / 8; ++n) {
     const int col = n * 8 + 2 * tg;
-    if (col >= d) continue;
-    if (row_lo < s)
-      *reinterpret_cast<uint32_t*>(o_base + row_lo * row_stride + col) = pack_bf16(o[n][0] * inv_lo, o[n][1] * inv_lo);
-    if (row_hi < s)
-      *reinterpret_cast<uint32_t*>(o_base + row_hi * row_stride + col) = pack_bf16(o[n][2] * inv_hi, o[n][3] * inv_hi);
+    if (col >= a.d) continue;
+    if (row_lo < a.s)
+      *reinterpret_cast<uint32_t*>(o_base + row_lo * row_stride + col) =
+          pack_bf16(o[4 * n] * inv_lo, o[4 * n + 1] * inv_lo);
+    if (row_hi < a.s)
+      *reinterpret_cast<uint32_t*>(o_base + row_hi * row_stride + col) =
+          pack_bf16(o[4 * n + 2] * inv_hi, o[4 * n + 3] * inv_hi);
   }
 }
 
 template <int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* seg, void* out, void* lse, int b, int s,
-                   int h,
-                   int hkv, int d, Strides qs, Strides ks, Strides vs, float scale_log2, int causal,
-                   cudaStream_t stream) {
-  static_assert(DP % 16 == 0, "the tiles hold a multiple of 16 head dims");
-  const size_t smem = static_cast<size_t>(kBlockQ + 2 * kBlockK) * (DP + 8) * sizeof(__nv_bfloat16) +
-                      kBlockK * sizeof(int32_t);
-  cudaError_t err = colpali_allow_smem(flash_attention_kernel<DP>, smem);
+cudaError_t launch(const void* q, const void* k, const void* v, int b, Strides qs, Strides ks, Strides vs,
+                   const FwdArgs& a, cudaStream_t stream) {
+  TileMaps q_maps, k_maps, v_maps;
+  cudaError_t err = colpali_tile_maps(&q_maps, DP, q, b, a.s, a.h, a.d, qs, kRows);
+  if (err == cudaSuccess) err = colpali_tile_maps(&k_maps, DP, k, b, a.s, a.hkv, a.d, ks, keys<DP>());
+  if (err == cudaSuccess) err = colpali_tile_maps(&v_maps, DP, v, b, a.s, a.hkv, a.d, vs, keys<DP>());
+  if (err == cudaSuccess) err = colpali_allow_smem(flash_fwd_kernel<DP>, smem_bytes<DP>());
   if (err != cudaSuccess) return err;
-  const dim3 grid((s + kBlockQ - 1) / kBlockQ, h, b);
-  flash_attention_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(seg), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), qs, ks, vs, s, h, hkv, d, scale_log2, causal);
+  flash_fwd_kernel<DP><<<consumer_grid(b, a.s, a.h, a.hkv), kThreads, smem_bytes<DP>(), stream>>>(q_maps, k_maps,
+                                                                                                     v_maps, a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Strides are in elements; the head dim of q, k and v must be contiguous,
-// d one of 72, 80, 128 and 256, and every row 16-byte aligned (the wrapper
-// checks all of it). lse, when not null, receives each row's log-sum-exp of the scaled
-// logits in base 2 as (B, H, S) fp32, which the backward kernels read.
+// d one of 72, 80, 128 and 256, and every row and the base 16-byte aligned
+// (the wrapper checks all of it). lse, when not null, receives each row's
+// log-sum-exp of the scaled logits in base 2 as (B, H, S) fp32, which the
+// backward kernels read.
 extern "C" int colpali_flash_attention(const void* q, const void* k, const void* v, const void* seg, void* out,
                                        void* lse, int b, int s, int h, int hkv, int d, int64_t q_sb, int64_t q_ss,
                                        int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
                                        int64_t v_ss, int64_t v_sh, float scale, int causal, void* stream) {
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
-  const float scale_log2 = scale * 1.4426950408889634f;  // softmax in base 2
+  const FwdArgs a{static_cast<const int32_t*>(seg), static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), s, h,
+                  hkv, d, causal, scale * 1.4426950408889634f};  // softmax in base 2
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the head dims of the models that run it: SigLIP 72, Qwen2-VL's vision tower 80 and text tower 128, Gemma 256
   switch (d) {
     case 72:
-    case 80: return launch<80>(q, k, v, seg, out, lse, b, s, h, hkv, d, qs, ks, vs, scale_log2, causal, st);
-    case 128: return launch<128>(q, k, v, seg, out, lse, b, s, h, hkv, d, qs, ks, vs, scale_log2, causal, st);
-    case 256: return launch<256>(q, k, v, seg, out, lse, b, s, h, hkv, d, qs, ks, vs, scale_log2, causal, st);
+    case 80: return launch<80>(q, k, v, b, qs, ks, vs, a, st);
+    case 128: return launch<128>(q, k, v, b, qs, ks, vs, a, st);
+    case 256: return launch<256>(q, k, v, b, qs, ks, vs, a, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,0 +1,407 @@
+// Hopper (sm_90a) building blocks shared by the flash attention kernels:
+// TMA tensor maps and loads, mbarrier rings, warpgroup register
+// reallocation, named barriers and wgmma with shared-memory descriptors.
+// Every PTX instruction is wrapped here by hand, as mma.cuh wraps mma.sync.
+//
+// Tiles. A tile is ROWS rows of a (B, S, H, D) bf16 tensor, one head, as a
+// TMA box writes it: DP / 64 "wide" chunks of ROWS x 64 dims (rows of 128
+// bytes, 128-byte swizzle), then, when DP % 64 == 16, one "narrow" chunk of
+// ROWS x 16 dims (rows of 32 bytes, 32-byte swizzle). Head dims 72 and 80
+// ride DP = 80 that way: a 144- or 160-byte row does not fill 128-byte
+// swizzle atoms, and padding to 128 would cost 60% more operations. TMA
+// zero-fills rows past S and dims past D, so no load needs a mask.
+//
+// wgmma operands (m64nNk16, bf16, fp32 accumulators):
+//   K-major (the reduced dim contiguous: Q, K for S = Q K^T): a k16 step is
+//   32 bytes into a 128-byte row, so the descriptor's start moves by 32
+//   bytes inside the swizzle atom; SBO = 8 rows (1024 or 256 bytes).
+//   MN-major (N contiguous: V for O += P V): B with the transpose flag; a
+//   k16 step is 16 rows; SBO = 8 rows, LBO = one wide chunk (the next 64
+//   dims), so one instruction spans all wide chunks (n = 64, 128, 256).
+// Accumulators: warp w of the warpgroup holds rows 16w + g and 16w + g + 8
+// (g = lane / 4); d[4j + e] is column 8j + 2 (lane % 4) + (e & 1), rows
+// g (e < 2) and g + 8 (e >= 2): the mma.sync C layout per 8 columns. So
+// the accumulators of a product, packed to bf16, are the register A
+// operand of the next one, 16 columns per k16 step (to_a_fragments).
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the driver is reached through the runtime
+#include <cuda_bf16.h>
+
+#include <mutex>
+
+#include "mma.cuh"
+
+// ---- host: TMA tensor maps ---------------------------------------------------
+
+using ColpaliEncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                        const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                        CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point: the
+// library is linked without -lcuda.
+static inline ColpaliEncodeTiled colpali_encode_tiled() {
+  static const ColpaliEncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<ColpaliEncodeTiled>(ptr)
+                                                                      : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, S, H, D) bf16 tensor with a contiguous head dim, element strides
+// `st`, as a 4-D map (D, H, S, B) whose box is `cols` dims (64: wide chunk,
+// 16: narrow chunk) x 1 head x `rows` rows x 1 batch row. TMA needs a
+// 16-byte aligned base and strides that are multiples of 16 bytes.
+static inline cudaError_t colpali_tile_map(CUtensorMap* map, const void* base, int b, int s, int h, int d, Strides st,
+                                           int cols, int rows) {
+  const ColpaliEncodeTiled encode = colpali_encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(b)};
+  // a dim of size 1 is never stepped over; give it a stride TMA accepts whatever the tensor says
+  const int64_t hs = h > 1 ? st.h : d, ss = s > 1 ? st.s : hs * h, bs = b > 1 ? st.b : ss * s;
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(hs) * 2, static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(bs) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+                            unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The wide and the narrow map of one tensor for DP head dims (the narrow one
+// only when DP % 64 == 16; otherwise a copy of the wide one, never read).
+struct TileMaps {
+  CUtensorMap wide, narrow;
+};
+
+static inline cudaError_t colpali_tile_maps(TileMaps* maps, int dp, const void* base, int b, int s, int h, int d,
+                                            Strides st, int rows) {
+  cudaError_t err = colpali_tile_map(&maps->wide, base, b, s, h, d, st, 64, rows);
+  if (err != cudaSuccess || dp % 64 == 0) {
+    maps->narrow = maps->wide;
+    return err;
+  }
+  return colpali_tile_map(&maps->narrow, base, b, s, h, d, st, 16, rows);
+}
+
+// A second stream per device, forked from and joined back to the caller's,
+// for two kernels that may run side by side (each call holds `mu` while it
+// enqueues, so the events are not shared between calls in flight).
+struct SideStream {
+  cudaStream_t stream;
+  cudaEvent_t fork, join;
+  std::mutex mu;
+};
+
+static inline cudaError_t colpali_side_stream(SideStream** out) {
+  constexpr int kDevices = 64;
+  static SideStream side[kDevices];
+  static bool made[kDevices];
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= kDevices) return err != cudaSuccess ? err : cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (!made[dev]) {
+    err = cudaStreamCreateWithFlags(&side[dev].stream, cudaStreamNonBlocking);
+    if (err == cudaSuccess) err = cudaEventCreateWithFlags(&side[dev].fork, cudaEventDisableTiming);
+    if (err == cudaSuccess) err = cudaEventCreateWithFlags(&side[dev].join, cudaEventDisableTiming);
+    if (err != cudaSuccess) return err;
+    made[dev] = true;
+  }
+  *out = &side[dev];
+  return cudaSuccess;
+}
+
+// ---- device: barriers, TMA, register reallocation ----------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also announces `bytes` of TMA transactions to come.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// A 4-D TMA box into shared memory at `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], "
+      "[%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+// Named barriers (0 is __syncthreads'); `threads` counts arrivals and waits.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// 2^x on the special-function unit (denormal results flush to zero; 2^-inf = 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- device: wgmma -------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Wait for all but the most recent committed group.
+__device__ __forceinline__ void wgmma_wait_one() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
+
+// Keep the compiler from moving accesses to accumulators across a wgmma.
+template <int N>
+__device__ __forceinline__ void fence_operands(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+constexpr int kSwizzle128 = 1, kSwizzle32 = 3;  // the descriptor's layout types
+
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes, int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(layout) << 62;
+}
+
+// d (64 x N) = (scale_d ? d : 0) + A (64 x 16, K-major in shared memory) B (N x 16, K-major)^T
+template <int N>
+__device__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int scale_d);
+// d (64 x N) += A (64 x 16, bf16 pairs in registers) B (16 x N, MN-major in shared memory)
+template <int N>
+__device__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, "
+      "%12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, "
+      "%36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, "
+      "%68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, "
+      "%132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---- the query rows of a CTA's two consumer warpgroups ---------------------------
+
+constexpr int kConsumerRows = 64;  // query rows of a consumer: one wgmma m64
+
+// Under MQA/GQA (H / Hkv > 1) the two consumers of a CTA take two query heads
+// of one KV head over the same 64 rows, so the CTA stages each K/V tile once
+// for both; otherwise two neighbouring 64-row blocks of one head. A group
+// with an odd number of heads leaves the last CTA's second consumer idle.
+struct ConsumerRows {
+  int head, row0, k_end;  // k_end: the keys it attends to (all, or up to its last row when causal)
+  bool active;
+};
+
+__device__ __forceinline__ ConsumerRows consumer_rows(int c, int s, int h, int hkv, int causal) {
+  const int group = h / hkv;
+  ConsumerRows w;
+  if (group > 1) {
+    const int pairs = (group + 1) / 2, in_group = 2 * (blockIdx.y % pairs) + c;
+    w.head = (blockIdx.y / pairs) * group + in_group;
+    w.row0 = blockIdx.x * kConsumerRows;
+    w.active = in_group < group;
+  } else {
+    w.head = blockIdx.y;
+    w.row0 = (2 * blockIdx.x + c) * kConsumerRows;
+    w.active = w.row0 < s;
+  }
+  w.k_end = !w.active ? 0 : causal ? min(s, w.row0 + kConsumerRows) : s;
+  return w;
+}
+
+// The grid that consumer_rows reads: (row blocks, heads or head pairs, batch rows).
+static inline dim3 consumer_grid(int b, int s, int h, int hkv) {
+  const int blocks = (s + kConsumerRows - 1) / kConsumerRows, group = h / hkv;
+  return group > 1 ? dim3(blocks, hkv * ((group + 1) / 2), b) : dim3((blocks + 1) / 2, h, b);
+}
+
+// ---- device: tiles of DP head dims -----------------------------------------------
+
+template <int DP>
+struct HeadDims {
+  static_assert(DP % 64 == 0 || DP % 64 == 16, "a tile holds 64-dim chunks and at most one 16-dim chunk");
+  static constexpr int kWide = DP / 64;          // 64-dim chunks, 128-byte swizzle
+  static constexpr bool kNarrow = DP % 64 == 16;  // a last 16-dim chunk, 32-byte swizzle
+  template <int ROWS>
+  __host__ __device__ static constexpr uint32_t bytes() {
+    return ROWS * DP * 2;
+  }
+};
+
+// Issue the TMA loads of one tile (ROWS rows from row0 of `head`, batch row
+// b) into `dst` (1024-byte aligned); they complete on `bar`.
+template <int DP, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const TileMaps& maps, int head, int row0, int b, uint32_t bar) {
+#pragma unroll
+  for (int c = 0; c < HeadDims<DP>::kWide; ++c)
+    tma_load_4d(dst + c * ROWS * 128, &maps.wide, 64 * c, head, row0, b, bar);
+  if constexpr (HeadDims<DP>::kNarrow)
+    tma_load_4d(dst + HeadDims<DP>::kWide * ROWS * 128, &maps.narrow, 64 * HeadDims<DP>::kWide, head, row0, b, bar);
+}
+
+// acc (64 x N) = A (the 64-row tile at a) B (the N-row tile at b)^T over DP dims; both K-major.
+template <int DP, int N>
+__device__ __forceinline__ void product_ss(float* acc, uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int c = 0; c < HeadDims<DP>::kWide; ++c) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<N>(acc, smem_desc(a + c * 64 * 128 + kk * 32, 16, 1024, kSwizzle128),
+                  smem_desc(b + c * N * 128 + kk * 32, 16, 1024, kSwizzle128), c + kk > 0);
+  }
+  if constexpr (HeadDims<DP>::kNarrow) {
+    constexpr int w = HeadDims<DP>::kWide;
+    wgmma_ss<N>(acc, smem_desc(a + w * 64 * 128, 16, 256, kSwizzle32), smem_desc(b + w * N * 128, 16, 256, kSwizzle32),
+                w > 0);
+  }
+}
+
+// acc (64 x DP) += A (64 x K, K / 16 register fragments) B (the K-row tile at b, MN-major).
+template <int DP, int K>
+__device__ __forceinline__ void product_rs(float* acc, const uint32_t (&a)[K / 16][4], uint32_t b) {
+  constexpr int w = HeadDims<DP>::kWide;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint64_t wide = smem_desc(b + kk * 16 * 128, K * 128, 1024, kSwizzle128);
+    wgmma_rs<64 * w>(acc, a[kk], wide);
+    if constexpr (HeadDims<DP>::kNarrow)
+      wgmma_rs<16>(acc + 32 * w, a[kk], smem_desc(b + w * K * 128 + kk * 16 * 32, 32, 256, kSwizzle32));
+  }
+}
+
+// The accumulators of a 64 x N product as the bf16 A fragments of the next
+// one, which reduces over those N columns.
+template <int N>
+__device__ __forceinline__ void to_a_fragments(uint32_t (&a)[N / 16][4], const float* s) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// The dynamic shared memory of a kernel, rounded up to the 1024 bytes the
+// 128-byte swizzle needs (launches ask for kSmemSlack bytes more).
+constexpr int kSmemSlack = 1024;
+
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  const uint32_t addr = smem_addr(raw);
+  return raw + ((1024 - (addr & 1023)) & 1023);
+}

@@ -1,6 +1,6 @@
-// Warp-level bf16 tensor-core helpers shared by the attention and bf16
-// MaxSim kernels: mma.sync m16n8k16 with fp32 accumulators and the loads that
-// feed its fragments from padded row-major shared-memory tiles.
+// Warp-level bf16 helpers: mma.sync m16n8k16 with fp32 accumulators and its
+// fragment loads (the bf16 MaxSim kernels), and the bf16 packing, quad
+// reductions and strides that the attention kernels share (hopper.cuh).
 //
 // Fragment layout of m16n8k16, with g = lane / 4 and tg = lane % 4:
 //   A (16 x 16, row): a0 = (g, 2tg..2tg+1), a1 = (g+8, same), a2 = (g, 2tg+8..), a3 = (g+8, 2tg+8..)
@@ -25,16 +25,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1
 
 __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Four 8x8 b16 matrices from shared memory, transposed: the B fragments
-// (b0, b1) of two neighbouring m16n8k16 n-tiles of a row-major (k, n) tile.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                                  const __nv_bfloat16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -110,7 +110,8 @@ def flash_attention_backward_plain(q, k, v, segments, d_out, scale: float, causa
 
 
 def _check_rows(name: str, t: torch.Tensor) -> None:
-    """The kernel reads 16-byte vectors along the contiguous head dim."""
+    """The kernels read through TMA tensor maps: a 16-byte aligned base and
+    strides that are multiples of 16 bytes, the head dim contiguous."""
     if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
         raise ValueError(f"{name} needs a contiguous head dim and 16-byte aligned rows "
                          f"(strides {t.stride()})")
@@ -156,7 +157,15 @@ class FlashAttention(torch.autograd.Function):
     """K6 with its backward kernels, for CUDA bf16 tensors. The forward
     saves q, k, v, the output and the row log-sum-exp; the backward
     recomputes the probabilities tile by tile and returns dq, dk and dv
-    (summed over the query heads of each KV head, in a fixed order)."""
+    (summed over the query heads of each KV head, in a fixed order, so two
+    calls agree bit for bit).
+
+    Both directions are Hopper kernels (``csrc/hopper.cuh``): a producer
+    warp fills a ring of tiles in shared memory by TMA, read through the
+    tensors' own strides, and two consumer warpgroups run ``wgmma``. The
+    backward's ``dkv`` kernel computes ``S^T`` and ``dP^T`` once per (key
+    tile, query tile, head), over the full head dim, and ``dq`` recomputes
+    ``S`` and ``dP``: seven products against the forward's two."""
 
     @staticmethod
     def forward(ctx, q, k, v, segments, scale, causal):

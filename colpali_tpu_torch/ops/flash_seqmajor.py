@@ -9,9 +9,10 @@ real token uses; their rows attend to each other and callers mask them.
 On the TPU this kernel was written to read seq-major blocks without the
 stock flash kernel's transposes, padding and GQA repeat. The port's K6
 forward kernel (``csrc/flash_attention.cu``) already reads ``(B, S, H, D)``
-through its strides, picks the KV head by index and pads only in shared
-memory, so K11 launches that kernel, built also for K11's head dims (80 and
-128 beside 72), and counts its launches apart on :data:`FLASH_SEQMAJOR`.
+through TMA tensor maps over its strides, picks the KV head by index and
+gets zeros past S and D from the hardware, so K11 launches that kernel,
+built also for K11's head dims (80 and 128 beside 72), and counts its
+launches apart on :data:`FLASH_SEQMAJOR`.
 It is forward only, as on the TPU. On CUDA the inputs are bf16; for CPU
 tensors :func:`flash_seqmajor_plain` runs.
 """

@@ -39,6 +39,7 @@ import pytest
 import torch
 
 from colpali_tpu_torch.ops.flash_attention import (
+    BACKWARD_HEAD_DIMS,
     FLASH_ATTENTION,
     FLASH_ATTENTION_BWD,
     _forward_cuda,
@@ -215,6 +216,11 @@ K6_CASES = [
     (8, 32, 8, 1, 256, 13, False),  # a padded query batch
     (2, 200, 4, 2, 72, 17, True),  # GQA, causal, ragged last tile
     (3, 33, 2, 2, 256, 4, False),  # one partial tile
+    (2, 200, 6, 2, 256, 0, False),  # GQA groups of 3 heads: the last CTA's second consumer is idle
+    (2, 300, 6, 2, 72, 0, True),  # the same at D=72, causal
+    (2, 256, 4, 4, 80, 0, False),  # D=80: the 16-dim chunk holds data, no zero-fill
+    (8, 14, 8, 1, 256, 3, False),  # fewer rows than one consumer's 64
+    (1, 2464, 16, 16, 80, 0, False),  # ColQwen2's vision tower: many key tiles through the ring
 ]
 
 
@@ -250,6 +256,19 @@ def test_k6_reads_strided_views_and_counts_launches(dev):
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q[..., :64], k[..., :64], v[..., :64], seg, 64**-0.5)
     assert FLASH_ATTENTION.launches == before + 1
+
+
+def test_k6_reads_a_fused_projection_at_d72(dev):
+    """16 query heads and one KV head as slices of one fused q|k|v
+    projection at D=72: a row stride of 18 * 72 elements and head bases 144
+    bytes apart, which the tensor maps take as they are."""
+    b, s, h, d = 2, 300, 16, 72
+    qkv = torch.randn((b, s, h + 2, d), generator=_gen(dev, 13), device=dev).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h : h + 1], qkv[:, :, h + 1 :]
+    seg = torch.ones((b, s), dtype=torch.int32, device=dev)
+    seg[1, 250:] = 0
+    got = flash_attention(q, k, v, seg, d**-0.5)
+    _assert_k6_close(got, flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), seg, d**-0.5))
 
 
 @pytest.mark.parametrize("nt,np_,b,nq,d", [(6, 64, 1, 32, 128), (6, 64, 8, 32, 128), (2, 1040, 8, 32, 128),
@@ -308,7 +327,7 @@ def test_device_index_builder_on_card_matches_host_packed_index(dev, kw):
     np.testing.assert_allclose(s_a, s_b, rtol=1e-4)
 
 
-K6_BWD_CASES = K6_CASES + [(2, 130, 8, 2, 256, 0, True)]
+K6_BWD_CASES = [case for case in K6_CASES if case[4] in BACKWARD_HEAD_DIMS] + [(2, 130, 8, 2, 256, 0, True)]
 
 
 @pytest.mark.parametrize("b,s,h,hkv,d,pad,causal", K6_BWD_CASES)
