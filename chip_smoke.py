@@ -14,7 +14,8 @@ Phases (a few lines of output each, then two JSON lines):
    their plain PyTorch versions on a 999,936-doc x 64-token x 128-dim int8
    corpus generated on the card from a seeded ``torch.Generator``, and K5
    (bf16 store) on a bf16 copy of its first 262,144 docs; each is timed
-   with CUDA events, kernel and plain version alike;
+   with CUDA events, kernel and plain version alike (K3 at B=1, and at B=8
+   with Nq=32 and the served Nq=64);
 3. text slice: ColPali-3B at full width (SigLIP-So400m 27 x 1152, projector
    1152 -> 2048, Gemma-2B 18 x 2048 with MQA 8/1 x 256 and vocab 257,216;
    seeded random bf16 weights), a whitespace tokenizer, a 65,536-doc
@@ -38,13 +39,18 @@ Phases (a few lines of output each, then two JSON lines):
    the base bit-equal; one step's loss and adapter gradient through the
    kernels against the plain route; ``evaluate()`` over 128 held-out pages
    through a bf16 index built on the card and searched by K5 (and an int8
-   index of the same pages with bf16 queries by K4); the merged export; a
+   index of the same pages with bf16 queries by K4); the merged export as
+   ``model.safetensors`` in the HF layout, read back by ``load_colpali_params``
+   into a fresh ColPali-3B whose query and page embeddings must equal those of
+   a model holding the merged weights in memory bit for bit, and whose
+   ``QueryEncoder`` answers ``/search_text`` behind ``make_handler``; a
    run resumed from the step-2 checkpoint repeating step 3's loss; 6 steps
    on one repeated batch at the recipe's rate lowering the loss; and a train step timed with and
    without remat (forward, backward, optimizer by CUDA events, peak memory);
 6. ops entry points (run between phases 2 and 3): K8, K9 and K10 (token-major
-   MaxSim) over token-major copies of phase 2's corpora at B=1 and B=8, Nq=32,
-   against their plain versions and bit-equal to K5, K4 and K3, and
+   MaxSim) over token-major copies of phase 2's corpora at B=1 and B=8, Nq=32
+   (K10 also at the served Nq=64), against their plain versions and bit-equal
+   to K5, K4 and K3, and
    ``maxsim_topk_tm(k=100)``; K11 (seq-major flash) at the seq-major probe's
    shapes (ColQwen2 vision and text, SigLIP, a padded validation case, causal
    GQA) against its plain version and beside SDPA. Phase 4 also builds a bf16
@@ -370,7 +376,7 @@ def phase_kernels(device: torch.device) -> tuple:
                               shape=f"B=1 Nq={QUERY_TOKENS} (served: Nq={SERVED_TOKENS}) c={CANDIDATES} Np={DOC_TOKENS}"),
         "maxsim_int8": dict(ms=time_ms(k3(b1)), plain_ms=time_ms(k3(b1, True), reps=2),
                             ms_b8=time_ms(k3(b8)), plain_ms_b8=time_ms(k3(b8, True), reps=2),
-                            ms_served=time_ms(k3(s8)),
+                            ms_served=time_ms(k3(s8)), plain_ms_served=time_ms(k3(s8, True), reps=2),
                             shape=f"B=1 and B=8 Nq={QUERY_TOKENS} (served: B=8 Nq={SERVED_TOKENS}) "
                                   f"Np={DOC_TOKENS} C={CORPUS_DOCS}"),
         "maxsim_int8_bf16": dict(ms=time_ms(k4(b1), reps=3), plain_ms=time_ms(k4(b1, True), reps=2),
@@ -386,6 +392,10 @@ def phase_kernels(device: torch.device) -> tuple:
                                           2 * nq * CANDIDATES * DOC_TOKENS * DIM, "fp32"))
     results["maxsim_int8"].update(bound(c * DOC_TOKENS * (DIM + 4) + nq * (DIM + 4) + c * 4,
                                         2 * nq * c * DOC_TOKENS * DIM, "int8"))
+    for key, (b, nq_k) in (("b8", b8), ("served", s8)):  # K3 at B=8: Nq=32, and the served Nq=64
+        kb = bound(c * DOC_TOKENS * (DIM + 4) + b * nq_k * (DIM + 4) + b * c * 4, 2 * b * nq_k * c * DOC_TOKENS * DIM,
+                   "int8")
+        results["maxsim_int8"].update({f"bound_ms_{key}": kb["bound_ms"], f"bound_by_{key}": kb["bound_by"]})
     # K4 and K5 at B=1: the store's bytes against bf16 operations; their B=8 bounds ride along
     for name, docs, per_token in (("maxsim_int8_bf16", c, DIM + 4), ("maxsim_bf16", BF16_DOCS, 2 * DIM)):
         results[name].update(bound(docs * DOC_TOKENS * per_token + nq * DIM * 2 + docs * 4,
@@ -400,6 +410,9 @@ def phase_kernels(device: torch.device) -> tuple:
         if "bound_ms_b8" in r:
             extra += f", B=8 bound {r['bound_ms_b8']:.4f} ms ({r['bound_by_b8']})"
         served = f"served shape {r['ms_served']:.3f} ms, " if "ms_served" in r else ""
+        if "plain_ms_served" in r:
+            served += (f"plain {r['plain_ms_served']:.3f} ms, bound {r['bound_ms_served']:.4f} ms "
+                       f"({r['bound_by_served']}), ")
         log(f"  {name} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms{extra}, "
             f"{served}bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g}")
     del bwords
@@ -495,6 +508,11 @@ def phase_ops(device: torch.device, store: torch.Tensor, scales: torch.Tensor, b
 
     q = {b: queries(b) for b in (1, 8)}
     quant = {b: quantize_per_token(x) for b, x in q.items()}
+
+    def queries_served():  # K10 at B=8 and the served query length (timed, not counted)
+        x = torch.randn((8, SERVED_TOKENS, DIM), generator=gen, device=device)
+        return quantize_per_token(x / x.norm(dim=-1, keepdim=True))
+
     flash_in = {}
     for case, (b, s, h, hkv, d, causal, pad) in K11_SHAPES.items():
         qkv = [torch.randn((b, s, n, d), generator=gen, device=device).to(torch.bfloat16) for n in (h, hkv, hkv)]
@@ -575,6 +593,24 @@ def phase_ops(device: torch.device, store: torch.Tensor, scales: torch.Tensor, b
         b8 = bound(docs * DOC_TOKENS * per_token + 8 * nq * q_bytes + 8 * docs * 4, 2 * 8 * nq * docs * DOC_TOKENS * DIM,
                    kind)
         r.update(bound_ms_b8=b8["bound_ms"], bound_by_b8=b8["bound_by"], bit_equal_to=tile_major)
+        if name == "maxsim_pallas_int8mxu_tm":  # K10 also at the served Nq=64, against K3 on the same queries
+            served = queries_served()
+            got = tm.maxsim_pallas_int8mxu_tm(*served, docs_tm, scales_tm)
+            if not torch.equal(got, maxsim_int8mxu_tiled(*served, store, scales)):
+                raise AssertionError("K10 vs K3 at B=8 Nq=64: not bit-equal")
+            for sl in (slice(0, CHECK_TILES), slice(n_tiles - CHECK_TILES, n_tiles)):
+                cols = slice(sl.start * DOC_TILE, sl.stop * DOC_TILE)
+                check(name, got[:, cols], tm.maxsim_pallas_int8mxu_tm_plain(*served, docs_tm[:, cols], scales_tm[:, cols]))
+            del got
+            sb = bound(docs * DOC_TOKENS * per_token + 8 * SERVED_TOKENS * q_bytes + 8 * docs * 4,
+                       2 * 8 * SERVED_TOKENS * docs * DOC_TOKENS * DIM, kind)
+            r.update(ms_served=time_ms(lambda: tm.maxsim_pallas_int8mxu_tm(*served, docs_tm, scales_tm), reps=3),
+                     plain_ms_served=time_ms(lambda: tm.maxsim_pallas_int8mxu_tm_plain(*served, docs_tm, scales_tm),
+                                             reps=2),
+                     bound_ms_served=sb["bound_ms"], bound_by_served=sb["bound_by"], max_abs_err=errs[name])
+            log(f"  {name} at the served shape B=8 Nq={SERVED_TOKENS}: kernel {r['ms_served']:.3f} ms, plain "
+                f"{r['plain_ms_served']:.3f} ms, bound {r['bound_ms_served']:.4f} ms ({r['bound_by_served']}), "
+                f"bit-equal to K3")
         log(f"  {name} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, B=8 kernel "
             f"{r['ms_b8']:.3f} ms, plain {r['plain_ms_b8']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"B=8 bound {r['bound_ms_b8']:.4f} ms ({r['bound_by_b8']}), max_abs_err {r['max_abs_err']:.3g}")
@@ -1316,12 +1352,71 @@ def timed_steps(state, batch, loss_fn, peft, seed: int, steps: int) -> dict:
     return out
 
 
+def checkpoint_readback(device: torch.device, model, in_memory: dict, loaded: dict, processor) -> dict:
+    """The merged export read back: a fresh ColPali-3B built from the same
+    config holds ``loaded`` (``load_colpali_params`` of the written
+    ``model.safetensors``), another holds the merged state dict as it was
+    in memory; their query and page embeddings must be bit-equal. Then a
+    ``QueryEncoder`` of the loaded model answers ``/search_text`` behind
+    ``make_handler``, each query finding its own embedding at rank 1."""
+    from http.server import ThreadingHTTPServer
+    import threading
+
+    from colpali_tpu_torch.models.paligemma import ColPali
+    from colpali_tpu_torch.retrieval.serving import QueryEncoder
+    from colpali_tpu_torch.retrieval.store import CorpusIndex
+    from colpali_tpu_torch.serve import make_handler
+
+    t0 = time.perf_counter()
+    models = {}
+    for key, state in (("loaded", loaded), ("in_memory", in_memory)):
+        m = ColPali(model.config, dim=DIM, device=device, dtype=torch.bfloat16).eval()
+        m.load_state_dict(state)
+        models[key] = m
+    del in_memory, state
+    texts = processor.process_queries(QUERIES)
+    pages = processor.process_images(make_pages(2, SEED + 11))  # the device resize, on the card
+    emb = {}
+    with torch.no_grad():
+        for key, m in models.items():
+            emb[key] = [m(**{k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()})
+                        for batch in (texts, pages)]
+    for what, a, b in zip(("queries", "pages"), emb["loaded"], emb["in_memory"]):
+        if not torch.equal(a, b) or not torch.isfinite(a.float()).all():
+            raise AssertionError(f"checkpoint read back: {what} embeddings differ from the in-memory model's by up to "
+                                 f"{(a.float() - b.float()).abs().max().item()}")
+    del models["in_memory"]
+    encoder = QueryEncoder(models["loaded"], processor)
+    docs = encoder.encode(QUERIES)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(CorpusIndex(docs, device=device), list(QUERIES),
+                                                               encoder=encoder))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        out = _http(f"http://127.0.0.1:{httpd.server_address[1]}", "/search_text", {"queries": QUERIES, "k": 1})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    _check_ranked("/search_text (read-back checkpoint)", out, len(QUERIES))
+    if [row[0] for row in out["doc_ids"]] != list(range(len(QUERIES))):
+        raise AssertionError(f"/search_text over the read-back checkpoint: top-1 {out['doc_ids']}")
+    r = dict(seconds=time.perf_counter() - t0, query_shape=list(emb["loaded"][0].shape),
+             page_shape=list(emb["loaded"][1].shape))
+    log(f"  checkpoint read back into a fresh ColPali-3B on the card: query {tuple(emb['loaded'][0].shape)} and page "
+        f"{tuple(emb['loaded'][1].shape)} embeddings bit-equal to the model holding the merged weights in memory; "
+        f"its QueryEncoder behind make_handler found each of {len(QUERIES)} queries at rank 1 through /search_text "
+        f"({r['seconds']:.1f} s)")
+    del models, encoder, emb
+    torch.cuda.empty_cache()
+    return r
+
+
 def phase_training(device: torch.device, model, processor, smi: str) -> tuple:
     """Drive the training path: ``ColModelTraining`` steps, eval, save and
     resume at full width. Returns the launches over the path, the timings
     of K6's backward and of K4/K5 on the eval index, and the step metrics."""
     import tempfile
 
+    from colpali_tpu_torch.core.hf_loader import load_colpali_params
     from colpali_tpu_torch.losses import ColbertPairwiseCELoss
     from colpali_tpu_torch.retrieval.store import DeviceIndexBuilder
     from colpali_tpu_torch.training import trainer
@@ -1509,20 +1604,26 @@ def phase_training(device: torch.device, model, processor, smi: str) -> tuple:
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g}")
         del int8_index, index_builder
 
-        # -- save: the merged export ------------------------------------------
+        # -- save: the merged export, model.safetensors in the HF layout ---------
         t0 = time.perf_counter()
         app.save()
+        t_save = time.perf_counter() - t0
         adapters = app.state.adapters
         i = adapters.module_names.index(f"model.language_model.layers.{t.num_hidden_layers // 2}.mlp.up_proj")
         name = f"{adapters.module_names[i]}.weight"
-        merged = torch.load(f"{tmp}/run/model.pt", mmap=True, weights_only=True)
+        t0 = time.perf_counter()
+        merged = load_colpali_params(f"{tmp}/run")
+        t_read = time.perf_counter() - t0
         base_w = model.state_dict()[name]
         expect = base_w + ((adapters.a[i] @ adapters.b[i]).T * (peft.alpha / peft.rank)).to(base_w.dtype)
         if set(merged) != set(model.state_dict()) or not torch.equal(merged[name].to(device), expect):
             raise AssertionError(f"save(): {name} is not W + (alpha/r) A @ B")
-        log(f"  save(): merged weights of {len(merged)} tensors written and read back in "
-            f"{time.perf_counter() - t0:.1f} s; {name} equals W + (alpha/r) A @ B")
-        del merged, expect
+        log(f"  save(): merged weights written as model.safetensors (HF layout) in {t_save:.1f} s, {len(merged)} "
+            f"tensors read back by load_colpali_params in {t_read:.1f} s; {name} equals W + (alpha/r) A @ B")
+        del expect
+        readback = checkpoint_readback(device, model, adapters.merged_state_dict(model), merged, processor)
+        del merged
+        app.close()
         app.close()
 
         # -- resume from the step-2 checkpoint ---------------------------------
@@ -1575,7 +1676,7 @@ def phase_training(device: torch.device, model, processor, smi: str) -> tuple:
                  examples_per_s_end_to_end=summary["train_samples_per_second"], step_ms=steps,
                  plain_route=route, peak_train_gib=peak_train,
                  launches_per_train_step={k: n // TRAIN_STEPS for k, n in train_launches.items()},
-                 int8_search_launches=int8_search_launches)
+                 int8_search_launches=int8_search_launches, checkpoint_readback=readback)
     return slice_launches, train_launches, k6_bwd, dict(maxsim_bf16=k5_eval, maxsim_int8_bf16=k4_eval), extra
 
 

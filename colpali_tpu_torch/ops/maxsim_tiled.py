@@ -118,7 +118,12 @@ def maxsim_int8mxu_tiled(
 
 def _maxsim_int8_cuda(kernel: CudaKernel, query_int8: torch.Tensor, query_scales: torch.Tensor,
                       store: torch.Tensor, scales: torch.Tensor, np_: int, nt: int) -> torch.Tensor:
-    """Launch K3 or K10 (``kernel``) over ``nt`` tiles of ``np_`` doc tokens."""
+    """Launch K3 or K10 (``kernel``) over ``nt`` tiles of ``np_`` doc tokens.
+
+    The kernel takes queries of a multiple of 8 tokens, at most 128: shorter
+    ones are padded with zero tokens of scale 0 (they add exactly 0), longer
+    ones are cut into pieces of 128 tokens whose scores are summed, since
+    the sum over query tokens splits."""
     b, nq, d = query_int8.shape
     dev = store.device
     check_cuda("query_int8", query_int8, torch.int8, dev)
@@ -127,10 +132,18 @@ def _maxsim_int8_cuda(kernel: CudaKernel, query_int8: torch.Tensor, query_scales
     check_cuda("scales", scales, torch.float32, dev)
     if d not in (64, 128, 256):
         raise ValueError(f"the int8 kernel takes dim 64, 128 or 256, got {d}")
-    out = torch.empty((b, nt * DOC_TILE), dtype=torch.float32, device=dev)
+    if b * nq * nt * np_ == 0:
+        return torch.zeros((b, nt * DOC_TILE), dtype=torch.float32, device=dev)
+    piece = DOC_TILE if nq > DOC_TILE else -(-nq // 8) * 8
+    padded = -(-nq // piece) * piece
+    if padded != nq:
+        query_int8 = torch.nn.functional.pad(query_int8, (0, 0, 0, padded - nq))
+        query_scales = torch.nn.functional.pad(query_scales, (0, padded - nq))
+    pieces = padded // piece
+    out = torch.empty((b * pieces, nt * DOC_TILE), dtype=torch.float32, device=dev)
     kernel(dev, query_int8.data_ptr(), query_scales.data_ptr(), store.data_ptr(),
-           scales.data_ptr(), out.data_ptr(), b, nq, np_, d, nt)
-    return out
+           scales.data_ptr(), out.data_ptr(), b * pieces, piece, np_, d, nt)
+    return out if pieces == 1 else out.reshape(b, pieces, -1).sum(dim=1)
 
 
 # -- K2: fused candidate gather + exact rerank ----------------------------------

@@ -7,15 +7,19 @@ only, and the packing of a group of pages into one upload buffer. Device
 side, torch on the tensors' own device: unpack the buffer, YUV420 -> RGB,
 and the ``(x / 255 - mean) / std`` normalization, in fp32.
 
-Not ported yet: the device-resize path (``preprocess_images_fixed`` without
-``host_resize``), which resizes with ``jax.image.resize`` bicubic and
-antialias (Keys kernel a = -0.5); ``F.interpolate`` uses a = -0.75, so a
-faithful port needs ``jax.image.scale_and_translate``'s weight matrices.
+The device resize (:func:`preprocess_images_fixed` without ``host_resize``,
+the default) is ``jax.image.resize``: half-pixel centres, the Keys cubic
+kernel with a = -0.5 (``F.interpolate`` has a = -0.75), widened by the
+scale on a downscale when ``antialias``, each output's weights normalized
+to sum to 1. The per-axis weight matrices are built in numpy as
+``jax.image.scale_and_translate`` builds them (``compute_weight_mat``, fp32)
+and applied as two fp32 products on the pixels' device.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+import functools
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -144,13 +148,128 @@ def normalize_pixels(x: torch.Tensor, mean: Sequence[float], std: Sequence[float
     return (x / 255.0 - m) / s
 
 
+def restore_group_order(parts: List[torch.Tensor], idx_groups: List[List[int]]) -> torch.Tensor:
+    """Concatenate per-group results and restore the original item order
+    (grouping by shape scrambles it); no gather when the groups already
+    cover the indices in order."""
+    stacked = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+    order = np.argsort(np.concatenate([np.asarray(g) for g in idx_groups]))
+    if not np.array_equal(order, np.arange(order.size)):
+        stacked = stacked[torch.from_numpy(order).to(stacked.device)]
+    return stacked
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    out = ((np.float32(1.5) * x - np.float32(2.5)) * x) * x + np.float32(1.0)
+    out = np.where(x >= 1.0, ((np.float32(-0.5) * x + np.float32(2.5)) * x - np.float32(4.0)) * x + np.float32(2.0), out)
+    return np.where(x >= 2.0, np.float32(0.0), out).astype(np.float32)
+
+
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x)).astype(np.float32)
+
+
+def _lanczos(radius: float):
+    def kernel(x: np.ndarray) -> np.ndarray:
+        r = np.float32(radius)
+        y = r * np.sin(np.float32(np.pi) * x) * np.sin(np.float32(np.pi) * x / r)
+        den = np.where(x != 0, np.float32(np.pi**2) * x * x, np.float32(1.0))
+        out = np.where(x > np.float32(1e-3), y / den, np.float32(1.0))
+        return np.where(x > r, np.float32(0.0), out).astype(np.float32)
+    return kernel
+
+
+_KERNELS = {"linear": _triangle, "bilinear": _triangle, "trilinear": _triangle, "triangle": _triangle,
+            "cubic": _keys_cubic, "bicubic": _keys_cubic, "tricubic": _keys_cubic,
+            "lanczos3": _lanczos(3.0), "lanczos5": _lanczos(5.0)}
+
+
+@functools.lru_cache(maxsize=64)
+def resize_weights(in_size: int, out_size: int, method: str = "bicubic", antialias: bool = True) -> np.ndarray:
+    """``(in_size, out_size)`` fp32 weights of a 1-D resize, as
+    ``jax.image.scale_and_translate``'s ``compute_weight_mat`` makes them."""
+    if method not in _KERNELS:
+        raise ValueError(f"unknown resize method {method!r}; one of {sorted(_KERNELS)} or 'nearest'")
+    scale = np.float32(out_size / in_size)
+    inv_scale = np.float32(1.0) / scale
+    kernel_scale = np.maximum(inv_scale, np.float32(1.0)) if antialias else np.float32(1.0)
+    sample_f = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) / kernel_scale
+    weights = _KERNELS[method](x.astype(np.float32))
+    total = weights.sum(axis=0, keepdims=True, dtype=np.float32)
+    weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                       weights / np.where(total != 0, total, np.float32(1.0)), np.float32(0.0))
+    inside = (sample_f >= -0.5) & (sample_f <= np.float32(in_size) - np.float32(0.5))
+    return np.where(inside[None, :], weights, np.float32(0.0)).astype(np.float32)
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    offsets = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * np.float32(in_size) / np.float32(out_size)
+    return np.floor(offsets.astype(np.float32)).astype(np.int64)
+
+
+def _resize_normalize(
+    images_u8: torch.Tensor,
+    mean: Sequence[float],
+    std: Sequence[float],
+    height: int,
+    width: int,
+    method: str = "bicubic",
+    antialias: bool = True,
+) -> torch.Tensor:
+    """``(B, H0, W0, 3)`` uint8 -> ``(B, height, width, 3)`` fp32 on the
+    images' device: resize on 0..255 floats (two fp32 products with the
+    per-axis weights; a gather for ``"nearest"``), then ``x / 255``, then
+    ``(x - mean) / std``, the HF image processors' order."""
+    x = images_u8.float()
+    h0, w0 = x.shape[1:3]
+    dev = x.device
+    if method == "nearest":
+        if h0 != height:
+            x = x[:, torch.from_numpy(_nearest_index(h0, height)).to(dev)]
+        if w0 != width:
+            x = x[:, :, torch.from_numpy(_nearest_index(w0, width)).to(dev)]
+    else:
+        if h0 != height:
+            wh = torch.from_numpy(resize_weights(h0, height, method, antialias)).to(dev)
+            x = torch.einsum("hi,bhwc->biwc", wh, x)
+        if w0 != width:
+            ww = torch.from_numpy(resize_weights(w0, width, method, antialias)).to(dev)
+            x = torch.einsum("wj,biwc->bijc", ww, x)
+    return normalize_pixels(x, mean, std)
+
+
 def preprocess_images_fixed(
     images: Sequence[ImageLike],
     size: Tuple[int, int] = (448, 448),
     mean: Sequence[float] = (0.5, 0.5, 0.5),
     std: Sequence[float] = (0.5, 0.5, 0.5),
-) -> np.ndarray:
-    """Resize on the host (PIL bicubic) and normalize -> ``(B, h, w, 3)``
-    float32 NHWC numpy: the JAX package's ``host_resize=True`` path."""
-    rgb = np.stack([host_resize_rgb(im, size) for im in images])
-    return normalize_pixels(torch.from_numpy(rgb).float(), mean, std).numpy()
+    method: str = "bicubic",
+    device: Union[bool, str, torch.device] = False,
+    host_resize: bool = False,
+) -> Union[np.ndarray, torch.Tensor]:
+    """Images -> ``(B, h, w, 3)`` fp32 normalized NHWC pixels.
+
+    By default each image is uploaded at its own size and resized on the
+    device (:func:`_resize_normalize`), images of one source shape as one
+    batch. ``host_resize=True`` resizes with PIL bicubic first, so only
+    target-size pixels cross to the device. ``device``: ``False`` computes
+    on the CPU and returns numpy; ``True`` computes on ``"cuda"`` and
+    ``str`` or ``torch.device`` computes there, both returning the tensor
+    where it lies."""
+    if device is False:
+        where = torch.device("cpu")
+    else:
+        where = torch.device("cuda" if device is True else device)
+    arrays = [host_resize_rgb(im, size) if host_resize else to_rgb_array(im) for im in images]
+    h, w = size
+    by_shape: dict = {}
+    for i, a in enumerate(arrays):
+        by_shape.setdefault(a.shape[:2], []).append(i)
+    parts, idx_groups = [], []
+    for indices in by_shape.values():
+        batch = torch.from_numpy(np.stack([arrays[i] for i in indices])).to(where)
+        parts.append(_resize_normalize(batch, mean, std, h, w, method=method))
+        idx_groups.append(indices)
+    pixels = restore_group_order(parts, idx_groups)
+    return pixels.numpy() if device is False else pixels

@@ -304,6 +304,13 @@ class CorpusIndex:
             return maxsim_int8_tiled(queries, self._store, self._scales)
         return maxsim_tiled(queries, self._store)
 
+    def score(self, query_embeddings: ArrayLike) -> np.ndarray:
+        """Full score matrix ``(n_queries, num_docs)`` float32, by the exact
+        sweep that :meth:`search` runs (K3 for an int8 index with quantized
+        queries, else K4 or K5)."""
+        scores = self._score_padded(self._prep_queries(query_embeddings))
+        return scores[:, : self.num_docs].cpu().numpy().astype(np.float32, copy=False)
+
     def search(
         self,
         query_embeddings: ArrayLike,

@@ -9,10 +9,12 @@ of ``scripts/serve.py``; same endpoints and JSON):
   POST /add          {"embeddings": [...], "files": [...]}
   GET  /healthz, /metrics
 
-Run: ``python -m colpali_tpu_torch.serve corpus.npz --device cuda``. The
-command line serves embeddings only; ``/search_text`` needs a
-:class:`~colpali_tpu_torch.retrieval.serving.QueryEncoder` passed to
-:func:`make_handler` (checkpoint loading is not ported yet).
+Run: ``python -m colpali_tpu_torch.serve corpus.npz --device cuda``, and add
+``--checkpoint DIR --no-quantize`` to load a query encoder from an HF-format
+checkpoint (:func:`colpali_tpu_torch.auto.load_retriever`) and enable
+``/search_text``. The JAX server loads stored-int8 weights unless
+``--no-quantize``; the port has no stored-int8 weights yet, so
+``--checkpoint`` without ``--no-quantize`` exits before loading anything.
 """
 
 from __future__ import annotations
@@ -150,18 +152,28 @@ def make_handler(index, files, window_ms: float = 2.0, exact_threshold: int = 4,
     return Handler
 
 
-def main() -> None:
+def make_server(argv=None) -> ThreadingHTTPServer:
+    """Parse the command line, build the index (and the query encoder) and
+    return the server, not yet serving."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("corpus_npz", help="embeddings from scripts/embed_corpus.py, or a packed "
                         "index written by CorpusIndex.save / --save-index (of either package)")
     parser.add_argument("--port", type=int, default=8080)
-    parser.add_argument("--device", default="cuda", help="where the index lives and is scored")
+    parser.add_argument("--device", default="cuda", help="where the index and the query encoder live")
     parser.add_argument("--dtype", default="int8", choices=["bf16", "int8"])
     parser.add_argument("--prefilter", action="store_true",
                         help="build a two-tier index (sign-sketch coarse pass + exact rerank)")
     parser.add_argument("--save-index", metavar="PATH.npz",
                         help="after building, persist the packed index here and keep serving")
-    args = parser.parse_args()
+    parser.add_argument("--checkpoint", help="HF-format retriever checkpoint dir: loads the model and "
+                        "processor in-process and enables POST /search_text (needs --no-quantize)")
+    parser.add_argument("--family", help="checkpoint family (else detected from its config.json)")
+    parser.add_argument("--no-quantize", action="store_true",
+                        help="with --checkpoint: serve the checkpoint's bf16 weights (the only mode ported)")
+    args = parser.parse_args(argv)
+    if args.checkpoint and not args.no_quantize:
+        parser.error("--checkpoint would serve stored-int8 weights, which colpali_tpu_torch does not have yet "
+                     "(ROADMAP.md Queue 1 item 2); pass --no-quantize to serve the checkpoint's bf16 weights")
 
     with np.load(args.corpus_npz) as probe:
         is_index = "store" in probe.files
@@ -181,8 +193,19 @@ def main() -> None:
             with open(args.save_index + ".files.json", "w") as f:
                 json.dump(files, f)
             print(f"Packed index saved to {args.save_index}")
+    encoder = None
+    if args.checkpoint:
+        from colpali_tpu_torch.auto import load_retriever
+        from colpali_tpu_torch.retrieval.serving import QueryEncoder
+
+        encoder = QueryEncoder(*load_retriever(args.checkpoint, family=args.family, device=args.device))
+        print(f"Text-in serving: query encoder loaded from {args.checkpoint}")
     print(f"Serving {index.num_docs} docs ({index.nbytes / 2**20:.1f} MiB on {args.device}) on :{args.port}")
-    ThreadingHTTPServer(("0.0.0.0", args.port), make_handler(index, files)).serve_forever()
+    return ThreadingHTTPServer(("0.0.0.0", args.port), make_handler(index, files, encoder=encoder))
+
+
+def main(argv=None) -> None:
+    make_server(argv).serve_forever()
 
 
 if __name__ == "__main__":

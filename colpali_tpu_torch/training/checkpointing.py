@@ -3,9 +3,12 @@
 
 :class:`CheckpointManager` keeps periodic training checkpoints with
 retention and restores the latest for ``resume_from_checkpoint``;
-:func:`save_pretrained` writes the final export: the (merged) state dict as
-``model.pt``, the model config as JSON and a provenance file. The export
-under HF parameter names waits for a port of ``core/hf_export.py``.
+:func:`save_pretrained` writes the final export as the JAX package's does:
+``model.safetensors`` in the HF torch layout
+(:func:`colpali_tpu_torch.core.hf_export.export_colpali_state_dict`, through
+the port's own safetensors writer), the model config as JSON
+(``dataclasses.asdict``, not an HF config) and a provenance file. Either
+package's ``load_colpali_params`` reads the weights back.
 """
 
 from __future__ import annotations
@@ -18,6 +21,9 @@ import subprocess
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from colpali_tpu_torch.core import safetensors
+from colpali_tpu_torch.core.hf_export import export_colpali_state_dict
 
 
 class CheckpointManager:
@@ -86,15 +92,16 @@ def git_revision(repo_dir: Optional[str] = None) -> str:
 
 def save_pretrained(output_dir: str, state_dict: Dict[str, torch.Tensor], config: Any = None,
                     extra_metadata: Optional[Dict[str, Any]] = None) -> None:
-    """Final export: ``model.pt`` (the state dict, on the CPU, under the
-    port's parameter names), ``config.json`` and
-    ``training_provenance.json`` (git hash)."""
+    """Final export of a ``ColPali`` state dict: ``model.safetensors`` (HF
+    names and layouts, the parameters' dtypes), ``config.json`` and
+    ``training_provenance.json`` (git hash, ``checkpoint_layout: "hf"``)."""
     os.makedirs(output_dir, exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, os.path.join(output_dir, "model.pt"))
+    safetensors.save_file(export_colpali_state_dict(state_dict), os.path.join(output_dir, "model.safetensors"),
+                          metadata={"format": "pt"})
     if config is not None:
         cfg_dict = dataclasses.asdict(config) if dataclasses.is_dataclass(config) else dict(config)
         with open(os.path.join(output_dir, "config.json"), "w") as f:
             json.dump(cfg_dict, f, indent=2, default=str)
-    provenance = {"git_hash": git_revision(), "checkpoint_layout": "torch", **(extra_metadata or {})}
+    provenance = {"git_hash": git_revision(), "checkpoint_layout": "hf", **(extra_metadata or {})}
     with open(os.path.join(output_dir, "training_provenance.json"), "w") as f:
         json.dump(provenance, f, indent=2)

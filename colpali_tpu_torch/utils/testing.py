@@ -84,6 +84,9 @@ class DummyProcessor(BaseVisualRetrieverProcessor):
     def get_n_patches(self, image_size, *args, **kwargs):
         return (2, 2)
 
+    def get_n_patches(self, image_size, *args, **kwargs):
+        return (2, 2)
+
 
 def load_dummy_dataset(n: int = 16, image_size: int = 64) -> ColPaliEngineDataset:
     """Synthetic offline dataset: ``n`` queries ``"synthetic query i"``, each

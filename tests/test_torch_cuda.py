@@ -117,6 +117,27 @@ def test_k3_matches_plain(dev, d, b, nq, np_):
     torch.testing.assert_close(got, maxsim_int8mxu_tiled_plain(qi, qs, store, scales), rtol=RTOL, atol=ATOL)
 
 
+# K3 and K10 on the tensor cores: every B, Nq and D of the grid at a short Np, then
+# doc lengths 1 to 1,040 and tile counts (1, 131, 133) around the card's 132 SMs
+K3_GRID = [(b, nq, d, 7, 3) for b in (1, 3, 8) for nq in (16, 32, 64) for d in (64, 128, 256)]
+K3_SHAPES = [(8, 64, 128, 1, 131), (8, 64, 128, 64, 133), (1, 32, 128, 64, 131), (3, 16, 256, 1040, 1),
+             (8, 64, 128, 1040, 2), (8, 32, 64, 64, 133), (1, 64, 256, 7, 1), (8, 16, 128, 64, 1)]
+
+
+@pytest.mark.parametrize("b,nq,d,np_,nt", K3_GRID + K3_SHAPES)
+def test_k3_and_k10_match_plain_bit_equal_and_repeatable(dev, b, nq, d, np_, nt):
+    store, scales = _store(dev, nt, np_, d, seed=b + nq + d + np_)
+    q = torch.randn((b, nq, d), generator=_gen(dev, 7), device=dev)
+    q[:, -1] = 0.0  # a padded query token
+    qi, qs = quantize_per_token(q)
+    got = maxsim_int8mxu_tiled(qi, qs, store, scales)
+    torch.testing.assert_close(got, maxsim_int8mxu_tiled_plain(qi, qs, store, scales), rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, maxsim_int8mxu_tiled(qi, qs, store, scales))
+    docs_tm = store.permute(1, 0, 2, 3).reshape(np_, nt * 128, d).contiguous()
+    scales_tm = scales.permute(1, 0, 2).reshape(np_, nt * 128).contiguous()
+    assert torch.equal(tm.maxsim_pallas_int8mxu_tm(qi, qs, docs_tm, scales_tm), got)
+
+
 @pytest.mark.parametrize("d,b,nq,np_,c", [(128, 1, 32, 64, 300), (64, 3, 7, 16, 50), (128, 2, 64, 64, 1),
                                            (128, 1, 64, 1040, 200), (128, 4, 64, 1040, 30), (64, 2, 9, 65, 40)])
 def test_k2_matches_plain(dev, d, b, nq, np_, c):
@@ -483,3 +504,14 @@ def test_k11_matches_plain(dev, b, s, h, hkv, d, pad, causal):
     atol = K6_ATOL_RMS * want.pow(2).mean(dim=(1, 2), keepdim=True).sqrt()  # per query row
     share = ((got - want).abs() / (atol + K6_RTOL * want.abs())).max().item()
     assert share <= 1.0, f"K11 vs plain: {share:.2f} of the tolerance at the worst element"
+
+
+@pytest.mark.parametrize("hw,size", [((40, 30), 28), ((1650, 1275), 448), ((300, 200), 448)])
+def test_device_resize_on_card_matches_its_cpu_run(dev, hw, size):
+    from colpali_tpu_torch.processors.image_processing import preprocess_images_fixed
+
+    pages = [np.random.default_rng(s).integers(0, 256, size=(*hw, 3), dtype=np.uint8) for s in range(2)]
+    on_card = preprocess_images_fixed(pages, size=(size, size), device=dev)
+    assert on_card.device == dev and on_card.shape == (2, size, size, 3)
+    cpu = preprocess_images_fixed(pages, size=(size, size))
+    np.testing.assert_allclose(on_card.cpu().numpy(), cpu, atol=1e-5)

@@ -96,21 +96,23 @@ def stacks():
     model.load_state_dict(colpali_state_dict_from_jax(jax.tree.map(np.asarray, variables)), strict=True)
     kw = dict(image_size=SIZE, image_seq_length=n_img)
     tokenizer = WordTokenizer(IMAGE_TOKEN)
-    return jax_model, variables, JaxProcessor(tokenizer, **kw), model.eval(), ColPaliProcessor(tokenizer, **kw)
+    return (jax_model, variables, JaxProcessor(tokenizer, **kw), model.eval(),
+            ColPaliProcessor(tokenizer, device="cpu", **kw))
 
 
 def test_process_images_matches_jax(stacks):
     _, _, jax_proc, _, proc = stacks
     pages = [_page(2), _page(3, 60, 80)]
-    got, want = proc.process_images(pages), jax_proc.process_images(pages, host_resize=True)
+    got, want = proc.process_images(pages, host_resize=True), jax_proc.process_images(pages, host_resize=True)
     assert set(got) == set(want) == {"input_ids", "attention_mask", "pixel_values"}
     np.testing.assert_array_equal(got["input_ids"], want["input_ids"])
     np.testing.assert_array_equal(got["attention_mask"], want["attention_mask"])
     np.testing.assert_allclose(got["pixel_values"], want["pixel_values"], atol=1e-6)
     np.testing.assert_array_equal(proc.get_image_mask(got), jax_proc.get_image_mask(want))
     assert proc.get_image_mask(got).sum(axis=1).tolist() == [16, 16]
-    with pytest.raises(NotImplementedError, match="a=-0.5"):
-        proc.process_images(pages, host_resize=False)
+    # the default resizes on the device, as jax.image.resize does (tests/test_torch_processor_surface.py)
+    default, jax_default = proc.process_images(pages), jax_proc.process_images(pages)
+    np.testing.assert_allclose(default["pixel_values"], jax_default["pixel_values"], atol=1e-5)
 
 
 @pytest.mark.parametrize("chunk", [1, 2])

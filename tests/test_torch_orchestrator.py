@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from colpali_tpu.evaluation.evaluator import evaluate_retrieval as jax_evaluate_retrieval
+from colpali_tpu_torch.core.hf_loader import load_colpali_params
 from colpali_tpu_torch.losses import ColbertPairwiseCELoss
 from colpali_tpu_torch.models.common import hf_init_
 from colpali_tpu_torch.models.paligemma import ColPali
@@ -65,7 +66,7 @@ def test_four_steps_log_and_checkpoint(full_run):
 def test_save_writes_merged_weights(full_run):
     app, out, *_ = full_run
     app.save()
-    merged = torch.load(out / "model.pt", weights_only=True)
+    merged = load_colpali_params(str(out))  # model.safetensors in the HF layout, read back by the loader
     assert merged.keys() == app.model.state_dict().keys()
     adapters = app.state.adapters
     name = adapters.module_names[3]
@@ -156,4 +157,4 @@ config:
 """)
     summary = cli.main([str(config)])
     assert summary["final_step"] == 2
-    assert {"model.pt", "training_config.yml", "metrics.jsonl"} <= set(os.listdir(tmp_path / "run"))
+    assert {"model.safetensors", "training_config.yml", "metrics.jsonl"} <= set(os.listdir(tmp_path / "run"))

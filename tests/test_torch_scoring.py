@@ -86,6 +86,9 @@ class _TorchProcessor(TorchProcessor):
     def process_texts(self, texts):
         raise NotImplementedError
 
+    def get_n_patches(self, image_size, *args, **kwargs):
+        raise NotImplementedError
+
 
 class _JaxProcessor(JaxProcessor):
     def process_images(self, images):

@@ -226,3 +226,16 @@ def test_device_index_builder_validation():
         index_builder.add(torch.zeros(2, 17, DIM))
     with pytest.raises(ValueError, match="dim mismatch"):
         index_builder.add(torch.zeros(2, 16, DIM + 1))
+
+
+@pytest.mark.parametrize("dtype,quantize_queries", [("int8", True), ("int8", False), ("bf16", True)])
+def test_score_matches_jax(dtype, quantize_queries):
+    """The full (n_queries, num_docs) matrix by the exact sweep of search
+    (K3, K4 or K5), against JAX's score through its Pallas kernels."""
+    kw = dict(dtype=dtype, quantize_queries=quantize_queries)
+    jax_index, index = JaxIndex(DOCS, force_kernel=True, **kw), CorpusIndex(DOCS, device="cpu", **kw)
+    got, want = index.score(QUERIES), jax_index.score(QUERIES)
+    assert got.dtype == np.float32 and got.shape == want.shape == (len(QUERIES), len(DOCS))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    scores, ids = index.search(QUERIES, k=3)
+    np.testing.assert_array_equal(np.take_along_axis(got, ids, axis=1), scores)
