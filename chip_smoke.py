@@ -7,15 +7,26 @@ Run from the repository root with no arguments:
 
 Phases (a few lines of output each, then two JSON lines):
 
-1. device: the card's name and power limit (``nvidia-smi``), and the build
-   of the CUDA kernels from ``colpali_tpu_torch/csrc`` (``build/kernels/``);
+1. device: the card's name and power limit (``nvidia-smi``), the build
+   of the CUDA kernels from ``colpali_tpu_torch/csrc`` (``build/kernels/``),
+   and ``tools/b1_probe.py``'s rates on this card (single-bit and int8
+   tensor-core products, CUDA-core popcounts): K1's bound is the larger of
+   its bytes and its products at the fastest single-bit rate, printed
+   beside the int8 proxy (the same products at the int8 peak) and the
+   CUDA-core popcount floor;
 2. kernels: K1 (sign-sketch coarse pass), K2 (candidate gather + rerank),
    K3 (full-int8 exact sweep) and K4 (int8 store, bf16 queries) against
    their plain PyTorch versions on a 999,936-doc x 64-token x 128-dim int8
    corpus generated on the card from a seeded ``torch.Generator``, and K5
    (bf16 store) on a bf16 copy of its first 262,144 docs; each is timed
    with CUDA events, kernel and plain version alike (K3 at B=1, and at B=8
-   with Nq=32 and the served Nq=64);
+   with Nq=32 and the served Nq=64; K2's bound is the larger of its bytes
+   and its products as three bf16 passes, the fp32 CUDA-core figure beside
+   it); then ``CorpusIndex.search`` on a two-tier index over that corpus,
+   timed stage by stage at B=1 (a CUDA event as each stage's function
+   returns: the queries' copy to the card, binarize_words, K1, the mask,
+   top_k over the corpus, K2, top_k over the candidates, then the copy to
+   the host);
 3. text slice: ColPali-3B at full width (SigLIP-So400m 27 x 1152, projector
    1152 -> 2048, Gemma-2B 18 x 2048 with MQA 8/1 x 256 and vocab 257,216;
    seeded random bf16 weights), a whitespace tokenizer, a 65,536-doc
@@ -31,7 +42,9 @@ Phases (a few lines of output each, then two JSON lines):
    two-tier int8 index of them and seeded filler docs behind ``make_handler``,
    each of 8 pages found at rank 1 by its own first 32 token vectors on the
    tiered and the exact route; then K1, K2 and K3 against their plain
-   versions on that index, and a ``torch.profiler`` breakdown of one batch;
+   versions on that index (K1 and K2 timed at B=1 and B=4),
+   ``CorpusIndex.search`` timed by stage at B=1 and B=4, and a
+   ``torch.profiler`` breakdown of one batch;
 5. training slice: K6's backward kernels against autograd through the plain
    version, beside SDPA's backward, at the shapes training gives them;
    ``ColModelTraining`` taking 4 LoRA steps (rank 32, dropout 0.1, remat,
@@ -169,6 +182,9 @@ BF16_INDEX_KERNELS = ("binary_maxsim", "gather_rerank_bf16")  # the bf16 two-tie
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s and operations/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+# rates measured on this card in phase 1 by tools/b1_probe.py: single-bit products (b1_wgmma, b1_k256,
+# b1_k128), int8 mma.sync (s8_k32) and 32-bit popcounts on the CUDA cores (popc_xor)
+RATES: dict = {}
 
 
 def log(msg: str) -> None:
@@ -182,6 +198,35 @@ def bound(nbytes: float, ops: float, kind: str) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_bound(b: int, nq: int, c: int, npc: int, w: int) -> dict:
+    """K1's bound at one shape: the larger of its bytes (the sketch read
+    once, whatever the batch, the query words and validity, the scores
+    written) and its products (D bits of every query token x doc token
+    pair, an AND and an add each) at this card's fastest measured
+    single-bit tensor-core rate (the data sheet gives none; ``bound_ms_b1``).
+    Beside it: the same products at the int8 peak (``bound_ms_int8_proxy``,
+    the bound of PR 6's rows) and the CUDA-core popcount floor (a popcount
+    per word of every pair)."""
+    pairs = b * nq * c * npc
+    nbytes = c * w * npc * 4 + b * nq * (w + 1) * 4 + b * c * 4
+    ops = 2 * pairs * 32 * w
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_b1 = ops / max(RATES[k] for k in ("b1_wgmma", "b1_k256", "b1_k128")) * 1e3
+    return dict(bound_ms=max(t_bytes, t_b1), bound_by="bytes" if t_bytes >= t_b1 else "operations",
+                bound_ms_b1=t_b1, bound_ms_int8_proxy=bound(nbytes, ops, "int8")["bound_ms"],
+                popcount_floor_ms=pairs * w / RATES["popc_xor"] * 1e3)
+
+
+def k2_bound(b: int, nq: int, c: int, np_: int, d: int, value_bytes: int) -> dict:
+    """K2's bound: the candidates' bytes (values, and the int8 store's
+    scales) against its products as three bf16 passes at the bf16 peak, the
+    work done at the accuracy the port holds K2 to; ``bound_ms_fp32``, the
+    same products once at the CUDA cores' fp32 peak, is kept beside it."""
+    nbytes = b * c * np_ * (d * value_bytes + (4 if value_bytes == 1 else 0)) + b * nq * d * 4 + b * c * 8
+    ops = 2 * b * nq * c * np_ * d
+    return dict(**bound(nbytes, 3 * ops, "bf16"), bound_ms_fp32=bound(nbytes, ops, "fp32")["bound_ms"])
 
 
 def reset_launches() -> None:
@@ -230,6 +275,97 @@ def time_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean time of ``fn`` replayed from a CUDA graph (captured once after a
+    warm-up), by CUDA events: the card's time for the call without the
+    host's launches, which back-to-back calls of a short kernel measure
+    instead (the profiler's sums dropped kernels in long runs here)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):  # the entry points may set a kernel's attributes
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# the stages of CorpusIndex._search_tiered, each ending where the function named returns; "to host" is the rest
+TIERED_STAGES = ("queries to the card", "binarize_words", "K1", "mask", "top_k over C", "K2", "top_k over c",
+                 "to host")
+
+
+def index_over(store, scales, bwords, num_docs: int) -> "CorpusIndex":
+    """A two-tier int8 ``CorpusIndex`` around tile-major tensors already on
+    the card (no copy), put together as ``CorpusIndex.load`` puts one."""
+    from colpali_tpu_torch.retrieval.store import CorpusIndex
+
+    index = object.__new__(CorpusIndex)
+    index._init_common("int8", store.device, True, prefilter="binary", coarse_pool=COARSE_POOL)
+    index.num_docs, index.doc_tokens, index.dim = num_docs, store.shape[1], store.shape[-1]
+    index.padded_docs = store.shape[0] * DOC_TILE
+    index._put_store(store, scales, bwords)
+    return index
+
+
+def tiered_stages(label: str, index, queries: np.ndarray, k: int = 10, c: int = CANDIDATES, reps: int = 10) -> dict:
+    """Mean ms of each stage of ``index.search`` on its tiered route, over
+    ``reps`` searches after one warm-up, and the median host ms of a whole
+    search; logged as one line. The search runs as served, its stages'
+    functions wrapped to record a CUDA event as each returns (a stage whose
+    kernels wait for the host counts that wait)."""
+    from colpali_tpu_torch.retrieval import store as store_mod
+
+    pending = []  # this search's events still to record, in stage order
+
+    def marked(fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if not pending:
+                raise AssertionError("the search ran more stages than the tiered route has")
+            pending.pop(0).record()
+            return out
+        return call
+
+    cls = store_mod.CorpusIndex
+    patches = [mock.patch.object(cls, name, marked(getattr(cls, name))) for name in ("_prep_queries", "_mask_fake")]
+    patches += [mock.patch.object(store_mod, name, marked(getattr(store_mod, name)))
+                for name in ("binarize_words", "binary_maxsim_tiled", "top_k", "gather_rerank")]
+    for p in patches:
+        p.start()
+    try:
+        ms = np.zeros(len(TIERED_STAGES))
+        host = []
+        for rep in range(reps + 1):  # the first is the warm-up
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(len(TIERED_STAGES) + 1)]
+            torch.cuda.synchronize()
+            pending[:] = events[1:-1]
+            t0 = time.perf_counter()
+            events[0].record()
+            index.search(queries, k=k, candidates=c)
+            events[-1].record()
+            t_host = (time.perf_counter() - t0) * 1e3
+            if pending:
+                raise AssertionError(f"the search skipped {len(pending)} of its tiered stages")
+            torch.cuda.synchronize()
+            if rep:
+                host.append(t_host)
+                ms += [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    finally:
+        for p in patches:
+            p.stop()
+    r = dict(zip(TIERED_STAGES, (ms / reps).tolist()), search_host_ms=float(np.median(host)))
+    log(f"  tiered search stages, {label}: " + ", ".join(f"{name} {r[name]:.4f}" for name in TIERED_STAGES)
+        + f" ms; a search {r['search_host_ms']:.3f} ms (host clock)")
+    return r
+
+
 # -- phase 1 -------------------------------------------------------------------
 
 
@@ -252,6 +388,9 @@ def phase_device() -> str:
     for line in ptxas.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    from tools.b1_probe import measure_rates
+
+    RATES.update(measure_rates(report=lambda line: log(f"  rate probe: {line}")))
     return smi
 
 
@@ -370,9 +509,11 @@ def phase_kernels(device: torch.device) -> tuple:
     b1, b8, s1, s8 = (1, QUERY_TOKENS), (8, QUERY_TOKENS), (1, SERVED_TOKENS), (8, SERVED_TOKENS)
     results = {
         "binary_maxsim": dict(ms=time_ms(k1(b1)), plain_ms=time_ms(k1(b1, True), reps=2),
-                              ms_served=time_ms(k1(s1)),
+                              ms_served=time_ms(k1(s1)), ms_graph=graph_ms(k1(b1)),
+                              ms_served_graph=graph_ms(k1(s1)),
                               shape=f"B=1 Nq={QUERY_TOKENS} (served: Nq={SERVED_TOKENS}) W=4 Npc=16 C={CORPUS_DOCS}"),
         "gather_rerank": dict(ms=time_ms(k2(b1)), plain_ms=time_ms(k2(b1, True)), ms_served=time_ms(k2(s1)),
+                              ms_graph=graph_ms(k2(b1)), ms_served_graph=graph_ms(k2(s1)),
                               shape=f"B=1 Nq={QUERY_TOKENS} (served: Nq={SERVED_TOKENS}) c={CANDIDATES} Np={DOC_TOKENS}"),
         "maxsim_int8": dict(ms=time_ms(k3(b1)), plain_ms=time_ms(k3(b1, True), reps=2),
                             ms_b8=time_ms(k3(b8)), plain_ms_b8=time_ms(k3(b8, True), reps=2),
@@ -387,9 +528,13 @@ def phase_kernels(device: torch.device) -> tuple:
                             shape=f"B=1 and B=8 Nq={QUERY_TOKENS} Np={DOC_TOKENS} C={BF16_DOCS} bf16"),
     }
     w, npc, nq, c = DIM // 32, DOC_TOKENS // COARSE_POOL, QUERY_TOKENS, CORPUS_DOCS
-    results["binary_maxsim"].update(bound(c * w * npc * 4 + nq * (w + 1) * 4 + c * 4, 2 * nq * c * npc * DIM, "int8"))
-    results["gather_rerank"].update(bound(CANDIDATES * DOC_TOKENS * (DIM + 4) + nq * DIM * 4 + CANDIDATES * 8,
-                                          2 * nq * CANDIDATES * DOC_TOKENS * DIM, "fp32"))
+    results["binary_maxsim"].update(k1_bound(1, nq, c, npc, w))
+    served_k1 = k1_bound(1, SERVED_TOKENS, c, npc, w)
+    results["binary_maxsim"].update(bound_ms_served=served_k1["bound_ms"], bound_by_served=served_k1["bound_by"],
+                                    popcount_floor_ms_served=served_k1["popcount_floor_ms"],
+                                    bound_ms_b1_served=served_k1["bound_ms_b1"])
+    results["gather_rerank"].update(k2_bound(1, nq, CANDIDATES, DOC_TOKENS, DIM, 1))
+    results["gather_rerank"]["bound_ms_served"] = k2_bound(1, SERVED_TOKENS, CANDIDATES, DOC_TOKENS, DIM, 1)["bound_ms"]
     results["maxsim_int8"].update(bound(c * DOC_TOKENS * (DIM + 4) + nq * (DIM + 4) + c * 4,
                                         2 * nq * c * DOC_TOKENS * DIM, "int8"))
     for key, (b, nq_k) in (("b8", b8), ("served", s8)):  # K3 at B=8: Nq=32, and the served Nq=64
@@ -410,12 +555,24 @@ def phase_kernels(device: torch.device) -> tuple:
         if "bound_ms_b8" in r:
             extra += f", B=8 bound {r['bound_ms_b8']:.4f} ms ({r['bound_by_b8']})"
         served = f"served shape {r['ms_served']:.3f} ms, " if "ms_served" in r else ""
+        if "ms_graph" in r:
+            served += f"from a CUDA graph {r['ms_graph']:.4f} ms (served {r['ms_served_graph']:.4f}), "
+        if "popcount_floor_ms" in r:
+            extra += (f", served bound {r['bound_ms_served']:.4f} ms ({r['bound_by_served']}), int8 proxy "
+                      f"{r['bound_ms_int8_proxy']:.4f} ms, CUDA-core popcount floor {r['popcount_floor_ms']:.4f} ms "
+                      f"(served {r['popcount_floor_ms_served']:.4f}), single-bit products {r['bound_ms_b1']:.4f} ms "
+                      f"(served {r['bound_ms_b1_served']:.4f})")
+        if "bound_ms_fp32" in r:
+            extra += f", fp32 CUDA-core bound {r['bound_ms_fp32']:.4f} ms, served bound {r['bound_ms_served']:.4f} ms"
         if "plain_ms_served" in r:
             served += (f"plain {r['plain_ms_served']:.3f} ms, bound {r['bound_ms_served']:.4f} ms "
                        f"({r['bound_by_served']}), ")
         log(f"  {name} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms{extra}, "
             f"{served}bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g}")
-    del bwords
+    corpus_index = index_over(store, scales, bwords, CORPUS_DOCS)
+    results["binary_maxsim"]["tiered_stages"] = tiered_stages(
+        f"{CORPUS_DOCS} docs x {DOC_TOKENS} tokens, B=1 Nq={SERVED_TOKENS}", corpus_index, q[s1].cpu().numpy())
+    del bwords, corpus_index
     torch.cuda.empty_cache()
     return results, (store, scales, bstore)  # phase 6 makes token-major copies of them
 
@@ -1006,14 +1163,19 @@ def bf16_index_check(device: torch.device, docs: list, planted: list, queries: l
     r = dict(ms=time_ms(lambda: gather_rerank_tiled(q1, index._store, None, cand1)),
              plain_ms=time_ms(lambda: gather_rerank_plain(q1, index._store, None, cand1), 2),
              max_abs_err=(got - want).abs().max().item(), library_ms=None,
-             **bound(CANDIDATES * PAGE_DOC_TOKENS * 2 * DIM + nq * DIM * 4 + CANDIDATES * 8,
-                     2 * nq * CANDIDATES * PAGE_DOC_TOKENS * DIM, "fp32"),
-             shape=f"B=1 Nq={nq} c={CANDIDATES} Np={PAGE_DOC_TOKENS} bf16 store")
+             **k2_bound(1, nq, CANDIDATES, PAGE_DOC_TOKENS, DIM, 2),
+             ms_b4=time_ms(lambda: gather_rerank_tiled(q, index._store, None, cand)),
+             ms_graph=graph_ms(lambda: gather_rerank_tiled(q1, index._store, None, cand1)),
+             ms_b4_graph=graph_ms(lambda: gather_rerank_tiled(q, index._store, None, cand)),
+             bound_ms_b4=k2_bound(4, nq, CANDIDATES, PAGE_DOC_TOKENS, DIM, 2)["bound_ms"],
+             shape=f"B=1 (and B=4) Nq={nq} c={CANDIDATES} Np={PAGE_DOC_TOKENS} bf16 store")
     log(f"  bf16 index: {index.num_docs} docs x {index.doc_tokens} x {index.dim} bf16 + sketch pool "
         f"{index.coarse_pool} ({index.nbytes} bytes), built on the host in {t_build:.1f} s; each of "
         f"{len(planted)} pages at rank 1 on the tiered route ({search_ms:.1f} ms a search); launches {launches}")
     log(f"  gather_rerank_bf16 [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g}")
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), fp32 CUDA-core bound {r['bound_ms_fp32']:.4f} ms, from a CUDA "
+        f"graph {r['ms_graph']:.4f} ms, B=4 kernel {r['ms_b4']:.3f} ms (graph {r['ms_b4_graph']:.4f}), "
+        f"bound {r['bound_ms_b4']:.4f} ms, max_abs_err {r['max_abs_err']:.3g}")
     del index
     torch.cuda.empty_cache()
     return launches, r
@@ -1134,16 +1296,25 @@ def phase_pages(device: torch.device, model, processor, encoder) -> tuple:
 
     c, nq, npc, w = index.padded_docs, SERVED_TOKENS, PAGE_DOC_TOKENS // COARSE_POOL, DIM // 32
     q1, qw1, qv1, cand1 = q[:1], qw[:1].contiguous(), qv[:1].contiguous(), cand[:1].contiguous()
+    k1_b4 = k1_bound(4, nq, c, npc, w)
     page = {
         "binary_maxsim": dict(ms=time_ms(lambda: binary_maxsim_tiled(qw1, qv1, index._bwords, DIM)),
                               plain_ms=time_ms(lambda: binary_maxsim_tiled_plain(qw1, qv1, index._bwords, DIM), 2),
                               max_abs_err=k1_err,
-                              **bound(c * w * npc * 4 + nq * (w + 1) * 4 + c * 4, 2 * nq * c * npc * DIM, "int8")),
+                              **k1_bound(1, nq, c, npc, w),
+                              ms_b4=time_ms(lambda: binary_maxsim_tiled(qw, qv, index._bwords, DIM)),
+                              ms_graph=graph_ms(lambda: binary_maxsim_tiled(qw1, qv1, index._bwords, DIM)),
+                              ms_b4_graph=graph_ms(lambda: binary_maxsim_tiled(qw, qv, index._bwords, DIM)),
+                              bound_ms_b4=k1_b4["bound_ms"], bound_by_b4=k1_b4["bound_by"],
+                              bound_ms_b4_int8_proxy=k1_b4["bound_ms_int8_proxy"]),
         "gather_rerank": dict(ms=time_ms(lambda: gather_rerank_tiled(q1, index._store, index._scales, cand1)),
                               plain_ms=time_ms(lambda: gather_rerank_plain(q1, index._store, index._scales, cand1), 2),
                               max_abs_err=k2_err,
-                              **bound(CANDIDATES * PAGE_DOC_TOKENS * (DIM + 4) + nq * DIM * 4 + CANDIDATES * 8,
-                                      2 * nq * CANDIDATES * PAGE_DOC_TOKENS * DIM, "fp32")),
+                              **k2_bound(1, nq, CANDIDATES, PAGE_DOC_TOKENS, DIM, 1),
+                              ms_b4=time_ms(lambda: gather_rerank_tiled(q, index._store, index._scales, cand)),
+                              ms_graph=graph_ms(lambda: gather_rerank_tiled(q1, index._store, index._scales, cand1)),
+                              ms_b4_graph=graph_ms(lambda: gather_rerank_tiled(q, index._store, index._scales, cand)),
+                              bound_ms_b4=k2_bound(4, nq, CANDIDATES, PAGE_DOC_TOKENS, DIM, 1)["bound_ms"]),
         "maxsim_int8": dict(ms=time_ms(lambda: maxsim_int8mxu_tiled(qi, qsc, index._store, index._scales)),
                             plain_ms=time_ms(lambda: maxsim_int8mxu_tiled_plain(qi, qsc, index._store,
                                                                                 index._scales), 2),
@@ -1155,8 +1326,19 @@ def phase_pages(device: torch.device, model, processor, encoder) -> tuple:
               "gather_rerank": f"B=1 Nq={nq} c={CANDIDATES} Np={PAGE_DOC_TOKENS}",
               "maxsim_int8": f"B=8 Nq={nq} Np={PAGE_DOC_TOKENS} C={c}"}
     for name, r in page.items():
+        extra = (f", from a CUDA graph {r['ms_graph']:.4f} ms, B=4 kernel {r['ms_b4']:.3f} ms (graph "
+                 f"{r['ms_b4_graph']:.4f}), bound {r['bound_ms_b4']:.4f} ms" if "ms_b4" in r else "")
+        if "popcount_floor_ms" in r:
+            extra += (f" ({r['bound_by_b4']}), int8 proxy {r['bound_ms_int8_proxy']:.4f} ms (B=4 "
+                      f"{r['bound_ms_b4_int8_proxy']:.4f}), CUDA-core popcount floor {r['popcount_floor_ms']:.4f} ms, "
+                      f"single-bit products {r['bound_ms_b1']:.4f} ms")
+        if "bound_ms_fp32" in r:
+            extra += f", fp32 CUDA-core bound {r['bound_ms_fp32']:.4f} ms"
         log(f"  {name} at Np={PAGE_DOC_TOKENS} [{shapes[name]}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g}")
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}, max_abs_err {r['max_abs_err']:.3g}")
+    page["binary_maxsim"]["tiered_stages"] = {
+        f"B={b}": tiered_stages(f"{index.num_docs} docs x {PAGE_DOC_TOKENS} tokens, B={b} Nq={nq}", index,
+                                q[:b].cpu().numpy()) for b in (1, 4)}
     del index
     torch.cuda.empty_cache()
     bf16 = bf16_index_check(device, docs, planted, queries, q)

@@ -13,7 +13,8 @@ Layouts: corpus words ``(C//DOC_TILE, W, Np, DOC_TILE)`` int32 with
 ``W = D // 32``; queries ``(B, Nq, W)`` int32 plus ``(B, Nq)`` fp32 validity.
 
 :func:`binary_maxsim_tiled` launches ``csrc/binary_maxsim.cu`` (replaces
-``binary_maxsim_pallas_tiled``) for CUDA tensors and runs
+``binary_maxsim_pallas_tiled``; the products on the single-bit tensor cores,
+up to 12 words a token) for CUDA tensors and runs
 :func:`binary_maxsim_tiled_plain` (the counterpart of
 ``binary_maxsim_xla_tiled``) for CPU tensors. Both are integer arithmetic
 with exact fp32 sums, so they agree exactly.
@@ -27,6 +28,7 @@ from colpali_tpu_torch.ops._cuda import I32, I64, P, CudaKernel, check_cuda, on_
 from colpali_tpu_torch.ops.maxsim_tiled import DOC_TILE, _tile_step
 
 BINARY_MAXSIM = CudaKernel("colpali_binary_maxsim", [P, P, P, P, I32, I32, I32, I32, I32, I64])
+MAX_KERNEL_WORDS = 12  # K1 takes tokens of up to three k256 single-bit products (dim 384) on the card
 
 
 def fill_doc_padding(words: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -98,7 +100,12 @@ def binary_maxsim_tiled(
     check_cuda("query_words", query_words, torch.int32, dev)
     check_cuda("query_valid", query_valid, torch.float32, dev)
     check_cuda("doc_words_tiled", doc_words_tiled, torch.int32, dev)
+    if n_words > MAX_KERNEL_WORDS:
+        raise ValueError(f"the sign-sketch kernel takes up to {MAX_KERNEL_WORDS} words a token (dim "
+                         f"{32 * MAX_KERNEL_WORDS}), got {n_words}: pass CPU tensors for the plain version")
     out = torch.empty((b, n_tiles * DOC_TILE), dtype=torch.float32, device=dev)
+    if b * nq * n_tiles * np_ == 0:
+        return out.zero_()
     BINARY_MAXSIM(dev, query_words.data_ptr(), query_valid.data_ptr(), doc_words_tiled.data_ptr(),
                   out.data_ptr(), b, nq, n_words, np_, dim, n_tiles)
     return out

@@ -7,10 +7,11 @@ each one contiguous block (counterpart of the tile-major part of
 - K3, :func:`maxsim_int8mxu_tiled`: the full-int8 exact sweep over every
   doc (``csrc/maxsim_int8.cu``; replaces ``maxsim_pallas_int8mxu_tiled``).
 - K2, :func:`gather_rerank_tiled`: exact fp32 MaxSim over candidate ids,
-  gathered and dequantized (int8 store) or upcast (bf16 store) inside the
-  kernel (``csrc/gather_rerank.cu``, one template over the store's type;
-  replaces ``gather_candidates_pallas`` plus the rerank of
-  ``retrieval/store.py::gather_rerank``).
+  gathered by TMA and multiplied on the bf16 tensor cores with each query
+  element split into three bf16 terms, the int8 scales applied after the
+  products (``csrc/gather_rerank.cu``, one template
+  over the store's type; replaces ``gather_candidates_pallas`` plus the
+  rerank of ``retrieval/store.py::gather_rerank``).
 - K5, :func:`maxsim_tiled`, and K4, :func:`maxsim_int8_tiled`: bf16 queries
   against a bf16 store, or an int8 store dequantized to bf16 inside the
   kernel (``csrc/maxsim_bf16.cu``, one template over the store's type;
@@ -148,6 +149,8 @@ def _maxsim_int8_cuda(kernel: CudaKernel, query_int8: torch.Tensor, query_scales
 
 # -- K2: fused candidate gather + exact rerank ----------------------------------
 
+RERANK_DIMS = (64, 128, 256, 320)  # the widths K2 is built for on the card
+
 
 def gather_rerank_plain(
     queries: torch.Tensor,
@@ -190,11 +193,12 @@ def gather_rerank_tiled(
     check_cuda("store", store, torch.bfloat16 if scales is None else torch.int8, dev)
     check_cuda("cand", cand, torch.int32, dev)
     c = cand.shape[1]
-    if d % 4:
-        raise ValueError(f"the rerank kernel reads float4 rows: dim must be a multiple of 4, got {d}")
+    if d not in RERANK_DIMS:
+        raise ValueError(f"the rerank kernel is built for dims {RERANK_DIMS}, got {d}: pass CPU tensors "
+                         "for the plain version")
     out = torch.empty((b, c), dtype=torch.float32, device=dev)
-    if b * c == 0:
-        return out
+    if b * c == 0 or nq == 0:
+        return out.zero_()
     if scales is None:
         GATHER_RERANK_BF16(dev, queries.data_ptr(), store.data_ptr(), cand.data_ptr(), out.data_ptr(),
                            b, nq, c, np_, d, nt)

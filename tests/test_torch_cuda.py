@@ -6,8 +6,11 @@ JAX-side conftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
+(``-k "k1 or k2"`` for the two-tier search's kernels alone.)
+
 Tolerance: K1 exactly equal; K2 to K5 and K8 to K10 rtol=1e-5, atol=1e-4
-(fp32 sums in another order than the plain versions), and K8, K9 and K10
+(fp32 sums in another order than the plain versions; K2 takes each fp32
+query element as three bf16 terms on the tensor cores), and K8, K9 and K10
 bit-equal to K5, K4 and K3 on the same data in tile-major layout (one
 template each, so the same order of sums); K11 by K6's forward rule below;
 K6's backward by the forward's
@@ -155,6 +158,79 @@ def test_k2_out_of_range_id_gives_nan(dev):
     assert torch.isfinite(out[0, 0]) and torch.isnan(out[0, 1:]).all()
 
 
+# K1 on the single-bit tensor cores: (tiles, Npc, W, B, Nq) around the card's 132 SMs and 8-warp
+# blocks, doc-token splits (Npc 1 to 1,040), words 2/4/8/10/12 (dim 320 is 10), B * Nq 1 to 256 and a query
+# longer than 64 tokens
+K1_CASES = [(1, 1, 4, 1, 1), (1, 16, 2, 1, 32), (64, 260, 4, 1, 64), (64, 260, 4, 4, 64), (131, 33, 4, 2, 7),
+            (133, 16, 8, 1, 32), (7812, 16, 4, 1, 32), (7812, 16, 4, 4, 64), (3, 1040, 4, 3, 50), (2, 33, 8, 4, 64),
+            (133, 1, 2, 8, 32), (5, 16, 4, 1, 200), (131, 260, 2, 1, 9), (64, 1040, 8, 1, 16), (1, 260, 4, 4, 64),
+            (64, 260, 10, 1, 64), (131, 33, 10, 4, 65), (7812, 16, 10, 1, 32), (3, 1, 12, 2, 7), (133, 1040, 12, 1, 9)]
+
+
+@pytest.mark.parametrize("nt,npc,w,b,nq", K1_CASES)
+def test_k1_tensor_cores_equal_plain_and_repeat(dev, nt, npc, w, b, nq):
+    g = _gen(dev, nt + npc + w + b + nq)
+    qw = torch.randint(-(2**31), 2**31 - 1, (b, nq, w), generator=g, device=dev, dtype=torch.int32)
+    qv = (torch.rand((b, nq), generator=g, device=dev) > 0.2).float()
+    qw[:, -1], qv[:, -1] = 0, 0.0  # a padded query token
+    dw = torch.randint(-(2**31), 2**31 - 1, (nt, w, npc, 128), generator=g, device=dev, dtype=torch.int32)
+    dw[0, :, :, 5] = 0  # an empty doc
+    got = binary_maxsim_tiled(qw, qv, dw, 32 * w)
+    assert torch.equal(got, binary_maxsim_tiled_plain(qw, qv, dw, 32 * w))
+    assert torch.equal(got, binary_maxsim_tiled(qw, qv, dw, 32 * w))
+
+
+# K2 on the bf16 tensor cores, both stores: (D, B, Nq, Np, c) over query lengths 1 to 200, doc lengths 1 to
+# 1,040 (tiles of 128 doc tokens, 32 at D=256, 16 at D=320) and candidate counts around two per CTA of 132
+K2_CASES = [(128, 1, 1, 1, 1), (128, 1, 7, 9, 131), (128, 1, 64, 64, 1024), (128, 4, 64, 1040, 133),
+            (64, 8, 65, 65, 131), (256, 2, 200, 257, 133), (128, 3, 200, 1040, 64), (64, 5, 7, 1040, 1),
+            (256, 1, 64, 1040, 131), (128, 8, 64, 64, 1024), (64, 1, 1, 257, 1024), (256, 4, 65, 9, 1024),
+            (128, 1, 64, 1040, 1024), (320, 1, 64, 1040, 131), (320, 4, 65, 9, 133), (320, 2, 1, 17, 1024),
+            (320, 1, 200, 257, 1)]
+
+
+def _rerank_inputs(dev, d, b, nq, np_, c, bf16, seed):
+    nt = 3
+    store, scales = _store(dev, nt, np_, d, seed=seed)
+    if bf16:
+        store, scales = (store.float() * (scales / 127)[..., None]).to(torch.bfloat16), None
+    q = torch.randn((b, nq, d), generator=_gen(dev, seed + 1), device=dev)
+    cand = torch.randint(0, nt * 128, (b, c), generator=_gen(dev, seed + 2), device=dev, dtype=torch.int32)
+    return q, store, scales, cand
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
+@pytest.mark.parametrize("d,b,nq,np_,c", K2_CASES)
+def test_k2_tensor_cores_match_plain_and_repeat(dev, d, b, nq, np_, c, bf16):
+    q, store, scales, cand = _rerank_inputs(dev, d, b, nq, np_, c, bf16, seed=d + b + nq + np_ + c)
+    q[:, -1] = 0.0  # a padded query token
+    got = gather_rerank_int8(q, store, scales, cand)
+    torch.testing.assert_close(got, gather_rerank_plain(q, store, scales, cand), rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, gather_rerank_int8(q, store, scales, cand))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
+def test_k2_tensor_cores_keep_fp32_accuracy_over_six_decades(dev, bf16):
+    """Query elements from 1e-3 to 1e3 in magnitude: a split of the fp32
+    query that dropped low bits would miss the tolerance here."""
+    q, store, scales, cand = _rerank_inputs(dev, 128, 2, 64, 1040, 256, bf16, seed=11)
+    q = q * 10.0 ** (6 * torch.rand(q.shape, generator=_gen(dev, 12), device=dev) - 3)
+    got = gather_rerank_int8(q, store, scales, cand)
+    torch.testing.assert_close(got, gather_rerank_plain(q, store, scales, cand), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
+def test_k2_tensor_cores_give_nan_for_ids_outside_the_store(dev, bf16):
+    q, store, scales, cand = _rerank_inputs(dev, 128, 3, 64, 65, 133, bf16, seed=13)
+    cand[0, 5], cand[1, 0], cand[2, 132] = -1, 3 * 128, 2**31 - 1
+    got = gather_rerank_int8(q, store, scales, cand)
+    bad = torch.zeros_like(got, dtype=torch.bool)
+    bad[0, 5] = bad[1, 0] = bad[2, 132] = True
+    assert torch.isnan(got[bad]).all() and torch.isfinite(got[~bad]).all()
+    fixed = torch.where(bad, torch.zeros_like(cand), cand)
+    torch.testing.assert_close(got[~bad], gather_rerank_plain(q, store, scales, fixed)[~bad], rtol=RTOL, atol=ATOL)
+
+
 def test_launch_counters_count_kernel_launches_only(dev):
     store, scales = _store(dev, 2, 8, 128)
     q = torch.randn((1, 4, 128), device=dev)
@@ -184,6 +260,12 @@ def test_wrappers_reject_bad_inputs(dev):
         maxsim_tiled(torch.zeros((1, 4, 40), device=dev), torch.zeros((1, 4, 128, 40), device=dev).bfloat16())
     with pytest.raises(ValueError, match="are on"):
         maxsim_int8_tiled(torch.zeros((1, 4, 128)), store, scales)
+    with pytest.raises(ValueError, match="built for dims"):  # K2 on the card: D 64, 128, 256 or 320
+        gather_rerank_int8(torch.zeros((1, 4, 96), device=dev), torch.zeros((1, 8, 128, 96), device=dev).to(torch.int8),
+                           torch.ones((1, 8, 128), device=dev), torch.zeros((1, 2), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="up to 12 words"):  # K1 on the card: dim 384 at most
+        binary_maxsim_tiled(torch.zeros((1, 4, 13), dtype=torch.int32, device=dev), torch.ones((1, 4), device=dev),
+                            torch.zeros((1, 13, 4, 128), dtype=torch.int32, device=dev), 416)
     with pytest.raises(TypeError, match="dtype"):  # scales go with an int8 store only
         gather_rerank_int8(torch.zeros((1, 4, 128), device=dev), store.to(torch.bfloat16), scales,
                            torch.zeros((1, 2), dtype=torch.int32, device=dev))

@@ -162,3 +162,49 @@ def test_k2_plain_matches_gather_rerank_at_full_page():
     got = tt.gather_rerank_int8(torch.from_numpy(q), torch.from_numpy(store), torch.from_numpy(scales),
                                 torch.from_numpy(cand))
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def split_bf16_terms(x: torch.Tensor) -> tuple:
+    """fp32 ``x`` as three bf16 terms ``hi + mid + lo`` that hold its 24
+    bits (each rounded to nearest; the two differences are exact in fp32):
+    the split K2 makes of every query element on the card."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def test_k2_query_split_holds_fp32_bits():
+    """The three bf16 terms K2 makes of each fp32 query element add back to
+    it within 2^-24 of its magnitude, over 6 decades of magnitude."""
+    rng = np.random.default_rng(14)
+    x = rng.normal(size=(4, 64, 128)) * 10.0 ** rng.uniform(-3, 3, size=(4, 64, 128))
+    q = torch.from_numpy(x.astype(np.float32))
+    hi, mid, lo = split_bf16_terms(q)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    total = hi.double() + mid.double() + lo.double()
+    assert ((total - q.double()).abs() <= q.double().abs() * 2.0**-24).all()
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["unit", "six_decades"])
+def test_k2_rerank_through_the_query_split_matches_plain_at_full_page(scaled):
+    """K2's arithmetic in plain PyTorch: the three bf16 query terms against
+    the int8 values (exact in bf16), products summed in fp32, each doc
+    token's scale applied before the max; held to gather_rerank_plain at
+    Np = 1,040 within K2's rtol 1e-5, atol 1e-4."""
+    store, scales = _store(15, 1, 1040, 128)
+    store_t, scales_t = torch.from_numpy(store), torch.from_numpy(scales)
+    rng = np.random.default_rng(16)
+    q = _queries(17, 2, 64, 128)
+    if scaled:
+        q = (q * 10.0 ** rng.uniform(-3, 3, size=q.shape)).astype(np.float32)
+    q_t = torch.from_numpy(q)
+    cand = torch.from_numpy(rng.integers(0, 128, size=(2, 6)).astype(np.int32))
+    want = tt.gather_rerank_plain(q_t, store_t, scales_t, cand)
+    tile, lane = cand.long() // 128, cand.long() % 128
+    values = store_t[tile, :, lane, :].to(torch.bfloat16).float()  # (B, c, Np, D), exact
+    sims = sum(torch.einsum("bqd,bcnd->bqcn", term.float(), values) for term in reversed(split_bf16_terms(q_t)))
+    got = (sims * scales_t[tile, :, lane][:, None]).amax(dim=-1).sum(dim=1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-4)
