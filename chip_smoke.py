@@ -19,8 +19,9 @@ Phases (a few lines of output each, then two JSON lines):
    their plain PyTorch versions on a 999,936-doc x 64-token x 128-dim int8
    corpus generated on the card from a seeded ``torch.Generator``, and K5
    (bf16 store) on a bf16 copy of its first 262,144 docs; each is timed
-   with CUDA events, kernel and plain version alike (K3 at B=1, and at B=8
-   with Nq=32 and the served Nq=64; K2's bound is the larger of its bytes
+   with CUDA events, kernel and plain version alike (K3, K4 and K5 at B=1,
+   and at B=8 with Nq=32 and the served Nq=64, K4 and K5 each bit-equal on a
+   second call; K2's bound is the larger of its bytes
    and its products as three bf16 passes, the fp32 CUDA-core figure beside
    it); then ``CorpusIndex.search`` on a two-tier index over that corpus,
    timed stage by stage at B=1 (a CUDA event as each stage's function
@@ -52,7 +53,9 @@ Phases (a few lines of output each, then two JSON lines):
    the base bit-equal; one step's loss and adapter gradient through the
    kernels against the plain route; ``evaluate()`` over 128 held-out pages
    through a bf16 index built on the card and searched by K5 (and an int8
-   index of the same pages with bf16 queries by K4); the merged export as
+   index of the same pages with bf16 queries by K4), each at that shape
+   (one tile, B=128 Nq=16 Np=1,040: its doc tokens split over the SMs)
+   bit-equal with the split off or forced elsewhere; the merged export as
    ``model.safetensors`` in the HF layout, read back by ``load_colpali_params``
    into a fresh ColPali-3B whose query and page embeddings must equal those of
    a model holding the merged weights in memory bit for bit, and whose
@@ -112,8 +115,10 @@ from colpali_tpu_torch.ops.maxsim_tiled import (
     MAXSIM_BF16,
     MAXSIM_INT8,
     MAXSIM_INT8_BF16,
+    _maxsim_bf16_cuda,
     gather_rerank_plain,
     gather_rerank_tiled,
+    maxsim_bf16_plan,
     maxsim_int8_tiled,
     maxsim_int8_tiled_plain,
     maxsim_int8mxu_tiled,
@@ -471,8 +476,13 @@ def phase_kernels(device: torch.device) -> tuple:
         for sl in ends:
             check("maxsim_int8", full[:, cols(sl)], maxsim_int8mxu_tiled_plain(qi, qs, store[sl], scales[sl]))
 
-    for shape in [(1, QUERY_TOKENS), (8, QUERY_TOKENS)]:  # K4 on the int8 corpus
+    def same_twice(name, full, again):  # two calls give the same bits
+        if not torch.equal(full, again):
+            raise AssertionError(f"{name}: two calls differ, max abs diff {(full - again).abs().max().item()}")
+
+    for shape in [(1, QUERY_TOKENS), (8, QUERY_TOKENS), (8, SERVED_TOKENS)]:  # K4 on the int8 corpus
         full = maxsim_int8_tiled(q[shape], store, scales)
+        same_twice(f"K4 {shape}", full, maxsim_int8_tiled(q[shape], store, scales))
         for sl in ends:
             check("maxsim_int8_bf16", full[:, cols(sl)], maxsim_int8_tiled_plain(q[shape], store[sl], scales[sl]))
     # K5 on a bf16 copy (the dequantized values rounded to bf16) of the corpus's head
@@ -481,8 +491,9 @@ def phase_kernels(device: torch.device) -> tuple:
     for s0 in range(0, bf16_tiles, 256):
         bstore[s0 : s0 + 256] = (store[s0 : s0 + 256].float() * scales[s0 : s0 + 256, ..., None]).to(torch.bfloat16)
     bends = [slice(0, CHECK_TILES), slice(bf16_tiles - CHECK_TILES, bf16_tiles)]
-    for shape in [(1, QUERY_TOKENS), (8, QUERY_TOKENS)]:
+    for shape in [(1, QUERY_TOKENS), (8, QUERY_TOKENS), (8, SERVED_TOKENS)]:
         full = maxsim_tiled(q[shape], bstore)
+        same_twice(f"K5 {shape}", full, maxsim_tiled(q[shape], bstore))
         for sl in bends:
             check("maxsim_bf16", full[:, cols(sl)], maxsim_tiled_plain(q[shape], bstore[sl]))
 
@@ -522,10 +533,14 @@ def phase_kernels(device: torch.device) -> tuple:
                                   f"Np={DOC_TOKENS} C={CORPUS_DOCS}"),
         "maxsim_int8_bf16": dict(ms=time_ms(k4(b1), reps=3), plain_ms=time_ms(k4(b1, True), reps=2),
                                  ms_b8=time_ms(k4(b8), reps=3), plain_ms_b8=time_ms(k4(b8, True), reps=2),
-                                 shape=f"B=1 and B=8 Nq={QUERY_TOKENS} Np={DOC_TOKENS} C={CORPUS_DOCS}"),
+                                 ms_served=time_ms(k4(s8), reps=3), plain_ms_served=time_ms(k4(s8, True), reps=2),
+                                 shape=f"B=1 and B=8 Nq={QUERY_TOKENS} (served: B=8 Nq={SERVED_TOKENS}) "
+                                       f"Np={DOC_TOKENS} C={CORPUS_DOCS}"),
         "maxsim_bf16": dict(ms=time_ms(k5(b1), reps=3), plain_ms=time_ms(k5(b1, True), reps=2),
                             ms_b8=time_ms(k5(b8), reps=3), plain_ms_b8=time_ms(k5(b8, True), reps=2),
-                            shape=f"B=1 and B=8 Nq={QUERY_TOKENS} Np={DOC_TOKENS} C={BF16_DOCS} bf16"),
+                            ms_served=time_ms(k5(s8), reps=3), plain_ms_served=time_ms(k5(s8, True), reps=2),
+                            shape=f"B=1 and B=8 Nq={QUERY_TOKENS} (served: B=8 Nq={SERVED_TOKENS}) "
+                                  f"Np={DOC_TOKENS} C={BF16_DOCS} bf16"),
     }
     w, npc, nq, c = DIM // 32, DOC_TOKENS // COARSE_POOL, QUERY_TOKENS, CORPUS_DOCS
     results["binary_maxsim"].update(k1_bound(1, nq, c, npc, w))
@@ -548,6 +563,9 @@ def phase_kernels(device: torch.device) -> tuple:
         b8_bound = bound(docs * DOC_TOKENS * per_token + 8 * nq * DIM * 2 + 8 * docs * 4,
                          2 * 8 * nq * docs * DOC_TOKENS * DIM, "bf16")
         results[name].update(bound_ms_b8=b8_bound["bound_ms"], bound_by_b8=b8_bound["bound_by"])
+        served_bound = bound(docs * DOC_TOKENS * per_token + 8 * SERVED_TOKENS * DIM * 2 + 8 * docs * 4,
+                             2 * 8 * SERVED_TOKENS * docs * DOC_TOKENS * DIM, "bf16")
+        results[name].update(bound_ms_served=served_bound["bound_ms"], bound_by_served=served_bound["bound_by"])
     for name, r in results.items():
         r["max_abs_err"] = errs[name]
         r["library_ms"] = None  # no single PyTorch call computes these
@@ -1592,6 +1610,28 @@ def checkpoint_readback(device: torch.device, model, in_memory: dict, loaded: di
     return r
 
 
+def eval_splits(name: str, kernel, queries, store, scales, got) -> dict:
+    """The eval-shape call (one tile, B=128 Nq=16 Np=1,040: the doc tokens
+    split over the SMs, maxima through scratch) again with the split forced
+    off, over 37 CTAs and one CTA a block, and once more as planned: every
+    run must give ``got``'s bits (the max is exact, the sums run in one
+    order). Returns the plan and the CTAs of each run."""
+    nt, np_ = store.shape[0], store.shape[1]
+    plan = maxsim_bf16_plan(queries.shape[0], queries.shape[1], np_, DIM, nt,
+                            torch.cuda.get_device_properties(0).multi_processor_count)
+    runs = {"as planned, again": None, "not split": 0, "37 CTAs": 37, "one CTA a block": nt * np_}
+    for label, split_ctas in runs.items():
+        other = _maxsim_bf16_cuda(kernel, queries, store, scales, np_, nt, split_ctas=split_ctas)
+        if not torch.equal(other, got):
+            raise AssertionError(f"{name} at the eval shape, {label}: not bit-equal to the planned run, max abs diff "
+                                 f"{(other - got).abs().max().item()}")
+    log(f"  {name} at the eval shape: planned {plan.ctas} CTAs (split {plan.split}, {plan.k_max} scratch slots, "
+        f"{plan.scratch_bytes / 2**20:.1f} MiB); bit-equal with the split off, over 37 CTAs, over one CTA a block "
+        f"and on a second call")
+    return dict(planned_ctas=plan.ctas, split=plan.split, k_max=plan.k_max, scratch_bytes=plan.scratch_bytes,
+                bit_equal_under=list(runs))
+
+
 def phase_training(device: torch.device, model, processor, smi: str) -> tuple:
     """Drive the training path: ``ColModelTraining`` steps, eval, save and
     resume at full width. Returns the launches over the path, the timings
@@ -1751,6 +1791,7 @@ def phase_training(device: torch.device, model, processor, smi: str) -> tuple:
                        shape=f"B={queries.shape[0]} Nq={queries.shape[1]} Np={index.doc_tokens} C={index.padded_docs}")
         if not all(slice_launches[name] for name in TRAINING_KERNELS):
             raise AssertionError(f"training slice: a kernel of the path was not launched: {slice_launches}")
+        k5_eval["splits"] = eval_splits("K5", MAXSIM_BF16, queries, index._store, None, got)
         # K4's own path, not part of the training slice: the same pages as an int8 index with unquantized
         # queries, searched through CorpusIndex.search; its count is set to 0 before and read after that search
         index_builder = DeviceIndexBuilder(doc_tokens=index.doc_tokens, dim=DIM, dtype="int8", quantize_queries=False)
@@ -1766,7 +1807,8 @@ def phase_training(device: torch.device, model, processor, smi: str) -> tuple:
         got4 = maxsim_int8_tiled(queries, int8_index._store, int8_index._scales)
         want4 = maxsim_int8_tiled_plain(queries, int8_index._store, int8_index._scales)
         torch.testing.assert_close(got4, want4, rtol=RTOL, atol=ATOL)
-        k4_eval = dict(max_abs_err=(got4 - want4).abs().max().item(),
+        splits4 = eval_splits("K4", MAXSIM_INT8_BF16, queries, int8_index._store, int8_index._scales, got4)
+        k4_eval = dict(splits=splits4, max_abs_err=(got4 - want4).abs().max().item(),
                        ms=time_ms(lambda: maxsim_int8_tiled(queries, int8_index._store, int8_index._scales)),
                        plain_ms=time_ms(lambda: maxsim_int8_tiled_plain(queries, int8_index._store,
                                                                         int8_index._scales), reps=2),

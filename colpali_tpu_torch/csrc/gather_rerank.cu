@@ -111,12 +111,6 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
-// Byte offset of element k (a multiple of 8) of row r in a K-major bf16 tile of `rows` rows.
-template <int ROWS>
-__device__ __forceinline__ uint32_t swizzled(int r, int k) {
-  return (k / 64) * ROWS * 128 + r * 128 + ((((k % 64) / 8) ^ (r & 7)) << 4);
-}
-
 // The three bf16 terms of two fp32 values, packed in pairs (low half first).
 __device__ __forceinline__ void split3(float x, float y, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
   hi = pack_bf16(x, y);

@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the flash attention kernels, the
-// int8 MaxSim sweep (maxsim_int8.cu) and the candidate rerank
-// (gather_rerank.cu): TMA tensor maps and loads, mbarrier
+// int8 MaxSim sweep (maxsim_int8.cu), the bf16 MaxSim sweep (maxsim_bf16.cu)
+// and the candidate rerank (gather_rerank.cu): TMA tensor maps and loads, mbarrier
 // rings, warpgroup register reallocation, named barriers and wgmma with
 // shared-memory descriptors (bf16 with fp32 accumulators, s8 with s32), and
 // the proxy fence that orders plain shared-memory writes before wgmma reads.
-// Every PTX instruction is wrapped here by hand, as mma.cuh wraps mma.sync.
+// Every PTX instruction is wrapped here by hand.
 //
 // Tiles. A tile is ROWS rows of a (B, S, H, D) bf16 tensor, one head, as a
 // TMA box writes it: DP / 64 "wide" chunks of ROWS x 64 dims (rows of 128
@@ -346,6 +346,16 @@ template <int N>
 __device__ void wgmma_rs_kmajor(float* d, const uint32_t* a, uint64_t db, int scale_d);
 
 template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<64>(float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, "
+      "%36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs_kmajor<128>(float* d, const uint32_t* a, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -489,6 +499,14 @@ __device__ __forceinline__ void to_a_fragments(uint32_t (&a)[N / 16][4], const f
     a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
     a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
+}
+
+// Byte offset of element k (a multiple of 8) of row r in a K-major bf16 tile
+// of ROWS rows as TMA writes it with 128-byte swizzle: 64-dim chunks of
+// ROWS x 128 bytes, the 16-byte units of a row permuted by r % 8.
+template <int ROWS>
+__device__ __forceinline__ uint32_t swizzled(int r, int k) {
+  return (k / 64) * ROWS * 128 + r * 128 + ((((k % 64) / 8) ^ (r & 7)) << 4);
 }
 
 // The dynamic shared memory of a kernel, rounded up to the 1024 bytes the

@@ -14,8 +14,10 @@ each one contiguous block (counterpart of the tile-major part of
   rerank of ``retrieval/store.py::gather_rerank``).
 - K5, :func:`maxsim_tiled`, and K4, :func:`maxsim_int8_tiled`: bf16 queries
   against a bf16 store, or an int8 store dequantized to bf16 inside the
-  kernel (``csrc/maxsim_bf16.cu``, one template over the store's type;
-  replace ``maxsim_pallas_tiled`` and ``maxsim_pallas_int8_tiled``).
+  kernel (``csrc/maxsim_bf16.cu``, one template over the store's type:
+  TMA ring, bf16 ``wgmma`` with the queries in registers; replace
+  ``maxsim_pallas_tiled`` and ``maxsim_pallas_int8_tiled``). How a call is
+  cut over the card is :func:`maxsim_bf16_plan`.
 
 Each wrapper takes its plain PyTorch version (``*_plain``) only when given
 CPU tensors; for CUDA tensors it launches its kernel or raises. The
@@ -25,7 +27,8 @@ are the K5, K4 and K3 templates with the other layout.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -37,8 +40,10 @@ _PLAIN_CHUNK_ELEMS = 1 << 26  # bound on a plain version's fp32 intermediates
 MAXSIM_INT8 = CudaKernel("colpali_maxsim_int8", [P, P, P, P, P, I32, I32, I32, I32, I64])
 GATHER_RERANK = CudaKernel("colpali_gather_rerank", [P, P, P, P, P, I32, I32, I32, I32, I32, I64])
 GATHER_RERANK_BF16 = CudaKernel("colpali_gather_rerank_bf16", [P, P, P, P, I32, I32, I32, I32, I32, I64])
-MAXSIM_BF16 = CudaKernel("colpali_maxsim_bf16", [P, P, P, I32, I32, I32, I32, I64])
-MAXSIM_INT8_BF16 = CudaKernel("colpali_maxsim_int8_bf16", [P, P, P, P, I32, I32, I32, I32, I64])
+# q, store, [scales,] out, scratch, b, nq, np, d, n_tiles, then the plan: qpc, pair, ctas, split
+_SWEEP_ARGS = [I32, I32, I32, I32, I64, I32, I32, I32, I32]
+MAXSIM_BF16 = CudaKernel("colpali_maxsim_bf16", [P, P, P, P, *_SWEEP_ARGS])
+MAXSIM_INT8_BF16 = CudaKernel("colpali_maxsim_int8_bf16", [P, P, P, P, P, *_SWEEP_ARGS])
 
 
 def to_token_major(doc_embeddings: torch.Tensor) -> torch.Tensor:
@@ -246,28 +251,106 @@ def maxsim_tiled_plain(queries: torch.Tensor, store: torch.Tensor) -> torch.Tens
     return torch.cat(out, dim=1)
 
 
+SWEEP_DIMS = (64, 128, 256, 320)  # the widths K4/K5 (and K8/K9) are built for on the card
+SWEEP_ROWS = 64  # query rows a consumer warpgroup holds: one wgmma m64
+
+
+class SweepPlan(NamedTuple):
+    """How one K4/K5/K8/K9 call is cut over the card (see ``csrc/maxsim_bf16.cu``)."""
+
+    pieces: int  # a query of more than SWEEP_ROWS tokens is cut into pieces of SWEEP_ROWS, their scores summed
+    b: int  # queries of the launch: B * pieces
+    nq: int  # tokens a query of the launch
+    qpc: int  # whole queries a consumer's slot holds (qpc * nq <= SWEEP_ROWS rows)
+    slots: int  # query slots: ceil(b / qpc)
+    pair: bool  # a CTA's two consumers take two slots against all 128 docs; else one slot, half the docs each
+    lanes: int  # CTAs' shares of the slots: the CTAs that read one tile's blocks
+    segments: int  # (tile, lane) pairs, Np blocks each
+    split: bool  # the doc tokens split across CTAs too: maxima to scratch, a second kernel sums
+    ctas: int  # the grid
+    k_max: int  # scratch slots of a segment: the most CTAs that share one (1 when not split)
+    scratch_bytes: int
+
+
+def _cta_of(pos: int, ctas: int, work: int) -> int:
+    """The CTA whose range of a split run holds block ``pos`` (the kernel's ``cta_of``)."""
+    return ((pos + 1) * ctas - 1) // work
+
+
+def maxsim_bf16_plan(b: int, nq: int, np_: int, d: int, n_tiles: int, sms: int,
+                     split_ctas: Optional[int] = None) -> SweepPlan:
+    """The plan of one K4/K5/K8/K9 launch over ``n_tiles`` tiles of ``np_``
+    doc tokens for ``b`` queries of ``nq`` tokens on a card of ``sms`` SMs.
+
+    Whole queries go to a consumer's slot of up to 64 rows. At ``d <= 128``
+    with two slots or more a CTA takes two slots ("pair"); otherwise one,
+    its consumers halving the docs. With at least as many (tile, lane)
+    segments as SMs, one CTA an SM walks whole segments; with fewer, the
+    segments' blocks are cut into ``sms`` equal ranges, one a CTA, and the
+    maxima go through scratch. ``split_ctas`` forces it: 0 never splits, a
+    positive count splits over that many CTAs (at most one a block)."""
+    pieces = 1 if nq <= SWEEP_ROWS else -(-nq // SWEEP_ROWS)
+    b_eff, nq_eff = b * pieces, min(nq, SWEEP_ROWS)
+    qpc = SWEEP_ROWS // nq_eff
+    slots = -(-b_eff // qpc)
+    pair = d <= 128 and slots >= 2
+    lanes = -(-slots // 2) if pair else slots
+    segments = n_tiles * lanes
+    work = segments * np_
+    split = segments < sms if split_ctas is None else split_ctas > 0
+    if not split:
+        return SweepPlan(pieces, b_eff, nq_eff, qpc, slots, pair, lanes, segments, False, min(segments, sms), 1, 0)
+    ctas = min(split_ctas or sms, work)
+    k_max = max(_cta_of(s * np_ + np_ - 1, ctas, work) - _cta_of(s * np_, ctas, work) + 1 for s in range(segments))
+    return SweepPlan(pieces, b_eff, nq_eff, qpc, slots, pair, lanes, segments, True, ctas, k_max,
+                     k_max * b_eff * nq_eff * n_tiles * DOC_TILE * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def query_pieces(q: torch.Tensor) -> torch.Tensor:
+    """``(B, Nq, D)`` queries as ``(B * pieces, min(Nq, 64), D)``: a query of
+    more than 64 tokens zero-padded to a multiple of 64 and cut into pieces
+    (a zero token adds exactly 0, and a query's score is the sum of its
+    pieces' scores)."""
+    b, nq, d = q.shape
+    if nq <= SWEEP_ROWS:
+        return q
+    pieces = -(-nq // SWEEP_ROWS)
+    q = torch.nn.functional.pad(q, (0, 0, 0, pieces * SWEEP_ROWS - nq))
+    return q.reshape(b * pieces, SWEEP_ROWS, d)
+
+
 def _maxsim_bf16_cuda(kernel: CudaKernel, queries: torch.Tensor, store: torch.Tensor,
-                      scales: Optional[torch.Tensor], np_: int, nt: int) -> torch.Tensor:
-    """Launch K4, K5, K8 or K9 (``kernel``) over ``nt`` tiles of ``np_`` doc tokens."""
+                      scales: Optional[torch.Tensor], np_: int, nt: int,
+                      split_ctas: Optional[int] = None) -> torch.Tensor:
+    """Launch K4, K5, K8 or K9 (``kernel``) over ``nt`` tiles of ``np_`` doc
+    tokens by :func:`maxsim_bf16_plan` (``split_ctas`` forces its split)."""
     b, nq, d = queries.shape
     dev = store.device
     if queries.device != dev:
         raise ValueError(f"queries are on {queries.device}, expected {dev}")
     if not queries.is_floating_point():
         raise TypeError(f"queries have dtype {queries.dtype}, expected a float type")
-    if d % 16:
-        raise ValueError(f"the bf16 MaxSim kernel takes a dim that is a multiple of 16, got {d}")
+    if d not in SWEEP_DIMS:
+        raise ValueError(f"the bf16 MaxSim kernel is built for dims {SWEEP_DIMS}, got {d}: pass CPU tensors "
+                         "for the plain version")
     check_cuda("store", store, torch.bfloat16 if scales is None else torch.int8, dev)
-    q = queries.to(torch.bfloat16).contiguous()
-    out = torch.empty((b, nt * DOC_TILE), dtype=torch.float32, device=dev)
-    if b * nq * nt * np_ == 0:
-        return out.zero_()
-    if scales is None:
-        kernel(dev, q.data_ptr(), store.data_ptr(), out.data_ptr(), b, nq, np_, d, nt)
-    else:
+    if scales is not None:
         check_cuda("scales", scales, torch.float32, dev)
-        kernel(dev, q.data_ptr(), store.data_ptr(), scales.data_ptr(), out.data_ptr(), b, nq, np_, d, nt)
-    return out
+    if b * nq * nt * np_ == 0:
+        return torch.zeros((b, nt * DOC_TILE), dtype=torch.float32, device=dev)
+    q = query_pieces(queries.to(torch.bfloat16).contiguous())
+    plan = maxsim_bf16_plan(b, nq, np_, d, nt, _sm_count(dev.index or 0), split_ctas)
+    out = torch.empty((plan.b, nt * DOC_TILE), dtype=torch.float32, device=dev)
+    scratch = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32, device=dev) if plan.split else out
+    ptrs = [q.data_ptr(), store.data_ptr(), *([] if scales is None else [scales.data_ptr()]), out.data_ptr(),
+            scratch.data_ptr()]
+    kernel(dev, *ptrs, plan.b, plan.nq, np_, d, nt, plan.qpc, int(plan.pair), plan.ctas, int(plan.split))
+    return out if plan.pieces == 1 else out.reshape(b, plan.pieces, -1).sum(dim=1)
 
 
 def maxsim_int8_tiled(queries: torch.Tensor, store: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,8 @@ Tolerance: K1 exactly equal; K2 to K5 and K8 to K10 rtol=1e-5, atol=1e-4
 (fp32 sums in another order than the plain versions; K2 takes each fp32
 query element as three bf16 terms on the tensor cores), and K8, K9 and K10
 bit-equal to K5, K4 and K3 on the same data in tile-major layout (one
-template each, so the same order of sums); K11 by K6's forward rule below;
+template each, so the same order of sums); K4/K5 bit-equal across two
+calls and under any split of the doc tokens over the CTAs; K11 by K6's forward rule below;
 K6's backward by the forward's
 rule (rtol=1.6e-2, atol=2e-2 times the RMS of the gradient) against
 ``flash_attention_backward_plain``, the backward written out with the
@@ -59,6 +60,7 @@ from colpali_tpu_torch.ops.maxsim_tiled import (
     MAXSIM_BF16,
     MAXSIM_INT8,
     MAXSIM_INT8_BF16,
+    _maxsim_bf16_cuda,
     gather_rerank_int8,
     gather_rerank_plain,
     maxsim_int8_tiled,
@@ -256,8 +258,9 @@ def test_wrappers_reject_bad_inputs(dev):
         maxsim_int8mxu_tiled(qi.cpu(), qs, store, scales)
     with pytest.raises(TypeError, match="dtype"):
         maxsim_tiled(torch.zeros((1, 4, 128), device=dev), store)  # an int8 store is K4's
-    with pytest.raises(ValueError, match="multiple of 16"):
-        maxsim_tiled(torch.zeros((1, 4, 40), device=dev), torch.zeros((1, 4, 128, 40), device=dev).bfloat16())
+    for d in (40, 96):  # K4/K5 on the card: D 64, 128, 256 or 320 (96 is a multiple of 16 all the same)
+        with pytest.raises(ValueError, match="built for dims"):
+            maxsim_tiled(torch.zeros((1, 4, d), device=dev), torch.zeros((1, 4, 128, d), device=dev).bfloat16())
     with pytest.raises(ValueError, match="are on"):
         maxsim_int8_tiled(torch.zeros((1, 4, 128)), store, scales)
     with pytest.raises(ValueError, match="built for dims"):  # K2 on the card: D 64, 128, 256 or 320
@@ -374,9 +377,19 @@ def test_k6_reads_a_fused_projection_at_d72(dev):
     _assert_k6_close(got, flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), seg, d**-0.5))
 
 
-@pytest.mark.parametrize("nt,np_,b,nq,d", [(6, 64, 1, 32, 128), (6, 64, 8, 32, 128), (2, 1040, 8, 32, 128),
-                                           (4, 16, 3, 7, 64), (3, 16, 2, 200, 128), (4, 9, 5, 16, 256),
-                                           (1, 33, 70, 1, 128)])
+# K4/K5 shapes (nt, Np, B, Nq, D): the first cut's, then the eval index (one tile of 1,040 tokens, B=128 Nq=16) and
+# the served B=8 Nq=64; D 64/128/256/320; Nq 1/7/16/64/65/200; each side of the plan's thresholds: one query slot or
+# two (B*Nq 64 / 96 rows at Nq=32), a pair of slots at D <= 128 or one at 256, an odd slot count (a consumer idle),
+# and segments (tiles x CTAs a tile) below the card's SMs (split doc tokens) or at and above it (whole segments)
+K45_SHAPES = [(6, 64, 1, 32, 128), (6, 64, 8, 32, 128), (2, 1040, 8, 32, 128), (4, 16, 3, 7, 64),
+              (3, 16, 2, 200, 128), (4, 9, 5, 16, 256), (1, 33, 70, 1, 128),
+              (1, 1040, 128, 16, 128), (6, 64, 8, 64, 128), (3, 40, 4, 64, 320), (5, 24, 3, 16, 64),
+              (2, 16, 2, 65, 256), (2, 32, 2, 32, 128), (2, 32, 3, 32, 128), (2, 32, 5, 32, 128),
+              (131, 8, 1, 64, 128), (132, 8, 1, 64, 128), (133, 8, 2, 64, 128), (66, 8, 3, 32, 128),
+              (67, 8, 3, 32, 64), (1, 1, 200, 1, 320), (7, 64, 1, 7, 256)]
+
+
+@pytest.mark.parametrize("nt,np_,b,nq,d", K45_SHAPES)
 def test_k4_and_k5_match_plain(dev, nt, np_, b, nq, d):
     store, scales = _store(dev, nt, np_, d, seed=nq)
     scales = scales / (127 * d**0.5)
@@ -390,6 +403,31 @@ def test_k4_and_k5_match_plain(dev, nt, np_, b, nq, d):
     bf16_store = (store.float() * scales[..., None]).to(torch.bfloat16)
     torch.testing.assert_close(maxsim_tiled(q, bf16_store), maxsim_tiled_plain(q, bf16_store), rtol=RTOL, atol=ATOL)
     assert (MAXSIM_INT8_BF16.launches, MAXSIM_BF16.launches) == (before[0] + 1, before[1] + 1)
+
+
+# bit for bit: forced splits of the doc tokens over the CTAs (never, the plan's choice, 37 CTAs, one a block), two
+# calls, and K8/K9 against K5/K4 in tile-major layout
+K45_BITS = [(1, 1040, 128, 16, 128), (3, 40, 4, 64, 320), (2, 16, 2, 65, 256), (5, 24, 3, 16, 64),
+            (6, 64, 8, 64, 128), (1, 33, 70, 1, 128)]
+
+
+@pytest.mark.parametrize("nt,np_,b,nq,d", K45_BITS)
+def test_k4_and_k5_bit_equal_across_splits_calls_and_layouts(dev, nt, np_, b, nq, d):
+    store, scales = _store(dev, nt, np_, d, seed=nq + d)
+    scales = scales / (127 * d**0.5)
+    bstore = (store.float() * scales[..., None]).to(torch.bfloat16)
+    q = torch.randn((b, nq, d), generator=_gen(dev, 5), device=dev)
+    q = q / q.norm(dim=-1, keepdim=True)
+    for kernel, st, sc, tm_kernel in ((MAXSIM_INT8_BF16, store, scales, tm.MAXSIM_INT8_BF16_TM),
+                                      (MAXSIM_BF16, bstore, None, tm.MAXSIM_BF16_TM)):
+        runs = [_maxsim_bf16_cuda(kernel, q, st, sc, np_, nt, split_ctas=k) for k in (0, None, 37, nt * np_, None)]
+        for other in runs[1:]:
+            assert torch.equal(runs[0], other)
+        docs_tm = st.transpose(0, 1).reshape(np_, nt * 128, d).contiguous()  # (Np, C, D)
+        scales_tm = None if sc is None else sc.transpose(0, 1).reshape(np_, nt * 128).contiguous()
+        assert torch.equal(_maxsim_bf16_cuda(tm_kernel, q, docs_tm, scales_tm, np_, nt), runs[0])
+        want = maxsim_tiled_plain(q, st) if sc is None else maxsim_int8_tiled_plain(q, st, sc)
+        torch.testing.assert_close(runs[0], want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("dtype,quantize_queries", [("bf16", True), ("int8", False)])

@@ -208,3 +208,124 @@ def test_k2_rerank_through_the_query_split_matches_plain_at_full_page(scaled):
     sims = sum(torch.einsum("bqd,bcnd->bqcn", term.float(), values) for term in reversed(split_bf16_terms(q_t)))
     got = (sims * scales_t[tile, :, lane][:, None]).amax(dim=-1).sum(dim=1)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-4)
+
+
+# -- K4/K5 (and K8/K9) on the card: the plan of a launch, checked here ----------------
+
+H100_SMS = 132
+# (B, Nq, Np, D, n_tiles): the eval index (B=128 Nq=16 Np=1,040, one tile), the corpora at B=1, B=8 and the
+# served B=8 Nq=64, long and odd queries, each side of the thresholds (one slot or two: B * Nq = 64 and 65 rows;
+# segments = SMs: 132 tiles at B=1)
+PLAN_SHAPES = [(128, 16, 1040, 128, 1), (1, 32, 64, 128, 2048), (8, 32, 64, 128, 7812), (8, 64, 64, 128, 2048),
+               (1, 200, 16, 128, 3), (5, 7, 9, 256, 4), (70, 1, 33, 128, 1), (2, 32, 64, 128, 131),
+               (3, 32, 64, 128, 131), (1, 64, 64, 320, 132), (1, 64, 64, 64, 133), (8, 64, 1040, 128, 2),
+               (1, 32, 1, 128, 5), (130, 1, 64, 128, 1)]
+
+
+def _walk(plan: "tt.SweepPlan", np_: int, n_tiles: int):
+    """The units of every CTA as ``csrc/maxsim_bf16.cu::for_each_unit`` walks
+    them: (cta, tile, lane, t0, t1, k)."""
+    work = plan.segments * np_
+    for cta in range(plan.ctas):
+        if not plan.split:
+            for seg in range(cta, plan.segments, plan.ctas):
+                yield cta, seg // plan.lanes, seg % plan.lanes, 0, np_, 0
+            continue
+        pos, end = cta * work // plan.ctas, (cta + 1) * work // plan.ctas
+        while pos < end:
+            seg, t0 = divmod(pos, np_)
+            t1 = min(np_, t0 + end - pos)
+            yield cta, seg % n_tiles, seg // n_tiles, t0, t1, cta - tt._cta_of(seg * np_, plan.ctas, work)
+            pos += t1 - t0
+
+
+def _coverage(plan, np_: int, n_tiles: int) -> np.ndarray:
+    """How many times each (tile, query row, doc, doc token) is taken, and
+    that every split slot a segment's rows read was written."""
+    rows = plan.b * plan.nq
+    seen = np.zeros((n_tiles, rows, 2, np_), dtype=np.int32)  # doc halves: a consumer takes 64 or 128 docs
+    slots_written = {}
+    for cta, tile, lane, t0, t1, k in _walk(plan, np_, n_tiles):
+        for consumer in (0, 1):
+            slot = 2 * lane + consumer if plan.pair else lane
+            halves = (0, 1) if plan.pair else (consumer,)
+            first = slot * plan.qpc
+            n_queries = max(0, min(plan.qpc, plan.b - first))
+            r0, r1 = first * plan.nq, (first + n_queries) * plan.nq
+            for h in halves:
+                seen[tile, r0:r1, h, t0:t1] += 1
+            if n_queries:
+                slots_written.setdefault((tile, slot), set()).add(k)
+    if plan.split:  # the second kernel reads slots 0 .. n_k - 1 of each segment: each was written
+        work = plan.segments * np_
+        for (tile, slot), ks in slots_written.items():
+            lane = slot // 2 if plan.pair else slot
+            first = (lane * n_tiles + tile) * np_
+            n_k = tt._cta_of(first + np_ - 1, plan.ctas, work) - tt._cta_of(first, plan.ctas, work) + 1
+            assert ks == set(range(n_k)) and n_k <= plan.k_max
+    return seen
+
+
+@pytest.mark.parametrize("b,nq,np_,d,n_tiles", PLAN_SHAPES)
+@pytest.mark.parametrize("split_ctas", [None, 0, 37])
+def test_sweep_plan_covers_every_tile_row_and_token_once(b, nq, np_, d, n_tiles, split_ctas):
+    plan = tt.maxsim_bf16_plan(b, nq, np_, d, n_tiles, H100_SMS, split_ctas)
+    assert plan.qpc * plan.nq <= tt.SWEEP_ROWS and plan.b == b * plan.pieces
+    assert plan.pieces * plan.nq >= nq and plan.slots * plan.qpc >= plan.b
+    assert not (plan.pair and d > 128)  # 128 accumulators, 128 maxima and D / 4 query registers a thread
+    if n_tiles * plan.lanes * np_ > 4_000_000:  # the full corpora: count their segments only
+        assert plan.segments == n_tiles * plan.lanes and not plan.split and plan.ctas == H100_SMS
+        return
+    assert (_coverage(plan, np_, n_tiles) == 1).all()
+
+
+def test_sweep_plan_fills_the_card_at_the_eval_shape_and_keeps_its_scratch_bounded():
+    eval_plan = tt.maxsim_bf16_plan(128, 16, 1040, 128, 1, H100_SMS)
+    assert eval_plan.split and eval_plan.pair and eval_plan.lanes == 16
+    assert eval_plan.ctas >= H100_SMS  # one equal range of the 16 x 1,040 blocks a CTA: 126 or 127 each
+    tokens = [t1 - t0 for _, _, _, t0, t1, _ in _walk(eval_plan, 1040, 1)]
+    per_cta = np.bincount([cta for cta, *_ in _walk(eval_plan, 1040, 1)], weights=tokens)
+    assert per_cta.max() - per_cta.min() <= 1
+    # a split run holds at most (ctas + 2 segments) x 128 rows x 128 docs of fp32 maxima
+    for b, nq, np_, d, n_tiles in PLAN_SHAPES + [(256, 64, 1040, 128, 1), (1024, 1, 4096, 128, 1)]:
+        plan = tt.maxsim_bf16_plan(b, nq, np_, d, n_tiles, H100_SMS)
+        assert plan.scratch_bytes <= min(plan.ctas + 2 * plan.segments, 3 * H100_SMS) * 128 * 128 * 4
+        assert plan.split == (plan.segments < H100_SMS) and plan.ctas <= H100_SMS
+
+
+def test_split_of_doc_tokens_with_a_max_merge_gives_bit_equal_scores():
+    """The property the second kernel rests on: the max over a split of the
+    doc tokens, taken again over the pieces, is the max over all of them,
+    bit for bit, so the sums in one order are equal too."""
+    rng = np.random.default_rng(20)
+    store = torch.from_numpy(rng.normal(size=(2, 40, 128, 64)).astype(np.float32)).to(torch.bfloat16)
+    q = torch.from_numpy(_queries(21, 3, 7, 64)).to(torch.bfloat16).float()
+    sim = torch.einsum("bqd,ktcd->bqktc", q, store.float())  # (B, Nq, tiles, Np, 128)
+    whole = sim.amax(dim=3)
+    for cuts in ([13], [1, 2, 39], list(range(1, 40))):
+        parts = [p.amax(dim=3) for p in torch.tensor_split(sim, cuts, dim=3)]
+        merged = torch.stack(parts).amax(dim=0)
+        assert torch.equal(merged, whole)
+        sums = [torch.zeros_like(merged[:, 0]) for _ in range(2)]
+        for i in range(q.shape[1]):  # 0 + m[0] + m[1] + ...: the order both kernels add in
+            sums[0] += whole[:, i]
+            sums[1] += merged[:, i]
+        assert torch.equal(sums[0], sums[1])
+    want = tt.maxsim_tiled_plain(q, store)
+    np.testing.assert_allclose(sums[0].reshape(3, -1).numpy(), want.numpy(), rtol=RTOL, atol=1e-4)
+
+
+@pytest.mark.parametrize("nq", [1, 7, 64, 65, 200])
+def test_query_pieces_keep_the_plain_scores(nq):
+    """Queries cut into pieces of 64 tokens (zero-padded), their scores
+    summed: the plain scores within K5's rtol 1e-5, atol 1e-4."""
+    rng = np.random.default_rng(22)
+    store = torch.from_numpy(rng.normal(size=(2, 8, 128, 64)).astype(np.float32) / 8).to(torch.bfloat16)
+    q = torch.from_numpy(_queries(23, 3, nq, 64))
+    pieces = tt.query_pieces(q)
+    n = -(-nq // 64)
+    assert tuple(pieces.shape) == ((3, nq, 64) if nq <= 64 else (3 * n, 64, 64))
+    got = tt.maxsim_tiled_plain(pieces, store).reshape(3, n, -1).sum(dim=1)
+    np.testing.assert_allclose(got.numpy(), tt.maxsim_tiled_plain(q, store).numpy(), rtol=1e-5, atol=1e-4)
+    plan = tt.maxsim_bf16_plan(3, nq, 8, 64, 2, H100_SMS)
+    assert (plan.pieces, plan.b, plan.nq) == (n, 3 * n, min(nq, 64))
