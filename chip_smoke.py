@@ -71,7 +71,22 @@ Phases (a few lines of output each, then two JSON lines):
    shapes (ColQwen2 vision and text, SigLIP, a padded validation case, causal
    GQA) against its plain version and beside SDPA. Phase 4 also builds a bf16
    two-tier index of its pages (K1 and K2 over a bf16 store) and finds each
-   planted page at rank 1.
+   planted page at rank 1;
+7. stored int8 (after phase 5): Q1a (the int8 row quantizer) and Q1b (the
+   int8 GEMM with its epilogue) bit-equal to their plain versions at every
+   (K, N) of ColPali-3B's quantized projections for M of 1 to 8,232, with
+   and without bias, bf16 and fp32 out, and Q1a on edge rows; each timed
+   at M 32, 256 and 8,232 beside its bound, its plain version,
+   ``torch._int_mm`` with the epilogue and bf16 ``F.linear``; the seeded
+   model written as an HF checkpoint and read back by
+   ``load_retriever(quantize=True)`` (253 stored-int8 layers, the weight
+   bytes on the card), Q1a on the model's own inputs, Q1a/Q1b launches of
+   one query and one page forward (72/90 and 181/253), ``/search_text``
+   through ``make_handler`` with the stored-int8 encoder finding planted
+   docs at rank 1 on the tiered, exact and Q1 plain routes, 32 pages
+   embedded, per-token cosine against the bf16 model and the plain route,
+   and encode x1/x8, one forward and pages/min for stored int8 and bf16 in
+   turns.
 
 Every K6 and K11 case prints, beside its time by CUDA events, TFLOP/s,
 the share of its bound, and SDPA with a boolean mask and, where the
@@ -126,6 +141,7 @@ from colpali_tpu_torch.ops.maxsim_tiled import (
     maxsim_tiled,
     maxsim_tiled_plain,
 )
+from colpali_tpu_torch.ops import quant_dense as qd
 from colpali_tpu_torch.ops.quant import binarize_words, quantize_per_token
 from colpali_tpu_torch.utils.tensor_utils import top_k
 
@@ -177,11 +193,16 @@ KERNELS = {
     "gather_rerank_bf16": dict(counter=GATHER_RERANK_BF16, route="cuda",
                                source="colpali_tpu_torch/csrc/gather_rerank.cu",
                                replaces="colpali_tpu/ops/maxsim_pallas.py:512"),
+    "quantize_rows": dict(counter=qd.QUANTIZE_ROWS, route="cuda", source="colpali_tpu_torch/csrc/quant_dense.cu",
+                          replaces="colpali_tpu/ops/quant_dense.py:54"),
+    "int8_gemm": dict(counter=qd.INT8_GEMM, route="cuda", source="colpali_tpu_torch/csrc/quant_dense.cu",
+                      replaces="colpali_tpu/ops/quant_dense.py:113"),
 }
 SERVING_KERNELS = ("binary_maxsim", "gather_rerank", "maxsim_int8", "flash_attention")  # the paths of phases 3-4
 TRAINING_KERNELS = ("maxsim_bf16", "flash_attention", "flash_attention_bwd")  # phase 5's: the steps and the eval
 OPS_KERNELS = ("maxsim_pallas_tm", "maxsim_pallas_int8_tm", "maxsim_pallas_int8mxu_tm", "flash_seqmajor")  # phase 6's
 BF16_INDEX_KERNELS = ("binary_maxsim", "gather_rerank_bf16")  # the bf16 two-tier index's searches in phase 4
+QUANT_KERNELS = ("quantize_rows", "int8_gemm")  # phase 7's: load_retriever(quantize=True) serving and embedding
 # K4 (maxsim_int8_bf16) is on no training path: evaluate() builds a bf16 index. Its path is CorpusIndex.search on
 # an int8 index with quantize_queries=False, driven and counted on its own in phase 5
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s and operations/s by type
@@ -1904,6 +1925,390 @@ def phase_training(device: torch.device, model, processor, smi: str) -> tuple:
     return slice_launches, train_launches, k6_bwd, dict(maxsim_bf16=k5_eval, maxsim_int8_bf16=k4_eval), extra
 
 
+# -- phase 7: stored-int8 weights (run after phase 5) ----------------------------------
+
+# (K, N) of ColPali-3B's quantized projections: SigLIP q/k/v/o, fc1, fc2; the projector; Gemma q/o, gate/up, down
+QUANT_SHAPES = ((1152, 1152), (1152, 4304), (4304, 1152), (1152, 2048), (2048, 2048), (2048, 16384), (16384, 2048))
+QUANT_ROWS = (1, 17, 32, 256, 8232)  # 32 and 256: QueryEncoder's buckets x1 and x8 (32 tokens); 8,232: 8 pages in Gemma
+QUANT_TIMED_ROWS = (32, 256, 8232)
+QUANT_LAYERS = 253  # 27 x 6 SigLIP + the projector + 18 x 5 Gemma (its k/v, 2048 -> 256, stay bf16)
+# Q1b and Q1a launches of one forward: Q1a quantizes an input once for the layers that share it (q/k/v, gate/up)
+Q1_QUERY_FORWARD = {"quantize_rows": 18 * 4, "int8_gemm": 18 * 5}
+Q1_PAGE_FORWARD = {"quantize_rows": 27 * 4 + 1 + 18 * 4, "int8_gemm": 27 * 6 + 1 + 18 * 5}
+QUANT_INDEX_DOCS = 4_096
+Q1A_HEADLINE, Q1B_HEADLINE = (8232, 16384), (8232, 2048, 16384)  # down_proj's input, gate/up: 8 pages in Gemma
+# stored int8 against bf16 through 45 layers of random weights, per token: about 3x the gaps measured on the
+# H100 (pages mean cos 0.990087, min 0.978436; queries 0.994057, 0.990090; the same in two runs). Kernel route
+# against plain route: Q1a/Q1b are bit-equal to their plain versions, and the two routes gave equal bits
+INT8_COS_MEAN, INT8_COS_MIN = 0.97, 0.93
+ROUTE_COS_MIN = 0.9999
+
+
+def q1_operands(gen: torch.Generator, device: torch.device, m: int, k: int, n: int) -> tuple:
+    """bf16 activations (m, k), a bf16 weight (n, k) at hf_init_'s scale,
+    its int8 copy as quantize_params makes it, and a bf16 bias."""
+    x = (torch.randn((m, k), generator=gen, device=device) * 3).to(torch.bfloat16)
+    w = (torch.randn((n, k), generator=gen, device=device) * 0.02).to(torch.bfloat16)
+    qw, sw = qd.quantize_rows_eager(w)
+    bias = torch.randn((n,), generator=gen, device=device).to(torch.bfloat16)
+    return x, w, qw, sw.reshape(-1), bias
+
+
+def q1_edge_rows(device: torch.device, k: int) -> torch.Tensor:
+    """A zero row, rows of exact .5 ties under the forward's scale (absmax
+    254: values on multiples of 254 * fp32(1/127) plus a half) and a row
+    holding one large value."""
+    s = 254.0 * qd._INV_127
+    ties = ((torch.arange(k, device=device) % 21) - 9.5) * s
+    x = torch.zeros((4, k), device=device)
+    x[1], x[2] = ties, -ties
+    x[1:3, 0] = 127.0 * s
+    x[3] = torch.linspace(-1.0, 1.0, k, device=device)
+    x[3, k // 2] = 1e4
+    return x
+
+
+def q1_checks(device: torch.device) -> dict:
+    """Q1a and Q1b bit-equal to their plain versions at every (K, N) of the
+    path and every M of QUANT_ROWS, with and without bias, bf16 and fp32
+    out; Q1a also on edge rows at K = 4,304 and 16,384."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    cases = 0
+    for k, n in QUANT_SHAPES:
+        for m in QUANT_ROWS:
+            x, _, qw, sw, bias = q1_operands(gen, device, m, k, n)
+            qa, sa = qd.quantize_rows(x)
+            pa, ps = qd.quantize_rows_plain(x)
+            if not (torch.equal(qa, pa) and torch.equal(sa, ps)):
+                raise AssertionError(f"Q1a at M={m} K={k}: not bit-equal to its plain version")
+            for out_dtype in (torch.bfloat16, torch.float32):
+                for b in (None, bias):
+                    got = qd.int8_gemm(qa, sa, qw, sw, b, out_dtype)
+                    want = qd.int8_gemm_plain(qa, sa, qw, sw, b, out_dtype)
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"Q1b at M={m} K={k} N={n} {out_dtype} bias {b is not None}: max abs "
+                                             f"diff {(got.float() - want.float()).abs().max().item()}")
+                    cases += 1
+            del x, qw, sw, bias, qa, sa, pa, ps, got, want
+    for k in (4304, 16384):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = q1_edge_rows(device, k).to(dtype)
+            (qa, sa), (pa, ps) = qd.quantize_rows(x), qd.quantize_rows_plain(x)
+            if not (torch.equal(qa, pa) and torch.equal(sa, ps)) or sa[0].item() != 1.0:
+                raise AssertionError(f"Q1a on edge rows at K={k} {dtype}: not bit-equal to its plain version")
+    torch.cuda.empty_cache()
+    return dict(q1b_cases=cases, q1a_edge_cases=4)
+
+
+def q1_timing(device: torch.device) -> tuple:
+    """Q1a and Q1b at QUANT_TIMED_ROWS x QUANT_SHAPES by CUDA events (and
+    from a CUDA graph at the query sizes) beside their bounds, their plain
+    versions and the library yardsticks: ``torch._int_mm`` with the epilogue
+    as PyTorch ops, and ``F.linear`` in bf16 on the unquantized weight."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    rows, gemms = [], []
+    for k, n in QUANT_SHAPES:
+        for m in QUANT_TIMED_ROWS:
+            x, w, qw, sw, _ = q1_operands(gen, device, m, k, n)
+            qa, sa = qd.quantize_rows(x)
+            short = m <= 256
+            if not any(r["m"] == m and r["k"] == k for r in rows):  # Q1a once per distinct input shape
+                rows.append(dict(m=m, k=k, ms=time_ms(lambda: qd.quantize_rows(x)),
+                                 graph_ms=graph_ms(lambda: qd.quantize_rows(x)) if short else None,
+                                 plain_ms=time_ms(lambda: qd.quantize_rows_plain(x), reps=2),
+                                 **bound(m * k * 2 + m * k + m * 4, 0, "int8")))
+
+            def int_mm():
+                return (torch._int_mm(qa, qw.t()).float() * sa * sw).to(torch.bfloat16)
+
+            try:  # the yardstick only: the port never calls it
+                library_equal = torch.equal(int_mm(), qd.int8_gemm(qa, sa, qw, sw))
+                library_ms, library_note = time_ms(int_mm), None
+            except RuntimeError as exc:
+                library_ms, library_note, library_equal = None, str(exc).splitlines()[0][:160], None
+            gemms.append(dict(m=m, k=k, n=n, ms=time_ms(lambda: qd.int8_gemm(qa, sa, qw, sw)),
+                              graph_ms=graph_ms(lambda: qd.int8_gemm(qa, sa, qw, sw)) if short else None,
+                              plain_ms=time_ms(lambda: qd.int8_gemm_plain(qa, sa, qw, sw), reps=2),
+                              library_ms=library_ms, library_note=library_note, library_bit_equal=library_equal,
+                              bf16_linear_ms=time_ms(lambda: F.linear(x, w)),
+                              **bound(m * k + n * k + 4 * m + 4 * n + 2 * m * n, 2 * m * n * k, "int8")))
+            del x, w, qw, sw, qa, sa
+    torch.cuda.empty_cache()
+    for r in rows:
+        graph = f", graph {r['graph_ms']:.4f}" if r["graph_ms"] is not None else ""
+        log(f"  Q1a M={r['m']} K={r['k']}: kernel {r['ms']:.4f} ms{graph}, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    for r in gemms:
+        graph = f", graph {r['graph_ms']:.4f}" if r["graph_ms"] is not None else ""
+        lib = f"{r['library_ms']:.4f}" if r["library_ms"] is not None else f"n/a ({r['library_note']})"
+        log(f"  Q1b M={r['m']} K={r['k']} N={r['n']}: kernel {r['ms']:.4f} ms{graph}, plain {r['plain_ms']:.3f} ms, "
+            f"_int_mm + epilogue {lib} ms, bf16 F.linear {r['bf16_linear_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {2 * r['m'] * r['n'] * r['k'] / r['ms'] / 1e9:.0f} TOP/s")
+    return rows, gemms
+
+
+def hf_checkpoint(model, directory: str) -> None:
+    """The model's weights as an HF-format ColPali checkpoint that
+    ``load_retriever`` reads: ``model.safetensors`` and ``config.json``."""
+    import dataclasses
+
+    from colpali_tpu_torch.training.checkpointing import save_pretrained
+
+    cfg = model.config
+    save_pretrained(directory, model.state_dict())
+    with open(f"{directory}/config.json", "w") as f:
+        json.dump({"model_type": "paligemma", "architectures": ["ColPali"],
+                   "vision_config": {**dataclasses.asdict(cfg.vision), "projection_dim": cfg.projection_dim},
+                   "text_config": dataclasses.asdict(cfg.text), "image_token_index": cfg.image_token_index}, f)
+
+
+def per_token(name: str, got: list, want: list, cos_mean: float, cos_min: float) -> dict:
+    """Per-token cosine and max abs of two lists of (tokens, dim) arrays."""
+    a, b = np.concatenate(got), np.concatenate(want)
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+    out = dict(tokens=len(a), mean_cos=float(cos.mean()), min_cos=float(cos.min()), max_abs=float(np.abs(a - b).max()),
+               bit_equal=bool(np.array_equal(a, b)))
+    if not (np.isfinite(a).all() and out["mean_cos"] >= cos_mean and out["min_cos"] >= cos_min):
+        raise AssertionError(f"{name}: {out}, limits mean cos >= {cos_mean}, min cos >= {cos_min}")
+    log(f"  {name}, {out['tokens']} tokens: mean cos {out['mean_cos']:.6f}, min cos {out['min_cos']:.6f}, max abs "
+        f"{out['max_abs']:.4g}{' (bit-equal)' if out['bit_equal'] else ''} (limits {cos_mean}, {cos_min})")
+    return out
+
+
+def q1_plain_route():
+    """Q1a and Q1b's plain versions patched in for a comparison (their
+    launches are not counted)."""
+    import contextlib
+
+    from colpali_tpu_torch.models import layers as layers_mod
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(qd, "quantize_rows", qd.quantize_rows_plain))
+    stack.enter_context(mock.patch.object(layers_mod, "quantize_rows", qd.quantize_rows_plain))
+    stack.enter_context(mock.patch.object(qd, "int8_gemm", qd.int8_gemm_plain))
+    return stack
+
+
+def forward_ms(model, feed: dict) -> float:
+    """Device ms of one forward of ``feed`` (CUDA events, after a warm-up)."""
+    with torch.inference_mode():
+        return time_ms(lambda: model(**feed), reps=5)
+
+
+def phase_stored_int8(device: torch.device, model, processor, smi: str) -> tuple:
+    """Drive the stored-int8 serving path: the seeded ColPali-3B written as an
+    HF checkpoint, read back through ``load_retriever(quantize=True)``,
+    serving ``/search_text`` and embedding pages, beside the bf16 model.
+    Returns the launches over that path, Q1a/Q1b's timings and the rest."""
+    import tempfile
+    from http.server import ThreadingHTTPServer
+    import threading
+
+    from colpali_tpu_torch import serve
+    from colpali_tpu_torch.auto import load_retriever
+    from colpali_tpu_torch.models.layers import QDense
+    from colpali_tpu_torch.retrieval.ingest import embed_pages_fused
+    from colpali_tpu_torch.retrieval.serving import QueryEncoder
+    from colpali_tpu_torch.retrieval.store import CorpusIndex
+
+    checks = q1_checks(device)
+    log(f"phase stored int8: Q1a and Q1b bit-equal to their plain versions in {checks['q1b_cases']} Q1b cases "
+        f"({len(QUANT_SHAPES)} (K, N) x M {QUANT_ROWS} x bias or none x bf16 or fp32 out) and on Q1a's edge rows at "
+        f"K 4,304 and 16,384")
+    rows, gemms = q1_timing(device)
+
+    cfg = model.config
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        hf_checkpoint(model, tmp)
+        t_save = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        qmodel, qproc = load_retriever(tmp, quantize=True, device=device,
+                                       processor_kwargs={"tokenizer": WordTokenizer(cfg.image_token_index)})
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    load_peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    held = (torch.cuda.memory_allocated() - before) / 2**30
+
+    def weight_bytes(m) -> int:
+        return sum(t.numel() * t.element_size() for t in m.state_dict().values())
+
+    stored = [name for name, m in qmodel.named_modules() if isinstance(m, QDense) and m.stored]
+    lm = qmodel.model.language_model
+    exact = {"patch embedding": qmodel.model.vision_tower.patch_embedding.weight,
+             "Gemma k_proj": lm.layers[0].self_attn.k_proj.weight, "Gemma v_proj": lm.layers[0].self_attn.v_proj.weight,
+             "token embedding": lm.embed_tokens.weight, "head": qmodel.head.custom_text_proj.weight}
+    if len(stored) != QUANT_LAYERS or any(w.dtype != torch.bfloat16 for w in exact.values()):
+        raise AssertionError(f"load_retriever(quantize=True): {len(stored)} stored-int8 layers, expected "
+                             f"{QUANT_LAYERS}; {({k: w.dtype for k, w in exact.items()})}")
+    bytes_int8, bytes_bf16 = weight_bytes(qmodel), weight_bytes(model)
+    log(f"  load_retriever(quantize=True): HF checkpoint written in {t_save:.1f} s, read and quantized in {t_load:.1f} "
+        f"s; {len(stored)} stored-int8 layers; weights on the card {bytes_int8 / 1e9:.3f} GB against "
+        f"{bytes_bf16 / 1e9:.3f} GB in bf16 ({bytes_int8 / bytes_bf16:.1%}); allocated {held:.2f} GiB after the "
+        f"load, peak {load_peak:.2f} GiB during it")
+
+    # Q1a on the model's own activations (inputs of four layers during a page forward)
+    vt = qmodel.model.vision_tower
+    taps = {"SigLIP fc2": vt.layers[len(vt.layers) // 2].mlp.fc2, "projector": qmodel.model.multi_modal_projector,
+            "Gemma q_proj": lm.layers[len(lm.layers) // 2].self_attn.q_proj,
+            "Gemma down_proj": lm.layers[len(lm.layers) // 2].mlp.down_proj}
+    seen = {}
+    handles = [m.register_forward_pre_hook(lambda mod, args, name=name: seen.setdefault(name, args[0].detach()))
+               for name, m in taps.items()]
+    pages = make_pages(PAGES, SEED + 12)
+    try:
+        embed_pages_fused(qmodel, qproc, pages[:PAGE_BATCH], transport="yuv420", batch_size=PAGE_BATCH)
+    finally:
+        for h in handles:
+            h.remove()
+    for name, x in seen.items():
+        x2 = x.reshape(-1, x.shape[-1])
+        (qa, sa), (pa, ps) = qd.quantize_rows(x2), qd.quantize_rows_plain(x2)
+        if not (torch.equal(qa, pa) and torch.equal(sa, ps)):
+            raise AssertionError(f"Q1a on the model's own {name} input: not bit-equal to its plain version")
+    log(f"  Q1a bit-equal to its plain version on the model's own inputs: "
+        + ", ".join(f"{name} {tuple(x.shape)}" for name, x in seen.items()))
+    del seen
+
+    qenc = QueryEncoder(qmodel, qproc)
+    qenc.warmup()
+    benc = QueryEncoder(model, processor)
+    per_forward = {}
+    for what, run, want in (("query forward", lambda: qenc.encode(QUERIES[:1]), Q1_QUERY_FORWARD),
+                            ("page forward", lambda: embed_pages_fused(qmodel, qproc, pages[:PAGE_BATCH],
+                                                                       transport="yuv420", batch_size=PAGE_BATCH),
+                             Q1_PAGE_FORWARD)):
+        reset_launches()
+        run()
+        per_forward[what] = {name: KERNELS[name]["counter"].launches for name in QUANT_KERNELS}
+        if per_forward[what] != want:
+            raise AssertionError(f"launches of one {what}: {per_forward[what]}, expected {want}")
+    log(f"  launches of one forward: {per_forward}")
+
+    # the served path: /search_text through the stored-int8 encoder, and page ingestion
+    reset_launches()
+    planted_q = qenc.encode(QUERIES)
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    docs = torch.randn((QUANT_INDEX_DOCS, DOC_TOKENS, DIM), generator=gen, device=device)
+    docs = (docs / docs.norm(dim=-1, keepdim=True)).cpu().numpy()
+    planted = [int(i) for i in np.linspace(50, QUANT_INDEX_DOCS - 50, len(QUERIES))]
+    for q, doc_id in zip(planted_q, planted):
+        docs[doc_id] = 0.0
+        docs[doc_id, : q.shape[0]] = q
+    index = CorpusIndex(docs, dtype="int8", prefilter="binary", coarse_pool=COARSE_POOL, device=device)
+    del docs
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(index, [f"doc_{i}" for i in range(index.num_docs)],
+                                                                     encoder=qenc))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_port}"
+    try:
+        tiered = [_http(url, "/search_text", {"queries": [q], "k": 10}) for q in QUERIES]  # one a request: tiered
+        exact = _http(url, "/search_text", {"queries": QUERIES, "k": 10})  # 8 > 4: exact
+        for out in (*tiered, exact):
+            _check_ranked("/search_text (stored int8)", out, len(out["doc_ids"]))
+        top_tiered, top_exact = [out["doc_ids"][0][0] for out in tiered], [row[0] for row in exact["doc_ids"]]
+        if top_tiered != planted or top_exact != planted:
+            raise AssertionError(f"stored int8 /search_text at rank 1: tiered {top_tiered}, exact {top_exact}, "
+                                 f"planted {planted}")
+        t0 = time.perf_counter()
+        embs = embed_pages_fused(qmodel, qproc, pages, transport="yuv420", batch_size=PAGE_BATCH)
+        t_embed = time.perf_counter() - t0
+        launches = read_launches("stored int8", QUANT_KERNELS)
+        with q1_plain_route():
+            plain_top = [row[0] for row in _http(url, "/search_text", {"queries": QUERIES, "k": 10})["doc_ids"]]
+        if plain_top != planted:
+            raise AssertionError(f"stored int8 /search_text on the plain route: rank 1 {plain_top}, planted {planted}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    del index
+    log(f"  served: /search_text through the stored-int8 encoder found each of {len(QUERIES)} planted docs at rank 1 "
+        f"on the tiered route (one query a request), the exact route (8 at once) and the Q1 plain route; "
+        f"{PAGES} pages embedded ({PAGES / t_embed * 60:.0f} pages/min); launches {launches}")
+    for e in embs:
+        if not np.isfinite(e).all() or np.abs(np.linalg.norm(e, axis=-1) - 1).max() > 1e-2:
+            raise AssertionError("stored int8 page embeddings: not finite or not unit norm")
+
+    # accuracy: stored int8 against bf16, and Q1's kernel route against its plain route
+    batch = pages[:PAGE_BATCH]
+    q_pages = embed_pages_fused(qmodel, qproc, batch, transport="yuv420", batch_size=PAGE_BATCH)
+    b_pages = embed_pages_fused(model, processor, batch, transport="yuv420", batch_size=PAGE_BATCH)
+    q_queries, b_queries = qenc.encode(QUERIES), benc.encode(QUERIES)
+    with q1_plain_route():
+        p_pages = embed_pages_fused(qmodel, qproc, batch, transport="yuv420", batch_size=PAGE_BATCH)
+        p_queries = qenc.encode(QUERIES)
+    accuracy = {
+        "pages vs bf16": per_token(f"{PAGE_BATCH} pages, stored int8 vs bf16", q_pages, b_pages, INT8_COS_MEAN,
+                                   INT8_COS_MIN),
+        "queries vs bf16": per_token(f"{len(QUERIES)} queries, stored int8 vs bf16", q_queries, b_queries,
+                                     INT8_COS_MEAN, INT8_COS_MIN),
+        "pages vs plain route": per_token(f"{PAGE_BATCH} pages, Q1 kernel route vs plain route", q_pages, p_pages,
+                                          ROUTE_COS_MIN, ROUTE_COS_MIN),
+        "queries vs plain route": per_token(f"{len(QUERIES)} queries, Q1 kernel route vs plain route", q_queries,
+                                            p_queries, ROUTE_COS_MIN, ROUTE_COS_MIN)}
+
+    # end to end, stored int8 against bf16 in turns: encode (host clock, median of 10), one forward (CUDA events),
+    # pages/min through embed_pages_fused
+    feeds = {}
+    for b_, texts in (("x1", QUERIES[:1]), ("x8", QUERIES)):
+        feed, _ = qenc._pad_static(qproc.process_queries(texts))
+        feeds[b_] = {k: torch.from_numpy(v).to(device) for k, v in feed.items()}
+    tok = qproc._tokenize([qproc._expand_image_prompt(qproc.visual_prompt_prefix)] * PAGE_BATCH)
+    feeds["pages"] = dict(input_ids=torch.from_numpy(tok["input_ids"]).to(device),
+                          attention_mask=torch.from_numpy(tok["attention_mask"]).to(device),
+                          pixel_values=torch.rand((PAGE_BATCH, qproc.image_size, qproc.image_size, 3), generator=gen,
+                                                  device=device) * 2 - 1)
+    e2e = {}
+    for label, enc, m, proc in (("bf16", benc, model, processor), ("int8", qenc, qmodel, qproc),
+                                ("int8 again", qenc, qmodel, qproc), ("bf16 again", benc, model, processor)):
+        r = {}
+        for b_, texts in (("x1", QUERIES[:1]), ("x8", QUERIES)):
+            enc.encode(texts)
+            walls = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                enc.encode(texts)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            r[f"encode_{b_}_ms"] = float(np.median(walls))
+            r[f"forward_{b_}_ms"] = forward_ms(m, feeds[b_])
+        r["page_forward_ms"] = forward_ms(m, feeds["pages"])
+        t0 = time.perf_counter()
+        embed_pages_fused(m, proc, pages, transport="yuv420", batch_size=PAGE_BATCH)
+        r["pages_per_min"] = PAGES / (time.perf_counter() - t0) * 60
+        e2e[label] = r
+        log(f"  {label} ({smi}): encode x1 {r['encode_x1_ms']:.2f} ms (forward {r['forward_x1_ms']:.2f}), x8 "
+            f"{r['encode_x8_ms']:.2f} ms (forward {r['forward_x8_ms']:.2f}); forward of {PAGE_BATCH} pages "
+            f"{r['page_forward_ms']:.1f} ms; {r['pages_per_min']:.0f} pages/min")
+    with torch.inference_mode():
+        profile = kernel_breakdown(f"one stored-int8 forward of {PAGE_BATCH} pages",
+                                   lambda: qmodel(**feeds["pages"]))
+    del qenc, benc, qmodel, feeds
+    torch.cuda.empty_cache()
+
+    down_in = next(r for r in rows if (r["m"], r["k"]) == Q1A_HEADLINE)
+    gate = next(r for r in gemms if (r["m"], r["k"], r["n"]) == Q1B_HEADLINE)
+    timings = {
+        "quantize_rows": dict(max_abs_err=0.0, library_ms=None, shape="M={} K={} bf16 (down_proj's input, 8 pages)"
+                              .format(*Q1A_HEADLINE), **{k: down_in[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                                               "bound_by")},
+                              shapes=rows, launches_query_forward=per_forward["query forward"]["quantize_rows"],
+                              launches_page_forward=per_forward["page forward"]["quantize_rows"]),
+        "int8_gemm": dict(max_abs_err=0.0, shape="M={} K={} N={} bf16 out (gate/up, 8 pages)".format(*Q1B_HEADLINE),
+                          **{k: gate[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                                  "bf16_linear_ms")},
+                          library="torch._int_mm + the epilogue as PyTorch ops", shapes=gemms,
+                          launches_query_forward=per_forward["query forward"]["int8_gemm"],
+                          launches_page_forward=per_forward["page forward"]["int8_gemm"]),
+    }
+    extra = dict(layers=len(stored), weight_bytes_int8=bytes_int8, weight_bytes_bf16=bytes_bf16,
+                 load_seconds=t_load, load_peak_gib=load_peak, held_gib=held, accuracy=accuracy, end_to_end=e2e,
+                 page_profile=profile, q1_checks=checks, pages_per_min_served=PAGES / t_embed * 60)
+    return launches, timings, extra
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script only runs on a GPU", file=sys.stderr)
@@ -1921,6 +2326,8 @@ def main() -> int:
                                                                                            encoder)
     del encoder
     train_slice, train_steps, k6_bwd, eval_index, train_extra = phase_training(device, model, processor, smi)
+    quant_launches, quant_timings, quant_extra = phase_stored_int8(device, model, processor, smi)
+    timings.update(quant_timings)
     timings["flash_attention"] = dict(k6["siglip"], gemma_page=k6["gemma_page"], gemma_query=k6["gemma_query"])
     timings["flash_attention_bwd"] = dict(k6_bwd["gemma_page"], gemma_query=k6_bwd["gemma_query"],
                                           gemma_query_padded=k6_bwd["gemma_query_padded"], siglip=k6_bwd["siglip"])
@@ -1945,12 +2352,15 @@ def main() -> int:
         if name == "gather_rerank_bf16":  # over the bf16 page index's searches, phase 4
             entry.update(launches=bf16_launches[name], launches_over="CorpusIndex.search on a bf16 two-tier index of "
                                                                      "the pages, one query a search")
+        if name in QUANT_KERNELS:  # over phase 7's path: /search_text and 32 pages through the stored-int8 model
+            entry.update(launches=quant_launches[name], launches_over="load_retriever(quantize=True): /search_text "
+                                                                      "through make_handler and 32 pages embedded")
         if name in train_steps:
             entry["launches_train_steps"] = train_steps[name]
         kernels.append(dict(entry, **timings[name]))
     print(json.dumps({"kernels": kernels, "pages_per_min": extra["pages_per_min"],
                       "forward_check": extra["forward_check"], "page_profile": extra["page_profile"],
-                      "training": train_extra}))
+                      "training": train_extra, "stored_int8": quant_extra}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -7,7 +7,7 @@
 weights through :mod:`colpali_tpu_torch.core.hf_loader` and makes the
 processor with the family's ``from_pretrained``::
 
-    model, processor = load_retriever("/ckpts/colpali-v1.2", device="cuda")
+    model, processor = load_retriever("/ckpts/colpali-v1.2", device="cuda", quantize=True)
 
 The port holds the weights in the module, so it returns ``(model,
 processor)`` where JAX returns ``(model, variables, processor)``. Only the
@@ -78,10 +78,16 @@ def load_retriever(
     unmatched checkpoint key raises. ``processor_kwargs`` go to
     ``from_pretrained`` over ``device=device`` (pass ``tokenizer=`` where
     ``transformers`` is missing). ``model_kwargs`` go to the model class.
-    ``quantize=True`` (stored-int8 weights) is not ported and raises."""
+    ``quantize=True`` stores every eligible projection as int8 (weights
+    per output channel, ``ops.quant_dense.quantize_params`` with its
+    default ``min_dim=512``; 253 of ColPali-3B's): served through kernels
+    Q1a and Q1b, about 0.6 of the bf16 weights' bytes on the card. The
+    patch embedding, Gemma's k/v, the embeddings and the 128-d head stay
+    in ``dtype``."""
     from colpali_tpu_torch.core.hf_loader import load_colpali_params, load_hf_config
     from colpali_tpu_torch.models.configs import PaliGemmaConfig
     from colpali_tpu_torch.models.paligemma import ColPali
+    from colpali_tpu_torch.ops.quant_dense import quantize_params
     from colpali_tpu_torch.processors.colpali import ColPaliProcessor
 
     hf_cfg = load_hf_config(checkpoint_dir)
@@ -91,14 +97,13 @@ def load_retriever(
     if family in _NOT_PORTED:
         raise NotImplementedError(f"family {family!r} is not ported to colpali_tpu_torch yet "
                                   f"(ROADMAP.md {_NOT_PORTED[family]}); 'colpali' is")
-    if quantize:
-        raise NotImplementedError("stored-int8 weights (quantize=True) are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 2); pass quantize=False")
     if param_dtype is not None and param_dtype != dtype:
         raise ValueError(f"the port computes in its parameters' dtype: param_dtype={param_dtype} != dtype={dtype}")
     config = PaliGemmaConfig.from_hf_config(hf_cfg)
     model = ColPali(config, dim=dim or hf_cfg.get("embedding_dim") or 128, device=device, dtype=dtype,
                     **model_kwargs)
     model.load_state_dict(load_colpali_params(checkpoint_dir, strict=strict))
+    if quantize:
+        quantize_params(model)
     processor = ColPaliProcessor.from_pretrained(checkpoint_dir, **{"device": device, **(processor_kwargs or {})})
     return model.eval(), processor

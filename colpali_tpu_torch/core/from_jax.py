@@ -9,7 +9,12 @@ The JAX package's ``ColPali`` params (a nested dict with numpy leaves, as
   im2col ``nn.Linear`` weight ``(hidden, p * p * 3)``;
 - ``embedding`` leaves (token and position embeddings) become ``weight``;
 - flax ``LayerNorm`` ``scale`` becomes ``weight`` (``bias`` stays);
-- unrolled ``layers_{i}`` become ``layers.{i}``.
+- unrolled ``layers_{i}`` become ``layers.{i}``;
+- a stored-int8 tree (``quantize_params``' ``(qp, qc)``): each int8
+  ``kernel (K, N)`` becomes the int8 ``weight (N, K)`` and the ``quant``
+  collection's ``kernel_scale (1, N)`` its fp32 ``weight_scale (N,)``; a
+  ``ColPali`` takes them through ``load_state_dict`` (``QDense`` layers turn
+  to stored int8 as they load).
 
 bf16 leaves (``ml_dtypes.bfloat16``) are taken bit for bit.
 
@@ -19,7 +24,7 @@ bf16 leaves (``ml_dtypes.bfloat16``) are taken bit for bit.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,12 +50,16 @@ def _to_tensor(leaf: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-def colpali_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ColPali params (with or without the top ``"params"`` level) -> state dict."""
-    if set(params) == {"params"}:
-        params = params["params"]
+def colpali_state_dict_from_jax(params: Mapping[str, Any],
+                                quant: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
+    """JAX ColPali params -> state dict. ``params`` is the params tree, or the
+    variables ``{"params": ..., "quant": ...}`` (``quant`` optional);
+    ``quant``: the ``kernel_scale`` collection of a stored-int8 tree."""
+    if set(params) <= {"params", "quant"} and "params" in params:
+        params, quant = params["params"], params.get("quant", quant)
+    scales = {path[:-1]: leaf for path, leaf in _flatten(quant or {}).items()}
     state: Dict[str, torch.Tensor] = {}
-    for path, leaf in _flatten(params).items():
+    for path, leaf in {**_flatten(params), **{(*p, "kernel_scale"): v for p, v in scales.items()}}.items():
         joined = "/".join(path)
         if not joined.startswith(_CONVERTED):
             raise ValueError(f"unexpected ColPali parameter {joined!r}")
@@ -60,7 +69,11 @@ def colpali_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Te
         tensor = _to_tensor(leaf)
         *parts, last = path
         if last == "kernel":
+            if tensor.dtype == torch.int8 and tuple(parts) not in scales:
+                raise ValueError(f"{joined!r}: an int8 kernel without its quant/kernel_scale")
             tensor, last = tensor.reshape(-1, tensor.shape[-1]).T.contiguous(), "weight"
+        elif last == "kernel_scale":
+            tensor, last = tensor.reshape(-1).float(), "weight_scale"
         elif last in ("embedding", "scale"):
             last = "weight"
         name = ".".join(re.sub(r"^layers_(\d+)$", r"layers.\1", p) for p in (*parts, last))

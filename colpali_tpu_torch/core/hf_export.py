@@ -101,6 +101,11 @@ def export_state_dict(
     """Translate a port state dict into HF torch-layout keys (tensors on the
     CPU, dtypes kept) by the loader's rules, inverted; with ``strict`` a
     parameter that no rule covers raises."""
+    quantized = [name for name, value in state_dict.items()
+                 if name.endswith(".weight_scale") or value.dtype == torch.int8]
+    if quantized:
+        raise ValueError(f"{len(quantized)} stored-int8 tensors ({quantized[0]}, ...): the HF layout holds float "
+                         "weights; call ops.quant_dense.dequantize_params(model) and export its state dict")
     inv_rules = [(_template_regex(template), pattern, transform) for pattern, template, transform in rules if template]
     out: Dict[str, torch.Tensor] = {}
     unmatched = []

@@ -8,7 +8,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from colpali_tpu_torch.models.layers import Device, LayerNorm, RMSNorm, l2_normalize
+from colpali_tpu_torch.models.layers import Device, LayerNorm, QDense, RMSNorm, l2_normalize
 
 
 def merge_image_embeddings(
@@ -33,7 +33,7 @@ class MultiVectorHead(nn.Module):
     def __init__(self, hidden_size: int, dim: int = 128, device: Device = "cuda",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.custom_text_proj = nn.Linear(hidden_size, dim, bias=True, device=device, dtype=dtype)
+        self.custom_text_proj = QDense(hidden_size, dim, bias=True, device=device, dtype=dtype)
 
     def forward(self, hidden_states: torch.Tensor, attention_mask: torch.Tensor,
                 image_token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -52,7 +52,8 @@ def hf_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     and biases zero. ``generator`` must be on that device."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Embedding)):
-            m.weight.normal_(0.0, 0.02, generator=generator)
+            if m.weight.is_floating_point():  # stored-int8 weights and their scales stay as they are
+                m.weight.normal_(0.0, 0.02, generator=generator)
             if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
         elif isinstance(m, RMSNorm):

@@ -12,10 +12,17 @@ logits and softmax, MQA/GQA by grouping query heads. A token-validity mask
 is passed as segment ids, so valid tokens attend to valid tokens exactly as
 under the JAX package's additive mask, and pad rows (masked downstream)
 attend to pad tokens.
+
+The projections are :class:`QDense` layers (the JAX package's ``QDense``):
+``nn.Linear`` in the exact mode, stored-int8 weights after
+:func:`colpali_tpu_torch.ops.quant_dense.quantize_params`, dynamic w8a8
+inside :func:`quantized_acts`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import torch
@@ -23,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from colpali_tpu_torch.ops import flash_attention as fa
+from colpali_tpu_torch.ops.quant_dense import int8_linear, quantize_rows, stored_int8_apply
 
 Device = torch.device | str
 
@@ -104,6 +112,100 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
+# The dynamic w8a8 mode: QDense layers with float weights quantize them and
+# their inputs on every call while this is set (JAX decides it at trace time,
+# the port at call time).
+_QUANT_CTX: contextvars.ContextVar = contextvars.ContextVar("colpali_tpu_torch_quant_dense", default=False)
+
+
+@contextlib.contextmanager
+def quantized_acts(enable: bool = True):
+    """Run the float ``QDense`` projections as dynamic w8a8
+    (:func:`colpali_tpu_torch.ops.quant_dense.int8_linear`, which keeps
+    shapes below 512 exact) inside this context. For serving forwards."""
+    tok = _QUANT_CTX.set(enable)
+    try:
+        yield
+    finally:
+        _QUANT_CTX.reset(tok)
+
+
+class QDense(nn.Linear):
+    """``nn.Linear`` with the JAX package's serving quantization policy, in
+    three modes decided per call:
+
+    - **stored int8**: ``weight`` is an int8 ``(N, K)`` buffer beside a fp32
+      ``weight_scale (N,)`` (:func:`~colpali_tpu_torch.ops.quant_dense.quantize_params`,
+      or a quantized state dict loaded into the layer); the product is
+      :func:`~colpali_tpu_torch.ops.quant_dense.stored_int8_apply` (kernels
+      Q1a and Q1b on the card), in the input's dtype, the bias added after;
+    - **dynamic w8a8**: inside :func:`quantized_acts`, ``int8_linear``;
+    - **exact** (default): ``nn.Linear``.
+
+    Names and layouts are ``nn.Linear``'s, so loaders, exporters and LoRA
+    find the layer as before. ``model.to(dtype)`` converts neither the int8
+    weight nor its fp32 scale."""
+
+    @property
+    def stored(self) -> bool:
+        return self.weight.dtype == torch.int8
+
+    def store_int8(self, q: torch.Tensor, scale: torch.Tensor) -> None:
+        """Hold ``q (N, K)`` int8 and ``scale (N,)`` fp32 in place of the
+        float weight (which is released)."""
+        if q.dtype != torch.int8 or q.shape != (self.out_features, self.in_features) or \
+                scale.shape != (self.out_features,):
+            raise ValueError(f"int8 weight {q.dtype} {tuple(q.shape)} and scale {tuple(scale.shape)} for a "
+                             f"{self.in_features} -> {self.out_features} layer")
+        del self.weight
+        self.register_buffer("weight", q)
+        self.register_buffer("weight_scale", scale.float())
+
+    def store_float(self, weight: torch.Tensor) -> None:
+        """Hold the float ``weight (N, K)`` again, as a parameter."""
+        del self.weight, self.weight_scale
+        self.weight = nn.Parameter(weight)
+
+    def forward(self, x: torch.Tensor, rows: Optional[tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        """``rows``: :func:`shared_rows` of ``x``, for stored layers that share it."""
+        if self.stored:
+            return stored_int8_apply(x, self.weight, self.weight_scale, x.dtype, self.bias, rows)
+        if _QUANT_CTX.get():
+            return int8_linear(x, self.weight, self.bias)
+        return F.linear(x, self.weight, self.bias)
+
+    def _apply(self, fn, recurse=True):
+        scale = self._buffers.pop("weight_scale", None)  # kept fp32: it follows the weight's device only
+        try:
+            return super()._apply(fn, recurse)
+        finally:
+            if scale is not None:
+                self._buffers["weight_scale"] = scale.to(self.weight.device)
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata, strict, missing_keys, unexpected_keys,
+                              error_msgs):
+        # a quantized state dict (int8 weight + weight_scale) turns the layer to stored int8 first
+        incoming = state_dict.get(prefix + "weight")
+        if prefix + "weight_scale" in state_dict and not self.stored:
+            dev = self.weight.device
+            self.store_int8(torch.empty(self.weight.shape, dtype=torch.int8, device=dev),
+                            torch.empty(self.out_features, dtype=torch.float32, device=dev))
+        elif incoming is not None and self.stored and incoming.dtype != torch.int8:
+            raise ValueError(f"{prefix}weight: a float weight for a layer holding stored-int8 weights; load it into "
+                             "an unquantized model (or call ops.quant_dense.dequantize_params first)")
+        super()._load_from_state_dict(state_dict, prefix, local_metadata, strict, missing_keys, unexpected_keys,
+                                      error_msgs)
+
+
+def shared_rows(x: torch.Tensor, *layers: QDense) -> Optional[tuple[torch.Tensor, torch.Tensor]]:
+    """``quantize_rows(x)`` once for two or more stored-int8 ``layers`` that
+    take the same input (q/k/v, gate/up), else None (each layer quantizes
+    its own input)."""
+    if sum(layer.stored for layer in layers) < 2:
+        return None
+    return quantize_rows(x.reshape(-1, x.shape[-1]))
+
+
 class Attention(nn.Module):
     """Multi-head attention with optional GQA/MQA, projection biases and
     rotary embeddings, ``head_dim**-0.5`` scaling, through K6.
@@ -121,11 +223,10 @@ class Attention(nn.Module):
         self.scale = head_dim**-0.5
         kw = dict(device=device, dtype=dtype)
         kv = self.num_kv_heads * head_dim
-        self.q_proj = nn.Linear(hidden_size, num_heads * head_dim, bias=use_bias, **kw)
-        self.k_proj = nn.Linear(hidden_size, kv, bias=use_bias, **kw)
-        self.v_proj = nn.Linear(hidden_size, kv, bias=use_bias, **kw)
-        self.o_proj = nn.Linear(num_heads * head_dim, hidden_size, bias=use_bias if out_bias is None else out_bias,
-                                **kw)
+        self.q_proj = QDense(hidden_size, num_heads * head_dim, bias=use_bias, **kw)
+        self.k_proj = QDense(hidden_size, kv, bias=use_bias, **kw)
+        self.v_proj = QDense(hidden_size, kv, bias=use_bias, **kw)
+        self.o_proj = QDense(num_heads * head_dim, hidden_size, bias=use_bias if out_bias is None else out_bias, **kw)
 
     def forward(
         self,
@@ -137,9 +238,10 @@ class Attention(nn.Module):
     ) -> torch.Tensor:
         b, s, _ = x.shape
         hd = self.head_dim
-        q = self.q_proj(x).view(b, s, self.num_heads, hd)
-        k = self.k_proj(x).view(b, s, self.num_kv_heads, hd)
-        v = self.v_proj(x).view(b, s, self.num_kv_heads, hd)
+        rows = shared_rows(x, self.q_proj, self.k_proj, self.v_proj)
+        q = self.q_proj(x, rows).view(b, s, self.num_heads, hd)
+        k = self.k_proj(x, rows).view(b, s, self.num_kv_heads, hd)
+        v = self.v_proj(x, rows).view(b, s, self.num_kv_heads, hd)
         if rope is not None:
             q = apply_rope(q, *rope)
             k = apply_rope(k, *rope)
@@ -157,12 +259,13 @@ class GatedMLP(nn.Module):
                  device: Device = "cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
         kw = dict(bias=False, device=device, dtype=dtype)
-        self.gate_proj = nn.Linear(hidden_size, intermediate_size, **kw)
-        self.up_proj = nn.Linear(hidden_size, intermediate_size, **kw)
-        self.down_proj = nn.Linear(intermediate_size, hidden_size, **kw)
+        self.gate_proj = QDense(hidden_size, intermediate_size, **kw)
+        self.up_proj = QDense(hidden_size, intermediate_size, **kw)
+        self.down_proj = QDense(intermediate_size, hidden_size, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(gelu_tanh(self.gate_proj(x)) * self.up_proj(x))
+        rows = shared_rows(x, self.gate_proj, self.up_proj)
+        return self.down_proj(gelu_tanh(self.gate_proj(x, rows)) * self.up_proj(x, rows))
 
 
 class MLP(nn.Module):
@@ -171,8 +274,8 @@ class MLP(nn.Module):
     def __init__(self, hidden_size: int, intermediate_size: int,
                  device: Device = "cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc1 = nn.Linear(hidden_size, intermediate_size, device=device, dtype=dtype)
-        self.fc2 = nn.Linear(intermediate_size, hidden_size, device=device, dtype=dtype)
+        self.fc1 = QDense(hidden_size, intermediate_size, device=device, dtype=dtype)
+        self.fc2 = QDense(intermediate_size, hidden_size, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu_tanh(self.fc1(x)))

@@ -24,7 +24,7 @@ from torch import nn
 from colpali_tpu_torch.models.common import MultiVectorHead, merge_image_embeddings
 from colpali_tpu_torch.models.configs import PaliGemmaConfig
 from colpali_tpu_torch.models.gemma import GemmaDecoder
-from colpali_tpu_torch.models.layers import Device, frozen
+from colpali_tpu_torch.models.layers import Device, QDense, frozen
 from colpali_tpu_torch.models.siglip import SiglipVisionTower
 
 
@@ -38,7 +38,7 @@ class PaliGemmaBackbone(nn.Module):
         self.dtype = dtype
         kw = dict(device=device, dtype=dtype)
         self.vision_tower = SiglipVisionTower(config.vision, remat=remat, **kw)
-        self.multi_modal_projector = nn.Linear(config.vision.hidden_size, config.projection_dim, **kw)
+        self.multi_modal_projector = QDense(config.vision.hidden_size, config.projection_dim, **kw)
         self.language_model = GemmaDecoder(config.text, remat=remat, **kw)
 
     def image_features(self, pixel_values: torch.Tensor) -> torch.Tensor:

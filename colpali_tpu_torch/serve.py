@@ -10,11 +10,11 @@ of ``scripts/serve.py``; same endpoints and JSON):
   GET  /healthz, /metrics
 
 Run: ``python -m colpali_tpu_torch.serve corpus.npz --device cuda``, and add
-``--checkpoint DIR --no-quantize`` to load a query encoder from an HF-format
-checkpoint (:func:`colpali_tpu_torch.auto.load_retriever`) and enable
-``/search_text``. The JAX server loads stored-int8 weights unless
-``--no-quantize``; the port has no stored-int8 weights yet, so
-``--checkpoint`` without ``--no-quantize`` exits before loading anything.
+``--checkpoint DIR`` to load a query encoder from an HF-format checkpoint
+(:func:`colpali_tpu_torch.auto.load_retriever`) and enable
+``/search_text``. As in the JAX server, the encoder serves stored-int8
+weights (kernels Q1a and Q1b) unless ``--no-quantize`` keeps the
+checkpoint's bf16 weights.
 """
 
 from __future__ import annotations
@@ -166,14 +166,11 @@ def make_server(argv=None) -> ThreadingHTTPServer:
     parser.add_argument("--save-index", metavar="PATH.npz",
                         help="after building, persist the packed index here and keep serving")
     parser.add_argument("--checkpoint", help="HF-format retriever checkpoint dir: loads the model and "
-                        "processor in-process and enables POST /search_text (needs --no-quantize)")
+                        "processor in-process and enables POST /search_text")
     parser.add_argument("--family", help="checkpoint family (else detected from its config.json)")
     parser.add_argument("--no-quantize", action="store_true",
-                        help="with --checkpoint: serve the checkpoint's bf16 weights (the only mode ported)")
+                        help="with --checkpoint: serve the checkpoint's bf16 weights instead of stored int8")
     args = parser.parse_args(argv)
-    if args.checkpoint and not args.no_quantize:
-        parser.error("--checkpoint would serve stored-int8 weights, which colpali_tpu_torch does not have yet "
-                     "(ROADMAP.md Queue 1 item 2); pass --no-quantize to serve the checkpoint's bf16 weights")
 
     with np.load(args.corpus_npz) as probe:
         is_index = "store" in probe.files
@@ -198,8 +195,10 @@ def make_server(argv=None) -> ThreadingHTTPServer:
         from colpali_tpu_torch.auto import load_retriever
         from colpali_tpu_torch.retrieval.serving import QueryEncoder
 
-        encoder = QueryEncoder(*load_retriever(args.checkpoint, family=args.family, device=args.device))
-        print(f"Text-in serving: query encoder loaded from {args.checkpoint}")
+        encoder = QueryEncoder(*load_retriever(args.checkpoint, family=args.family, device=args.device,
+                                               quantize=not args.no_quantize))
+        print(f"Text-in serving: query encoder loaded from {args.checkpoint} "
+              f"({'bf16' if args.no_quantize else 'stored-int8'} weights)")
     print(f"Serving {index.num_docs} docs ({index.nbytes / 2**20:.1f} MiB on {args.device}) on :{args.port}")
     return ThreadingHTTPServer(("0.0.0.0", args.port), make_handler(index, files, encoder=encoder))
 

@@ -73,6 +73,10 @@ class LoraAdapters(nn.Module):
                    if isinstance(mod, nn.Linear) and re.fullmatch(spec.target_pattern, jax_kernel_path(name))]
         if not matched:
             raise ValueError(f"LoRA target pattern matched no kernels: {spec.target_pattern}")
+        int8 = [path for path, _, mod in matched if mod.weight.dtype == torch.int8]
+        if int8:
+            raise NotImplementedError(f"LoRA over stored-int8 weights ({int8[0]}, ...) needs quantize_frozen_base, "
+                                      "which is not ported yet (ROADMAP.md Queue 1 item 2)")
         for p in model.parameters():
             p.requires_grad_(False)
         self.paths: List[str] = [path for path, _, _ in matched]

@@ -39,7 +39,8 @@ class ColModelTrainingConfig:
     exports the merged weights.
 
     Not ported yet, and refused: ``mesh`` (multi-GPU), and
-    ``quantize_frozen_base`` (needs ``ops/quant_dense``). ``remat_policy``
+    ``quantize_frozen_base`` (the serving half of ``ops/quant_dense`` is
+    ported; the frozen, quantized base under LoRA is next). ``remat_policy``
     accepts ``None`` or ``"full"`` only: ``torch.utils.checkpoint`` saves
     nothing inside a layer, and has no counterpart of the JAX package's
     named policies such as ``"dots"``; whether layers are checkpointed at
@@ -81,7 +82,8 @@ class ColModelTraining:
         if config.mesh is not None:
             raise NotImplementedError("ColModelTrainingConfig(mesh=...): multi-GPU training is not ported yet")
         if config.quantize_frozen_base:
-            raise NotImplementedError("quantize_frozen_base needs ops/quant_dense, which is not ported yet")
+            raise NotImplementedError("quantize_frozen_base (LoRA over a frozen stored-int8 base) is not ported "
+                                      "yet (ROADMAP.md Queue 1 item 2); ops/quant_dense serves stored int8 only")
         if config.remat_policy not in (None, "full"):
             raise NotImplementedError(
                 f"remat_policy={config.remat_policy!r}: torch.utils.checkpoint has no named policies; "

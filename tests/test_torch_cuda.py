@@ -36,6 +36,9 @@ below 1). K11 is held by the same rule with the RMS taken per query row
 so the first rows have outputs of order 1 while the RMS over all rows is set
 by the long ones (11 of 2.4 M elements of the causal GQA case missed the
 global-RMS rule on the H100, all in the first rows: rounding, not a fault).
+Q1a (the int8 row quantizer) and Q1b (the int8 GEMM and its epilogue) are
+bit-equal to their plain versions: the int32 sums are exact and every
+rounding is the same.
 """
 
 import numpy as np
@@ -72,6 +75,7 @@ from colpali_tpu_torch.ops.maxsim_tiled import (
     scales_to_tile_major,
     to_tile_major,
 )
+from colpali_tpu_torch.ops import quant_dense as qd
 from colpali_tpu_torch.ops.quant import quantize_per_token
 from colpali_tpu_torch.retrieval.store import CorpusIndex, DeviceIndexBuilder
 
@@ -635,3 +639,73 @@ def test_device_resize_on_card_matches_its_cpu_run(dev, hw, size):
     assert on_card.device == dev and on_card.shape == (2, size, size, 3)
     cpu = preprocess_images_fixed(pages, size=(size, size))
     np.testing.assert_allclose(on_card.cpu().numpy(), cpu, atol=1e-5)
+
+
+def _activations(dev, m, k, dtype, seed):
+    """Rows of scale 3, a zero row and a row of exact .5 ties (absmax 254:
+    scale 254 * fp32(1/127), the values multiples of it plus a half)."""
+    x = torch.randn((m, k), generator=_gen(dev, seed), device=dev) * 3
+    if m > 2:
+        x[1] = 0.0
+        s = torch.tensor(254.0) * qd._INV_127
+        x[2] = ((torch.arange(k, device=dev) % 21) - 9.5) * s
+        x[2, 0] = 127.0 * s
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("m,k", [(1, 1152), (17, 4304), (32, 2048), (256, 16384), (8232, 16384), (3, 40), (5, 4302)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_q1a_quantize_rows_equals_plain(dev, m, k, dtype):
+    x = _activations(dev, m, k, dtype, seed=m + k)
+    q, s = qd.quantize_rows(x)
+    want_q, want_s = qd.quantize_rows_plain(x)
+    assert q.dtype == torch.int8 and s.shape == (m, 1)
+    assert torch.equal(s, want_s) and torch.equal(q, want_q)
+
+
+# every (K, N) of ColPali-3B's quantized projections, the page and query batch sizes, and odd edges
+Q1B_CASES = [(m, k, n) for k, n in ((1152, 1152), (1152, 4304), (4304, 1152), (1152, 2048), (2048, 2048),
+                                   (2048, 16384), (16384, 2048)) for m in (1, 17, 256)]
+Q1B_CASES += [(8232, 2048, 16384), (8192, 4304, 1152), (130, 48, 130), (5, 32, 7), (129, 144, 257)]
+
+
+@pytest.mark.parametrize("m,k,n", Q1B_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_q1b_int8_gemm_equals_plain(dev, m, k, n, out_dtype):
+    g = _gen(dev, m + k + n)
+    a, a_scale = qd.quantize_rows(_activations(dev, m, k, torch.bfloat16, seed=m))
+    b = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+    b_scale = torch.rand((n,), generator=g, device=dev) * 0.01 + 1e-4
+    bias = torch.randn((n,), generator=g, device=dev).to(out_dtype)
+    for bias_ in (None, bias):
+        got = qd.int8_gemm(a, a_scale.reshape(m, 1), b, b_scale, bias_, out_dtype)
+        want = qd.int8_gemm_plain(a, a_scale.reshape(m, 1), b, b_scale, bias_, out_dtype)
+        assert got.dtype == out_dtype and got.shape == (m, n)
+        assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+def test_q1_layers_launch_their_kernels_and_never_the_plain_versions(dev):
+    from unittest import mock
+
+    from colpali_tpu_torch.models.layers import QDense, quantized_acts
+
+    layer = QDense(1152, 4304, device=dev, dtype=torch.bfloat16)
+    x = torch.randn((2, 9, 1152), generator=_gen(dev), device=dev).to(torch.bfloat16)
+    refuse = mock.Mock(side_effect=AssertionError("a plain version ran on a CUDA tensor"))
+    with mock.patch.object(qd, "quantize_rows_plain", refuse), mock.patch.object(qd, "int8_gemm_plain", refuse), \
+            torch.no_grad():
+        qd.QUANTIZE_ROWS.reset()
+        qd.INT8_GEMM.reset()
+        with quantized_acts():  # dynamic: the activations and the weight, then the product
+            dynamic = layer(x)
+        assert (qd.QUANTIZE_ROWS.launches, qd.INT8_GEMM.launches) == (2, 1)
+        qd.quantize_params(layer)
+        assert layer.stored and layer.weight.device == dev and layer.weight_scale.dtype == torch.float32
+        stored = layer(x)
+        assert (qd.QUANTIZE_ROWS.launches, qd.INT8_GEMM.launches) == (3, 2)
+    assert dynamic.dtype == stored.dtype == torch.bfloat16 and torch.isfinite(stored.float()).all()
+    with pytest.raises(ValueError, match="K % 16"):
+        qd.int8_gemm(torch.zeros((2, 40), dtype=torch.int8, device=dev), torch.ones((2, 1), device=dev),
+                     torch.zeros((8, 40), dtype=torch.int8, device=dev), torch.ones(8, device=dev))
+    with pytest.raises(TypeError):
+        qd.quantize_rows(torch.zeros((2, 64), dtype=torch.float16, device=dev))

@@ -35,7 +35,7 @@ def test_every_module_imports_without_jax():
     assert int(proc.stdout.split()[-1]) >= 54  # training, the token-major and seq-major ops, checkpoints in and out
     for module in ("training.orchestrator", "training.lora", "losses.late_interaction", "evaluation.evaluator",
                    "data.collator", "configs", "train", "ops.maxsim_token_major", "ops.flash_seqmajor",
-                   "core.safetensors", "core.hf_loader", "core.hf_export", "auto"):
+                   "core.safetensors", "core.hf_loader", "core.hf_export", "auto", "ops.quant_dense"):
         assert (REPO / "colpali_tpu_torch" / (module.replace(".", "/") + ".py")).exists()
 
 
