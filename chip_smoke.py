@@ -1,6 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, page-embedding and training paths once on one GPU.
 
+The serving path runs for ColPali-3B (phases 3, 4 and 7) and for the
+Qwen2-VL family, ColQwen2.5-3B and ColQwen2-2B (phase 8).
+
 Run from the repository root with no arguments:
 
     python3 chip_smoke.py
@@ -86,7 +89,26 @@ Phases (a few lines of output each, then two JSON lines):
    docs at rank 1 on the tiered, exact and Q1 plain routes, 32 pages
    embedded, per-token cosine against the bf16 model and the plain route,
    and encode x1/x8, one forward and pages/min for stored int8 and bf16 in
-   turns.
+   turns;
+8. the Qwen2-VL family (after phase 7): Q1a/Q1b bit-equal to their plain
+   versions at every (K, N) of ColQwen2.5-3B's and ColQwen2-2B's quantized
+   projections (K 1,176 and 3,420 among them, in rows padded to 16 bytes)
+   and timed; ColQwen2.5-3B at full width (vision 32 x 1,280 with 112 px
+   windows, text 36 x 2,048, 16/2 heads; 3.755 B seeded random bf16
+   parameters) written as an HF checkpoint with a word-level tokenizer at
+   Qwen2's special ids and read back by ``load_retriever(family=
+   "colqwen2_5")`` in bf16 and with ``quantize=True``; K6 against its plain
+   version at the family's shapes (the vision tower full and windowed, the
+   causal decoder with left padding at GQA 16/2 and 12/2, the queries) beside
+   SDPA; 16 seeded 1,275 x 1,650 pages (744 merged tokens each) through
+   ``embed_dataset`` on both models, a 4,112-doc two-tier int8 index behind
+   ``make_handler`` for each finding the 4 pages planted with a query's
+   tokens at rank 1 on the tiered and the exact routes of ``/search_text``,
+   and ``serve.py --checkpoint --family colqwen2_5`` answering one; the K6
+   route against the plain route and stored int8 against bf16 per token;
+   one forward of 8 pages (CUDA events) and encode x1/x8 in turns, a
+   profile of each; then ColQwen2-2B at full width through
+   ``load_retriever(family="colqwen2")`` and its route check.
 
 Every K6 and K11 case prints, beside its time by CUDA events, TFLOP/s,
 the share of its bound, and SDPA with a boolean mask and, where the
@@ -95,6 +117,7 @@ also the kernel's device time from ``torch.profiler`` (at small shapes
 back-to-back launches measure the host). The backward is read by events
 only: its dq kernel may run on a side stream beside dkv.
 
+Each check of phase 8 also prints its reading as a share of its limit.
 It exits non-zero, printing no result, when no CUDA device is visible or
 any check fails. The line before the last lists each kernel with its
 launches on its slice's path; the last line is ``{"ok": true, "device": {...}}``.
@@ -1046,37 +1069,52 @@ def k6_shapes(model, processor, encoder) -> dict:
 
 
 def k6_case(gen: torch.Generator, device: torch.device, b: int, s: int, h: int, hkv: int, d: int,
-            lengths) -> dict:
+            lengths, seg: torch.Tensor = None, causal: bool = False, label: str = "") -> dict:
     """K6 against its plain version (valid rows) and beside SDPA with a
-    boolean mask, at one shape; ``lengths`` right-pads each row."""
+    boolean mask, at one shape; ``lengths`` right-pads each row, or ``seg``
+    gives the segment ids (valid rows: ids >= 1 where ids are 0/1, >= 0 where
+    pad is -1, as Qwen2.5's window ids)."""
     q, k, v = (torch.randn((b, s, n, d), generator=gen, device=device).to(torch.bfloat16) for n in (h, hkv, hkv))
-    seg = torch.ones((b, s), dtype=torch.int32, device=device)
-    if lengths is not None:
-        seg = (torch.arange(s, device=device)[None] < torch.tensor(lengths, device=device)[:, None]).to(torch.int32)
+    if seg is None:
+        seg = torch.ones((b, s), dtype=torch.int32, device=device)
+        if lengths is not None:
+            seg = (torch.arange(s, device=device)[None] < torch.tensor(lengths, device=device)[:, None]).to(torch.int32)
     scale = d**-0.5
-    rows = seg.bool()
-    got = fa.flash_attention(q, k, v, seg, scale)[rows].float()
-    want = fa.flash_attention_plain(q, k, v, seg, scale)[rows].float()
+    rows = seg >= 0 if bool((seg < 0).any()) else seg.bool()
+    got = fa.flash_attention(q, k, v, seg, scale, causal)[rows].float()
+    want = fa.flash_attention_plain(q, k, v, seg, scale, causal)[rows].float()
     atol = K6_ATOL_RMS * want.pow(2).mean().sqrt().item()
-    torch.testing.assert_close(got, want, rtol=K6_RTOL, atol=atol)
     err = (got - want).abs()
-    limit_share = (err / (atol + K6_RTOL * want.abs())).max().item()  # of the tolerance, at the worst element
+    if causal:  # K11's rule: the RMS per query row (the first rows under a causal mask see few keys)
+        atol_rows = K6_ATOL_RMS * want.pow(2).mean(dim=(1, 2), keepdim=True).sqrt()
+        limit_share = (err / (atol_rows + K6_RTOL * want.abs())).max().item()
+        if limit_share > 1.0:
+            raise AssertionError(f"K6 causal B={b} S={s} H={h}/{hkv} D={d}{label} vs plain: {limit_share:.2f} of the "
+                                 "tolerance by row RMS")
+    else:
+        torch.testing.assert_close(got, want, rtol=K6_RTOL, atol=atol)
+        limit_share = (err / (atol + K6_RTOL * want.abs())).max().item()  # of the tolerance, at the worst element
     allowed = seg[:, :, None] == seg[:, None, :]
+    if causal:
+        allowed &= torch.ones((s, s), dtype=torch.bool, device=device).tril()
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
     def sdpa(mask):
         return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=h != hkv)
 
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * seg.numel()
     pairs = allowed.sum().item()  # (query, key) pairs that this data attends
-    r = dict(ms=time_ms(lambda: fa.flash_attention(q, k, v, seg, scale)),
-             device_ms=device_ms(lambda: fa.flash_attention(q, k, v, seg, scale)),
-             plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, seg, scale), reps=2),
+    r = dict(ms=time_ms(lambda: fa.flash_attention(q, k, v, seg, scale, causal)),
+             device_ms=device_ms(lambda: fa.flash_attention(q, k, v, seg, scale, causal)),
+             graph_ms=graph_ms(lambda: fa.flash_attention(q, k, v, seg, scale, causal)),
+             plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, seg, scale, causal), reps=2),
              library_ms=time_ms(sdpa(allowed[:, None])), max_abs_err=err.max().item(), atol=atol,
-             limit_share=limit_share,
-             **bound(2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * seg.numel(), 4 * pairs * h * d, "bf16"),
-             shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}" + ("" if lengths is None else " key padding"))
-    if lengths is None:  # one segment: SDPA without a mask (its flash backend) computes the same function
-        r["library_unmasked_ms"] = time_ms(sdpa(None))
+             limit_share=limit_share, **bound(nbytes, 4 * pairs * h * d, "bf16"),
+             shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}" + ("" if lengths is None else " key padding") + label)
+    if lengths is None and not causal and bool((seg == seg[0, 0]).all()):
+        r["library_unmasked_ms"] = time_ms(sdpa(None))  # one segment: SDPA without a mask (its flash backend)
+    if pairs < b * s * s:  # masked work: the bound over every pair, which the kernel's tiles still visit
+        r["bound_ms_all_pairs"] = bound(nbytes, 4 * b * s * s * h * d, "bf16")["bound_ms"]
     return dict(r, **rates(4 * pairs * h * d, r))
 
 
@@ -1091,6 +1129,7 @@ def library_note(r: dict) -> str:
     unmasked = f", SDPA without a mask {r['library_unmasked_ms']:.3f} ms" if "library_unmasked_ms" in r else ""
     masked = f", SDPA with a boolean mask {r['library_masked_ms']:.3f} ms" if "library_masked_ms" in r else ""
     device = f"device {r['device_ms']:.4f} ms (profiler), " if "device_ms" in r else ""
+    device += f"from a CUDA graph {r['graph_ms']:.4f} ms, " if "graph_ms" in r else ""
     return (f"{device}SDPA {r['library_ms']:.3f} ms{unmasked}{masked}, "
             f"{r['tflops']:.0f} TFLOP/s, {r['bound_share']:.1%} of the bound")
 
@@ -1220,6 +1259,37 @@ def bf16_index_check(device: torch.device, docs: list, planted: list, queries: l
     return launches, r
 
 
+def served_queries(embs: list, device: torch.device) -> torch.Tensor:
+    """Query embeddings as a served sweep takes them: (B, SERVED_TOKENS, DIM) fp32, zero-padded."""
+    q = torch.zeros((len(embs), SERVED_TOKENS, DIM), device=device)
+    for i, e in enumerate(embs):
+        q[i, : e.shape[0]] = torch.from_numpy(e)
+    return q
+
+
+def hold_k123(index, q: torch.Tensor) -> dict:
+    """K1 (bit for bit), K2 and K3 (at RTOL/ATOL) against their plain
+    versions on ``index``'s tensors: the coarse pass over queries ``q``, the
+    rerank of its top CANDIDATES, and the exact int8 sweep over ``q`` twice
+    (B = 2 len(q)). Returns each kernel's max abs error and the operands."""
+    qw, qv = binarize_words(q)
+    coarse = binary_maxsim_tiled(qw, qv, index._bwords, DIM)
+    k1_err = (coarse - binary_maxsim_tiled_plain(qw, qv, index._bwords, DIM)).abs().max().item()
+    if k1_err != 0.0:
+        raise AssertionError(f"K1 differs from its plain version at Np={index.doc_tokens}: {k1_err}")
+    _, cand = top_k(coarse[:, : index.num_docs], CANDIDATES)
+    got = gather_rerank_tiled(q, index._store, index._scales, cand)
+    want = gather_rerank_plain(q, index._store, index._scales, cand)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    k2_err = (got - want).abs().max().item()
+    qi, qsc = quantize_per_token(q.repeat(2, 1, 1))
+    got = maxsim_int8mxu_tiled(qi, qsc, index._store, index._scales)
+    want = maxsim_int8mxu_tiled_plain(qi, qsc, index._store, index._scales)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    return dict(k1_err=k1_err, k2_err=k2_err, k3_err=(got - want).abs().max().item(), qw=qw, qv=qv, cand=cand,
+                qi=qi, qsc=qsc)
+
+
 def phase_pages(device: torch.device, model, processor, encoder) -> tuple:
     """Drive the page-embedding path: pages -> embeddings -> a served
     two-tier index. Returns the launches over the path, K6's timings, K1-K3's
@@ -1228,9 +1298,8 @@ def phase_pages(device: torch.device, model, processor, encoder) -> tuple:
     import threading
 
     from colpali_tpu_torch import serve
-    from colpali_tpu_torch.ops.maxsim_binary import binary_maxsim_tiled, binary_maxsim_tiled_plain
     from colpali_tpu_torch.retrieval.ingest import embed_pages_fused
-    from colpali_tpu_torch.retrieval.store import CorpusIndex, top_k
+    from colpali_tpu_torch.retrieval.store import CorpusIndex
 
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     k6 = {case: k6_case(gen, device, *shape) for case, shape in k6_shapes(model, processor, encoder).items()}
@@ -1313,25 +1382,10 @@ def phase_pages(device: torch.device, model, processor, encoder) -> tuple:
         f"answered; launches {launches}")
 
     # K1, K2 and K3 against their plain versions at Np = 1,040 on the page index
-    q = torch.zeros((4, SERVED_TOKENS, DIM), device=device)
-    for i, e in enumerate(queries[:4]):
-        q[i, : e.shape[0]] = torch.from_numpy(e)
-    qw, qv = binarize_words(q)
-    coarse = binary_maxsim_tiled(qw, qv, index._bwords, DIM)
-    k1_err = (coarse - binary_maxsim_tiled_plain(qw, qv, index._bwords, DIM)).abs().max().item()
-    if k1_err != 0.0:
-        raise AssertionError(f"K1 differs from its plain version at Np={PAGE_DOC_TOKENS}: {k1_err}")
-    _, cand = top_k(coarse[:, : index.num_docs], CANDIDATES)
-    got = gather_rerank_tiled(q, index._store, index._scales, cand)
-    want = gather_rerank_plain(q, index._store, index._scales, cand)
-    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-    k2_err = (got - want).abs().max().item()
-    q8 = q.repeat(2, 1, 1)
-    qi, qsc = quantize_per_token(q8)
-    got = maxsim_int8mxu_tiled(qi, qsc, index._store, index._scales)
-    want = maxsim_int8mxu_tiled_plain(qi, qsc, index._store, index._scales)
-    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-    k3_err = (got - want).abs().max().item()
+    q = served_queries(queries[:4], device)
+    held = hold_k123(index, q)
+    qw, qv, cand, qi, qsc = (held[k] for k in ("qw", "qv", "cand", "qi", "qsc"))
+    k1_err, k2_err, k3_err = (held[k] for k in ("k1_err", "k2_err", "k3_err"))
 
     c, nq, npc, w = index.padded_docs, SERVED_TOKENS, PAGE_DOC_TOKENS // COARSE_POOL, DIM // 32
     q1, qw1, qv1, cand1 = q[:1], qw[:1].contiguous(), qv[:1].contiguous(), cand[:1].contiguous()
@@ -1950,6 +2004,7 @@ def q1_operands(gen: torch.Generator, device: torch.device, m: int, k: int, n: i
     x = (torch.randn((m, k), generator=gen, device=device) * 3).to(torch.bfloat16)
     w = (torch.randn((n, k), generator=gen, device=device) * 0.02).to(torch.bfloat16)
     qw, sw = qd.quantize_rows_eager(w)
+    qw = qd.int8_rows(qw.shape, device, fill=qw)  # rows on 16 bytes, as QDense.store_int8 keeps them
     bias = torch.randn((n,), generator=gen, device=device).to(torch.bfloat16)
     return x, w, qw, sw.reshape(-1), bias
 
@@ -1968,71 +2023,79 @@ def q1_edge_rows(device: torch.device, k: int) -> torch.Tensor:
     return x
 
 
-def q1_checks(device: torch.device) -> dict:
-    """Q1a and Q1b bit-equal to their plain versions at every (K, N) of the
-    path and every M of QUANT_ROWS, with and without bias, bf16 and fp32
-    out; Q1a also on edge rows at K = 4,304 and 16,384."""
+def product(shapes, ms) -> list:
+    """(M, K, N) for every (K, N) of ``shapes`` and every M of ``ms``."""
+    return [(m, k, n) for k, n in shapes for m in ms]
+
+
+def q1_checks(device: torch.device, mkn: list, edge_ks=(4304, 16384)) -> dict:
+    """Q1a and Q1b bit-equal to their plain versions at every (M, K, N) of
+    ``mkn``, with and without bias, bf16 and fp32 out; Q1a also on edge rows
+    at each K of ``edge_ks``."""
     gen = torch.Generator(device=device).manual_seed(SEED + 20)
     cases = 0
-    for k, n in QUANT_SHAPES:
-        for m in QUANT_ROWS:
-            x, _, qw, sw, bias = q1_operands(gen, device, m, k, n)
-            qa, sa = qd.quantize_rows(x)
-            pa, ps = qd.quantize_rows_plain(x)
-            if not (torch.equal(qa, pa) and torch.equal(sa, ps)):
-                raise AssertionError(f"Q1a at M={m} K={k}: not bit-equal to its plain version")
-            for out_dtype in (torch.bfloat16, torch.float32):
-                for b in (None, bias):
-                    got = qd.int8_gemm(qa, sa, qw, sw, b, out_dtype)
-                    want = qd.int8_gemm_plain(qa, sa, qw, sw, b, out_dtype)
-                    if not torch.equal(got, want):
-                        raise AssertionError(f"Q1b at M={m} K={k} N={n} {out_dtype} bias {b is not None}: max abs "
-                                             f"diff {(got.float() - want.float()).abs().max().item()}")
-                    cases += 1
-            del x, qw, sw, bias, qa, sa, pa, ps, got, want
-    for k in (4304, 16384):
+    for m, k, n in mkn:
+        x, _, qw, sw, bias = q1_operands(gen, device, m, k, n)
+        qa, sa = qd.quantize_rows(x)
+        pa, ps = qd.quantize_rows_plain(x)
+        if not (torch.equal(qa, pa) and torch.equal(sa, ps)):
+            raise AssertionError(f"Q1a at M={m} K={k}: not bit-equal to its plain version")
+        for out_dtype in (torch.bfloat16, torch.float32):
+            for b in (None, bias):
+                got = qd.int8_gemm(qa, sa, qw, sw, b, out_dtype)
+                want = qd.int8_gemm_plain(qa, sa, qw, sw, b, out_dtype)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"Q1b at M={m} K={k} N={n} {out_dtype} bias {b is not None}: max abs "
+                                         f"diff {(got.float() - want.float()).abs().max().item()}")
+                cases += 1
+        del x, qw, sw, bias, qa, sa, pa, ps, got, want
+    for k in edge_ks:
         for dtype in (torch.bfloat16, torch.float32):
             x = q1_edge_rows(device, k).to(dtype)
             (qa, sa), (pa, ps) = qd.quantize_rows(x), qd.quantize_rows_plain(x)
             if not (torch.equal(qa, pa) and torch.equal(sa, ps)) or sa[0].item() != 1.0:
                 raise AssertionError(f"Q1a on edge rows at K={k} {dtype}: not bit-equal to its plain version")
     torch.cuda.empty_cache()
-    return dict(q1b_cases=cases, q1a_edge_cases=4)
+    return dict(q1b_cases=cases, q1a_edge_cases=2 * len(edge_ks))
 
 
-def q1_timing(device: torch.device) -> tuple:
-    """Q1a and Q1b at QUANT_TIMED_ROWS x QUANT_SHAPES by CUDA events (and
-    from a CUDA graph at the query sizes) beside their bounds, their plain
-    versions and the library yardsticks: ``torch._int_mm`` with the epilogue
-    as PyTorch ops, and ``F.linear`` in bf16 on the unquantized weight."""
+def q1_timing(device: torch.device, mkn: list) -> tuple:
+    """Q1a and Q1b at every (M, K, N) of ``mkn`` by CUDA events (and from a
+    CUDA graph at M <= 256) beside their bounds, their plain versions and
+    the library yardsticks: ``torch._int_mm`` with the epilogue as PyTorch
+    ops (K and N zero-padded to multiples of 8 where they are not, which
+    ``_int_mm`` needs: zero columns add nothing, zero rows are sliced off),
+    and ``F.linear`` in bf16 on the unquantized weight."""
     gen = torch.Generator(device=device).manual_seed(SEED + 21)
     rows, gemms = [], []
-    for k, n in QUANT_SHAPES:
-        for m in QUANT_TIMED_ROWS:
-            x, w, qw, sw, _ = q1_operands(gen, device, m, k, n)
-            qa, sa = qd.quantize_rows(x)
-            short = m <= 256
-            if not any(r["m"] == m and r["k"] == k for r in rows):  # Q1a once per distinct input shape
-                rows.append(dict(m=m, k=k, ms=time_ms(lambda: qd.quantize_rows(x)),
-                                 graph_ms=graph_ms(lambda: qd.quantize_rows(x)) if short else None,
-                                 plain_ms=time_ms(lambda: qd.quantize_rows_plain(x), reps=2),
-                                 **bound(m * k * 2 + m * k + m * 4, 0, "int8")))
+    for m, k, n in mkn:
+        x, w, qw, sw, _ = q1_operands(gen, device, m, k, n)
+        qa, sa = qd.quantize_rows(x)
+        short = m <= 256
+        if not any(r["m"] == m and r["k"] == k for r in rows):  # Q1a once per distinct input shape
+            rows.append(dict(m=m, k=k, ms=time_ms(lambda: qd.quantize_rows(x)),
+                             graph_ms=graph_ms(lambda: qd.quantize_rows(x)) if short else None,
+                             plain_ms=time_ms(lambda: qd.quantize_rows_plain(x), reps=2),
+                             **bound(m * k * 2 + m * k + m * 4, 0, "int8")))
 
-            def int_mm():
-                return (torch._int_mm(qa, qw.t()).float() * sa * sw).to(torch.bfloat16)
+        # contiguous copies for the library call, K and N zero-padded to multiples of 8
+        la, lw = F.pad(qa, (0, (-k) % 8)), F.pad(qw, (0, (-k) % 8, 0, (-n) % 8))
 
-            try:  # the yardstick only: the port never calls it
-                library_equal = torch.equal(int_mm(), qd.int8_gemm(qa, sa, qw, sw))
-                library_ms, library_note = time_ms(int_mm), None
-            except RuntimeError as exc:
-                library_ms, library_note, library_equal = None, str(exc).splitlines()[0][:160], None
-            gemms.append(dict(m=m, k=k, n=n, ms=time_ms(lambda: qd.int8_gemm(qa, sa, qw, sw)),
-                              graph_ms=graph_ms(lambda: qd.int8_gemm(qa, sa, qw, sw)) if short else None,
-                              plain_ms=time_ms(lambda: qd.int8_gemm_plain(qa, sa, qw, sw), reps=2),
-                              library_ms=library_ms, library_note=library_note, library_bit_equal=library_equal,
-                              bf16_linear_ms=time_ms(lambda: F.linear(x, w)),
-                              **bound(m * k + n * k + 4 * m + 4 * n + 2 * m * n, 2 * m * n * k, "int8")))
-            del x, w, qw, sw, qa, sa
+        def int_mm():
+            return (torch._int_mm(la, lw.t())[:, :n].float() * sa * sw).to(torch.bfloat16)
+
+        try:  # the yardstick only: the port never calls it
+            library_equal = torch.equal(int_mm(), qd.int8_gemm(qa, sa, qw, sw))
+            library_ms, library_note = time_ms(int_mm), None
+        except RuntimeError as exc:
+            library_ms, library_note, library_equal = None, str(exc).splitlines()[0][:160], None
+        gemms.append(dict(m=m, k=k, n=n, ms=time_ms(lambda: qd.int8_gemm(qa, sa, qw, sw)),
+                          graph_ms=graph_ms(lambda: qd.int8_gemm(qa, sa, qw, sw)) if short else None,
+                          plain_ms=time_ms(lambda: qd.int8_gemm_plain(qa, sa, qw, sw), reps=2),
+                          library_ms=library_ms, library_note=library_note, library_bit_equal=library_equal,
+                          bf16_linear_ms=time_ms(lambda: F.linear(x, w)),
+                          **bound(m * k + n * k + 4 * m + 4 * n + 2 * m * n, 2 * m * n * k, "int8")))
+        del x, w, qw, sw, qa, sa, la, lw
     torch.cuda.empty_cache()
     for r in rows:
         graph = f", graph {r['graph_ms']:.4f}" if r["graph_ms"] is not None else ""
@@ -2111,11 +2174,11 @@ def phase_stored_int8(device: torch.device, model, processor, smi: str) -> tuple
     from colpali_tpu_torch.retrieval.serving import QueryEncoder
     from colpali_tpu_torch.retrieval.store import CorpusIndex
 
-    checks = q1_checks(device)
+    checks = q1_checks(device, product(QUANT_SHAPES, QUANT_ROWS))
     log(f"phase stored int8: Q1a and Q1b bit-equal to their plain versions in {checks['q1b_cases']} Q1b cases "
         f"({len(QUANT_SHAPES)} (K, N) x M {QUANT_ROWS} x bias or none x bf16 or fp32 out) and on Q1a's edge rows at "
         f"K 4,304 and 16,384")
-    rows, gemms = q1_timing(device)
+    rows, gemms = q1_timing(device, product(QUANT_SHAPES, QUANT_TIMED_ROWS))
 
     cfg = model.config
     t0 = time.perf_counter()
@@ -2309,6 +2372,361 @@ def phase_stored_int8(device: torch.device, model, processor, smi: str) -> tuple
     return launches, timings, extra
 
 
+# -- phase 8: the Qwen2-VL family (run after phase 7) ----------------------------------
+
+# Published widths: Qwen2.5-VL-3B (Qwen/Qwen2.5-VL-3B-Instruct config.json: vision 32 x 1,280, 16 heads, MLP 3,420,
+# 112 px windows, full attention in blocks 7/15/23/31, out 2,048; text 36 x 2,048, 16/2 heads x 128, MLP 11,008) and
+# Qwen2-VL-2B (Qwen/Qwen2-VL-2B-Instruct: vision 32 x 1,280, quick_gelu MLP 5,120, out 1,536; text 28 x 1,536,
+# 12/2 heads x 128, MLP 8,960); vocab 151,936. Weights are random, from SEED
+QWEN_PAGES = 16  # two batches of 8
+QWEN_PLANTED = (1, 6, 10, 13)  # pages whose docs also hold QUERIES[i]'s tokens, i = 0..3
+QWEN_FILLER_DOCS = 4_096
+QWEN_PAGE_TOKENS = 744  # merged tokens of a 1,275 x 1,650 page at the 768-token budget: 868 x 672 px, 62 x 48 patches
+Q1_QWEN25_SHAPES = ((1176, 1280), (1280, 1280), (1280, 3420), (3420, 1280), (5120, 5120), (5120, 2048),
+                    (2048, 2048), (2048, 11008), (11008, 2048))  # patch embed, q/k/v/o, gate/up, down, merger; text
+Q1_QWEN2_SHAPES = ((1280, 5120), (5120, 1280), (5120, 1536), (1536, 1536), (1536, 8960), (8960, 1536))
+Q1_QWEN2_ROWS = (1, 17, 256)  # ColQwen2-2B runs in bf16 in phase 8: its other (K, N) are held at these M
+# ColQwen2.5-3B's stored-int8 layers: the patch embedding, 32 x 7 in the vision blocks, the merger's 2, 36 x 5 in
+# the text layers (their k/v, 2,048 -> 256, and the 128-d head stay bf16)
+QWEN25_STORED_LAYERS = 1 + 32 * 7 + 2 + 36 * 5
+
+
+def q1_path_shapes(model, run) -> list:
+    """The distinct (M, K, N) of ``model``'s stored-int8 layers' calls while
+    ``run()`` runs, in the order they first come."""
+    from colpali_tpu_torch.models.layers import QDense
+
+    seen = {}
+
+    def record(layer, args, out):
+        x = args[0]
+        seen.setdefault((x.numel() // x.shape[-1], x.shape[-1], out.shape[-1]), None)
+
+    hooks = [m.register_forward_hook(record) for m in model.modules() if isinstance(m, QDense) and m.stored]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return list(seen)
+
+
+def qwen_configs():
+    """Full-width ColQwen2.5-3B and ColQwen2-2B configs."""
+    from colpali_tpu_torch.models.qwen2_5_vl import Qwen25VLConfig, Qwen25VLVisionConfig
+    from colpali_tpu_torch.models.qwen2_vl import Qwen2TextConfig, Qwen2VLConfig, Qwen2VLVisionConfig
+
+    qwen25 = Qwen25VLConfig(vision=Qwen25VLVisionConfig(), text=Qwen2TextConfig(
+        hidden_size=2048, intermediate_size=11008, num_hidden_layers=36, num_attention_heads=16,
+        num_key_value_heads=2))
+    return qwen25, Qwen2VLConfig(vision=Qwen2VLVisionConfig(), text=Qwen2TextConfig())
+
+
+def qwen_tokenizer():
+    """A word-level tokenizer over the prompts' and QUERIES' words with Qwen2's special tokens at their ids."""
+    from colpali_tpu_torch.processors.qwen2_vl import ColQwen2Processor
+    from colpali_tpu_torch.utils.testing import qwen_word_tokenizer
+
+    words = ColQwen2Processor.visual_prompt_prefix.replace("\n", " ").split() + " ".join(QUERIES).split()
+    return qwen_word_tokenizer([w for w in words if "<|" not in w])
+
+
+def share(gap: float, limit: float) -> str:
+    """A check's reading as a share of its limit, both as gaps (1 - cosine, or an error)."""
+    return f"{gap / limit:.1%} of its limit" if limit > 0 else "n/a"
+
+
+def cos_check(name: str, got: list, want: list, cos_mean: float, cos_min: float, max_abs=None) -> dict:
+    """:func:`per_token`, with each reading's share of its limit printed."""
+    out = per_token(name, got, want, cos_mean, cos_min)
+    if max_abs is not None and out["max_abs"] > max_abs:
+        raise AssertionError(f"{name}: max abs {out['max_abs']} > {max_abs}")
+    log(f"    shares of the limits: mean cos {share(1 - out['mean_cos'], 1 - cos_mean)}, min cos "
+        f"{share(1 - out['min_cos'], 1 - cos_min)}" + (f", max abs {share(out['max_abs'], max_abs)}"
+                                                       if max_abs is not None else ""))
+    return out
+
+
+def qwen_k6_cases(device: torch.device, batch: dict, cfg25, cfg2, encoder_feed: dict) -> dict:
+    """K6 against its plain version at the Qwen family's shapes: the vision
+    tower over 8 pages (full attention, and Qwen2.5's 64-patch windows
+    interleaved in merge order), the decoder over the pages' prompts (causal,
+    with left padding cut into the rows), GQA 16/2 (Qwen2.5-3B) and 12/2
+    (Qwen2-2B), and the queries as the query encoder pads them."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    v, t25, t2 = cfg25.vision, cfg25.text, cfg2.text
+    mask = torch.as_tensor(batch["patch_mask"], device=device)
+    b, s = mask.shape
+    window = torch.as_tensor(batch["window_id"], device=device).to(torch.int32).contiguous()
+    full = torch.where(mask, 1, -1).to(torch.int32).contiguous()
+    s_text = batch["input_ids"].shape[1]
+    left = (torch.arange(s_text, device=device)[None] >= 8 * torch.arange(b, device=device)[:, None]).to(torch.int32)
+    q_seg = torch.as_tensor(encoder_feed["attention_mask"], device=device).to(torch.int32).contiguous()
+    cases = {
+        "vision_full": (b, s, v.num_heads, v.num_heads, v.head_dim, None, full, False, " (Qwen2.5 full blocks)"),
+        "vision_window": (b, s, v.num_heads, v.num_heads, v.head_dim, None, window, False,
+                          f" ({int(window.max()) + 1} windows of 64 patches a page)"),
+        "text_16_2": (b, s_text, t25.num_attention_heads, t25.num_key_value_heads, t25.head_dim, None, left, True,
+                      " causal, rows left-padded by 0-56 (Qwen2.5-3B)"),
+        "text_12_2": (b, s_text, t2.num_attention_heads, t2.num_key_value_heads, t2.head_dim, None, left, True,
+                      " causal, rows left-padded by 0-56 (Qwen2-2B)"),
+        "queries": (*q_seg.shape, t25.num_attention_heads, t25.num_key_value_heads, t25.head_dim, None, q_seg, True,
+                    " causal, the query encoder's padding"),
+    }
+    out = {}
+    for name, (bb, ss, h, hkv, d, lengths, seg, causal, label) in cases.items():
+        r = k6_case(gen, device, bb, ss, h, hkv, d, lengths, seg=seg, causal=causal, label=label)
+        extra = f", bound over all pairs {r['bound_ms_all_pairs']:.4f} ms" if "bound_ms_all_pairs" in r else ""
+        log(f"phase qwen: K6 {name} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"{library_note(r)}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}, max_abs_err "
+            f"{r['max_abs_err']:.3g} (atol {r['atol']:.3g}, {r['limit_share']:.0%} of the tolerance)")
+        out[name] = r
+    torch.cuda.empty_cache()
+    return out
+
+
+def build_qwen(cls, config, device: torch.device, directory: str, seed: int) -> int:
+    """A seeded random bf16 model at full width, written as an HF checkpoint
+    (the port's exporter and a word-level tokenizer) and freed. Returns its
+    parameter count."""
+    from colpali_tpu_torch.models.common import hf_init_
+    from colpali_tpu_torch.utils.testing import write_qwen_checkpoint
+
+    model = cls(config, dim=DIM, device=device, dtype=torch.bfloat16)
+    hf_init_(model, torch.Generator(device=device).manual_seed(seed))
+    n = sum(p.numel() for p in model.parameters())
+    write_qwen_checkpoint(directory, model, qwen_tokenizer())
+    del model
+    torch.cuda.empty_cache()
+    return n
+
+
+def phase_qwen(device: torch.device, smi: str) -> tuple:
+    """Drive the Qwen2-VL family's serving path: ColQwen2.5-3B written as an
+    HF checkpoint and read back by ``load_retriever`` in bf16 and stored int8,
+    pages through ``embed_dataset``, ``/search_text`` through ``make_handler``
+    and ``serve.py --checkpoint --family colqwen2_5``; then ColQwen2-2B's route
+    check. Returns the launches over the path, the new kernel rows and the
+    rest."""
+    import tempfile
+    from http.server import ThreadingHTTPServer
+    import threading
+
+    from colpali_tpu_torch import serve
+    from colpali_tpu_torch.auto import load_retriever
+    from colpali_tpu_torch.evaluation.evaluator import embed_dataset
+    from colpali_tpu_torch.models.layers import QDense
+    from colpali_tpu_torch.models.qwen2_5_vl import ColQwen2_5
+    from colpali_tpu_torch.models.qwen2_vl import ColQwen2
+    from colpali_tpu_torch.processors.qwen2_5_vl import ColQwen2_5Processor
+    from colpali_tpu_torch.retrieval.serving import QueryEncoder
+    from colpali_tpu_torch.retrieval.store import CorpusIndex
+
+    cfg25, cfg2 = qwen_configs()
+    pages = make_pages(QWEN_PAGES, SEED + 31)
+    proc = ColQwen2_5Processor(qwen_tokenizer(), max_num_visual_tokens=768, device=device)
+    shape_batch = proc.process_images(pages[:PAGE_BATCH])
+    n_merged = int((shape_batch["input_ids"] == proc.image_token_id).sum(1).max())
+    if n_merged != QWEN_PAGE_TOKENS or shape_batch["patch_mask"].shape[1] != 4 * QWEN_PAGE_TOKENS:
+        raise AssertionError(f"a {PAGE_HW[1]} x {PAGE_HW[0]} page: {n_merged} merged tokens, "
+                             f"{shape_batch['patch_mask'].shape[1]} patches; expected {QWEN_PAGE_TOKENS}")
+    extra = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        n_params = build_qwen(ColQwen2_5, cfg25, device, tmp, SEED + 32)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model, processor = load_retriever(tmp, family="colqwen2_5", device=device)
+        torch.cuda.synchronize()
+        t_bf16 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        qmodel, qproc = load_retriever(tmp, family="colqwen2_5", device=device, quantize=True)
+        torch.cuda.synchronize()
+        t_int8 = time.perf_counter() - t0
+        stored = sum(isinstance(m, QDense) and m.stored for m in qmodel.modules())
+        bytes_int8, bytes_bf16 = (sum(t.numel() * t.element_size() for t in m.state_dict().values())
+                                  for m in (qmodel, model))
+        log(f"phase qwen: ColQwen2.5-3B, vision {cfg25.vision.depth} x {cfg25.vision.hidden_size} (MLP "
+            f"{cfg25.vision.intermediate_size}, {cfg25.vision.num_heads} heads x {cfg25.vision.head_dim}, windows of "
+            f"{cfg25.vision.window_size} px, full blocks {cfg25.vision.fullatt_block_indexes}, out "
+            f"{cfg25.vision.out_hidden_size}), text {cfg25.text.num_hidden_layers} x {cfg25.text.hidden_size} (MLP "
+            f"{cfg25.text.intermediate_size}, heads {cfg25.text.num_attention_heads}/{cfg25.text.num_key_value_heads} "
+            f"x {cfg25.text.head_dim}, vocab {cfg25.text.vocab_size}): {n_params / 1e9:.3f} B params; HF checkpoint "
+            f"written in {t_write:.1f} s, load_retriever {t_bf16:.1f} s (bf16), {t_int8:.1f} s (quantize=True: "
+            f"{stored} stored-int8 layers, {bytes_int8 / 1e9:.3f} GB against {bytes_bf16 / 1e9:.3f} GB)")
+        if stored != QWEN25_STORED_LAYERS:
+            raise AssertionError(f"load_retriever(quantize=True): {stored} stored-int8 layers, expected "
+                                 f"{QWEN25_STORED_LAYERS}")
+        encoders = {"bf16": QueryEncoder(model, processor), "int8": QueryEncoder(qmodel, qproc)}
+        for enc in encoders.values():
+            enc.warmup()
+        k6 = qwen_k6_cases(device, shape_batch, cfg25, cfg2,
+                           encoders["bf16"]._pad_static(processor.process_queries(QUERIES))[0])
+
+        # Q1a/Q1b at the (M, K, N) that one page forward and the query forwards (x8, x1) of the stored-int8 model
+        # give them, recorded by hooks; the bf16 model's first page forward too, so the path below runs warm
+        batch = pages[:PAGE_BATCH]
+        feed = {k: torch.as_tensor(v).to(device) for k, v in processor.process_images(batch, device_pixels=True).items()
+                if k != "image_grid_thw"}
+        with torch.inference_mode():
+            page_mkn = q1_path_shapes(qmodel, lambda: qmodel(**feed))
+            model(**feed)
+        query_mkn = q1_path_shapes(qmodel, lambda: (encoders["int8"].encode(QUERIES),
+                                                    encoders["int8"].encode(QUERIES[:1])))
+        if sorted({(k, n) for _, k, n in page_mkn}) != sorted(Q1_QWEN25_SHAPES):
+            raise AssertionError(f"stored-int8 page forward: (M, K, N) {page_mkn}, expected the (K, N) "
+                                 f"{Q1_QWEN25_SHAPES}")
+        checks = q1_checks(device, page_mkn + query_mkn + product(Q1_QWEN2_SHAPES, Q1_QWEN2_ROWS),
+                           edge_ks=(1176, 3420))
+        log(f"phase qwen: Q1a and Q1b bit-equal to their plain versions in {checks['q1b_cases']} Q1b cases (with and "
+            f"without bias, bf16 and fp32 out): ColQwen2.5-3B's page forward at (M, K, N) {page_mkn}, its query "
+            f"forwards at {query_mkn}, ColQwen2-2B's {len(Q1_QWEN2_SHAPES)} other (K, N) at M {Q1_QWEN2_ROWS}; and "
+            f"on Q1a's edge rows at K 1,176 and 3,420")
+        q1_rows, q1_gemms = q1_timing(device, page_mkn + query_mkn)
+        extra["q1_checks"] = dict(checks, page_forward_mkn=page_mkn, query_forward_mkn=query_mkn)
+
+        # the path, counted: pages embedded, /search_text through make_handler on each model, serve.py
+        reset_launches()
+        t0 = time.perf_counter()
+        embs = {"bf16": embed_dataset(model, processor, pages, batch_size=PAGE_BATCH)}
+        t_embed_bf16 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        embs["int8"] = embed_dataset(qmodel, qproc, pages, batch_size=PAGE_BATCH)
+        t_embed_int8 = time.perf_counter() - t0
+        for label, es in embs.items():
+            for e in es:
+                if e.shape[0] < QWEN_PAGE_TOKENS or not np.isfinite(e).all() or \
+                        np.abs(np.linalg.norm(e, axis=-1) - 1).max() > 1e-2:
+                    raise AssertionError(f"{label} page embedding {e.shape}: not finite or not unit norm")
+        gen = torch.Generator(device=device).manual_seed(SEED + 33)
+        filler = torch.randn((QWEN_FILLER_DOCS, DOC_TOKENS, DIM), generator=gen, device=device)
+        filler = (filler / filler.norm(dim=-1, keepdim=True)).cpu().numpy()
+        served, corpora = {}, {}
+        for label, enc in encoders.items():
+            planted_q = enc.encode(QUERIES[: len(QWEN_PLANTED)])
+            docs = [np.concatenate([e, planted_q[QWEN_PLANTED.index(i)]]) if i in QWEN_PLANTED else e
+                    for i, e in enumerate(embs[label])] + list(filler)
+            corpora[label] = docs
+            index = CorpusIndex(docs, dtype="int8", prefilter="binary", coarse_pool=COARSE_POOL, device=device)
+            httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(
+                index, [f"doc_{i}" for i in range(index.num_docs)], encoder=enc))
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            url = f"http://127.0.0.1:{httpd.server_port}"
+            try:
+                tiered = [_http(url, "/search_text", {"queries": [q], "k": 10})
+                          for q in QUERIES[: len(QWEN_PLANTED)]]  # one a request: the tiered route
+                exact = _http(url, "/search_text", {"queries": QUERIES, "k": 10})  # 8 > 4: the exact route
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+            for out in (*tiered, exact):
+                _check_ranked(f"/search_text ({label})", out, len(out["doc_ids"]))
+            top = ([out["doc_ids"][0][0] for out in tiered], exact["doc_ids"][: len(QWEN_PLANTED)])
+            if top[0] != list(QWEN_PLANTED) or [row[0] for row in top[1]] != list(QWEN_PLANTED):
+                raise AssertionError(f"{label} /search_text at rank 1: tiered {top[0]}, exact "
+                                     f"{[row[0] for row in top[1]]}, planted {list(QWEN_PLANTED)}")
+            served[label] = (index, planted_q)
+        npz = f"{tmp}/corpus.npz"
+        np.savez(npz, **{f"emb_{i}": d for i, d in enumerate(corpora["int8"])})
+        t0 = time.perf_counter()
+        httpd = serve.make_server([npz, "--port", "0", "--device", str(device), "--prefilter", "--checkpoint", tmp,
+                                   "--family", "colqwen2_5"])
+        t_serve = time.perf_counter() - t0
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            cli = _http(f"http://127.0.0.1:{httpd.server_port}", "/search_text", {"queries": [QUERIES[0]], "k": 10})
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        if cli["doc_ids"][0][0] != QWEN_PLANTED[0]:
+            raise AssertionError(f"serve.py --family colqwen2_5: rank 1 {cli['doc_ids'][0][0]}, planted "
+                                 f"{QWEN_PLANTED[0]}")
+        launches = read_launches("Qwen2-VL family", ("flash_attention", "quantize_rows", "int8_gemm", "binary_maxsim",
+                                                     "gather_rerank", "maxsim_int8"))
+        log(f"  path: {QWEN_PAGES} pages through embed_dataset, each model warm (bf16 "
+            f"{QWEN_PAGES / t_embed_bf16 * 60:.0f} pages/min, stored int8 {QWEN_PAGES / t_embed_int8 * 60:.0f}); a "
+            f"{served['int8'][0].num_docs}-doc two-tier int8 index behind "
+            f"make_handler for each model: each of {len(QWEN_PLANTED)} planted pages at rank 1 on the tiered and the "
+            f"exact route of /search_text; serve.py --checkpoint --family colqwen2_5 (stored int8) started in "
+            f"{t_serve:.1f} s and found it too; launches {launches}")
+        del corpora, filler
+
+        # K1, K2 and K3 against their plain versions on each served index (not counted)
+        k123 = {}
+        for label, (index, planted_q) in served.items():
+            held = hold_k123(index, served_queries(planted_q, device))
+            k123[label] = {k: held[k] for k in ("k1_err", "k2_err", "k3_err")}
+            log(f"phase qwen: K1, K2 and K3 against their plain versions on the {label} index ({index.num_docs} docs "
+                f"x Np={index.doc_tokens}, the {len(planted_q)} planted queries at Nq={SERVED_TOKENS}): max abs err "
+                f"K1 {held['k1_err']:.3g} (bit for bit), K2 {held['k2_err']:.3g}, K3 {held['k3_err']:.3g} (rtol "
+                f"{RTOL}, atol {ATOL})")
+        del served, index, held
+        torch.cuda.empty_cache()
+
+        # checks beside the path (not counted): K6 route vs plain route, stored int8 vs bf16
+        route = dict(
+            pages=forward_check(f"ColQwen2.5-3B page forward ({PAGE_BATCH} pages)",
+                                lambda: embed_dataset(model, processor, batch, batch_size=PAGE_BATCH)),
+            queries=forward_check(f"ColQwen2.5-3B query forward ({len(QUERIES)} queries)",
+                                  lambda: encoders["bf16"].encode(QUERIES)))
+        for name, r in route.items():
+            log(f"    shares of the limits: mean cos {share(1 - r['mean_cos'], 1 - FORWARD_COS_MEAN)}, min cos "
+                f"{share(1 - r['min_cos'], 1 - FORWARD_COS_MIN)}, max abs {share(r['max_abs'], FORWARD_ATOL)}")
+        accuracy = {
+            "pages": cos_check(f"{PAGE_BATCH} pages, stored int8 vs bf16", embs["int8"][:PAGE_BATCH],
+                               embs["bf16"][:PAGE_BATCH], INT8_COS_MEAN, INT8_COS_MIN),
+            "queries": cos_check(f"{len(QUERIES)} queries, stored int8 vs bf16", encoders["int8"].encode(QUERIES),
+                                 encoders["bf16"].encode(QUERIES), INT8_COS_MEAN, INT8_COS_MIN)}
+
+        # end to end, bf16 and stored int8 in turns: one forward of 8 pages (CUDA events), encode x1 / x8
+        e2e = {}
+        for label in ("bf16", "int8", "int8 again", "bf16 again"):
+            m, enc = (model, encoders["bf16"]) if label.startswith("bf16") else (qmodel, encoders["int8"])
+            r = dict(page_forward_ms=forward_ms(m, feed))
+            for b_, texts in (("x1", QUERIES[:1]), ("x8", QUERIES)):
+                enc.encode(texts)
+                walls = []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    enc.encode(texts)
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                r[f"encode_{b_}_ms"] = float(np.median(walls))
+            r["pages_per_min_forward"] = PAGE_BATCH / r["page_forward_ms"] * 6e4
+            e2e[label] = r
+            log(f"  {label} ({smi}): forward of {PAGE_BATCH} pages {r['page_forward_ms']:.1f} ms "
+                f"({r['pages_per_min_forward']:.0f} pages/min of forward alone), encode x1 {r['encode_x1_ms']:.2f} ms, "
+                f"x8 {r['encode_x8_ms']:.2f} ms")
+        with torch.inference_mode():
+            profiles = {label: kernel_breakdown(f"one {label} ColQwen2.5-3B forward of {PAGE_BATCH} pages",
+                                                lambda m=m: m(**feed)) for label, m in (("bf16", model),
+                                                                                       ("stored-int8", qmodel))}
+        del feed, encoders, model, qmodel, embs
+        torch.cuda.empty_cache()
+    extra.update(k6=k6, k123=k123, params=n_params, stored_int8_layers=stored, weight_bytes_int8=bytes_int8, weight_bytes_bf16=bytes_bf16,
+                 route_check=route, int8_vs_bf16=accuracy, end_to_end=e2e, page_profile=profiles,
+                 pages_per_min=dict(bf16=QWEN_PAGES / t_embed_bf16 * 60, int8=QWEN_PAGES / t_embed_int8 * 60))
+
+    # ColQwen2-2B: the same path's K6 route against the plain route on one batch
+    with tempfile.TemporaryDirectory() as tmp:
+        n2 = build_qwen(ColQwen2, cfg2, device, tmp, SEED + 34)
+        model2, proc2 = load_retriever(tmp, family="colqwen2", device=device)
+    log(f"phase qwen: ColQwen2-2B, vision {cfg2.vision.depth} x {cfg2.vision.embed_dim} ({cfg2.vision.hidden_act}, MLP "
+        f"{int(cfg2.vision.embed_dim * cfg2.vision.mlp_ratio)}, out {cfg2.vision.hidden_size}), text "
+        f"{cfg2.text.num_hidden_layers} x {cfg2.text.hidden_size} (heads {cfg2.text.num_attention_heads}/"
+        f"{cfg2.text.num_key_value_heads}, MLP {cfg2.text.intermediate_size}): {n2 / 1e9:.3f} B params")
+    enc2 = QueryEncoder(model2, proc2)
+    extra["colqwen2_route_check"] = dict(
+        pages=forward_check(f"ColQwen2-2B page forward ({PAGE_BATCH} pages)",
+                            lambda: embed_dataset(model2, proc2, pages[:PAGE_BATCH], batch_size=PAGE_BATCH)),
+        queries=forward_check(f"ColQwen2-2B query forward ({len(QUERIES)} queries)", lambda: enc2.encode(QUERIES)))
+    del model2, enc2
+    torch.cuda.empty_cache()
+
+    timings = {"flash_attention": k6,
+               "quantize_rows": dict(shapes=q1_rows), "int8_gemm": dict(shapes=q1_gemms)}
+    return launches, timings, extra
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script only runs on a GPU", file=sys.stderr)
@@ -2328,6 +2746,9 @@ def main() -> int:
     train_slice, train_steps, k6_bwd, eval_index, train_extra = phase_training(device, model, processor, smi)
     quant_launches, quant_timings, quant_extra = phase_stored_int8(device, model, processor, smi)
     timings.update(quant_timings)
+    del model, processor
+    torch.cuda.empty_cache()
+    qwen_launches, qwen_timings, qwen_extra = phase_qwen(device, smi)
     timings["flash_attention"] = dict(k6["siglip"], gemma_page=k6["gemma_page"], gemma_query=k6["gemma_query"])
     timings["flash_attention_bwd"] = dict(k6_bwd["gemma_page"], gemma_query=k6_bwd["gemma_query"],
                                           gemma_query_padded=k6_bwd["gemma_query_padded"], siglip=k6_bwd["siglip"])
@@ -2357,10 +2778,14 @@ def main() -> int:
                                                                       "through make_handler and 32 pages embedded")
         if name in train_steps:
             entry["launches_train_steps"] = train_steps[name]
+        if name in qwen_launches:  # over phase 8's path: ColQwen2.5-3B's pages, /search_text and serve.py
+            entry["launches_qwen_slice"] = qwen_launches[name]
+        if name in qwen_timings:
+            entry["qwen"] = qwen_timings[name]
         kernels.append(dict(entry, **timings[name]))
     print(json.dumps({"kernels": kernels, "pages_per_min": extra["pages_per_min"],
                       "forward_check": extra["forward_check"], "page_profile": extra["page_profile"],
-                      "training": train_extra, "stored_int8": quant_extra}))
+                      "training": train_extra, "stored_int8": quant_extra, "qwen": qwen_extra}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -10,13 +10,14 @@ processor with the family's ``from_pretrained``::
     model, processor = load_retriever("/ckpts/colpali-v1.2", device="cuda", quantize=True)
 
 The port holds the weights in the module, so it returns ``(model,
-processor)`` where JAX returns ``(model, variables, processor)``. Only the
-``colpali`` family is ported; the other families are detected and raise.
-No hub download is made.
+processor)`` where JAX returns ``(model, variables, processor)``. The
+``colpali``, ``colqwen2`` and ``colqwen2_5`` families are ported; the other
+families are detected and raise. No hub download is made.
 """
 
 from __future__ import annotations
 
+import importlib
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -33,18 +34,31 @@ _FAMILIES: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "colidefics3": (("idefics3",), ("colidefics3", "colsmol")),
     "colmodernvbert": (("modernvbert",), ("modernvbert",)),
 }
-# where each family that is not ported yet waits in ROADMAP.md
-_NOT_PORTED = {
-    "colqwen2": "Queue 1 item 6",
-    "colqwen2_5": "Queue 1 item 6",
-    **{f: "Queue 1 item 8" for f in ("colidefics3", "colgemma3", "colqwen3", "colmodernvbert", "colqwen3_5",
-                                     "colqwen_omni")},
+# family -> (model class, config class, processor class, loader in core.hf_loader, exporter in core.hf_export,
+#            processor defaults)
+_PORTED: Dict[str, Tuple[str, str, str, str, str, Dict[str, Any]]] = {
+    "colpali": ("models.paligemma.ColPali", "models.configs.PaliGemmaConfig", "processors.colpali.ColPaliProcessor",
+                "load_colpali_params", "export_colpali_state_dict", {}),
+    "colqwen2": ("models.qwen2_vl.ColQwen2", "models.qwen2_vl.Qwen2VLConfig", "processors.qwen2_vl.ColQwen2Processor",
+                 "load_colqwen2_params", "export_colqwen2_state_dict", {"max_num_visual_tokens": 768}),
+    "colqwen2_5": ("models.qwen2_5_vl.ColQwen2_5", "models.qwen2_5_vl.Qwen25VLConfig",
+                   "processors.qwen2_5_vl.ColQwen2_5Processor", "load_colqwen25_params",
+                   "export_colqwen25_state_dict", {"max_num_visual_tokens": 768}),
 }
+# where each family that is not ported yet waits in ROADMAP.md
+_NOT_PORTED = {f: "Queue 1 item 8" for f in ("colidefics3", "colgemma3", "colqwen3", "colmodernvbert", "colqwen3_5",
+                                              "colqwen_omni")}
+
+
+def _resolve(dotted: str):
+    mod, _, attr = f"colpali_tpu_torch.{dotted}".rpartition(".")
+    return getattr(importlib.import_module(mod), attr)
 
 
 def detect_family(hf_config: Dict[str, Any]) -> str:
     """Map a checkpoint's config.json onto a family: its ``model_type``
-    first, else the longest matching architecture substring."""
+    first, else the longest matching architecture substring (so
+    ``colqwen2`` does not shadow ``colqwen2_5``)."""
     model_type = str(hf_config.get("model_type", "")).lower()
     archs = " ".join(hf_config.get("architectures", []) or []).lower()
     for family, (types, _) in _FAMILIES.items():
@@ -56,6 +70,18 @@ def detect_family(hf_config: Dict[str, Any]) -> str:
         return best[0]
     raise ValueError(f"cannot detect a family from model_type={model_type!r} architectures={archs!r}; "
                      f"pass family= explicitly (one of {sorted(_FAMILIES)})")
+
+
+def exporter_for(config: Any) -> str:
+    """The name in :mod:`colpali_tpu_torch.core.hf_export` of the exporter
+    of the ported family whose model config ``config`` is, matched on the
+    config class's name (so the JAX package's config of that name matches
+    too)."""
+    name = type(config).__name__
+    for _, config_path, _, _, exporter, _ in _PORTED.values():
+        if config_path.rpartition(".")[2] == name:
+            return exporter
+    raise ValueError(f"no ported family has the model config {name}; {', '.join(sorted(_PORTED))} are ported")
 
 
 def load_retriever(
@@ -80,30 +106,31 @@ def load_retriever(
     ``transformers`` is missing). ``model_kwargs`` go to the model class.
     ``quantize=True`` stores every eligible projection as int8 (weights
     per output channel, ``ops.quant_dense.quantize_params`` with its
-    default ``min_dim=512``; 253 of ColPali-3B's): served through kernels
-    Q1a and Q1b, about 0.6 of the bf16 weights' bytes on the card. The
-    patch embedding, Gemma's k/v, the embeddings and the 128-d head stay
-    in ``dtype``."""
-    from colpali_tpu_torch.core.hf_loader import load_colpali_params, load_hf_config
-    from colpali_tpu_torch.models.configs import PaliGemmaConfig
-    from colpali_tpu_torch.models.paligemma import ColPali
+    default ``min_dim=512``, JAX's set of layers: 253 of ColPali-3B's):
+    served through kernels Q1a and Q1b, about 0.6 of the bf16 weights'
+    bytes on the card. SigLIP's patch embedding, the k/v projections under
+    512 wide, the embeddings and the 128-d head stay in ``dtype``. The
+    Qwen families' processors default to ``max_num_visual_tokens=768``,
+    as in JAX."""
+    from colpali_tpu_torch.core import hf_loader
     from colpali_tpu_torch.ops.quant_dense import quantize_params
-    from colpali_tpu_torch.processors.colpali import ColPaliProcessor
 
-    hf_cfg = load_hf_config(checkpoint_dir)
+    hf_cfg = hf_loader.load_hf_config(checkpoint_dir)
     family = family or detect_family(hf_cfg)
     if family not in _FAMILIES:
         raise ValueError(f"unknown family {family!r}; one of {sorted(_FAMILIES)}")
     if family in _NOT_PORTED:
         raise NotImplementedError(f"family {family!r} is not ported to colpali_tpu_torch yet "
-                                  f"(ROADMAP.md {_NOT_PORTED[family]}); 'colpali' is")
+                                  f"(ROADMAP.md {_NOT_PORTED[family]}); {', '.join(sorted(_PORTED))} are")
     if param_dtype is not None and param_dtype != dtype:
         raise ValueError(f"the port computes in its parameters' dtype: param_dtype={param_dtype} != dtype={dtype}")
-    config = PaliGemmaConfig.from_hf_config(hf_cfg)
-    model = ColPali(config, dim=dim or hf_cfg.get("embedding_dim") or 128, device=device, dtype=dtype,
-                    **model_kwargs)
-    model.load_state_dict(load_colpali_params(checkpoint_dir, strict=strict))
+    model_path, config_path, proc_path, loader, _, proc_defaults = _PORTED[family]
+    config = _resolve(config_path).from_hf_config(hf_cfg)
+    model = _resolve(model_path)(config, dim=dim or hf_cfg.get("embedding_dim") or 128, device=device, dtype=dtype,
+                                 **model_kwargs)
+    model.load_state_dict(getattr(hf_loader, loader)(checkpoint_dir, strict=strict))
     if quantize:
         quantize_params(model)
-    processor = ColPaliProcessor.from_pretrained(checkpoint_dir, **{"device": device, **(processor_kwargs or {})})
+    processor = _resolve(proc_path).from_pretrained(
+        checkpoint_dir, **{"device": device, **proc_defaults, **(processor_kwargs or {})})
     return model.eval(), processor

@@ -1,20 +1,21 @@
-"""Carry a JAX ColPali parameter tree over to the port's state dict.
+"""Carry a JAX parameter tree over to the port's state dict.
 
-The JAX package's ``ColPali`` params (a nested dict with numpy leaves, as
-``jax.tree.map(np.asarray, variables)`` gives them) become the state dict of
-:class:`colpali_tpu_torch.models.paligemma.ColPali`:
+The JAX package's ``ColPali``, ``ColQwen2`` or ``ColQwen2_5`` params (a
+nested dict with numpy leaves, as ``jax.tree.map(np.asarray, variables)``
+gives them) become the state dict of the port's model of the same name:
 
 - flax ``Dense`` kernels ``(in, out)`` become ``nn.Linear`` weights ``(out, in)``;
 - the SigLIP patch ``Conv`` kernel ``(p, p, 3, hidden)`` (HWIO) becomes the
-  im2col ``nn.Linear`` weight ``(hidden, p * p * 3)``;
+  im2col ``nn.Linear`` weight ``(hidden, p * p * 3)`` (Qwen's patch embedding
+  is a ``Dense`` already);
 - ``embedding`` leaves (token and position embeddings) become ``weight``;
 - flax ``LayerNorm`` ``scale`` becomes ``weight`` (``bias`` stays);
-- unrolled ``layers_{i}`` become ``layers.{i}``;
+- unrolled ``layers_{i}`` and ``blocks_{i}`` become ``layers.{i}`` and ``blocks.{i}``;
 - a stored-int8 tree (``quantize_params``' ``(qp, qc)``): each int8
   ``kernel (K, N)`` becomes the int8 ``weight (N, K)`` and the ``quant``
   collection's ``kernel_scale (1, N)`` its fp32 ``weight_scale (N,)``; a
-  ``ColPali`` takes them through ``load_state_dict`` (``QDense`` layers turn
-  to stored int8 as they load).
+  model takes them through ``load_state_dict`` (``QDense`` layers turn to
+  stored int8 as they load).
 
 bf16 leaves (``ml_dtypes.bfloat16``) are taken bit for bit.
 
@@ -29,7 +30,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-_CONVERTED = ("model/language_model/", "model/vision_tower/", "model/multi_modal_projector/", "head/")
+_CONVERTED = ("model/language_model/", "model/vision_tower/", "model/multi_modal_projector/", "model/visual/", "head/")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
@@ -50,9 +51,9 @@ def _to_tensor(leaf: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-def colpali_state_dict_from_jax(params: Mapping[str, Any],
-                                quant: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
-    """JAX ColPali params -> state dict. ``params`` is the params tree, or the
+def state_dict_from_jax(params: Mapping[str, Any],
+                        quant: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
+    """JAX model params -> state dict. ``params`` is the params tree, or the
     variables ``{"params": ..., "quant": ...}`` (``quant`` optional);
     ``quant``: the ``kernel_scale`` collection of a stored-int8 tree."""
     if set(params) <= {"params", "quant"} and "params" in params:
@@ -62,8 +63,8 @@ def colpali_state_dict_from_jax(params: Mapping[str, Any],
     for path, leaf in {**_flatten(params), **{(*p, "kernel_scale"): v for p, v in scales.items()}}.items():
         joined = "/".join(path)
         if not joined.startswith(_CONVERTED):
-            raise ValueError(f"unexpected ColPali parameter {joined!r}")
-        if "layers" in path:
+            raise ValueError(f"unexpected parameter {joined!r}")
+        if "layers" in path or "blocks" in path:
             raise ValueError(f"{joined!r}: scanned (stacked) layers are not supported; "
                              "build the JAX model with scan_layers=False")
         tensor = _to_tensor(leaf)
@@ -76,9 +77,10 @@ def colpali_state_dict_from_jax(params: Mapping[str, Any],
             tensor, last = tensor.reshape(-1).float(), "weight_scale"
         elif last in ("embedding", "scale"):
             last = "weight"
-        name = ".".join(re.sub(r"^layers_(\d+)$", r"layers.\1", p) for p in (*parts, last))
+        name = ".".join(re.sub(r"^(layers|blocks)_(\d+)$", r"\1.\2", p) for p in (*parts, last))
         state[name] = tensor
     return state
+
 
 
 def lora_from_jax(lora_tree: Mapping[str, Mapping[str, Any]]) -> Dict[str, Dict[str, torch.Tensor]]:

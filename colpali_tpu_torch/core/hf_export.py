@@ -1,27 +1,38 @@
-"""The port's ColPali state dict -> the HF torch layout (counterpart of
+"""The port's state dicts -> the HF torch layout (counterpart of
 :mod:`colpali_tpu.core.hf_export`): the inverse of
-:mod:`colpali_tpu_torch.core.hf_loader`, made from the same rule table.
+:mod:`colpali_tpu_torch.core.hf_loader`, made from the same rule tables.
 
 Each port name is matched against a rule's template (``{i}``, ``{j}`` as
 capture groups); the rule's torch-key regex is rendered into a concrete key
 with those groups (optional non-capturing groups dropped: the canonical HF
 layout omits them) and checked by matching the regex again, so the export
 cannot drift from the loader; the transform is inverted (the im2col patch
-weight folds back into ``(O, C, p, p)``). The keys are the ones the JAX
+weight folds back into ``(O, C, p, p)``, Qwen's patch weight into ``(O, C,
+T, p, p)`` with the geometry passed as ``ctx``). The Qwen exporters then
+fuse the vision q/k/v back into ``attn.qkv`` and nest the keys under
+``model.`` as modern transformers does. The keys are the ones the JAX
 package's exporter writes for the same parameters.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from colpali_tpu_torch.core.hf_loader import PALIGEMMA_RULES, _RuleT, t_conv2d, t_id
+from colpali_tpu_torch.core.hf_loader import (
+    PALIGEMMA_RULES,
+    QWEN2_VL_RULES,
+    QWEN25_VL_RULES,
+    _RuleT,
+    t_conv2d,
+    t_conv3d_patch,
+    t_id,
+)
 
 
-def _inv_conv2d(w: torch.Tensor, channels: int = 3) -> torch.Tensor:
+def _inv_conv2d(w: torch.Tensor, ctx: Mapping[str, Any], channels: int = 3) -> torch.Tensor:
     """``(O, p * p * C)`` in ``(kh, kw, c)`` order -> torch Conv2d ``(O, C, p, p)``."""
     p = int(round((w.shape[1] // channels) ** 0.5))
     if p * p * channels != w.shape[1]:
@@ -29,7 +40,15 @@ def _inv_conv2d(w: torch.Tensor, channels: int = 3) -> torch.Tensor:
     return w.reshape(w.shape[0], p, p, channels).permute(0, 3, 1, 2).contiguous()
 
 
-_INVERSES: Dict[Callable, Callable[[torch.Tensor], torch.Tensor]] = {t_id: lambda w: w, t_conv2d: _inv_conv2d}
+def _inv_conv3d_patch(w: torch.Tensor, ctx: Mapping[str, Any]) -> torch.Tensor:
+    """``(O, C * T * pH * pW)`` -> torch Conv3d ``(O, C, T, pH, pW)``; the
+    geometry comes in ``ctx["conv3d_patch_shape"]``."""
+    c, t, ph, pw = ctx["conv3d_patch_shape"]
+    return w.reshape(w.shape[0], c, t, ph, pw).contiguous()
+
+
+_INVERSES: Dict[Callable, Callable[[torch.Tensor, Mapping[str, Any]], torch.Tensor]] = {
+    t_id: lambda w, ctx: w, t_conv2d: _inv_conv2d, t_conv3d_patch: _inv_conv3d_patch}
 
 
 def _matching_paren(s: str, start: int) -> int:
@@ -96,11 +115,13 @@ def _template_regex(template: str) -> re.Pattern:
 
 
 def export_state_dict(
-    state_dict: Mapping[str, torch.Tensor], rules: Tuple[_RuleT, ...], strict: bool = True
+    state_dict: Mapping[str, torch.Tensor], rules: Tuple[_RuleT, ...], strict: bool = True,
+    ctx: Optional[Mapping[str, Any]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Translate a port state dict into HF torch-layout keys (tensors on the
     CPU, dtypes kept) by the loader's rules, inverted; with ``strict`` a
-    parameter that no rule covers raises."""
+    parameter that no rule covers raises. ``ctx``: what an inverse needs
+    beside the tensor (the Conv3d patch geometry)."""
     quantized = [name for name, value in state_dict.items()
                  if name.endswith(".weight_scale") or value.dtype == torch.int8]
     if quantized:
@@ -117,7 +138,7 @@ def export_state_dict(
             key = render_torch_key(pattern, m.groups())
             if key is None or re.fullmatch(pattern, key) is None:
                 continue  # the template matched but the torch side disagrees: next rule
-            out[key] = _INVERSES[transform](value.detach().cpu())
+            out[key] = _INVERSES[transform](value.detach().cpu(), ctx or {})
             break
         else:
             unmatched.append(name)
@@ -129,3 +150,66 @@ def export_state_dict(
 def export_colpali_state_dict(state_dict: Mapping[str, torch.Tensor], strict: bool = True) -> Dict[str, torch.Tensor]:
     """The port's ``ColPali`` state dict -> HF torch-layout state dict."""
     return export_state_dict(state_dict, PALIGEMMA_RULES, strict=strict)
+
+
+def fuse_qkv(state: Dict[str, torch.Tensor], scope: str = r"visual\.blocks\.\d+\.attn") -> Dict[str, torch.Tensor]:
+    """Fuse split vision ``{q,k,v}_proj`` back into HF's ``qkv`` (the inverse
+    of ``hf_loader.split_fused_qkv``)."""
+    pat = re.compile(rf"({scope})\.q_proj\.(weight|bias)")
+    out = dict(state)
+    for key in list(out):
+        m = pat.fullmatch(key)
+        if m is None:
+            continue
+        base, kind = m.group(1), m.group(2)
+        out[f"{base}.qkv.{kind}"] = torch.cat([out.pop(f"{base}.{p}_proj.{kind}") for p in "qkv"], dim=0)
+    return out
+
+
+def dress_keys_modern(state: Dict[str, torch.Tensor], scopes: Tuple[str, ...]) -> Dict[str, torch.Tensor]:
+    """Prefix the loader's canonical keys of ``scopes`` with ``model.``, the
+    nesting modern transformers reports for Qwen2-VL (``model.visual.*``,
+    ``model.language_model.*``); the loader's remaps strip it again."""
+    pat = re.compile(rf"^({'|'.join(map(re.escape, scopes))})\.")
+    return {pat.sub(r"model.\1.", k): v for k, v in state.items()}
+
+
+def _conv3d_ctx(channels: int, temporal_patch_size: int, patch_size: int) -> Dict[str, Any]:
+    return {"conv3d_patch_shape": (channels, temporal_patch_size, patch_size, patch_size)}
+
+
+def _export_qwen(state_dict, rules, channels, temporal_patch_size, patch_size, strict) -> Dict[str, torch.Tensor]:
+    state = export_state_dict(state_dict, rules, strict=strict,
+                              ctx=_conv3d_ctx(channels, temporal_patch_size, patch_size))
+    return dress_keys_modern(fuse_qkv(state), ("visual", "language_model"))
+
+
+def export_colqwen2_state_dict(state_dict: Mapping[str, torch.Tensor], channels: int = 3, temporal_patch_size: int = 2,
+                               patch_size: int = 14, strict: bool = True) -> Dict[str, torch.Tensor]:
+    """The port's ``ColQwen2`` state dict -> HF torch-layout state dict (the
+    vision qkv fused, the patch weight folded to ``(O, C, T, p, p)``)."""
+    return _export_qwen(state_dict, QWEN2_VL_RULES, channels, temporal_patch_size, patch_size, strict)
+
+
+def export_colqwen25_state_dict(state_dict: Mapping[str, torch.Tensor], channels: int = 3,
+                                temporal_patch_size: int = 2, patch_size: int = 14,
+                                strict: bool = True) -> Dict[str, torch.Tensor]:
+    """The port's ``ColQwen2_5`` state dict -> HF torch-layout state dict."""
+    return _export_qwen(state_dict, QWEN25_VL_RULES, channels, temporal_patch_size, patch_size, strict)
+
+
+def export_for_config(state_dict: Mapping[str, torch.Tensor], config: Any = None) -> Dict[str, torch.Tensor]:
+    """Export ``state_dict`` with the exporter that
+    :func:`colpali_tpu_torch.auto.exporter_for` names for ``config``'s
+    family (``None``: ColPali). The Qwen families take the patch geometry
+    from ``config.vision``."""
+    from colpali_tpu_torch.auto import exporter_for
+
+    if config is None:
+        return export_colpali_state_dict(state_dict)
+    export = globals()[exporter_for(config)]
+    if export is export_colpali_state_dict:
+        return export(state_dict)
+    v = config.vision
+    return export(state_dict, channels=v.in_channels, temporal_patch_size=v.temporal_patch_size,
+                  patch_size=v.patch_size)

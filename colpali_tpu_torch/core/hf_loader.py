@@ -1,5 +1,5 @@
-"""HF checkpoint -> the port's ColPali state dict (counterpart of
-:mod:`colpali_tpu.core.hf_loader`, PaliGemma family).
+"""HF checkpoint -> the port's state dict (counterpart of
+:mod:`colpali_tpu.core.hf_loader`: the PaliGemma and Qwen2-VL families).
 
 Checkpoint keys are first normalized across transformers-version layouts
 and merged-LoRA exports (:data:`PALIGEMMA_KEY_REMAPS`, unmerged LoRA
@@ -8,9 +8,10 @@ factors dropped), then each key is translated by the first rule of
 port name template, transform)``. Templates use ``{i}`` and ``{j}`` for the
 first and second captured group; an empty template drops the key on
 purpose. The port keeps torch's layouts (``nn.Linear`` weights are ``(out,
-in)`` as in the checkpoint), except SigLIP's patch convolution, which the
-port runs as an im2col product: the conv weight ``(O, C, p, p)`` becomes
-``(O, p * p * C)`` in ``(kh, kw, c)`` order.
+in)`` as in the checkpoint), except the patch convolutions, which the port
+runs as products: SigLIP's conv weight ``(O, C, p, p)`` becomes ``(O, p * p
+* C)`` in ``(kh, kw, c)`` order, Qwen's Conv3d ``(O, C, T, p, p)`` becomes
+``(O, C * T * p * p)``. Qwen's fused vision ``qkv`` is split first.
 
 Weights are read by the port's own safetensors reader
 (:mod:`colpali_tpu_torch.core.safetensors`): no ``safetensors`` or
@@ -103,6 +104,88 @@ PALIGEMMA_RULES: Tuple[_RuleT, ...] = (
 )
 
 
+# --- the Qwen2-VL family ---------------------------------------------------
+
+QWEN2_VL_KEY_REMAPS: Tuple[Tuple[str, str], ...] = (
+    (r"^base_model\.model\.", ""),  # merged-LoRA exports
+    (r"^model\.layers\.", "language_model.layers."),  # the reference's remap (modeling_colqwen2.py:21-24)
+    (r"^model\.visual\.", "visual."),
+    (r"^model\.language_model\.", "language_model."),
+    (r"^model\.embed_tokens\.", "language_model.embed_tokens."),
+    (r"^model\.norm\.", "language_model.norm."),
+    (r"\.lora_[AB]\.", ".__lora__."),
+)
+
+
+def t_conv3d_patch(w: torch.Tensor) -> torch.Tensor:
+    """torch Conv3d patch weight ``(O, C, T, pH, pW)`` -> the linear weight
+    ``(O, C * T * pH * pW)``: stride equals kernel equals patch, so the conv is
+    a product with the flattened patch, in ``(C, T, pH, pW)`` order (HF
+    PatchEmbed, modeling_qwen2_vl.py:246-252)."""
+    return w.reshape(w.shape[0], -1).contiguous()
+
+
+def split_fused_qkv(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Split HF's fused vision ``attn.qkv`` ``(3E, E)`` (and its bias) into
+    q/k/v projections."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in state_dict.items():
+        m = re.fullmatch(r"(.*\.attn)\.qkv\.(weight|bias)", key)
+        if m is None:
+            out[key] = value
+            continue
+        for name, part in zip("qkv", value.chunk(3, dim=0)):
+            out[f"{m.group(1)}.{name}_proj.{m.group(2)}"] = part.contiguous()
+    return out
+
+
+_QBLOCK = r"visual\.blocks\.(\d+)\."
+_QLAYER = r"language_model\.layers\.(\d+)\."
+_QWEN2_TEXT_RULES: Tuple[_RuleT, ...] = (
+    (r"language_model\.embed_tokens\.weight", "model.language_model.embed_tokens.weight", t_id),
+    (_QLAYER + r"(input_layernorm|post_attention_layernorm)\.weight", "model.language_model.layers.{i}.{j}.weight",
+     t_id),
+    (_QLAYER + r"self_attn\.(q|k|v|o)_proj\.weight", "model.language_model.layers.{i}.self_attn.{j}_proj.weight",
+     t_id),
+    (_QLAYER + r"self_attn\.(q|k|v)_proj\.bias", "model.language_model.layers.{i}.self_attn.{j}_proj.bias", t_id),
+    (_QLAYER + r"mlp\.(gate|up|down)_proj\.weight", "model.language_model.layers.{i}.mlp.{j}_proj.weight", t_id),
+    (r"language_model\.norm\.weight", "model.language_model.norm.weight", t_id),
+    # --- retrieval head ---
+    (r"custom_text_proj\.weight", "head.custom_text_proj.weight", t_id),
+    (r"custom_text_proj\.bias", "head.custom_text_proj.bias", t_id),
+    # --- dropped ---
+    (r"lm_head\.weight", "", t_id),
+    (r".*rotary_emb\.inv_freq", "", t_id),
+)
+_QWEN_VISION_ATTN_RULES: Tuple[_RuleT, ...] = (
+    (r"visual\.patch_embed\.proj\.weight", "model.visual.patch_embed.weight", t_conv3d_patch),
+    # a fused qkv is split by split_fused_qkv before the rules
+    (_QBLOCK + r"attn\.(q|k|v)_proj\.weight", "model.visual.blocks.{i}.attn.{j}_proj.weight", t_id),
+    (_QBLOCK + r"attn\.(q|k|v)_proj\.bias", "model.visual.blocks.{i}.attn.{j}_proj.bias", t_id),
+    (_QBLOCK + r"attn\.proj\.weight", "model.visual.blocks.{i}.attn.o_proj.weight", t_id),
+    (_QBLOCK + r"attn\.proj\.bias", "model.visual.blocks.{i}.attn.o_proj.bias", t_id),
+    (r"visual\.merger\.mlp\.0\.weight", "model.visual.merger_fc1.weight", t_id),
+    (r"visual\.merger\.mlp\.0\.bias", "model.visual.merger_fc1.bias", t_id),
+    (r"visual\.merger\.mlp\.2\.weight", "model.visual.merger_fc2.weight", t_id),
+    (r"visual\.merger\.mlp\.2\.bias", "model.visual.merger_fc2.bias", t_id),
+)
+QWEN2_VL_RULES: Tuple[_RuleT, ...] = _QWEN_VISION_ATTN_RULES + (
+    (_QBLOCK + r"norm([12])\.weight", "model.visual.blocks.{i}.norm{j}.weight", t_id),
+    (_QBLOCK + r"norm([12])\.bias", "model.visual.blocks.{i}.norm{j}.bias", t_id),
+    (_QBLOCK + r"mlp\.fc([12])\.weight", "model.visual.blocks.{i}.fc{j}.weight", t_id),
+    (_QBLOCK + r"mlp\.fc([12])\.bias", "model.visual.blocks.{i}.fc{j}.bias", t_id),
+    (r"visual\.merger\.ln_q\.weight", "model.visual.ln_q.weight", t_id),
+    (r"visual\.merger\.ln_q\.bias", "model.visual.ln_q.bias", t_id),
+) + _QWEN2_TEXT_RULES
+QWEN25_VL_RULES: Tuple[_RuleT, ...] = _QWEN_VISION_ATTN_RULES + (
+    # RMSNorm blocks, a biased SwiGLU MLP, an RMSNorm ln_q
+    (_QBLOCK + r"norm([12])\.weight", "model.visual.blocks.{i}.norm{j}.weight", t_id),
+    (_QBLOCK + r"mlp\.(gate|up|down)_proj\.weight", "model.visual.blocks.{i}.mlp.{j}_proj.weight", t_id),
+    (_QBLOCK + r"mlp\.(gate|up|down)_proj\.bias", "model.visual.blocks.{i}.mlp.{j}_proj.bias", t_id),
+    (r"visual\.merger\.ln_q\.weight", "model.visual.ln_q.weight", t_id),
+) + _QWEN2_TEXT_RULES
+
+
 def convert_state_dict(
     state_dict: Mapping[str, torch.Tensor],
     rules: Tuple[_RuleT, ...],
@@ -160,3 +243,20 @@ def load_colpali_params(checkpoint_dir: str, strict: bool = True) -> Dict[str, t
     state dict (in the checkpoint's dtypes, on the CPU)."""
     state = load_safetensors_dir(checkpoint_dir)
     return convert_state_dict(state, PALIGEMMA_RULES, PALIGEMMA_KEY_REMAPS, strict=strict)
+
+
+def _load_qwen(checkpoint_dir: str, rules: Tuple[_RuleT, ...], strict: bool) -> Dict[str, torch.Tensor]:
+    state = split_fused_qkv(normalize_keys(load_safetensors_dir(checkpoint_dir), QWEN2_VL_KEY_REMAPS))
+    return convert_state_dict(state, rules, (), strict=strict)
+
+
+def load_colqwen2_params(checkpoint_dir: str, strict: bool = True) -> Dict[str, torch.Tensor]:
+    """A (Col)Qwen2-VL HF checkpoint directory -> the port's ``ColQwen2``
+    state dict (in the checkpoint's dtypes, on the CPU)."""
+    return _load_qwen(checkpoint_dir, QWEN2_VL_RULES, strict)
+
+
+def load_colqwen25_params(checkpoint_dir: str, strict: bool = True) -> Dict[str, torch.Tensor]:
+    """A (Col)Qwen2.5-VL HF checkpoint directory -> the port's ``ColQwen2_5``
+    state dict."""
+    return _load_qwen(checkpoint_dir, QWEN25_VL_RULES, strict)

@@ -36,7 +36,11 @@
 // fp32 output, or bf16 rows not a multiple of 16 bytes, is stored pair by
 // pair from the registers. TMA fills rows past M and N and columns past K
 // with zeros on the loads, so a slice overhanging K (4,304 = 33 x 128 + 80)
-// adds nothing. What bounds it: operations at the page shapes (M =
+// adds nothing. The operands' rows may lie further apart than K bytes (a
+// row stride of K rounded up to 16, TMA's stride rule): Qwen's patch
+// embedding (K = 3 x 2 x 14 x 14 = 1,176) and Qwen2.5-VL's vision down_proj
+// (K = 3,420) are stored so, and Q1a writes its rows so, with the map's
+// width K. What bounds it: operations at the page shapes (M =
 // 8,192-8,232: 2MNK over 1,979 TOP/s), bytes at the query shapes (M =
 // 32-256: the N x K weight read once). Not done: a split of K when the
 // tiles leave SMs idle (N = 2,048 at a small M fills 16 of 132 SMs),
@@ -79,12 +83,12 @@ struct Int8Pack<8> {
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kRowThreads) quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                                                                    float* __restrict__ scale, int k) {
+                                                                    float* __restrict__ scale, int k, int ldq) {
   using V = Vec<T, VEC>;
   using Packed = typename Int8Pack<VEC>::type;
   const int64_t row = blockIdx.x;
   const V* xr = reinterpret_cast<const V*>(x + row * k);
-  Packed* qr = reinterpret_cast<Packed*>(q + row * k);
+  Packed* qr = reinterpret_cast<Packed*>(q + row * ldq);
   const int nvec = k / VEC;
 
   float m = 0.0f;
@@ -127,15 +131,16 @@ __global__ void __launch_bounds__(kRowThreads) quantize_rows_kernel(const T* __r
 }
 
 template <typename T>
-cudaError_t launch_quantize_rows(const void* x, void* q, void* scale, int64_t rows, int k, cudaStream_t stream) {
+cudaError_t launch_quantize_rows(const void* x, void* q, void* scale, int64_t rows, int k, int ldq,
+                                 cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const dim3 grid(static_cast<unsigned>(rows));
-  if (k % kVec == 0)  // every row starts on 16 bytes
+  if (k % kVec == 0)  // every row of x starts on 16 bytes (and every row of q on 16, since ldq % 16 == 0)
     quantize_rows_kernel<T, kVec><<<grid, kRowThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<int8_t*>(q), static_cast<float*>(scale), k);
+        static_cast<const T*>(x), static_cast<int8_t*>(q), static_cast<float*>(scale), k, ldq);
   else
     quantize_rows_kernel<T, 1><<<grid, kRowThreads, 0, stream>>>(static_cast<const T*>(x), static_cast<int8_t*>(q),
-                                                                  static_cast<float*>(scale), k);
+                                                                  static_cast<float*>(scale), k, ldq);
   return cudaGetLastError();
 }
 
@@ -162,6 +167,7 @@ struct GemmArgs {
   const void* bias;      // (N) of the output type, or null
   void* out;             // (M, N)
   int m, n, k;
+  int lda, ldb;          // row strides of A and B in bytes (multiples of 16, >= k)
   int tiles_m, tiles_n, tiles;
 };
 
@@ -358,10 +364,12 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   if (STAGED && tid == 0) bulk_wait();  // the shared memory outlives every store from it
 }
 
-// A (rows, k) int8 K-major operand as a 2-D map of (128 bytes x `box_rows`) boxes, 128-byte swizzle.
-cudaError_t operand_map(CUtensorMap* map, const void* base, int rows, int k, int box_rows) {
+// A (rows, k) int8 K-major operand with rows `ld` bytes apart (a multiple of 16: TMA's stride rule) as a 2-D
+// map of (128 bytes x `box_rows`) boxes, 128-byte swizzle. The map's width is k, so TMA reads columns k to ld
+// as zeros whatever the buffer holds there.
+cudaError_t operand_map(CUtensorMap* map, const void* base, int rows, int k, int ld, int box_rows) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld)};
   const cuuint32_t box[2] = {kSliceK, static_cast<cuuint32_t>(box_rows)};
   return colpali_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, base, dims, strides, box,
                             CU_TENSOR_MAP_SWIZZLE_128B);
@@ -371,8 +379,8 @@ template <int BN, bool BF16_OUT, bool STAGED>
 cudaError_t launch_tiles(const void* a, const void* b, GemmArgs args, int sms, cudaStream_t stream) {
   using L = GemmLayout<BN, STAGED>;
   CUtensorMap a_map, b_map, out_map;
-  cudaError_t err = operand_map(&a_map, a, args.m, args.k, kTileM);
-  if (err == cudaSuccess) err = operand_map(&b_map, b, args.n, args.k, BN);
+  cudaError_t err = operand_map(&a_map, a, args.m, args.k, args.lda, kTileM);
+  if (err == cudaSuccess) err = operand_map(&b_map, b, args.n, args.k, args.ldb, BN);
   out_map = a_map;  // not read unless STAGED
   if (STAGED && err == cudaSuccess) {  // (M, N) bf16 in boxes of 64 rows x 64 columns
     const cuuint64_t dims[2] = {static_cast<cuuint64_t>(args.n), static_cast<cuuint64_t>(args.m)};
@@ -413,20 +421,24 @@ cudaError_t dispatch_gemm(const void* a, const void* b, const GemmArgs& args, cu
 
 }  // namespace
 
-// Q1a: x (rows, k) bf16 (x_bf16 = 1) or fp32, contiguous -> q (rows, k) int8, scale (rows) fp32.
-extern "C" int colpali_quantize_rows(const void* x, void* q, void* scale, int64_t rows, int k, int x_bf16,
+// Q1a: x (rows, k) bf16 (x_bf16 = 1) or fp32, contiguous -> q (rows, k) int8 with rows ldq bytes apart
+// (ldq % 16 == 0, ldq >= k: Q1b's operand layout; columns k to ldq are not written), scale (rows) fp32.
+extern "C" int colpali_quantize_rows(const void* x, void* q, void* scale, int64_t rows, int k, int ldq, int x_bf16,
                                      void* stream) {
-  if (rows < 1 || rows > INT32_MAX || k < 1) return cudaErrorInvalidValue;
+  if (rows < 1 || rows > INT32_MAX || k < 1 || ldq < k || ldq % 16) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? launch_quantize_rows<__nv_bfloat16>(x, q, scale, rows, k, s)
-                : launch_quantize_rows<float>(x, q, scale, rows, k, s);
+  return x_bf16 ? launch_quantize_rows<__nv_bfloat16>(x, q, scale, rows, k, ldq, s)
+                : launch_quantize_rows<float>(x, q, scale, rows, k, ldq, s);
 }
 
-// Q1b: a (m, k) int8 with a_scale (m) fp32, b (n, k) int8 with b_scale (n) fp32, bias (n) of the
-// output type or null -> out (m, n) bf16 (out_bf16 = 1) or fp32. k % 16 == 0; 16-byte aligned bases.
-extern "C" int colpali_int8_gemm(const void* a, const void* a_scale, const void* b, const void* b_scale,
-                                 const void* bias, void* out, int m, int n, int k, int out_bf16, void* stream) {
-  if (m < 1 || n < 1 || k < 1 || k % 16) return cudaErrorInvalidValue;
+// Q1b: a (m, k) int8 with rows lda bytes apart and a_scale (m) fp32, b (n, k) int8 with rows ldb bytes apart
+// and b_scale (n) fp32, bias (n) of the output type or null -> out (m, n) bf16 (out_bf16 = 1) or fp32, contiguous.
+// Any k >= 1; lda and ldb are multiples of 16 and >= k (a k that is not is padded in the row stride: TMA reads
+// the columns past k as zeros, which add nothing to an int32 sum); 16-byte aligned bases.
+extern "C" int colpali_int8_gemm(const void* a, int lda, const void* a_scale, const void* b, int ldb,
+                                 const void* b_scale, const void* bias, void* out, int m, int n, int k, int out_bf16,
+                                 void* stream) {
+  if (m < 1 || n < 1 || k < 1 || lda < k || ldb < k || lda % 16 || ldb % 16) return cudaErrorInvalidValue;
   GemmArgs args;
   args.a_scale = static_cast<const float*>(a_scale);
   args.b_scale = static_cast<const float*>(b_scale);
@@ -435,6 +447,8 @@ extern "C" int colpali_int8_gemm(const void* a, const void* a_scale, const void*
   args.m = m;
   args.n = n;
   args.k = k;
+  args.lda = lda;
+  args.ldb = ldb;
   const int64_t tiles = static_cast<int64_t>((m + kTileM - 1) / kTileM) * ((n + 127) / 128);
   if (tiles > INT32_MAX) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -4,6 +4,7 @@ precomputed embeddings or from a model and its processor."""
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -73,19 +74,25 @@ def embed_dataset(
     ``kind`` names the modality: ``"images"``, ``"texts"`` (raw
     ``process_texts``) or ``"queries"`` (``process_queries``: prefix and
     augmentation suffix); left out, it follows the two boolean flags.
-    Preprocessing runs on a prefetch thread beside the device forward. The
-    model runs on the device of its parameters."""
+    Preprocessing runs on a prefetch thread beside the device forward, and
+    a processor whose ``process_images`` takes ``device_pixels`` keeps the
+    pixels on its device. Every array of the processor's batch goes to the
+    model as a keyword (the Qwen family's patch mask, grid positions,
+    window ids and M-RoPE positions) but ``image_grid_thw``, which is
+    metadata. The model runs on the device of its parameters."""
     if kind is None:
         kind = "images" if is_images else ("queries" if use_query_prompt else "texts")
     if kind not in ("images", "texts", "queries"):
         raise ValueError(f"unknown kind {kind!r} (images, texts or queries)")
     device = next(model.parameters()).device
+    device_pixels = kind == "images" and "device_pixels" in inspect.signature(processor.process_images).parameters
 
     def produce():
         for i in range(0, len(items), batch_size):
             chunk = list(items[i : i + batch_size])
             if kind == "images":
-                yield processor.process_images(chunk)
+                yield processor.process_images(chunk, device_pixels=True) if device_pixels \
+                    else processor.process_images(chunk)
             elif kind == "queries":
                 yield processor.process_queries(queries=chunk)
             else:
@@ -95,12 +102,9 @@ def embed_dataset(
     model.eval()
     out: List[np.ndarray] = []
     for batch in prefetch(produce(), buffer_size=2):
-        ids = torch.from_numpy(np.asarray(batch["input_ids"])).long().to(device)
-        mask = torch.from_numpy(np.asarray(batch["attention_mask"])).to(device)
-        pixels = batch.get("pixel_values")
-        if pixels is not None:
-            pixels = torch.as_tensor(pixels).to(device)
-        emb = model(ids, mask, pixels).float().cpu().numpy()
+        inputs = {k: torch.as_tensor(v).to(device) for k, v in batch.items() if k != "image_grid_thw"}
+        inputs["input_ids"] = inputs["input_ids"].long()
+        emb = model(**inputs).float().cpu().numpy()
         valid = np.asarray(batch["attention_mask"]).astype(bool)
         out.extend(emb[row][valid[row]] for row in range(emb.shape[0]))
     model.train(was_training)

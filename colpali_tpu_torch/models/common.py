@@ -48,8 +48,8 @@ class MultiVectorHead(nn.Module):
 def hf_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights in the HF convention, in place on the weights' own
     device: linear and embedding weights from normal(0, 0.02), biases zero,
-    RMSNorm weights zero (the norm adds a unit offset), LayerNorm weights one
-    and biases zero. ``generator`` must be on that device."""
+    RMSNorm weights zero where the norm adds a unit offset (Gemma) and one
+    where it does not (Qwen), LayerNorm weights one and biases zero. ``generator`` must be on that device."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Embedding)):
             if m.weight.is_floating_point():  # stored-int8 weights and their scales stay as they are
@@ -57,7 +57,7 @@ def hf_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
         elif isinstance(m, RMSNorm):
-            m.weight.zero_()
+            m.weight.fill_(0.0 if m.add_unit_offset else 1.0)
         elif isinstance(m, LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()

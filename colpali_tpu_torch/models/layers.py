@@ -1,5 +1,6 @@
 """Transformer building blocks in PyTorch (counterparts of
-:mod:`colpali_tpu.models.layers`, the subset ColPali uses).
+:mod:`colpali_tpu.models.layers`, the subset ColPali and the Qwen2-VL
+family use).
 
 Every block takes its parameters' ``device`` (the card unless the caller
 asks for the CPU) and ``dtype``; numerically sensitive reductions
@@ -30,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from colpali_tpu_torch.ops import flash_attention as fa
-from colpali_tpu_torch.ops.quant_dense import int8_linear, quantize_rows, stored_int8_apply
+from colpali_tpu_torch.ops.quant_dense import int8_linear, int8_rows, quantize_rows, stored_int8_apply
 
 Device = torch.device | str
 
@@ -58,19 +59,32 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-class RMSNorm(nn.Module):
-    """RMS normalization with fp32 statistics, Gemma convention: the weight
-    is stored as its deviation from 1."""
+ACTIVATIONS = {
+    "gelu_pytorch_tanh": gelu_tanh,
+    "gelu": F.gelu,  # exact (erf), the Qwen patch mergers'
+    "silu": F.silu,
+    "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x),  # Qwen2-VL's vision blocks
+}
 
-    def __init__(self, dim: int, eps: float = 1e-6, device: Device = "cuda", dtype: torch.dtype = torch.float32):
+
+class RMSNorm(nn.Module):
+    """RMS normalization with fp32 statistics. ``add_unit_offset=True`` is
+    the Gemma convention (the weight is stored as its deviation from 1);
+    ``False`` is the Qwen/Llama one (the weight is the scale)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, add_unit_offset: bool = True, device: Device = "cuda",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+        self.add_unit_offset = add_unit_offset
+        init = torch.zeros if add_unit_offset else torch.ones
+        self.weight = nn.Parameter(init(dim, device=device, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         xf = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + self.eps)
-        return (xf * (1.0 + self.weight.float())).to(x.dtype)
+        w = self.weight.float()
+        return (xf * (1.0 + w if self.add_unit_offset else w)).to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -158,7 +172,7 @@ class QDense(nn.Linear):
             raise ValueError(f"int8 weight {q.dtype} {tuple(q.shape)} and scale {tuple(scale.shape)} for a "
                              f"{self.in_features} -> {self.out_features} layer")
         del self.weight
-        self.register_buffer("weight", q)
+        self.register_buffer("weight", int8_rows(q.shape, q.device, fill=q))  # rows on 16 bytes, as Q1b reads them
         self.register_buffer("weight_scale", scale.float())
 
     def store_float(self, weight: torch.Tensor) -> None:
@@ -181,6 +195,9 @@ class QDense(nn.Linear):
         finally:
             if scale is not None:
                 self._buffers["weight_scale"] = scale.to(self.weight.device)
+            w = self.weight
+            if self.stored and w.shape[0] > 1 and w.stride(0) % 16:  # a move packed the rows: lay them out again
+                self._buffers["weight"] = int8_rows(w.shape, w.device, fill=w)
 
     def _load_from_state_dict(self, state_dict, prefix, local_metadata, strict, missing_keys, unexpected_keys,
                               error_msgs):
@@ -253,19 +270,23 @@ class Attention(nn.Module):
 
 
 class GatedMLP(nn.Module):
-    """Gated MLP: ``down(gelu_tanh(gate(x)) * up(x))``, Gemma style."""
+    """Gated MLP: ``down(act(gate(x)) * up(x))``; gelu-tanh (Gemma) by
+    default, ``"silu"`` for Qwen. ``bias=True`` puts biases on all three
+    projections: the JAX package's ``BiasedGatedMLP`` (Qwen2.5-VL's vision
+    blocks, modeling_qwen2_5_vl.py:271)."""
 
-    def __init__(self, hidden_size: int, intermediate_size: int,
-                 device: Device = "cuda", dtype: torch.dtype = torch.float32):
+    def __init__(self, hidden_size: int, intermediate_size: int, activation: str = "gelu_pytorch_tanh",
+                 bias: bool = False, device: Device = "cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
-        kw = dict(bias=False, device=device, dtype=dtype)
+        self.act = ACTIVATIONS[activation]
+        kw = dict(bias=bias, device=device, dtype=dtype)
         self.gate_proj = QDense(hidden_size, intermediate_size, **kw)
         self.up_proj = QDense(hidden_size, intermediate_size, **kw)
         self.down_proj = QDense(intermediate_size, hidden_size, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rows = shared_rows(x, self.gate_proj, self.up_proj)
-        return self.down_proj(gelu_tanh(self.gate_proj(x, rows)) * self.up_proj(x, rows))
+        return self.down_proj(self.act(self.gate_proj(x, rows)) * self.up_proj(x, rows))
 
 
 class MLP(nn.Module):

@@ -25,9 +25,14 @@ fly) and one per output channel of the weight:
 
 The weight keeps ``nn.Linear``'s ``(N, K)`` layout, where the JAX package
 keeps ``(K, N)``: the card's int8 tensor-core instruction takes both
-operands K-major only. Each kernel wrapper runs its plain PyTorch version
-for CPU tensors (the CPU route and the tests' oracle) and its kernel for
-CUDA tensors, or raises.
+operands K-major only. Q1b reads its operands by TMA, whose row stride is a
+multiple of 16 bytes, so every int8 operand is a ``(rows, K)`` view of a
+buffer whose rows are ``K`` rounded up to 16 bytes (:func:`int8_rows`;
+Q1a writes its rows so, and ``QDense.store_int8`` stores weights so): any
+K takes the kernels, Qwen's 1,176-wide patch embedding and Qwen2.5-VL's
+3,420-wide vision ``down_proj`` included. Each kernel wrapper runs its
+plain PyTorch version for CPU tensors (the CPU route and the tests' oracle)
+and its kernel for CUDA tensors, or raises.
 
 Quantized activations are discontinuous: a one-ulp difference in an input
 can flip an int8 value. Single ops are held bit for bit; whole models by
@@ -50,8 +55,8 @@ MIN_QUANT_DIM = 512
 
 _INV_127 = float(np.float32(1.0) / np.float32(127.0))
 
-QUANTIZE_ROWS = CudaKernel("colpali_quantize_rows", [P, P, P, I64, I32, I32])  # Q1a
-INT8_GEMM = CudaKernel("colpali_int8_gemm", [P, P, P, P, P, P, I32, I32, I32, I32])  # Q1b
+QUANTIZE_ROWS = CudaKernel("colpali_quantize_rows", [P, P, P, I64, I32, I32, I32])  # Q1a
+INT8_GEMM = CudaKernel("colpali_int8_gemm", [P, I32, P, P, I32, P, P, P, I32, I32, I32, I32])  # Q1b
 OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -78,9 +83,42 @@ def quantize_rows_eager(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return _quantize_last(x, divide=True)
 
 
+def row_stride(k: int) -> int:
+    """The row stride of an int8 operand of width ``k``: ``k`` rounded up
+    to 16 bytes, TMA's rule for a row stride."""
+    return -(-k // 16) * 16
+
+
+def int8_rows(shape: tuple, device, fill: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """An int8 ``(..., K)`` view of a new ``(..., row_stride(K))`` buffer:
+    the layout Q1b reads (the columns past K are never read). ``fill``:
+    values to copy in; else the view is uninitialized."""
+    k = shape[-1]
+    buf = torch.empty((*shape[:-1], row_stride(k)), dtype=torch.int8, device=device)
+    view = buf[..., :k]
+    if fill is not None:
+        view.copy_(fill)
+    return view
+
+
+def _check_rows(name: str, t: torch.Tensor, device: torch.device) -> None:
+    """Raise unless ``t`` is a 2-D int8 tensor on ``device`` with unit
+    column stride and rows on 16-byte boundaries (:func:`int8_rows`)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.int8:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected torch.int8")
+    if t.ndim != 2 or (t.shape[1] > 1 and t.stride(1) != 1) or t.data_ptr() % 16 \
+            or (t.shape[0] > 1 and (t.stride(0) % 16 or t.stride(0) < t.shape[1])):
+        raise ValueError(f"{name} {tuple(t.shape)} with strides {t.stride()}: Q1b reads rows that start on 16 bytes "
+                         "(make it with quant_dense.int8_rows, or take quantize_rows' output)")
+
+
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row (last-axis) symmetric int8, kernel Q1a on the card:
-    ``(..., K)`` bf16 or fp32 -> int8 ``(..., K)`` and fp32 scales ``(..., 1)``."""
+    ``(..., K)`` bf16 or fp32 -> int8 ``(..., K)`` and fp32 scales
+    ``(..., 1)``. On the card the int8 rows lie :func:`row_stride` bytes
+    apart (:func:`int8_rows`), as Q1b reads them."""
     if on_cpu(x):
         return quantize_rows_plain(x)
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -88,10 +126,10 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     x = x.contiguous()
     k = x.shape[-1]
     rows = x.numel() // k if k else 0
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    q = int8_rows(x.shape, x.device)
     scale = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
     if rows:
-        QUANTIZE_ROWS(x.device, x.data_ptr(), q.data_ptr(), scale.data_ptr(), rows, k,
+        QUANTIZE_ROWS(x.device, x.data_ptr(), q.data_ptr(), scale.data_ptr(), rows, k, row_stride(k),
                       int(x.dtype == torch.bfloat16))
     return q, scale
 
@@ -137,7 +175,8 @@ def int8_gemm(a: torch.Tensor, a_scale: torch.Tensor, b: torch.Tensor, b_scale: 
     """Kernel Q1b: ``a (M, K)`` int8 rows with ``a_scale (M, 1)`` times the
     ``b (N, K)`` int8 weight with ``b_scale (N,)`` (fp32 scales) ->
     ``(M, N)`` in ``out_dtype`` (bf16 or fp32), plus ``bias (N,)`` after
-    the rounding. On CUDA, K is a multiple of 16 (the TMA row stride)."""
+    the rounding. On CUDA any K: the rows of ``a`` and ``b`` start on 16
+    bytes (:func:`int8_rows`; a contiguous operand with K % 16 == 0 is so)."""
     m, k = a.shape
     n = b.shape[0]
     if b.shape[1] != k or a_scale.shape != (m, 1) or b_scale.shape != (n,) or (bias is not None and bias.shape != (n,)):
@@ -147,11 +186,9 @@ def int8_gemm(a: torch.Tensor, a_scale: torch.Tensor, b: torch.Tensor, b_scale: 
         raise TypeError(f"int8_gemm writes bf16 or fp32, not {out_dtype}")
     if on_cpu(a):
         return int8_gemm_plain(a, a_scale, b, b_scale, bias, out_dtype)
-    if k % 16:
-        raise ValueError(f"int8_gemm on CUDA needs K % 16 == 0 (a TMA row stride of 16 bytes), got K={k}")
     dev = a.device
-    check_cuda("a", a, torch.int8, dev)
-    check_cuda("b", b, torch.int8, dev)
+    _check_rows("a", a, dev)
+    _check_rows("b", b, dev)
     check_cuda("a_scale", a_scale, torch.float32, dev)
     check_cuda("b_scale", b_scale, torch.float32, dev)
     if bias is not None:
@@ -159,7 +196,8 @@ def int8_gemm(a: torch.Tensor, a_scale: torch.Tensor, b: torch.Tensor, b_scale: 
         check_cuda("bias", bias, out_dtype, dev)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m and n:
-        INT8_GEMM(dev, a.data_ptr(), a_scale.data_ptr(), b.data_ptr(), b_scale.data_ptr(),
+        lda, ldb = (t.stride(0) if t.shape[0] > 1 else row_stride(k) for t in (a, b))
+        INT8_GEMM(dev, a.data_ptr(), lda, a_scale.data_ptr(), b.data_ptr(), ldb, b_scale.data_ptr(),
                   0 if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k, int(out_dtype == torch.bfloat16))
     return out
 

@@ -79,7 +79,8 @@ class QueryEncoder:
     ``processor``. Batches pad to a power-of-two bucket with rows that
     replicate row 0 (an all-masked row would NaN the softmax), and the token
     axis zero-pads on the right to a power-of-two bucket of at least
-    ``token_bucket_min``. ``encode`` returns per-query ``(tokens_i, dim)``
+    ``token_bucket_min``; M-RoPE ``position_ids (3, B, T)`` pad the same
+    way along their batch and token axes. ``encode`` returns per-query ``(tokens_i, dim)``
     float32 arrays, what :meth:`MicroBatcher.search` takes.
     """
 
@@ -99,7 +100,10 @@ class QueryEncoder:
         tb = _pow2_bucket(t, self.token_bucket_min)
         out = {}
         for k, v in batch.items():
-            if v.ndim >= 1 and v.shape[0] == n:  # (B, T...) token arrays
+            if v.ndim == 3 and v.shape[1] == n:  # (3, B, T) M-RoPE positions: batch on axis 1
+                v = np.concatenate([v, np.repeat(v[:, :1], nb - n, axis=1)], axis=1)
+                v = np.pad(v, ((0, 0), (0, 0), (0, tb - v.shape[2])))
+            elif v.ndim >= 1 and v.shape[0] == n:  # (B, T...) token arrays
                 v = np.concatenate([v, np.repeat(v[:1], nb - n, axis=0)], axis=0)
                 if v.ndim >= 2 and v.shape[1] == t:
                     pad = [(0, 0)] * v.ndim

@@ -4,11 +4,11 @@
 :class:`CheckpointManager` keeps periodic training checkpoints with
 retention and restores the latest for ``resume_from_checkpoint``;
 :func:`save_pretrained` writes the final export as the JAX package's does:
-``model.safetensors`` in the HF torch layout
-(:func:`colpali_tpu_torch.core.hf_export.export_colpali_state_dict`, through
-the port's own safetensors writer), the model config as JSON
-(``dataclasses.asdict``, not an HF config) and a provenance file. Either
-package's ``load_colpali_params`` reads the weights back.
+``model.safetensors`` in the HF torch layout (the family's exporter in
+:mod:`colpali_tpu_torch.core.hf_export`, through the port's own safetensors
+writer), the model config as JSON (``dataclasses.asdict``, not an HF
+config) and a provenance file. Either package's ``load_col*_params`` reads
+the weights back.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from colpali_tpu_torch.core import safetensors
-from colpali_tpu_torch.core.hf_export import export_colpali_state_dict
+from colpali_tpu_torch.core.hf_export import export_for_config
 
 
 class CheckpointManager:
@@ -92,11 +92,14 @@ def git_revision(repo_dir: Optional[str] = None) -> str:
 
 def save_pretrained(output_dir: str, state_dict: Dict[str, torch.Tensor], config: Any = None,
                     extra_metadata: Optional[Dict[str, Any]] = None) -> None:
-    """Final export of a ``ColPali`` state dict: ``model.safetensors`` (HF
+    """Final export of a model's state dict: ``model.safetensors`` (HF
     names and layouts, the parameters' dtypes), ``config.json`` and
-    ``training_provenance.json`` (git hash, ``checkpoint_layout: "hf"``)."""
+    ``training_provenance.json`` (git hash, ``checkpoint_layout: "hf"``).
+    The family follows ``config`` (a ``PaliGemmaConfig``, the default, a
+    ``Qwen2VLConfig`` or a ``Qwen25VLConfig``:
+    :func:`~colpali_tpu_torch.core.hf_export.export_for_config`)."""
     os.makedirs(output_dir, exist_ok=True)
-    safetensors.save_file(export_colpali_state_dict(state_dict), os.path.join(output_dir, "model.safetensors"),
+    safetensors.save_file(export_for_config(state_dict, config), os.path.join(output_dir, "model.safetensors"),
                           metadata={"format": "pt"})
     if config is not None:
         cfg_dict = dataclasses.asdict(config) if dataclasses.is_dataclass(config) else dict(config)

@@ -52,7 +52,9 @@ class LoraSpec:
 def jax_kernel_path(module_name: str) -> str:
     """The JAX package's path of an ``nn.Linear``'s kernel:
     ``model.language_model.layers.3.mlp.up_proj`` ->
-    ``model/language_model/layers_3/mlp/up_proj/kernel``."""
+    ``model/language_model/layers_3/mlp/up_proj/kernel``, and the Qwen vision
+    blocks likewise (``model.visual.blocks.0.attn.q_proj`` ->
+    ``model/visual/blocks_0/attn/q_proj/kernel``)."""
     return re.sub(r"\.(\d+)(?=\.|$)", r"_\1", module_name).replace(".", "/") + "/kernel"
 
 

@@ -1,10 +1,16 @@
 """Helpers for tests and smoke runs that need no downloads (counterpart of
 :mod:`colpali_tpu.utils.testing` and of ``load_dummy_dataset`` in
 :mod:`colpali_tpu.utils.dataset_loading`): a tiny ColPali config, a
-hash-based processor and a synthetic dataset."""
+hash-based processor, a synthetic dataset, and an HF-layout checkpoint of a
+Qwen-family model with a word-level tokenizer whose special tokens sit at
+Qwen2's ids (:func:`write_qwen_checkpoint`), which ``load_retriever`` reads
+through ``transformers``."""
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 from typing import Sequence
 
 import numpy as np
@@ -100,3 +106,69 @@ def load_dummy_dataset(n: int = 16, image_size: int = 64) -> ColPaliEngineDatase
         for i in range(n)
     ]
     return ColPaliEngineDataset(data)
+
+
+# Qwen2's special tokens at their ids in the released tokenizers
+QWEN2_SPECIAL_TOKENS = {"<|endoftext|>": 151643, "<|im_start|>": 151644, "<|im_end|>": 151645,
+                        "<|vision_start|>": 151652, "<|vision_end|>": 151653, "<|image_pad|>": 151655,
+                        "<|video_pad|>": 151656}
+
+
+def qwen_word_tokenizer(words: Sequence[str]):
+    """A ``transformers`` fast tokenizer over ``words``: a whitespace-split
+    WordLevel model (``<unk>`` at 0, the words from 1, reserved tokens up to
+    the first special id, so the vocabulary has no holes) with
+    :data:`QWEN2_SPECIAL_TOKENS` pinned to their ids as special tokens and
+    ``<|endoftext|>`` as its pad token."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    vocab = {"<unk>": 0}
+    for w in words:
+        vocab.setdefault(w, len(vocab))
+    specials = sorted(QWEN2_SPECIAL_TOKENS.values())
+    vocab.update({f"<|reserved_{i}|>": i for i in range(len(vocab), specials[-1] + 1) if i not in specials})
+    vocab.update(QWEN2_SPECIAL_TOKENS)
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    return PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="<unk>", pad_token="<|endoftext|>",
+                                   additional_special_tokens=[t for t in QWEN2_SPECIAL_TOKENS if t != "<|endoftext|>"])
+
+
+def qwen_hf_config(config) -> dict:
+    """The HF ``config.json`` of a ``Qwen2VLConfig`` or ``Qwen25VLConfig``:
+    the vision fields under ``vision_config``, the text fields at the top
+    (``head_dim`` implied by the heads), M-RoPE under ``rope_scaling``."""
+    qwen25 = type(config).__name__ == "Qwen25VLConfig"
+    text = {k: v for k, v in dataclasses.asdict(config.text).items() if k not in ("mrope_section", "head_dim")}
+    if config.text.head_dim * config.text.num_attention_heads != config.text.hidden_size:
+        raise ValueError("an HF Qwen2 config implies head_dim = hidden_size / num_attention_heads")
+    vision = {k: list(v) if isinstance(v, tuple) else int(v) if isinstance(v, float) and v.is_integer() else v
+              for k, v in dataclasses.asdict(config.vision).items()}  # "mlp_ratio": 4, as HF writes it
+    return {"model_type": "qwen2_5_vl" if qwen25 else "qwen2_vl",
+            "architectures": ["ColQwen2_5" if qwen25 else "ColQwen2"], "vision_config": vision, **text,
+            "rope_scaling": {"type": "mrope", "mrope_section": list(config.text.mrope_section)},
+            "image_token_id": config.image_token_id, "vision_start_token_id": config.vision_start_token_id,
+            "video_token_id": config.video_token_id}
+
+
+def write_qwen_checkpoint(directory: str, model, tokenizer, max_num_visual_tokens: int = 768) -> None:
+    """``model`` (a ``ColQwen2`` or ``ColQwen2_5``) as an HF-format checkpoint
+    in ``directory``: ``model.safetensors`` by the port's exporter,
+    ``config.json``, ``preprocessor_config.json`` (Qwen's CLIP mean and std,
+    a pixel budget of ``max_num_visual_tokens`` merged tokens) and the
+    tokenizer's files."""
+    from colpali_tpu_torch.processors.qwen2_vl import CLIP_MEAN, CLIP_STD
+    from colpali_tpu_torch.training.checkpointing import save_pretrained
+
+    save_pretrained(directory, model.state_dict(), config=model.config)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(qwen_hf_config(model.config), f)
+    v = model.config.vision
+    factor = v.patch_size * v.spatial_merge_size
+    with open(os.path.join(directory, "preprocessor_config.json"), "w") as f:
+        json.dump({"patch_size": v.patch_size, "merge_size": v.spatial_merge_size,
+                   "temporal_patch_size": v.temporal_patch_size,
+                   "size": {"shortest_edge": 56 * 56, "longest_edge": max_num_visual_tokens * factor**2},
+                   "image_mean": list(CLIP_MEAN), "image_std": list(CLIP_STD)}, f)
+    tokenizer.save_pretrained(directory)

@@ -37,9 +37,9 @@ from colpali_tpu.models.configs import PaliGemmaConfig  # noqa: E402
 from colpali_tpu.models.paligemma import ColPali as JaxColPali  # noqa: E402
 from colpali_tpu.training.checkpointing import save_pretrained as jax_save_pretrained  # noqa: E402
 from colpali_tpu_torch import serve  # noqa: E402
-from colpali_tpu_torch.auto import detect_family, load_retriever  # noqa: E402
+from colpali_tpu_torch.auto import detect_family, exporter_for, load_retriever  # noqa: E402
 from colpali_tpu_torch.core import safetensors  # noqa: E402
-from colpali_tpu_torch.core.from_jax import colpali_state_dict_from_jax  # noqa: E402
+from colpali_tpu_torch.core.from_jax import state_dict_from_jax  # noqa: E402
 from colpali_tpu_torch.core.hf_export import export_colpali_state_dict  # noqa: E402
 from colpali_tpu_torch.core.hf_loader import load_colpali_params  # noqa: E402
 from colpali_tpu_torch.training.checkpointing import save_pretrained  # noqa: E402
@@ -69,7 +69,7 @@ def seeded_bf16(ckpt):
 
     model = JaxColPali(PaliGemmaConfig.from_hf_config(load_hf_config(ckpt)), dim=128)
     params = jax.tree.map(lambda x: np.asarray(x).astype(ml_dtypes.bfloat16), jax_load_colpali_params(ckpt))
-    return model, params, colpali_state_dict_from_jax(params)
+    return model, params, state_dict_from_jax(params)
 
 
 def _bits(x) -> np.ndarray:
@@ -180,13 +180,25 @@ def test_load_retriever_refuses_what_is_not_ported(ckpt, tmp_path):
     quantized, _ = load_retriever(ckpt, quantize=True, dtype=torch.float32, device="cpu")
     plain, _ = load_retriever(ckpt, dtype=torch.float32, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(quantized.state_dict().values(), plain.state_dict().values()))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        load_retriever(ckpt, family="colqwen2", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):  # colqwen2 and colqwen2_5 are ported
+        load_retriever(ckpt, family="colidefics3", device="cpu")
     for cfg in ({"model_type": "paligemma"}, {"model_type": "qwen2_vl"}, {"architectures": ["ColQwen2_5Omni"]},
                 {"architectures": ["ColSmol"]}, {"model_type": "gemma3"}):
         assert detect_family(cfg) == jax_detect_family(cfg)
     with pytest.raises(ValueError, match="cannot detect"):
         detect_family({"model_type": "bert"})
+
+
+def test_save_pretrained_exports_by_the_family_registry(tmp_path):
+    from colpali_tpu_torch.models.configs import PaliGemmaConfig as TorchPaliGemmaConfig
+    from colpali_tpu_torch.models.qwen2_5_vl import Qwen25VLConfig
+    from colpali_tpu_torch.models.qwen2_vl import Qwen2VLConfig
+
+    for config, name in ((TorchPaliGemmaConfig(), "colpali"), (PaliGemmaConfig(), "colpali"),
+                         (Qwen2VLConfig(), "colqwen2"), (Qwen25VLConfig(), "colqwen25")):
+        assert exporter_for(config) == f"export_{name}_state_dict"
+    with pytest.raises(ValueError, match="no ported family has the model config dict"):
+        save_pretrained(str(tmp_path), {}, config={"model_type": "bert"})
 
 
 def test_serve_checkpoint_needs_no_quantize_and_answers_search_text(ckpt, tmp_path, capsys):

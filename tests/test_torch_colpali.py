@@ -21,7 +21,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from __graft_entry__ import _example_batch, _tiny_colpali  # noqa: E402
 from colpali_tpu.models import layers as jl  # noqa: E402
-from colpali_tpu_torch.core.from_jax import colpali_state_dict_from_jax  # noqa: E402
+from colpali_tpu_torch.core.from_jax import state_dict_from_jax  # noqa: E402
 from colpali_tpu_torch.models import layers as tl  # noqa: E402
 from colpali_tpu.models import common as jc  # noqa: E402
 from colpali_tpu_torch.models import common as tc  # noqa: E402
@@ -38,7 +38,7 @@ def models():
     variables = jax.jit(jax_model.init)(jax.random.PRNGKey(0), jnp.asarray(ids), jnp.asarray(mask),
                                        jnp.asarray(pixels))
     params = jax.tree.map(np.asarray, variables)
-    state = colpali_state_dict_from_jax(params)
+    state = state_dict_from_jax(params)
     cfg = port_config(jax_cfg)
     model = ColPali(cfg, dim=jax_model.dim, device="cpu")
     model.load_state_dict(state, strict=True)
@@ -96,7 +96,7 @@ def test_pixel_values_raise(models):
 
 
 def test_state_dict_layout(models):
-    state = colpali_state_dict_from_jax(jax.tree.map(np.asarray, models[1]))
+    state = state_dict_from_jax(jax.tree.map(np.asarray, models[1]))
     w = state["model.language_model.layers.1.self_attn.q_proj.weight"]
     k = np.asarray(models[1]["params"]["model"]["language_model"]["layers_1"]["self_attn"]["q_proj"]["kernel"])
     np.testing.assert_array_equal(w.numpy(), k.T)
@@ -105,7 +105,7 @@ def test_state_dict_layout(models):
 
 def test_from_jax_rejects_unknown_params():
     with pytest.raises(ValueError, match="unexpected"):
-        colpali_state_dict_from_jax({"params": {"model": {"other": {"w": np.zeros(2)}}}})
+        state_dict_from_jax({"params": {"model": {"other": {"w": np.zeros(2)}}}})
 
 
 def test_rmsnorm_matches():

@@ -31,7 +31,8 @@ forward elementwise rtol=1.6e-2 (two bf16 ulps: both round the output, the
 kernel rounds unnormalized probabilities to bf16 and divides at the end, the
 plain version rounds normalized ones) and atol=2e-2 times the RMS of the
 plain output (random q, k and v give outputs of RMS about sqrt(e / S), far
-below 1). K11 is held by the same rule with the RMS taken per query row
+below 1). K11, and K6 under a causal mask with left padding (the decoder of the
+Qwen2-VL family), are held by the same rule with the RMS taken per query row
 (over its heads and dims): under a causal mask row i attends to i + 1 keys,
 so the first rows have outputs of order 1 while the RMS over all rows is set
 by the long ones (11 of 2.4 M elements of the causal GQA case missed the
@@ -653,13 +654,14 @@ def _activations(dev, m, k, dtype, seed):
     return x.to(dtype)
 
 
-@pytest.mark.parametrize("m,k", [(1, 1152), (17, 4304), (32, 2048), (256, 16384), (8232, 16384), (3, 40), (5, 4302)])
+@pytest.mark.parametrize("m,k", [(1, 1152), (17, 4304), (32, 2048), (256, 16384), (8232, 16384), (3, 40), (5, 4302),
+                                 (23808, 1176), (17, 3420), (5952, 3420)])  # Qwen: bf16 rows on 16 bytes, and not
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_q1a_quantize_rows_equals_plain(dev, m, k, dtype):
     x = _activations(dev, m, k, dtype, seed=m + k)
     q, s = qd.quantize_rows(x)
     want_q, want_s = qd.quantize_rows_plain(x)
-    assert q.dtype == torch.int8 and s.shape == (m, 1)
+    assert q.dtype == torch.int8 and s.shape == (m, 1) and (m == 1 or q.stride(0) == qd.row_stride(k))
     assert torch.equal(s, want_s) and torch.equal(q, want_q)
 
 
@@ -704,8 +706,151 @@ def test_q1_layers_launch_their_kernels_and_never_the_plain_versions(dev):
         stored = layer(x)
         assert (qd.QUANTIZE_ROWS.launches, qd.INT8_GEMM.launches) == (3, 2)
     assert dynamic.dtype == stored.dtype == torch.bfloat16 and torch.isfinite(stored.float()).all()
-    with pytest.raises(ValueError, match="K % 16"):
+    with pytest.raises(ValueError, match="start on 16 bytes"):  # K = 40 packed: rows 40 bytes apart
         qd.int8_gemm(torch.zeros((2, 40), dtype=torch.int8, device=dev), torch.ones((2, 1), device=dev),
                      torch.zeros((8, 40), dtype=torch.int8, device=dev), torch.ones(8, device=dev))
+    a, b = (qd.int8_rows((r, 40), dev, fill=torch.ones((r, 40), dtype=torch.int8, device=dev)) for r in (2, 8))
+    assert torch.equal(qd.int8_gemm(a, torch.ones((2, 1), device=dev), b, torch.ones(8, device=dev)),
+                       torch.full((2, 8), 40.0, dtype=torch.bfloat16, device=dev))  # the same K in 48-byte rows
     with pytest.raises(TypeError):
         qd.quantize_rows(torch.zeros((2, 64), dtype=torch.float16, device=dev))
+
+
+# -- the Qwen2-VL family -------------------------------------------------------------
+
+# (M, K, N): Qwen's patch embedding (K = 1,176), Qwen2.5-VL's vision gate/up (N = 3,420: bf16 rows of 6,840
+# bytes, stored from the registers) and down_proj (K = 3,420), at one token, a few, a query batch and 8 pages
+Q1_QWEN_CASES = [(m, k, n) for k, n in ((1176, 1280), (1280, 3420), (3420, 1280)) for m in (1, 17, 256)]
+Q1_QWEN_CASES += [(23808, 1176, 1280), (23808, 1280, 3420), (23808, 3420, 1280)]
+
+
+@pytest.mark.parametrize("m,k,n", Q1_QWEN_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_q1_at_qwen_widths_equals_plain(dev, m, k, n, out_dtype):
+    """K not a multiple of 16: the operands' rows padded to 16 bytes in
+    their buffers (``int8_rows``), bit-equal to the plain versions."""
+    g = _gen(dev, m + k + n)
+    x = _activations(dev, m, k, torch.bfloat16, seed=m)
+    a, a_scale = qd.quantize_rows(x)
+    want_a, want_s = qd.quantize_rows_plain(x)
+    assert torch.equal(a, want_a) and torch.equal(a_scale, want_s)
+    b = qd.int8_rows((n, k), dev, fill=torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8))
+    b_scale = torch.rand((n,), generator=g, device=dev) * 0.01 + 1e-4
+    bias = torch.randn((n,), generator=g, device=dev).to(out_dtype)
+    for bias_ in (None, bias):
+        got = qd.int8_gemm(a, a_scale, b, b_scale, bias_, out_dtype)
+        assert torch.equal(got, qd.int8_gemm_plain(a, a_scale, b, b_scale, bias_, out_dtype))
+
+
+def test_stored_qdense_at_qwen_widths_survives_moves(dev):
+    """A stored layer at K = 1,176 made on the CPU and moved to the card
+    keeps 16-byte rows and gives its plain result there."""
+    from colpali_tpu_torch.models.layers import QDense
+
+    layer = QDense(1176, 1280, device="cpu", dtype=torch.bfloat16)
+    qd.quantize_params(layer)
+    x = torch.randn((3, 7, 1176), generator=_gen(dev, 3), device=dev).to(torch.bfloat16)
+    want = qd.stored_int8_apply(x.cpu(), layer.weight, layer.weight_scale, torch.bfloat16, layer.bias)
+    layer.to(dev)
+    assert layer.weight.stride(0) == qd.row_stride(1176) and layer.weight_scale.dtype == torch.float32
+    assert torch.equal(layer(x).cpu(), want)
+    # the dynamic w8a8 mode at the same widths: the weight quantized on the call, into 16-byte rows
+    w = torch.randn((3420, 1176), generator=_gen(dev, 4), device=dev).to(torch.bfloat16) * 0.02
+    assert torch.equal(qd.int8_linear(x, w).cpu(), qd.int8_linear(x.cpu(), w.cpu()))
+
+
+def _window_segments(dev, b, grid=(20, 24), pad=0):
+    """Qwen2.5-VL's window ids (-1 on padding) of ``b`` pages of ``grid``
+    patches, the last ``pad`` patches of the last page cut off as padding:
+    windows of 4 x 4 merged units interleaved in merge order, so a 128-key
+    tile holds several windows and a window is absent from most tiles."""
+    from colpali_tpu_torch.processors.qwen2_5_vl import window_ids_from_positions
+    from colpali_tpu_torch.processors.qwen2_vl import vision_positions
+
+    thw = (1, *grid)
+    ids = window_ids_from_positions(*vision_positions(thw), thw, 2, 4)
+    seg = torch.from_numpy(np.tile(ids, (b, 1))).to(dev)
+    if pad:
+        seg[-1, -pad:] = -1
+    return seg.contiguous()
+
+
+@pytest.mark.parametrize("pad", [0, 100])
+def test_k6_with_window_segments_matches_plain(dev, pad):
+    b, h, d = 3, 16, 80
+    seg = _window_segments(dev, b, pad=pad)
+    s = seg.shape[1]
+    g = _gen(dev, 80 + pad)
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    for segments in (seg, torch.where(seg >= 0, 1, -1).to(torch.int32).contiguous()):  # windowed, then full blocks
+        got = flash_attention(q, k, v, segments, d**-0.5)
+        want = flash_attention_plain(q, k, v, segments, d**-0.5)
+        rows = segments >= 0
+        _assert_k6_close(got[rows], want[rows])
+
+
+@pytest.mark.parametrize("h,hkv", [(12, 2), (16, 2)])
+@pytest.mark.parametrize("s", [64, 760])
+def test_k6_causal_gqa_with_left_padding_matches_plain(dev, h, hkv, s):
+    """The decoder's attention: causal, D=128, rows left-padded by 0 to
+    7 x 17 tokens (segment 0) and a query bucket's right padding."""
+    b, d = 8, 128
+    g = _gen(dev, h + s)
+    q, k, v = (torch.randn((b, s, n, d), generator=g, device=dev).to(torch.bfloat16) for n in (h, hkv, hkv))
+    pos = torch.arange(s, device=dev)[None]
+    seg = ((pos >= 17 * torch.arange(b, device=dev)[:, None]) & (pos < s - 5)).to(torch.int32).contiguous()
+    rows = seg.bool()
+    got = flash_attention(q, k, v, seg, d**-0.5, True)[rows].float()
+    want = flash_attention_plain(q, k, v, seg, d**-0.5, True)[rows].float()
+    atol = K6_ATOL_RMS * want.pow(2).mean(dim=(1, 2), keepdim=True).sqrt()  # per query row, K11's causal rule
+    share = ((got - want).abs() / (atol + K6_RTOL * want.abs())).max().item()
+    assert share <= 1.0, f"K6 causal vs plain: {share:.2f} of the tolerance at the worst element"
+
+
+def test_colqwen2_5_stored_int8_on_card_matches_cpu_route(dev, tmp_path):
+    """``load_retriever(family="colqwen2_5", quantize=True)`` on a
+    checkpoint written by the port (1,176-wide patch embedding, 3,420-wide
+    vision MLP, D=80 vision and D=128 text heads), on the card against the
+    same checkpoint on the CPU route, per token: K6 and Q1a/Q1b launched,
+    their plain versions never run on the card."""
+    from unittest import mock
+
+    from colpali_tpu_torch.auto import load_retriever
+    from colpali_tpu_torch.evaluation.evaluator import embed_dataset
+    from colpali_tpu_torch.models.common import hf_init_
+    from colpali_tpu_torch.models.qwen2_5_vl import ColQwen2_5, Qwen25VLConfig, Qwen25VLVisionConfig
+    from colpali_tpu_torch.models.qwen2_vl import Qwen2TextConfig
+    from colpali_tpu_torch.retrieval.serving import QueryEncoder
+    from colpali_tpu_torch.utils.testing import qwen_word_tokenizer, write_qwen_checkpoint
+
+    cfg = Qwen25VLConfig(vision=Qwen25VLVisionConfig(depth=2, hidden_size=640, num_heads=8, intermediate_size=3420,
+                                                     out_hidden_size=512, fullatt_block_indexes=(1,)),
+                         text=Qwen2TextConfig(vocab_size=151936, hidden_size=512, intermediate_size=1024,
+                                              num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                                              head_dim=128))
+    model = ColQwen2_5(cfg, device="cpu", dtype=torch.bfloat16)
+    hf_init_(model, torch.Generator().manual_seed(0))
+    words = "find the page with revenue figures user Describe image.".split()
+    write_qwen_checkpoint(str(tmp_path), model, qwen_word_tokenizer(words))
+    pages = [np.random.default_rng(i).integers(0, 256, size=(420, 300, 3), dtype=np.uint8) for i in range(3)]
+    queries = ["find the page", "revenue figures"]
+    out = {}
+    refuse = mock.Mock(side_effect=AssertionError("a plain version ran on a CUDA tensor"))
+    for where in ("cpu", dev):
+        m, proc = load_retriever(str(tmp_path), family="colqwen2_5", device=where, quantize=True)
+        counts = (FLASH_ATTENTION.launches, qd.QUANTIZE_ROWS.launches, qd.INT8_GEMM.launches)
+        patches = [] if where == "cpu" else [mock.patch.object(qd, "quantize_rows_plain", refuse),
+                                             mock.patch.object(qd, "int8_gemm_plain", refuse)]
+        for p in patches:
+            p.start()
+        try:
+            out[str(where)] = (embed_dataset(m, proc, pages, batch_size=2) + QueryEncoder(m, proc).encode(queries))
+        finally:
+            for p in patches:
+                p.stop()
+        grew = [after - before for after, before in zip((FLASH_ATTENTION.launches, qd.QUANTIZE_ROWS.launches,
+                                                         qd.INT8_GEMM.launches), counts)]
+        assert all(grew) if where != "cpu" else not any(grew)
+    a, b = np.concatenate(out[str(dev)]), np.concatenate(out["cpu"])
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+    assert np.isfinite(a).all() and cos.mean() >= 0.998 and cos.min() >= 0.99, (cos.mean(), cos.min())

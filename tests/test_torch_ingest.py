@@ -27,7 +27,7 @@ from colpali_tpu.models.paligemma import ColPali as JaxColPali  # noqa: E402
 from colpali_tpu.processors import image_processing as jip  # noqa: E402
 from colpali_tpu.processors.colpali import ColPaliProcessor as JaxProcessor  # noqa: E402
 from colpali_tpu.retrieval.ingest import embed_pages_fused as jax_embed_pages_fused  # noqa: E402
-from colpali_tpu_torch.core.from_jax import colpali_state_dict_from_jax  # noqa: E402
+from colpali_tpu_torch.core.from_jax import state_dict_from_jax  # noqa: E402
 from colpali_tpu_torch.models.paligemma import ColPali  # noqa: E402
 from colpali_tpu_torch.processors import image_processing as tip  # noqa: E402
 from colpali_tpu_torch.processors.colpali import ColPaliProcessor  # noqa: E402
@@ -93,7 +93,7 @@ def stacks():
     ids = jnp.full((1, n_img + 4), IMAGE_TOKEN, jnp.int32)
     variables = jax.jit(jax_model.init)(jax.random.PRNGKey(0), ids, jnp.ones_like(ids), jnp.zeros((1, SIZE, SIZE, 3)))
     model = ColPali(port_config(jax_cfg), dim=jax_model.dim, device="cpu")
-    model.load_state_dict(colpali_state_dict_from_jax(jax.tree.map(np.asarray, variables)), strict=True)
+    model.load_state_dict(state_dict_from_jax(jax.tree.map(np.asarray, variables)), strict=True)
     kw = dict(image_size=SIZE, image_seq_length=n_img)
     tokenizer = WordTokenizer(IMAGE_TOKEN)
     return (jax_model, variables, JaxProcessor(tokenizer, **kw), model.eval(),

@@ -16,7 +16,7 @@ import torch
 from colpali_tpu.models.paligemma import ColPali as JaxColPali
 from colpali_tpu.training import lora as jlora
 from colpali_tpu.utils.testing import tiny_colpali_config as jax_tiny_config
-from colpali_tpu_torch.core.from_jax import colpali_state_dict_from_jax, lora_from_jax
+from colpali_tpu_torch.core.from_jax import state_dict_from_jax, lora_from_jax
 from colpali_tpu_torch.models.paligemma import ColPali
 from colpali_tpu_torch.training.lora import DEFAULT_TARGET_PATTERN, LoraAdapters, LoraSpec, jax_kernel_path
 from colpali_tpu_torch.utils.testing import tiny_colpali_config
@@ -44,7 +44,7 @@ def setup():
         return np.asarray(apply({"params": tree}, jnp.asarray(ids), jnp.asarray(mask), jnp.asarray(pixels)))
 
     model = ColPali(tiny_colpali_config(), dim=DIM, device="cpu")
-    model.load_state_dict(colpali_state_dict_from_jax(params), strict=True)
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
     adapters = LoraAdapters(model, SPEC)
     adapters.load_tree(lora_from_jax(lora))
 
@@ -120,7 +120,7 @@ def test_masks_survive_the_recompute_of_a_checkpointed_layer(setup):
     grads = []
     for remat in (False, True):
         model = ColPali(tiny_colpali_config(), dim=DIM, device="cpu", remat=remat)
-        model.load_state_dict(colpali_state_dict_from_jax(params), strict=True)
+        model.load_state_dict(state_dict_from_jax(params), strict=True)
         adapters = LoraAdapters(model, SPEC)
         adapters.load_tree(lora_from_jax(lora))
         adapters.draw_masks(seed=1, step=0)
@@ -134,7 +134,7 @@ def test_masks_survive_the_recompute_of_a_checkpointed_layer(setup):
 def test_merged_export_equals_merge_lora(setup):
     params, lora, _, model, adapters, port_forward = setup
     adapters.clear_masks()
-    want = colpali_state_dict_from_jax(
+    want = state_dict_from_jax(
         jax.tree.map(np.asarray, jlora.merge_lora(params, lora, alpha=SPEC.alpha, rank=SPEC.rank)))
     got = adapters.merged_state_dict(model)
     assert got.keys() == want.keys() == model.state_dict().keys()

@@ -38,7 +38,7 @@ from colpali_tpu.models.layers import QDense as JaxQDense  # noqa: E402
 from colpali_tpu.models.layers import quantized_acts as jax_quantized_acts  # noqa: E402
 from colpali_tpu.ops import quant_dense as jqd  # noqa: E402
 from colpali_tpu_torch.auto import load_retriever  # noqa: E402
-from colpali_tpu_torch.core.from_jax import colpali_state_dict_from_jax  # noqa: E402
+from colpali_tpu_torch.core.from_jax import state_dict_from_jax  # noqa: E402
 from colpali_tpu_torch.core.hf_export import export_colpali_state_dict  # noqa: E402
 from colpali_tpu_torch.models import layers as tl  # noqa: E402
 from colpali_tpu_torch.models.common import hf_init_  # noqa: E402
@@ -260,7 +260,7 @@ def _port_model(tiny, params) -> ColPali:
     model = ColPali(port_config(jax_cfg), dim=jax_model.dim, device="cpu",
                     dtype=torch.bfloat16 if np.asarray(params["head"]["custom_text_proj"]["kernel"]).dtype.name ==
                     "bfloat16" else torch.float32)
-    model.load_state_dict(colpali_state_dict_from_jax(params))
+    model.load_state_dict(state_dict_from_jax(params))
     return model.eval()
 
 
@@ -275,7 +275,7 @@ def test_quantize_params_gives_jax_bytes(tiny, which, dtype):
     params = tiny[2] if dtype == "float32" else jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)),
                                                               tiny[2])
     qp, qc = jqd.quantize_params(params, min_dim=min_dim, path_filter=path_filter)
-    want = colpali_state_dict_from_jax(jax.tree.map(np.asarray, qp), jax.tree.map(np.asarray, qc))
+    want = state_dict_from_jax(jax.tree.map(np.asarray, qp), jax.tree.map(np.asarray, qc))
     model = _port_model(tiny, params)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     paths = qd.quantize_params(model, min_dim=min_dim, path_filter=path_filter)
@@ -300,7 +300,7 @@ def test_quantize_params_gives_jax_bytes(tiny, which, dtype):
 
     back = jqd.dequantize_params(qp, qc, dtype=jnp.float32)
     qd.dequantize_params(model, dtype=torch.float32)
-    for key, value in colpali_state_dict_from_jax(jax.tree.map(np.asarray, back)).items():
+    for key, value in state_dict_from_jax(jax.tree.map(np.asarray, back)).items():
         assert torch.equal(model.state_dict()[key], value), key
 
 
@@ -310,7 +310,7 @@ def test_carried_quantized_tree_forward_matches_jax(tiny):
     jax_model, jax_cfg, params, (ids, mask, pixels) = tiny
     qp, qc = jqd.quantize_params(params, min_dim=16)
     model = ColPali(port_config(jax_cfg), dim=jax_model.dim, device="cpu").eval()
-    model.load_state_dict(colpali_state_dict_from_jax({"params": jax.tree.map(np.asarray, qp),
+    model.load_state_dict(state_dict_from_jax({"params": jax.tree.map(np.asarray, qp),
                                                        "quant": jax.tree.map(np.asarray, qc)}))
     assert model.model.language_model.layers[1].mlp.down_proj.stored
     variables = {"params": qp, "quant": qc}
@@ -421,7 +421,7 @@ def test_load_retriever_quantize_matches_jax(tmp_path):
                                                         param_dtype=jnp.float32, quantize=True)
     model, proc = load_retriever(str(ckpt), dtype=torch.float32, device="cpu", quantize=True)
     state = model.state_dict()
-    want = colpali_state_dict_from_jax(jax.tree.map(np.asarray, variables))
+    want = state_dict_from_jax(jax.tree.map(np.asarray, variables))
     assert set(state) == set(want) and sum(k.endswith("weight_scale") for k in state) == 12
     for key, value in want.items():
         assert torch.equal(state[key], value), key

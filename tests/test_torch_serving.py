@@ -36,7 +36,7 @@ from colpali_tpu.processors.colpali import ColPaliProcessor as JaxProcessor  # n
 from colpali_tpu.retrieval.serving import QueryEncoder as JaxQueryEncoder  # noqa: E402
 from colpali_tpu.retrieval.store import CorpusIndex as JaxIndex  # noqa: E402
 from colpali_tpu_torch import serve  # noqa: E402
-from colpali_tpu_torch.core.from_jax import colpali_state_dict_from_jax  # noqa: E402
+from colpali_tpu_torch.core.from_jax import state_dict_from_jax  # noqa: E402
 from colpali_tpu_torch.models.configs import GemmaConfig, PaliGemmaConfig, SiglipVisionConfig  # noqa: E402
 from colpali_tpu_torch.models.paligemma import ColPali  # noqa: E402
 from colpali_tpu_torch.processors.colpali import ColPaliProcessor  # noqa: E402
@@ -88,7 +88,7 @@ def stacks(tmp_path_factory):
     variables = jax.jit(jax_model.init)(jax.random.PRNGKey(0), ids, ids, jnp.zeros((1, 28, 28, 3)))
     jax_encoder = JaxQueryEncoder(jax_model, variables, JaxProcessor(tokenizer))
 
-    state = colpali_state_dict_from_jax(jax.tree.map(np.asarray, variables))
+    state = state_dict_from_jax(jax.tree.map(np.asarray, variables))
     model = ColPali(PaliGemmaConfig(vision=SiglipVisionConfig(**VISION), text=GemmaConfig(**TEXT), projection_dim=64,
                                     image_token_index=IMAGE_TOKEN), dim=32, device="cpu")
     model.load_state_dict(state)

@@ -16,7 +16,7 @@ import torch
 from colpali_tpu.models import layers as jl
 from colpali_tpu.models.configs import SiglipVisionConfig as JaxSiglipConfig
 from colpali_tpu.models.siglip import SiglipVisionTower as JaxTower
-from colpali_tpu_torch.core.from_jax import colpali_state_dict_from_jax
+from colpali_tpu_torch.core.from_jax import state_dict_from_jax
 from colpali_tpu_torch.models import layers as tl
 from colpali_tpu_torch.models.configs import SiglipVisionConfig
 from colpali_tpu_torch.models.siglip import SiglipVisionTower
@@ -37,7 +37,7 @@ def test_tower_matches_jax():
     params = _randomize(jax.jit(jax_tower.init)(jax.random.PRNGKey(0), jnp.asarray(pixels))["params"], 1)
     want = np.asarray(jax.jit(jax_tower.apply)({"params": params}, jnp.asarray(pixels)))
 
-    state = colpali_state_dict_from_jax({"model": {"vision_tower": jax.tree.map(np.asarray, params)}})
+    state = state_dict_from_jax({"model": {"vision_tower": jax.tree.map(np.asarray, params)}})
     tower = SiglipVisionTower(SiglipVisionConfig(**TINY), device="cpu")
     tower.load_state_dict({k.removeprefix("model.vision_tower."): v for k, v in state.items()}, strict=True)
     with torch.no_grad():

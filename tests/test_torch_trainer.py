@@ -22,7 +22,7 @@ from colpali_tpu.training import lora as jlora
 from colpali_tpu.training import trainer as jtrainer
 from colpali_tpu.utils.testing import tiny_colpali_config as jax_tiny_config
 from colpali_tpu_torch import losses as tlosses
-from colpali_tpu_torch.core.from_jax import colpali_state_dict_from_jax, lora_from_jax
+from colpali_tpu_torch.core.from_jax import state_dict_from_jax, lora_from_jax
 from colpali_tpu_torch.models.paligemma import ColPali
 from colpali_tpu_torch.training import trainer as ttrainer
 from colpali_tpu_torch.training.lora import LoraAdapters, LoraSpec
@@ -63,7 +63,7 @@ def pair():
 
 def port_model(params, remat=False):
     model = ColPali(tiny_colpali_config(), dim=DIM, device="cpu", remat=remat)
-    model.load_state_dict(colpali_state_dict_from_jax(params), strict=True)
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
     return model
 
 
