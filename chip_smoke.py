@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's serving, page-embedding and training paths once on one GPU.
 
 The serving path runs for ColPali-3B (phases 3, 4 and 7) and for the
-Qwen2-VL family, ColQwen2.5-3B and ColQwen2-2B (phase 8).
+Qwen2-VL family, ColQwen2.5-3B and ColQwen2-2B (phase 8); training for
+ColPali-3B (phase 5) and the Qwen2-VL family (phase 9).
 
 Run from the repository root with no arguments:
 
@@ -108,7 +109,28 @@ Phases (a few lines of output each, then two JSON lines):
    route against the plain route and stored int8 against bf16 per token;
    one forward of 8 pages (CUDA events) and encode x1/x8 in turns, a
    profile of each; then ColQwen2-2B at full width through
-   ``load_retriever(family="colqwen2")`` and its route check.
+   ``load_retriever(family="colqwen2")`` and its route check;
+9. Qwen training (after phase 8, on its ColQwen2.5-3B checkpoint): K6's
+   backward at D=128 (the decoders over the pages' prompts, causal GQA
+   16/2 and 12/2 with left padding, and over the collated queries) and at
+   D=80 (the vision tower, full and windowed) against its plain version
+   per query row, bit-equal on a second call, timed beside SDPA's backward
+   and its bound; ColQwen2.5-3B read by ``load_retriever(remat=True)``
+   taking 4 LoRA steps through ``ColModelTraining`` (``ColbertLoss(
+   temperature=0.02)``, rank 32, alpha 32, dropout 0.1, batch 8 over 32
+   pages) with every adapter moving and the base bit-equal, 72 backward
+   launches a step all at D=128, one step's loss and adapter gradient
+   against the plain route, ``evaluate()`` over 16 held-out pages (bf16
+   index, K5), the merged export read back by ``load_retriever(family=
+   "colqwen2_5")`` (embeddings bit-equal to the merged weights in memory)
+   and served through ``/search_text``, a run resumed from step 2
+   repeating step 3's loss, a step timed with and without remat; the same
+   model over a stored-int8 frozen vision tower (``quantize_frozen_base``:
+   2 steps, 227 Q1b launches a step, no gradient through it, the export
+   holding ``q * scale``, a step timed); ColQwen2-2B's 2 LoRA steps and its
+   route check; one full fine-tuning step of ColQwen2.5 at full width cut
+   to 4 vision blocks and 2 text layers (batch 4), through the D=80
+   backward, its gradient against the plain route.
 
 Every K6 and K11 case prints, beside its time by CUDA events, TFLOP/s,
 the share of its bound, and SDPA with a boolean mask and, where the
@@ -117,7 +139,7 @@ also the kernel's device time from ``torch.profiler`` (at small shapes
 back-to-back launches measure the host). The backward is read by events
 only: its dq kernel may run on a side stream beside dkv.
 
-Each check of phase 8 also prints its reading as a share of its limit.
+Each check of phases 8 and 9 also prints its reading as a share of its limit.
 It exits non-zero, printing no result, when no CUDA device is visible or
 any check fails. The line before the last lists each kernel with its
 launches on its slice's path; the last line is ``{"ok": true, "device": {...}}``.
@@ -125,8 +147,11 @@ launches on its slice's path; the last line is ``{"ok": true, "device": {...}}``
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import re
+import tempfile
 import subprocess
 import sys
 import time
@@ -238,6 +263,14 @@ RATES: dict = {}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def free_memory(phase: str) -> None:
+    """Collect what an earlier phase left in reference cycles (servers and
+    handlers holding models and indexes) before the next phase allocates."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{phase}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB held on the card as it starts")
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -1522,11 +1555,27 @@ def k6_bwd_case(gen: torch.Generator, device: torch.device, b: int, s: int, h: i
         if alone and name == "dq" and got[0][0, 3].float().abs().max().item() > atol:
             raise AssertionError("K6 backward: a token alone in its segment must get dq = 0")
     del want, plain, rounded
+    r = k6_bwd_timing(q, k, v, seg, d_out, fwd_out, lse, scale, False, plain_out)
+    return dict(r, max_abs_err=max(errs.values()), limit_share=max(shares.values()), shares=shares,
+                plain_shares=plain_shares, rounded_shares=rounded_shares,
+                shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}" + (" key padding" if lengths is not None else "")
+                      + (" + a token alone in its segment" if alone else ""))
 
+
+def k6_bwd_timing(q, k, v, seg, d_out, fwd_out, lse, scale: float, causal: bool, plain_out) -> dict:
+    """K6's backward kernels timed by CUDA events beside the plain version's
+    backward (autograd through ``plain_out``), SDPA's backward with the
+    equivalent boolean mask (and without one where the segments are all
+    one) and the bound: the larger of the bytes and 2.5x the forward's
+    products over the pairs this data attends."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
     with torch.no_grad():
-        ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, seg, fwd_out, lse, d_out, scale))
+        ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, seg, fwd_out, lse, d_out, scale, causal))
     plain_ms = time_ms(lambda: torch.autograd.grad(plain_out, (q, k, v), d_out, retain_graph=True), reps=2)
     allowed = seg[:, :, None] == seg[:, None, :]
+    if causal:
+        allowed &= torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
     d_out_t = d_out.transpose(1, 2)
 
@@ -1536,13 +1585,9 @@ def k6_bwd_case(gen: torch.Generator, device: torch.device, b: int, s: int, h: i
 
     pairs = allowed.sum().item()
     nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * seg.numel() + 4 * b * h * s  # q, o, dO, dq; k, v, dk, dv
-    r = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_backward(allowed[:, None]), max_abs_err=max(errs.values()),
-             limit_share=max(shares.values()), shares=shares, plain_shares=plain_shares,
-             rounded_shares=rounded_shares,
-             **bound(nbytes, 2.5 * 4 * pairs * h * d, "bf16"),
-             shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}" + (" key padding" if lengths is not None else "")
-                   + (" + a token alone in its segment" if alone else ""))
-    if bool(seg.eq(1).all()):  # one segment: SDPA's backward without a mask computes the same function
+    r = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_backward(allowed[:, None]),
+             **bound(nbytes, 2.5 * 4 * pairs * h * d, "bf16"))
+    if not causal and bool((seg == seg[0, 0]).all()):  # one segment: SDPA without a mask computes the same function
         r["library_unmasked_ms"] = sdpa_backward(None)
     return dict(r, **rates(3.5 * 4 * pairs * h * d, r))  # the kernels' seven products, 3.5x the forward's
 
@@ -1567,6 +1612,20 @@ def adapter_gradient(state, batch, loss_fn, peft, seed: int):
     flat = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).flatten().float() for p in state.params])
     state.optimizer.zero_grad(set_to_none=True)
     return loss.item(), flat, q.detach().float(), d.detach().float()
+
+
+def route_gap(state, batch, loss_fn, peft) -> tuple:
+    """:func:`adapter_gradient` (loss, flattened gradient of what ``state``
+    trains, embeddings) through the kernels and through the plain route (K6
+    and its backward replaced by K6's plain version), from the same state,
+    batch and masks, and their gaps."""
+    kernel = adapter_gradient(state, batch, loss_fn, peft, SEED)
+    with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
+        plain = adapter_gradient(state, batch, loss_fn, peft, SEED)
+    a, b = kernel[1].double(), plain[1].double()  # fp64: a cosine over 10^8-10^9 entries
+    return kernel, plain, dict(loss_relative=abs(kernel[0] - plain[0]) / abs(plain[0]),
+                               grad_cos=(a @ b / (a.norm() * b.norm())).item(),
+                               grad_norm_ratio=(a.norm() / b.norm()).item())
 
 
 def recipe_picks(q: torch.Tensor, d: torch.Tensor):
@@ -1605,6 +1664,7 @@ def timed_steps(state, batch, loss_fn, peft, seed: int, steps: int) -> dict:
 
     sums = dict(forward=0.0, backward=0.0, optimizer=0.0, wall=0.0)
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2**30  # what earlier phases and the model hold
     for i in range(steps + 1):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         torch.cuda.synchronize()
@@ -1624,6 +1684,7 @@ def timed_steps(state, batch, loss_fn, peft, seed: int, steps: int) -> dict:
                 sums[key] += e0.elapsed_time(e1)
     out = {k: v / steps for k, v in sums.items()}
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["allocated_before_gib"] = before
     return out
 
 
@@ -1801,15 +1862,7 @@ def phase_training(device: torch.device, model, processor, smi: str) -> tuple:
         batch = trainer.to_device(next(iter(app.batches(0))), device)
         from colpali_tpu_torch.losses import ColbertLoss
 
-        def both_routes(fn):
-            kernel = adapter_gradient(app.state, batch, fn, peft, SEED)
-            with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
-                plain = adapter_gradient(app.state, batch, fn, peft, SEED)
-            return kernel, plain, dict(loss_relative=abs(kernel[0] - plain[0]) / abs(plain[0]),
-                                       grad_cos=F.cosine_similarity(kernel[1], plain[1], dim=0).item(),
-                                       grad_norm_ratio=(kernel[1].norm() / plain[1].norm()).item())
-
-        kernel, plain, recipe = both_routes(loss_fn)
+        kernel, plain, recipe = route_gap(app.state, batch, loss_fn, peft)
         (neg_k, tok_k, valid), (neg_p, tok_p, _) = recipe_picks(*kernel[2:]), recipe_picks(*plain[2:])
         recipe.update(negatives_picked_differently=int((neg_k != neg_p).sum()), queries=len(neg_p),
                       tokens_picked_differently=int(((tok_k != tok_p) & valid[:, None]).sum()),
@@ -1827,7 +1880,7 @@ def phase_training(device: torch.device, model, processor, smi: str) -> tuple:
         for name, fn, limit in (("recipe loss with the plain route's picks", frozen_pairwise_loss(neg_p, tok_p),
                                  PLAIN_ROUTE_FROZEN_GRAD_COS),
                                 ("smooth probe", ColbertLoss(use_smooth_max=True), PLAIN_ROUTE_SMOOTH_GRAD_COS)):
-            kernel, plain, r = both_routes(fn)
+            kernel, plain, r = route_gap(app.state, batch, fn, peft)
             route[name] = r
             log(f"  kernel route vs plain route, {name}: loss {kernel[0]:.6f} vs {plain[0]:.6f} (relative "
                 f"{r['loss_relative']:.2e}, limit {PLAIN_ROUTE_LOSS_RTOL}), adapter gradient cosine {r['grad_cos']:.6f} "
@@ -2501,9 +2554,9 @@ def build_qwen(cls, config, device: torch.device, directory: str, seed: int) -> 
     return n
 
 
-def phase_qwen(device: torch.device, smi: str) -> tuple:
+def phase_qwen(device: torch.device, smi: str, ckpt: str) -> tuple:
     """Drive the Qwen2-VL family's serving path: ColQwen2.5-3B written as an
-    HF checkpoint and read back by ``load_retriever`` in bf16 and stored int8,
+    HF checkpoint in ``ckpt`` (kept for phase 9) and read back by ``load_retriever`` in bf16 and stored int8,
     pages through ``embed_dataset``, ``/search_text`` through ``make_handler``
     and ``serve.py --checkpoint --family colqwen2_5``; then ColQwen2-2B's route
     check. Returns the launches over the path, the new kernel rows and the
@@ -2531,7 +2584,7 @@ def phase_qwen(device: torch.device, smi: str) -> tuple:
         raise AssertionError(f"a {PAGE_HW[1]} x {PAGE_HW[0]} page: {n_merged} merged tokens, "
                              f"{shape_batch['patch_mask'].shape[1]} patches; expected {QWEN_PAGE_TOKENS}")
     extra = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(ckpt) as tmp:
         t0 = time.perf_counter()
         n_params = build_qwen(ColQwen2_5, cfg25, device, tmp, SEED + 32)
         t_write = time.perf_counter() - t0
@@ -2727,6 +2780,479 @@ def phase_qwen(device: torch.device, smi: str) -> tuple:
     return launches, timings, extra
 
 
+# -- phase 9: Qwen training (run after phase 8) --------------------------------------------
+
+QWEN_TRAIN_PAGES = 32
+QWEN_EVAL_PAGES = 16
+QWEN_TRAIN_STEPS = 4
+QWEN_RESUME_AT = 2
+QWEN_QUANT_STEPS = 2
+QWEN_LR = 5e-5  # phase 5's: the recipe's 2e-4 without its 100 warm-up steps overshoots on random weights
+# full fine-tuning at full width, cut in depth: 4 vision blocks (the last one full attention) and 2 text layers
+FULL_FT_VISION_DEPTH, FULL_FT_TEXT_LAYERS = 4, 2
+# kernel route vs plain route, one step from the same state, batch and dropout masks (phase 5's rule): the
+# recipe loss by value (its max over page tokens makes the routes' gradients flow through other tokens where
+# their picks differ), the adapter gradient by cosine on the smooth probe (no max anywhere); the full
+# fine-tuning gradient over every parameter likewise. The first run on the H100 read loss gaps of 2.5e-3 to
+# 3.6e-3 relative and smooth-probe cosines of 0.99915 (ColQwen2.5-3B, 36 layers) and 0.99705 (ColQwen2-2B,
+# 28 layers), where ColPali's 18 layers read 0.9999: bf16 roundings of two routes through random weights. The
+# gradient limit is at about 3x the larger gap (the limit written before any run, 0.999, was a guess)
+QWEN_ROUTE_LOSS_RTOL, QWEN_ROUTE_GRAD_COS = 1e-2, 0.99
+
+
+def launch_counts() -> dict:
+    """The launches since :func:`reset_launches` that phase 9 reads."""
+    return dict(flash_attention=fa.FLASH_ATTENTION.launches, flash_attention_bwd=fa.FLASH_ATTENTION_BWD.launches,
+                bwd_by_head_dim=dict(fa.BACKWARD_LAUNCHES_BY_HEAD_DIM), maxsim_bf16=MAXSIM_BF16.launches,
+                quantize_rows=qd.QUANTIZE_ROWS.launches, int8_gemm=qd.INT8_GEMM.launches)
+
+
+def k6_bwd_row_case(gen: torch.Generator, device: torch.device, b: int, s: int, h: int, hkv: int, d: int,
+                    seg: torch.Tensor, rows: torch.Tensor, causal: bool, label: str) -> dict:
+    """K6's backward at one of the Qwen family's shapes against
+    ``flash_attention_backward_plain`` (the kernels' roundings in plain
+    PyTorch, from the forward kernel's output and log-sum-exp) by the
+    forward's rule with the RMS per query row (key row for dk and dv), two
+    batch rows at a time; a query row whose only key is itself has dq = 0
+    up to the rounding of rowsum(dO * o) and is held at 1e-4 absolutely.
+    A second call must give the same bits; then :func:`k6_bwd_timing`.
+    ``rows``: the tokens that are not padding."""
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=device).to(torch.bfloat16).requires_grad_()
+               for n in (h, hkv, hkv))
+    d_out = torch.randn((b, s, h, d), generator=gen, device=device).to(torch.bfloat16) * rows[:, :, None, None]
+    scale = d**-0.5
+    before = fa.FLASH_ATTENTION_BWD.launches
+    got = torch.autograd.grad(fa.flash_attention(q, k, v, seg, scale, causal), (q, k, v), d_out)
+    again = torch.autograd.grad(fa.flash_attention(q, k, v, seg, scale, causal), (q, k, v), d_out)
+    if fa.FLASH_ATTENTION_BWD.launches != before + 2:
+        raise AssertionError(f"K6 backward{label}: autograd did not reach the backward kernels")
+    for name, a, a2 in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(a, a2) or not torch.isfinite(a).all():
+            raise AssertionError(f"K6 backward{label}: {name} not finite or not bit-equal on a second call")
+    allowed = seg[:, :, None] == seg[:, None, :]
+    if causal:
+        allowed &= torch.ones((s, s), dtype=torch.bool, device=device).tril()
+    alone = rows & (allowed.sum(-1) == 1)
+    with torch.no_grad():
+        fwd_out, lse = fa._forward_cuda(q, k, v, seg, scale, causal, True)
+        shares, errs, alone_max = dict(dq=0.0, dk=0.0, dv=0.0), dict(dq=0.0, dk=0.0, dv=0.0), 0.0
+        for i in range(0, b, 2):
+            sl = slice(i, i + 2)
+            want = fa.flash_attention_backward_plain(q[sl], k[sl], v[sl], seg[sl], d_out[sl], scale, causal,
+                                                     out=fwd_out[sl], lse=lse[sl])
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                keep = rows[sl] & ~alone[sl] if name == "dq" else rows[sl]
+                g, w = g[sl][keep].float(), w[keep].float()
+                atol = K6_ATOL_RMS * w.pow(2).mean(dim=(1, 2), keepdim=True).sqrt()
+                shares[name] = max(shares[name], ((g - w).abs() / (atol + K6_RTOL * w.abs())).max().item())
+                errs[name] = max(errs[name], (g - w).abs().max().item())
+            if alone[sl].any():
+                alone_max = max(alone_max, got[0][sl][alone[sl]].float().abs().max().item())
+            del want
+    if max(shares.values()) > 1.0 or alone_max > 1e-4:
+        raise AssertionError(f"K6 backward{label} vs the same roundings in plain PyTorch: shares of the per-row "
+                             f"tolerance {shares}, dq of a row alone with itself {alone_max}")
+    r = k6_bwd_timing(q, k, v, seg, d_out, fwd_out, lse, scale, causal, fa.flash_attention_plain(q, k, v, seg, scale,
+                                                                                              causal))
+    return dict(r, max_abs_err=max(errs.values()), limit_share=max(shares.values()), shares=shares,
+                alone_dq_max=alone_max, shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}{label}")
+
+
+def qwen_bwd_cases(device: torch.device, batch: dict, cfg25, cfg2) -> dict:
+    """K6's backward where the Qwen family's training puts it: the decoders
+    over the pages' prompts (causal, rows left-padded by 0-56, GQA 16/2 and
+    12/2), the decoder over the collated queries (causal, their own
+    padding), and the vision tower over the pages (full blocks and windowed
+    blocks), which full fine-tuning backpropagates through."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    v, t25, t2 = cfg25.vision, cfg25.text, cfg2.text
+    b, s_text = batch["doc_input_ids"].shape
+    left = (torch.arange(s_text, device=device)[None] >= 8 * torch.arange(b, device=device)[:, None]).to(torch.int32)
+    q_seg = batch["query_attention_mask"].to(torch.int32).contiguous()
+    mask = batch["doc_patch_mask"]
+    window = batch["doc_window_id"].to(torch.int32).contiguous()
+    full = torch.where(mask.bool(), 1, -1).to(torch.int32).contiguous()
+    valid = mask.bool()
+    cases = {
+        "text_16_2": (b, s_text, t25.num_attention_heads, t25.num_key_value_heads, t25.head_dim, left, left.bool(),
+                      True, " causal, rows left-padded by 0-56 (Qwen2.5-3B)"),
+        "text_12_2": (b, s_text, t2.num_attention_heads, t2.num_key_value_heads, t2.head_dim, left, left.bool(), True,
+                      " causal, rows left-padded by 0-56 (Qwen2-2B)"),
+        "queries": (*q_seg.shape, t25.num_attention_heads, t25.num_key_value_heads, t25.head_dim, q_seg,
+                    q_seg.bool(), True, " causal, the collated queries"),
+        "vision_full": (*mask.shape, v.num_heads, v.num_heads, v.head_dim, full, valid, False,
+                        " (Qwen2.5 full blocks)"),
+        "vision_window": (*mask.shape, v.num_heads, v.num_heads, v.head_dim, window, valid, False,
+                          f" ({int(window.max()) + 1} windows a page)"),
+    }
+    out = {}
+    for name, (bb, ss, h, hkv, d, seg, rows, causal, label) in cases.items():
+        r = out[name] = k6_bwd_row_case(gen, device, bb, ss, h, hkv, d, seg, rows, causal, label)
+        log(f"phase qwen training: K6 backward {name} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, backward: {library_note(r)} (7 products), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g}, share of the per-row tolerance dq "
+            f"{r['shares']['dq']:.0%} dk {r['shares']['dk']:.0%} dv {r['shares']['dv']:.0%}; bit-equal on a second call")
+        torch.cuda.empty_cache()
+    return out
+
+
+def hold_routes(name: str, state, batch, recipe_loss, peft) -> dict:
+    """:func:`route_gap` on the recipe loss (its value held) and on the
+    smooth probe (its value and gradient cosine held)."""
+    from colpali_tpu_torch.losses import ColbertLoss
+
+    out = {}
+    for what, fn in (("recipe loss", recipe_loss), ("smooth probe", ColbertLoss(use_smooth_max=True))):
+        (k, *_), (p, *_), r = route_gap(state, batch, fn, peft)
+        out[what] = r
+        held = what == "smooth probe"
+        log(f"  {name}, kernel route vs plain route, {what}: loss {k:.6f} vs {p:.6f} (relative "
+            f"{r['loss_relative']:.2e}, limit {QWEN_ROUTE_LOSS_RTOL}, {share(r['loss_relative'], QWEN_ROUTE_LOSS_RTOL)}), "
+            f"gradient cosine {r['grad_cos']:.6f}" + (f" (limit {QWEN_ROUTE_GRAD_COS}, "
+                                                      f"{share(1 - r['grad_cos'], 1 - QWEN_ROUTE_GRAD_COS)})"
+                                                      if held else " (not held: it follows the picks)")
+            + f", norm ratio {r['grad_norm_ratio']:.4f}")
+        if r["loss_relative"] > QWEN_ROUTE_LOSS_RTOL or (held and r["grad_cos"] < QWEN_ROUTE_GRAD_COS):
+            raise AssertionError(f"{name}, kernel route vs plain route, {what}: {r}")
+    return out
+
+
+def qwen_readback(device: torch.device, export_dir: str, merged: dict, config) -> dict:
+    """The merged export read back by ``load_retriever(family="colqwen2_5")``:
+    its query and page embeddings equal those of a fresh model holding the
+    merged weights as they were in memory, bit for bit; its
+    ``QueryEncoder`` behind ``make_handler`` finds a page planted with a
+    query's tokens at rank 1."""
+    from http.server import ThreadingHTTPServer
+    import threading
+
+    from colpali_tpu_torch.auto import load_retriever
+    from colpali_tpu_torch.evaluation.evaluator import embed_dataset
+    from colpali_tpu_torch.models.qwen2_5_vl import ColQwen2_5
+    from colpali_tpu_torch.retrieval.serving import QueryEncoder
+    from colpali_tpu_torch.retrieval.store import CorpusIndex
+    from colpali_tpu_torch.serve import make_handler
+
+    t0 = time.perf_counter()
+    back, proc = load_retriever(export_dir, family="colqwen2_5", device=device)
+    in_memory = ColQwen2_5(config, dim=DIM, device=device, dtype=torch.bfloat16).eval()
+    in_memory.load_state_dict(merged)
+    del merged
+    t_load = time.perf_counter() - t0
+    pages = make_pages(4, SEED + 43)
+    emb = {}
+    with torch.no_grad():
+        for key, m in (("loaded", back), ("in_memory", in_memory)):
+            emb[key] = [m(**{k: torch.as_tensor(np.asarray(v)).to(device) for k, v in feed.items()
+                             if k != "image_grid_thw"})
+                        for feed in (proc.process_queries(QUERIES), proc.process_images(pages[:2]))]
+    for what, a, b in zip(("queries", "pages"), emb["loaded"], emb["in_memory"]):
+        if not torch.equal(a, b) or not torch.isfinite(a.float()).all():
+            raise AssertionError(f"Qwen export read back: {what} embeddings differ from the in-memory model's by up to "
+                                 f"{(a.float() - b.float()).abs().max().item()}")
+    del in_memory
+    encoder = QueryEncoder(back, proc)
+    docs = embed_dataset(back, proc, pages, batch_size=len(pages))
+    planted = 2
+    docs[planted] = np.concatenate([docs[planted], encoder.encode(QUERIES[:1])[0]])
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(CorpusIndex(docs, device=device),
+                                                               [f"page_{i}" for i in range(len(docs))],
+                                                               encoder=encoder))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        out = _http(f"http://127.0.0.1:{httpd.server_address[1]}", "/search_text", {"queries": QUERIES[:1], "k": 4})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    _check_ranked("/search_text (the Qwen export read back)", out, 1)
+    if out["doc_ids"][0][0] != planted:
+        raise AssertionError(f"/search_text over the read-back Qwen export: top-4 {out['doc_ids'][0]}, planted {planted}")
+    r = dict(seconds=time.perf_counter() - t0, load_seconds=t_load, query_shape=list(emb["loaded"][0].shape),
+             page_shape=list(emb["loaded"][1].shape))
+    log(f"  export read back by load_retriever(family=\"colqwen2_5\") into a fresh ColQwen2.5-3B: query "
+        f"{tuple(emb['loaded'][0].shape)} and page {tuple(emb['loaded'][1].shape)} embeddings bit-equal to a model "
+        f"holding the merged weights in memory; its QueryEncoder behind make_handler found the planted page at rank 1 "
+        f"through /search_text ({r['seconds']:.1f} s)")
+    del back, encoder, emb
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_qwen_training(device: torch.device, smi: str, ckpt: str) -> tuple:
+    """Drive the Qwen2-VL family's training path: K6's backward at the
+    family's shapes (a), ColQwen2.5-3B through ``ColModelTraining`` with the
+    recipe's loss and LoRA, eval, the merged export read back and served,
+    resume (b), the same over a stored-int8 frozen vision tower (c),
+    ColQwen2-2B's LoRA steps (d) and a full fine-tuning step at cut depth
+    through the D=80 backward (e). ``ckpt`` is phase 8's ColQwen2.5-3B
+    checkpoint. Returns the launches over the path, K6's backward timings
+    and the rest."""
+    import dataclasses
+    import os
+    import shutil
+
+    from colpali_tpu_torch.auto import load_retriever
+    from colpali_tpu_torch.core.hf_loader import load_colqwen25_params
+    from colpali_tpu_torch.data.collator import VisualRetrieverCollator
+    from colpali_tpu_torch.losses import ColbertLoss
+    from colpali_tpu_torch.models.common import hf_init_
+    from colpali_tpu_torch.models.layers import QDense
+    from colpali_tpu_torch.models.qwen2_5_vl import ColQwen2_5
+    from colpali_tpu_torch.models.qwen2_vl import ColQwen2
+    from colpali_tpu_torch.processors.qwen2_vl import ColQwen2Processor
+    from colpali_tpu_torch.training import trainer
+    from colpali_tpu_torch.training.lora import LoraAdapters, LoraSpec
+    from colpali_tpu_torch.training.orchestrator import ColModelTraining, ColModelTrainingConfig
+
+    cfg25, cfg2 = qwen_configs()
+    t25, v25 = cfg25.text, cfg25.vision
+    peft = LoraSpec(rank=32, alpha=32, dropout=0.1)
+    loss_fn = ColbertLoss(temperature=0.02)
+    train_config = trainer.TrainConfig(learning_rate=QWEN_LR, warmup_steps=0, total_steps=2500)
+    t0 = time.perf_counter()
+    model, processor = load_retriever(ckpt, family="colqwen2_5", device=device, remat=True)
+    torch.cuda.synchronize()
+    log(f"phase qwen training: ColQwen2.5-3B read by load_retriever(remat=True) in {time.perf_counter() - t0:.1f} s")
+    train_set = page_dataset(QWEN_TRAIN_PAGES, SEED + 41)
+    eval_set = page_dataset(QWEN_EVAL_PAGES, SEED + 42, first=QWEN_TRAIN_PAGES)
+    batch = trainer.to_device(VisualRetrieverCollator(processor)([train_set[i] for i in range(TRAIN_BATCH)]), device)
+    k6_bwd = qwen_bwd_cases(device, batch, cfg25, cfg2)
+    extra = {}
+
+    sampled = ["model.language_model.layers.0.self_attn.q_proj.weight",
+               f"model.language_model.layers.{t25.num_hidden_layers - 1}.mlp.down_proj.weight",
+               f"model.visual.blocks.{v25.depth // 2}.mlp.up_proj.weight", "head.custom_text_proj.weight"]
+    base_before = {k: model.state_dict()[k].clone() for k in sampled}
+    with tempfile.TemporaryDirectory() as tmp:
+        def make_app(out, **kw):
+            return ColModelTraining(ColModelTrainingConfig(
+                model=model, loss_func=loss_fn, train_datasets=[train_set], processor=processor,
+                eval_dataset=eval_set, eval_batch_size=TRAIN_BATCH, output_dir=out, global_batch_size=TRAIN_BATCH,
+                log_steps=1, save_steps=QWEN_RESUME_AT, save_total_limit=QWEN_TRAIN_STEPS, peft=peft,
+                train=train_config, seed=SEED, device=device, **kw))
+
+        # -- (b) the recipe loop: 4 steps, eval, save, read back, serve, resume ------------
+        app = make_app(f"{tmp}/run", max_steps=QWEN_TRAIN_STEPS)
+        n_adapters, n_trainable = len(app.state.adapters.paths), sum(p.numel() for p in app.state.params)
+        seen, moved_after_one = [], []
+
+        def on_step(step, metrics):
+            seen.append((step, float(metrics["loss"]), float(metrics["grad_norm"])))
+            if step == 1:
+                moved_after_one.extend(bool(b.detach().abs().max() > 0) for b in app.state.adapters.b)
+
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        summary = app.train(on_step=on_step)
+        torch.cuda.synchronize()
+        train_launches = launch_counts()
+        peak_train = torch.cuda.max_memory_allocated() / 2**30
+        by_dim = train_launches["bwd_by_head_dim"]
+        passes = QWEN_TRAIN_STEPS * 2  # a query and a page forward a step need a gradient
+        if [s for s, _, _ in seen] != list(range(1, QWEN_TRAIN_STEPS + 1)) or \
+                not all(np.isfinite(l) and l > 0 and np.isfinite(g) and g > 0 for _, l, g in seen):
+            raise AssertionError(f"ColQwen2.5-3B steps: {seen}")
+        if len(moved_after_one) != n_adapters or not all(moved_after_one):
+            raise AssertionError(f"{moved_after_one.count(False)} of {n_adapters} adapters did not move in step 1")
+        if not all(torch.equal(model.state_dict()[k], w) for k, w in base_before.items()):
+            raise AssertionError("a frozen base weight changed")
+        if by_dim[t25.head_dim] != passes * t25.num_hidden_layers or by_dim[v25.head_dim] != 0 or \
+                train_launches["flash_attention_bwd"] != by_dim[t25.head_dim]:
+            raise AssertionError(f"K6 backward over {QWEN_TRAIN_STEPS} LoRA steps: {train_launches}; expected "
+                                 f"{passes} x {t25.num_hidden_layers} at D={t25.head_dim} and none at D={v25.head_dim}")
+        log(f"  ColQwen2.5-3B, ColModelTraining ({smi}): {n_adapters} adapted layers, {n_trainable / 1e6:.1f} M trainable "
+            f"parameters, ColbertLoss(temperature=0.02), LoRA r32 a32 dropout 0.1, remat, batch {TRAIN_BATCH}; "
+            + ", ".join(f"step {s} loss {l:.4f} grad_norm {g:.4f}" for s, l, g in seen)
+            + f"; {summary['train_samples_per_second']:.2f} examples/s with collation and checkpoints; K6 forward "
+            f"{train_launches['flash_attention']}, backward {train_launches['flash_attention_bwd']} (by head dim "
+            f"{by_dim}); peak memory {peak_train:.2f} GiB")
+        extra["route_lora_25"] = hold_routes("ColQwen2.5-3B LoRA", app.state, batch, loss_fn, peft)
+
+        reset_launches()  # the comparison launched K6 too: it does not count
+        t0 = time.perf_counter()
+        metrics = app.evaluate()
+        t_eval = time.perf_counter() - t0
+        eval_launches = launch_counts()
+        index = app.eval_index
+        if not {"eval_loss", "eval_ndcg@1", "eval_ndcg@5"} <= set(metrics) or \
+                not all(np.isfinite(x) for x in metrics.values()) or not eval_launches["maxsim_bf16"] or \
+                (index.dtype, index.num_docs, index._store.device.type) != ("bf16", QWEN_EVAL_PAGES, device.type):
+            raise AssertionError(f"evaluate(): {metrics}, index {index.dtype} {index.num_docs}, {eval_launches}")
+        log(f"  evaluate(): {QWEN_EVAL_PAGES} held-out pages in {t_eval:.1f} s, bf16 index {index.num_docs} x "
+            f"{index.doc_tokens} built on the card and searched by K5 ({eval_launches['maxsim_bf16']} launch(es)); "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(metrics.items())))
+        t0 = time.perf_counter()
+        app.save()
+        t_save = time.perf_counter() - t0
+        merged = app.state.adapters.merged_state_dict(model)
+        log(f"  save(): merged weights as model.safetensors (HF layout) in {t_save:.1f} s")
+        readback = qwen_readback(device, f"{tmp}/run", merged, cfg25)
+        del merged
+        app.close()
+        os.remove(f"{tmp}/run/model.safetensors")
+
+        os.makedirs(f"{tmp}/resumed/checkpoints")
+        shutil.copy(f"{tmp}/run/checkpoints/step_{QWEN_RESUME_AT}.pt", f"{tmp}/resumed/checkpoints/")
+        resumed = make_app(f"{tmp}/resumed", max_steps=QWEN_RESUME_AT + 1, resume_from_checkpoint=True)
+        tail = []
+        resumed.train(on_step=lambda step, m: tail.append((step, float(m["loss"]))))
+        resumed.close()
+        first = seen[QWEN_RESUME_AT][1]
+        if resumed.state.step != QWEN_RESUME_AT + 1 or [s for s, _ in tail] != [QWEN_RESUME_AT + 1] or \
+                abs(tail[0][1] - first) > RESUME_LOSS_RTOL * abs(first):
+            raise AssertionError(f"resumed run: {tail}, the first run's step {QWEN_RESUME_AT + 1} loss {first}")
+        log(f"  resumed from step {QWEN_RESUME_AT}: step {QWEN_RESUME_AT + 1} loss {tail[0][1]:.8f} vs {first:.8f} in the "
+            f"first run (limit {RESUME_LOSS_RTOL} relative)")
+
+        adapters = LoraAdapters(model, peft, seed=SEED + 1)
+        state = trainer.create_train_state(model, train_config, adapters)
+        steps = {}
+        for remat in (True, False):
+            model.set_remat(remat)
+            steps["remat" if remat else "no_remat"] = r = timed_steps(state, batch, loss_fn, peft, SEED, steps=2)
+            log(f"  ColQwen2.5-3B LoRA step, batch {TRAIN_BATCH}, remat {'on' if remat else 'off'} ({smi}): "
+                f"{r['wall']:.1f} ms/step ({TRAIN_BATCH / r['wall'] * 1e3:.2f} examples/s without collation), forward "
+                f"{r['forward']:.1f} ms, backward {r['backward']:.1f} ms, optimizer {r['optimizer']:.1f} ms, host and "
+                f"idle {r['wall'] - r['forward'] - r['backward'] - r['optimizer']:.1f} ms, peak memory "
+                f"{r['peak_gib']:.2f} GiB ({r['allocated_before_gib']:.2f} GiB held before the step)")
+        model.set_remat(True)
+        step_fn = trainer.make_train_step(loss_fn, peft=peft, seed=SEED)
+        steps["remat_profile"] = kernel_breakdown(f"one ColQwen2.5-3B LoRA step, batch {TRAIN_BATCH}, remat on",
+                                                  lambda: step_fn(state, batch)["loss"].item())
+        adapters.detach()
+        extra.update(losses=[l for _, l, _ in seen], grad_norms=[g for _, _, g in seen], eval=metrics,
+                     examples_per_s_end_to_end=summary["train_samples_per_second"], peak_train_gib=peak_train,
+                     step_ms=steps, checkpoint_readback=readback, resumed_loss=tail[0][1],
+                     launches_per_step={"flash_attention_bwd": train_launches["flash_attention_bwd"] // QWEN_TRAIN_STEPS})
+
+        # -- (c) the same model over a stored-int8 frozen vision tower ---------------------
+        qapp = ColModelTraining(ColModelTrainingConfig(
+            model=model, loss_func=loss_fn, train_datasets=[train_set], processor=processor,
+            output_dir=f"{tmp}/quant", global_batch_size=TRAIN_BATCH, log_steps=1, save_steps=100, peft=peft,
+            train=train_config, seed=SEED, device=device, max_steps=QWEN_QUANT_STEPS, quantize_frozen_base=True))
+        stored = [name for name, m in model.named_modules() if isinstance(m, QDense) and m.stored]
+        vision_stored = 1 + v25.depth * 7 + 2  # the patch embedding, q/k/v/o/gate/up/down a block, the merger's 2
+        if len(stored) != vision_stored or not all(name.startswith("model.visual.") for name in stored):
+            raise AssertionError(f"quantize_frozen_base stored {len(stored)} layers, expected the {vision_stored} of the "
+                                 "vision tower")
+        reset_launches()
+        qseen = []
+        qapp.train(on_step=lambda step, m: qseen.append((step, float(m["loss"]), float(m["grad_norm"]))))
+        torch.cuda.synchronize()
+        quant_launches = launch_counts()
+        if quant_launches["int8_gemm"] != QWEN_QUANT_STEPS * vision_stored or not quant_launches["quantize_rows"] or \
+                len(qseen) != QWEN_QUANT_STEPS or not all(np.isfinite(l) for _, l, _ in qseen):
+            raise AssertionError(f"quantize_frozen_base steps {qseen}, launches {quant_launches}; expected "
+                                 f"{QWEN_QUANT_STEPS} x {vision_stored} Q1b launches")
+        with torch.enable_grad():
+            feats = model.model.visual(*(batch[f"doc_{k}"] for k in ("pixel_values", "vision_hpos", "vision_wpos",
+                                                                    "patch_mask", "window_id")))
+        if feats.requires_grad or any(m.weight.grad is not None for m in model.modules()
+                                      if isinstance(m, QDense) and m.stored):
+            raise AssertionError("a gradient was recorded through the stored-int8 tower")
+        del feats
+        qapp.save()
+        exported = load_colqwen25_params(f"{tmp}/quant")
+        for name in stored:
+            m = model.get_submodule(name)
+            if not torch.equal(exported[f"{name}.weight"].to(device), qd.dequantized(m.weight, m.weight_scale,
+                                                                                     torch.bfloat16)):
+                raise AssertionError(f"the export's {name}.weight is not q * scale")
+        del exported
+        shutil.rmtree(f"{tmp}/quant")
+        qapp.close()
+        qadapters = LoraAdapters(model, peft, seed=SEED + 1)
+        qstate = trainer.create_train_state(model, train_config, qadapters)
+        quant_step = timed_steps(qstate, batch, loss_fn, peft, SEED, steps=2)
+        qadapters.detach()
+        log(f"  quantize_frozen_base: {len(stored)} stored-int8 vision layers; steps "
+            + ", ".join(f"{s} loss {l:.4f} grad_norm {g:.4f}" for s, l, g in qseen)
+            + f"; Q1a {quant_launches['quantize_rows']} and Q1b {quant_launches['int8_gemm']} launches over "
+            f"{QWEN_QUANT_STEPS} steps; no gradient through the int8 tower; the export's {len(stored)} vision weights "
+            f"equal q * scale. Step ({smi}, remat on): {quant_step['wall']:.1f} ms (bf16 base "
+            f"{steps['remat']['wall']:.1f} ms), forward {quant_step['forward']:.1f} ms, peak memory "
+            f"{quant_step['peak_gib']:.2f} GiB, {quant_step['allocated_before_gib']:.2f} GiB held before the step "
+            f"(bf16 base {steps['remat']['peak_gib']:.2f} and {steps['remat']['allocated_before_gib']:.2f} GiB)")
+        extra["quantize_frozen_base"] = dict(stored_layers=len(stored), losses=[l for _, l, _ in qseen],
+                                             launches=quant_launches, step_ms=quant_step)
+    del model, qadapters, qstate, state, adapters, app, qapp, resumed
+    torch.cuda.empty_cache()
+
+    # -- (d) ColQwen2-2B at full width: 2 LoRA steps ------------------------------------------
+    reset_launches()
+    model2 = ColQwen2(cfg2, dim=DIM, device=device, dtype=torch.bfloat16, remat=True)
+    hf_init_(model2, torch.Generator(device=device).manual_seed(SEED + 44))
+    proc2 = ColQwen2Processor(qwen_tokenizer(), max_num_visual_tokens=768, device=device)
+    batch2 = trainer.to_device(VisualRetrieverCollator(proc2)([train_set[i] for i in range(TRAIN_BATCH)]), device)
+    adapters2 = LoraAdapters(model2, peft, seed=SEED + 1)
+    state2 = trainer.create_train_state(model2, train_config, adapters2)
+    extra["route_lora_2"] = hold_routes("ColQwen2-2B LoRA", state2, batch2, loss_fn, peft)
+    reset_launches()
+    step2 = trainer.make_train_step(loss_fn, peft=peft, seed=SEED)
+    losses2 = [step2(state2, batch2)["loss"].item() for _ in range(2)]
+    d_launches = launch_counts()
+    if not np.isfinite(losses2).all() or not all(bool(b.detach().abs().max() > 0) for b in adapters2.b) or \
+            d_launches["bwd_by_head_dim"][cfg2.text.head_dim] != 2 * 2 * cfg2.text.num_hidden_layers:
+        raise AssertionError(f"ColQwen2-2B LoRA steps: losses {losses2}, launches {d_launches}")
+    log(f"  ColQwen2-2B, 2 LoRA steps (GQA {cfg2.text.num_attention_heads}/{cfg2.text.num_key_value_heads}): losses "
+        + ", ".join(f"{l:.4f}" for l in losses2) + f"; K6 backward {d_launches['bwd_by_head_dim']}")
+    extra["colqwen2_lora"] = dict(losses=losses2, launches=d_launches)
+    adapters2.detach()
+    del model2, state2, adapters2, batch2
+    torch.cuda.empty_cache()
+
+    # -- (e) full fine-tuning at full width and cut depth: the D=80 backward ------------------------
+    cut = dataclasses.replace(cfg25, vision=dataclasses.replace(v25, depth=FULL_FT_VISION_DEPTH,
+                                                                fullatt_block_indexes=(FULL_FT_VISION_DEPTH - 1,)),
+                              text=dataclasses.replace(t25, num_hidden_layers=FULL_FT_TEXT_LAYERS))
+    full = ColQwen2_5(cut, dim=DIM, device=device, dtype=torch.bfloat16).train()
+    gen = torch.Generator(device=device).manual_seed(SEED + 45)
+    hf_init_(full, gen)
+    with torch.no_grad():  # biases and norms off their initial values, so that each takes its own gradient path
+        for p in full.parameters():
+            if p.ndim == 1:
+                p.add_(torch.randn(p.shape, generator=gen, device=device).to(p.dtype) * 0.02)
+    # lr 1e-2: Adam's first update is about lr an element, which must pass half a bf16 ulp of a norm weight near 1
+    fstate = trainer.create_train_state(full, trainer.TrainConfig(learning_rate=1e-2, warmup_steps=0,
+                                                                  total_steps=100, weight_decay=0.0))
+    # 4 of the 8 examples: the plain route keeps each vision block's fp32 logits for its backward (4.5 GB a
+    # block at batch 8)
+    batch = {k: v[:, :4] if k.endswith("position_ids") else v[:4] for k, v in batch.items()}
+    reset_launches()
+    route_full = hold_routes(f"full fine-tuning ({FULL_FT_VISION_DEPTH} vision blocks, {FULL_FT_TEXT_LAYERS} text "
+                             "layers, batch 4)", fstate, batch, loss_fn, None)
+    e_launches = launch_counts()  # both losses' kernel routes: one page forward each
+    # the step on the smooth probe: the recipe loss's max over page tokens can leave the whole tower without a
+    # gradient where no image token is picked, as on random weights
+    before = {n: p.detach().clone() for n, p in full.named_parameters()}
+    trainer.begin_step(fstate, None, SEED)
+    loss, _, _ = trainer.compute_loss(full, batch, ColbertLoss(use_smooth_max=True), False)
+    loss.backward()
+    no_grad = [n for n, p in full.named_parameters() if p.grad is None or not bool(p.grad.abs().max() > 0)]
+    fstate.apply_gradients()
+    unmoved = [n for n, p in full.named_parameters() if torch.equal(p.detach(), before[n])]
+    expect80 = 2 * FULL_FT_VISION_DEPTH  # a page forward a loss, each block's attention once
+    if no_grad or unmoved or e_launches["bwd_by_head_dim"][v25.head_dim] != expect80:
+        raise AssertionError(f"full fine-tuning: parameters without a gradient {no_grad[:4]}, not moved {unmoved[:4]}; "
+                             f"launches {e_launches}, expected {expect80} at D={v25.head_dim}")
+    n_full = sum(p.numel() for p in full.parameters())
+    log(f"  full fine-tuning, ColQwen2.5 at full width cut to {FULL_FT_VISION_DEPTH} vision blocks (block "
+        f"{FULL_FT_VISION_DEPTH - 1} full attention) and {FULL_FT_TEXT_LAYERS} text layers ({n_full / 1e9:.3f} B "
+        f"parameters, batch 4): every parameter took a gradient and moved in one step on the smooth probe; K6 "
+        f"backward by head dim over the two route checks' kernel routes {e_launches['bwd_by_head_dim']}")
+    extra["full_fine_tuning"] = dict(params=n_full, route=route_full, launches=e_launches)
+    fstate.model.zero_grad(set_to_none=True)
+    del full, fstate, before, batch
+    torch.cuda.empty_cache()
+
+    launches = dict(flash_attention_bwd=train_launches["flash_attention_bwd"],
+                    flash_attention=train_launches["flash_attention"] + eval_launches["flash_attention"],
+                    maxsim_bf16=eval_launches["maxsim_bf16"], quantize_rows=quant_launches["quantize_rows"],
+                    int8_gemm=quant_launches["int8_gemm"])
+    extra["launches_by_head_dim"] = {str(d): n for d, n in by_dim.items()}
+    return launches, k6_bwd, extra
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script only runs on a GPU", file=sys.stderr)
@@ -2747,8 +3273,11 @@ def main() -> int:
     quant_launches, quant_timings, quant_extra = phase_stored_int8(device, model, processor, smi)
     timings.update(quant_timings)
     del model, processor
-    torch.cuda.empty_cache()
-    qwen_launches, qwen_timings, qwen_extra = phase_qwen(device, smi)
+    free_memory("phase qwen")
+    with tempfile.TemporaryDirectory() as qwen_dir:  # phase 8's ColQwen2.5-3B checkpoint, which phase 9 trains
+        qwen_launches, qwen_timings, qwen_extra = phase_qwen(device, smi, qwen_dir)
+        free_memory("phase qwen training")
+        qt_launches, qt_bwd, qt_extra = phase_qwen_training(device, smi, qwen_dir)
     timings["flash_attention"] = dict(k6["siglip"], gemma_page=k6["gemma_page"], gemma_query=k6["gemma_query"])
     timings["flash_attention_bwd"] = dict(k6_bwd["gemma_page"], gemma_query=k6_bwd["gemma_query"],
                                           gemma_query_padded=k6_bwd["gemma_query_padded"], siglip=k6_bwd["siglip"])
@@ -2782,10 +3311,15 @@ def main() -> int:
             entry["launches_qwen_slice"] = qwen_launches[name]
         if name in qwen_timings:
             entry["qwen"] = qwen_timings[name]
+        if name in qt_launches:  # over phase 9's path: ColQwen2.5-3B's LoRA steps, eval and quantized-base steps
+            entry["launches_qwen_training"] = qt_launches[name]
+        if name == "flash_attention_bwd":  # phase 9: by head dim over the LoRA steps, and at the family's shapes
+            entry.update(launches_qwen_training_by_head_dim=qt_extra["launches_by_head_dim"], qwen_training=qt_bwd)
         kernels.append(dict(entry, **timings[name]))
     print(json.dumps({"kernels": kernels, "pages_per_min": extra["pages_per_min"],
                       "forward_check": extra["forward_check"], "page_profile": extra["page_profile"],
-                      "training": train_extra, "stored_int8": quant_extra, "qwen": qwen_extra}))
+                      "training": train_extra, "stored_int8": quant_extra, "qwen": qwen_extra,
+                      "qwen_training": qt_extra}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -48,6 +48,10 @@
 //    (135 MB at the page shape, growing with S^2) to save two products that
 //    cost about as much. At D = 256 the key tile is 32 keys so that Q and dO
 //    of both consumers (128 KB) and two ring stages fit.
+// Built for the forward's head dims: DP = 80 (D 72 and 80: SigLIP, the Qwen2-VL
+// vision towers), 128 (the Qwen2 decoders) and 256 (Gemma). At DP = 128 dkv
+// takes 150,840 bytes of shared memory and dq 165,688, three stages each, and
+// the register split stays 2 x 128 x 232 + 128 x 40.
 // Rows past S, dims past D and masked pairs contribute zeros; a row with no
 // allowed key has L = -inf and P = 0 everywhere, so its gradients are zero,
 // never NaN. q, k and v are read through their strides as in the forward;
@@ -476,7 +480,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
 // q, k and v as in colpali_flash_attention (element strides, contiguous head
 // dim, 16-byte aligned base and rows); out, d_out, dq (B, S, H, D) and dk, dv
 // (B, S, Hkv, D) contiguous bf16; lse (B, H, S) as the forward wrote it;
-// delta (B, H, S) fp32 workspace. d is one of 72 and 256.
+// delta (B, H, S) fp32 workspace. d is one of the forward's head dims: 72, 80, 128 and 256.
 extern "C" int colpali_flash_attention_bwd(const void* q, const void* k, const void* v, const void* seg,
                                            const void* out, const void* d_out, const void* lse, void* delta,
                                            void* dq, void* dk, void* dv, int b, int s, int h, int hkv, int d,
@@ -489,7 +493,9 @@ extern "C" int colpali_flash_attention_bwd(const void* q, const void* k, const v
                   s, h, hkv, d, causal, scale, scale * 1.4426950408889634f};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 72: return launch<80>(q, k, v, out, d_out, b, qs, ks, vs, a, st);    // SigLIP
+    case 72:                                                                   // SigLIP
+    case 80: return launch<80>(q, k, v, out, d_out, b, qs, ks, vs, a, st);    // the Qwen2-VL vision towers
+    case 128: return launch<128>(q, k, v, out, d_out, b, qs, ks, vs, a, st);  // the Qwen2 decoders
     case 256: return launch<256>(q, k, v, out, d_out, b, qs, ks, vs, a, st);  // Gemma
     default: return cudaErrorInvalidValue;
   }

@@ -12,7 +12,9 @@ int or a sorted list of bucket sizes (the smallest bucket that fits wins):
 ``pad_seq_to`` for the token axes (input_ids / attention_mask /
 position_ids), ``pad_patches_to`` for the visual patch axis of
 dynamic-resolution families (``pixel_values (B, P, D)`` with patch_mask /
-vision_hpos / vision_wpos). Values may be numpy arrays or tensors (a
+vision_hpos / vision_wpos, and Qwen2.5-VL's window_id, padded with the
+processor's pad id -1: the JAX package leaves window_id unpadded, which
+hands the tower ids of the wrong length). Values may be numpy arrays or tensors (a
 processor that stages pixels on the device returns tensors); tensors are
 padded with ``torch``, where they are.
 """
@@ -52,18 +54,18 @@ def pick_bucket(current: int, spec: PadSpec, multiple: int = 1) -> int:
     )
 
 
-def _pad_axis(value: Any, axis: int, target: int) -> Any:
+def _pad_axis(value: Any, axis: int, target: int, fill: int = 0) -> Any:
     cur = value.shape[axis]
     if cur >= target:
         return value
     if isinstance(value, np.ndarray):
         pad = [(0, 0)] * value.ndim
         pad[axis] = (0, target - cur)
-        return np.pad(value, pad)
+        return np.pad(value, pad, constant_values=fill)
     # a tensor (device pixel staging): pad it where it lies
     shape = list(value.shape)
     shape[axis] = target - cur
-    return torch.cat([value, value.new_zeros(shape)], dim=axis)
+    return torch.cat([value, value.new_full(shape, fill)], dim=axis)
 
 
 def _is_image(x: Any) -> bool:
@@ -172,8 +174,8 @@ class VisualRetrieverCollator:
             if self.pad_patches_to is not None and mask_key in batch:
                 target = pick_bucket(batch[mask_key].shape[-1], self.pad_patches_to, multiple=group)
                 out[f"{prefix}pixel_values"] = _pad_axis(batch[f"{prefix}pixel_values"], -2, target)
-                for name in ("patch_mask", "vision_hpos", "vision_wpos"):
+                for name, fill in (("patch_mask", 0), ("vision_hpos", 0), ("vision_wpos", 0), ("window_id", -1)):
                     key = f"{prefix}{name}"
                     if key in batch:
-                        out[key] = _pad_axis(batch[key], -1, target)
+                        out[key] = _pad_axis(batch[key], -1, target, fill)
         return out

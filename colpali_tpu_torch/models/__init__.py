@@ -1,0 +1,23 @@
+"""The port's retrievers (counterpart of :mod:`colpali_tpu.models`): the
+reference's flat exports of the ported families."""
+
+from colpali_tpu_torch.models.configs import (  # noqa: F401
+    GemmaConfig,
+    MultiVectorHeadConfig,
+    PaliGemmaConfig,
+    SiglipVisionConfig,
+)
+from colpali_tpu_torch.models.paligemma import ColPali, PaliGemmaBackbone  # noqa: F401
+from colpali_tpu_torch.models.qwen2_5_vl import (  # noqa: F401
+    ColQwen2_5,
+    Qwen25VLBackbone,
+    Qwen25VLConfig,
+    Qwen25VLVisionConfig,
+)
+from colpali_tpu_torch.models.qwen2_vl import (  # noqa: F401
+    ColQwen2,
+    Qwen2TextConfig,
+    Qwen2VLBackbone,
+    Qwen2VLConfig,
+    Qwen2VLVisionConfig,
+)

@@ -25,11 +25,12 @@ import torch
 from torch import nn
 
 from colpali_tpu_torch.models.common import merge_image_embeddings
-from colpali_tpu_torch.models.layers import Attention, Device, GatedMLP, QDense, RMSNorm
+from colpali_tpu_torch.models.layers import Attention, Device, GatedMLP, QDense, RMSNorm, run_layer
 from colpali_tpu_torch.models.qwen2_vl import (
     ColQwen2,
     Qwen2Decoder,
     Qwen2TextConfig,
+    from_export_config,
     merge_patches,
     text_positions,
     vision_rope,
@@ -89,6 +90,9 @@ class Qwen25VLConfig:
 
     @classmethod
     def from_hf_config(cls, cfg: Mapping[str, Any]) -> "Qwen25VLConfig":
+        """From an HF ``config.json``, or from the training export's layout."""
+        if "vision" in cfg and "vision_config" not in cfg:
+            return from_export_config(cls, Qwen25VLVisionConfig, cfg)
         text_cfg = cfg.get("text_config", cfg)
         return cls(
             vision=Qwen25VLVisionConfig.from_hf_config(cfg["vision_config"]),
@@ -119,11 +123,13 @@ class Qwen25VisionTower(nn.Module):
     """Qwen2.5 vision tower: Qwen2-VL's inputs plus ``window_id (B, P)``
     (-1 on padding) -> ``(B, P / merge^2, out_hidden_size)``."""
 
-    def __init__(self, config: Qwen25VLVisionConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32):
+    def __init__(self, config: Qwen25VLVisionConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         cfg = config
         self.config = cfg
         self.dtype = dtype
+        self.remat = remat
         kw = dict(device=device, dtype=dtype)
         self.patch_embed = QDense(cfg.patch_dim, cfg.hidden_size, bias=False, **kw)
         self.blocks = nn.ModuleList(Qwen25VisionBlock(cfg, **kw) for _ in range(cfg.depth))
@@ -139,18 +145,19 @@ class Qwen25VisionTower(nn.Module):
         seg_full = torch.where(patch_mask.bool(), 1, -1).to(torch.int32).contiguous()
         seg_window = window_id.to(torch.int32).contiguous()
         for i, block in enumerate(self.blocks):
-            x = block(x, seg_full if i in cfg.fullatt_block_indexes else seg_window, rope)
+            x = run_layer(block, self.remat, x, seg_full if i in cfg.fullatt_block_indexes else seg_window, rope)
         return merge_patches(self.ln_q, self.merger_fc1, self.merger_fc2, x, cfg.spatial_merge_size**2)
 
 
 class Qwen25VLBackbone(nn.Module):
     """Vision tower + Qwen2 decoder; returns the last hidden states."""
 
-    def __init__(self, config: Qwen25VLConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32):
+    def __init__(self, config: Qwen25VLConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.config = config
-        self.visual = Qwen25VisionTower(config.vision, device=device, dtype=dtype)
-        self.language_model = Qwen2Decoder(config.text, device=device, dtype=dtype)
+        self.visual = Qwen25VisionTower(config.vision, device=device, dtype=dtype, remat=remat)
+        self.language_model = Qwen2Decoder(config.text, device=device, dtype=dtype, remat=remat)
 
     def forward(self, input_ids, attention_mask, pixel_values=None, vision_hpos=None, vision_wpos=None,
                 patch_mask=None, window_id=None, position_ids=None) -> torch.Tensor:
@@ -168,5 +175,5 @@ class ColQwen2_5(ColQwen2):  # noqa: N801 (the reference's name)
     :class:`Qwen25VLBackbone`."""
 
     @staticmethod
-    def _backbone(config, device, dtype) -> nn.Module:
-        return Qwen25VLBackbone(config, device=device, dtype=dtype)
+    def _backbone(config, device, dtype, remat) -> nn.Module:
+        return Qwen25VLBackbone(config, device=device, dtype=dtype, remat=remat)

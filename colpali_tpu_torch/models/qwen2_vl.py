@@ -11,6 +11,8 @@ two linears around an exact gelu). The merged features take the
 with 3-channel M-RoPE positions (the processor's ``position_ids``, or
 positions from the mask when they are absent), left padding allowed.
 ColQwen2's head gives 128-d L2-normalized, mask-zeroed token embeddings.
+With ``remat=True`` every vision block and decoder layer is checkpointed
+(recomputed in the backward), as the JAX package's ``remat`` does.
 
 Module and parameter names follow the JAX package's tree (``blocks_3`` is
 ``blocks.3``), so :mod:`colpali_tpu_torch.core.from_jax` and the HF rules
@@ -26,7 +28,16 @@ import torch
 from torch import nn
 
 from colpali_tpu_torch.models.common import MultiVectorHead, merge_image_embeddings
-from colpali_tpu_torch.models.layers import ACTIVATIONS, Attention, Device, GatedMLP, LayerNorm, QDense, RMSNorm
+from colpali_tpu_torch.models.layers import (
+    ACTIVATIONS,
+    Attention,
+    Device,
+    GatedMLP,
+    LayerNorm,
+    QDense,
+    RMSNorm,
+    run_layer,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +125,10 @@ class Qwen2VLConfig:
 
     @classmethod
     def from_hf_config(cls, cfg: Mapping[str, Any]) -> "Qwen2VLConfig":
+        """From an HF ``config.json``, or from the ``dataclasses.asdict``
+        layout that the training export writes (``vision``/``text``)."""
+        if "vision" in cfg and "vision_config" not in cfg:
+            return from_export_config(cls, Qwen2VLVisionConfig, cfg)
         text_cfg = cfg.get("text_config", cfg)
         return cls(
             vision=Qwen2VLVisionConfig.from_hf_config(cfg["vision_config"]),
@@ -122,6 +137,16 @@ class Qwen2VLConfig:
             vision_start_token_id=cfg.get("vision_start_token_id", 151652),
             video_token_id=cfg.get("video_token_id", 151656),
         )
+
+
+def from_export_config(cls, vision_cls, cfg: Mapping[str, Any]):
+    """A Qwen config from its ``dataclasses.asdict`` form (JSON lists back to
+    tuples), as ``training.checkpointing.save_pretrained`` writes it."""
+    def fields(d):
+        return {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
+
+    rest = {k: v for k, v in cfg.items() if k in {f.name for f in dataclasses.fields(cls)} - {"vision", "text"}}
+    return cls(vision=vision_cls(**fields(cfg["vision"])), text=Qwen2TextConfig(**fields(cfg["text"])), **rest)
 
 
 def vision_rope(hpos: torch.Tensor, wpos: torch.Tensor, head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -187,11 +212,13 @@ class Qwen2VisionTower(nn.Module):
     first). Valid patches attend to the valid patches of their image, pad
     patches to pad patches (their features are never spliced in)."""
 
-    def __init__(self, config: Qwen2VLVisionConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32):
+    def __init__(self, config: Qwen2VLVisionConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         cfg = config
         self.config = cfg
         self.dtype = dtype
+        self.remat = remat
         kw = dict(device=device, dtype=dtype)
         self.patch_embed = QDense(cfg.patch_dim, cfg.embed_dim, bias=False, **kw)
         self.blocks = nn.ModuleList(Qwen2VisionBlock(cfg, **kw) for _ in range(cfg.depth))
@@ -206,7 +233,7 @@ class Qwen2VisionTower(nn.Module):
         rope = vision_rope(hpos, wpos, cfg.head_dim)
         segments = patch_mask.to(torch.int32).contiguous()
         for block in self.blocks:
-            x = block(x, segments, rope)
+            x = run_layer(block, self.remat, x, segments, rope)
         return merge_patches(self.ln_q, self.merger_fc1, self.merger_fc2, x, cfg.spatial_merge_size**2)
 
 
@@ -231,10 +258,12 @@ class Qwen2DecoderLayer(nn.Module):
 class Qwen2Decoder(nn.Module):
     """Qwen2(-VL) text decoder over pre-merged input embeddings."""
 
-    def __init__(self, config: Qwen2TextConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32):
+    def __init__(self, config: Qwen2TextConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        self.remat = remat
         self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size, device=device, dtype=dtype)
         self.layers = nn.ModuleList(Qwen2DecoderLayer(config, device=device, dtype=dtype)
                                     for _ in range(config.num_hidden_layers))
@@ -252,7 +281,7 @@ class Qwen2Decoder(nn.Module):
         x = inputs_embeds.to(self.dtype)
         segments = attention_mask.to(torch.int32).contiguous()  # K6's segment ids, converted once
         for layer in self.layers:
-            x = layer(x, segments, rope)
+            x = run_layer(layer, self.remat, x, segments, rope)
         return self.norm(x)
 
 
@@ -266,11 +295,12 @@ def text_positions(attention_mask: torch.Tensor) -> torch.Tensor:
 class Qwen2VLBackbone(nn.Module):
     """Vision tower + decoder; returns the last hidden states."""
 
-    def __init__(self, config: Qwen2VLConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32):
+    def __init__(self, config: Qwen2VLConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.config = config
-        self.visual = Qwen2VisionTower(config.vision, device=device, dtype=dtype)
-        self.language_model = Qwen2Decoder(config.text, device=device, dtype=dtype)
+        self.visual = Qwen2VisionTower(config.vision, device=device, dtype=dtype, remat=remat)
+        self.language_model = Qwen2Decoder(config.text, device=device, dtype=dtype, remat=remat)
 
     def forward(self, input_ids, attention_mask, pixel_values=None, vision_hpos=None, vision_wpos=None,
                 patch_mask=None, position_ids=None) -> torch.Tensor:
@@ -291,19 +321,25 @@ class ColQwen2(nn.Module):
     """Late-interaction retriever over Qwen2-VL (reference
     modeling_colqwen2.py:26-75): ``(B, S, dim)`` L2-normalized, mask-zeroed
     token embeddings. With ``mask_non_image_embeddings``, page inputs also
-    zero every non-image token."""
+    zero every non-image token. ``remat`` checkpoints every vision block and
+    decoder layer (:meth:`set_remat` turns it on or off later)."""
 
     def __init__(self, config: Qwen2VLConfig, dim: int = 128, mask_non_image_embeddings: bool = False,
-                 device: Device = "cuda", dtype: torch.dtype = torch.float32):
+                 device: Device = "cuda", dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.config = config
         self.mask_non_image_embeddings = mask_non_image_embeddings
-        self.model = self._backbone(config, device, dtype)
+        self.model = self._backbone(config, device, dtype, remat)
         self.head = MultiVectorHead(config.text.hidden_size, dim=dim, device=device, dtype=dtype)
 
     @staticmethod
-    def _backbone(config, device, dtype) -> nn.Module:
-        return Qwen2VLBackbone(config, device=device, dtype=dtype)
+    def _backbone(config, device, dtype, remat) -> nn.Module:
+        return Qwen2VLBackbone(config, device=device, dtype=dtype, remat=remat)
+
+    def set_remat(self, remat: bool) -> None:
+        """Turn the per-layer checkpointing of both towers on or off."""
+        self.model.visual.remat = remat
+        self.model.language_model.remat = remat
 
     def forward(self, input_ids, attention_mask, pixel_values=None, **vision_kwargs) -> torch.Tensor:
         hidden = self.model(input_ids, attention_mask, pixel_values, **vision_kwargs)

@@ -28,7 +28,7 @@ from colpali_tpu_torch.ops._cuda import F32, I32, I64, P, CudaKernel, check_cuda
 FLASH_ATTENTION = CudaKernel("colpali_flash_attention", [P, P, P, P, P, P, *[I32] * 5, *[I64] * 9, F32, I32])
 FLASH_ATTENTION_BWD = CudaKernel("colpali_flash_attention_bwd", [*[P] * 11, *[I32] * 5, *[I64] * 9, F32, I32])
 HEAD_DIMS = (72, 80, 128, 256)  # the forward's: SigLIP, Qwen2-VL's vision and text towers (K11), Gemma
-BACKWARD_HEAD_DIMS = (72, 256)  # the backward's: SigLIP's and Gemma's, the models that train
+BACKWARD_HEAD_DIMS = HEAD_DIMS  # the backward kernels are built for the forward's head dims
 BACKWARD_LAUNCHES_BY_HEAD_DIM = {d: 0 for d in BACKWARD_HEAD_DIMS}  # counted where the backward is launched
 
 
@@ -131,12 +131,6 @@ def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segmen
         raise ValueError(f"head dim {q.shape[3]}: the flash kernel is built for head dims {HEAD_DIMS}")
 
 
-def _check_backward_head_dim(d: int) -> None:
-    if d not in BACKWARD_HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the backward kernels are built for head dims {BACKWARD_HEAD_DIMS} "
-                         "(the forward also takes 80 and 128)")
-
-
 def _forward_cuda(q, k, v, segments, scale: float, causal: bool, with_lse: bool,
                   kernel: CudaKernel = FLASH_ATTENTION):
     """Launch the forward kernel -> ``(out, lse | None)``; ``lse`` is
@@ -192,7 +186,6 @@ def flash_attention_backward(q, k, v, segments, out, lse, d_out, scale: float, c
         raise ValueError("the backward kernels run on CUDA tensors; on the CPU autograd differentiates "
                          "flash_attention_plain")
     _check_cuda_inputs(q, k, v, segments)
-    _check_backward_head_dim(q.shape[3])
     dev = q.device
     b, s, h, d = q.shape
     hkv = k.shape[2]
@@ -227,8 +220,8 @@ def flash_attention(
 
     On CUDA, q, k and v must be bf16 with the head dim contiguous (any
     batch, sequence and head strides that are multiples of 8) and ``D`` one
-    of :data:`HEAD_DIMS` (:data:`BACKWARD_HEAD_DIMS` when a gradient is
-    needed); ``segments`` is contiguous int32. When autograd is
+    of :data:`HEAD_DIMS`, which the backward kernels take too; ``segments``
+    is contiguous int32. When autograd is
     recording and an input needs a gradient, the call goes through
     :class:`FlashAttention` (the forward then also writes the log-sum-exp);
     otherwise the forward alone is launched, as when serving."""
@@ -237,6 +230,5 @@ def flash_attention(
         return flash_attention_plain(q, k, v, segments, scale, causal)
     _check_cuda_inputs(q, k, v, segments)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        _check_backward_head_dim(q.shape[3])
         return FlashAttention.apply(q, k, v, segments, scale, causal)
     return _forward_cuda(q, k, v, segments, scale, causal, with_lse=False)[0]

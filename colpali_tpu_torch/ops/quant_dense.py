@@ -41,7 +41,7 @@ per-token cosine.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -283,6 +283,23 @@ def dequantize_params(model: nn.Module, dtype: Optional[torch.dtype] = None) -> 
     done = []
     for name, mod in model.named_modules():
         if isinstance(mod, QDense) and mod.stored:
-            mod.store_float((mod.weight.float() * mod.weight_scale[:, None]).to(dtype))
+            mod.store_float(dequantized(mod.weight, mod.weight_scale, dtype))
             done.append(name)
     return done
+
+
+def dequantized(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``q (N, K)`` int8 times its per-row fp32 ``scale (N,)``, in fp32, cast to ``dtype``."""
+    return (q.float() * scale[:, None]).to(dtype)
+
+
+def dequantize_state_dict(state: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """``state`` with every stored-int8 ``weight`` (beside its
+    ``weight_scale``) replaced by :func:`dequantized` in ``dtype`` and the
+    scales dropped: the float state dict of what the model computes with,
+    as :func:`dequantize_params` would leave it, without touching the model."""
+    out = dict(state)
+    for key in [k for k in state if k.endswith(".weight_scale")]:
+        weight = key[: -len("_scale")]
+        out[weight] = dequantized(state[weight], out.pop(key), dtype)
+    return out

@@ -1,0 +1,4 @@
+from colpali_tpu_torch.processors.base import BaseVisualRetrieverProcessor  # noqa: F401
+from colpali_tpu_torch.processors.colpali import ColPaliProcessor  # noqa: F401
+from colpali_tpu_torch.processors.qwen2_5_vl import ColQwen2_5_Processor, ColQwen2_5Processor  # noqa: F401
+from colpali_tpu_torch.processors.qwen2_vl import ColQwen2Processor  # noqa: F401

@@ -51,7 +51,8 @@ class ColQwen2_5Processor(ColQwen2Processor):  # noqa: N801 (the reference's nam
             cfg_path = os.path.join(path, "config.json")
             if os.path.exists(cfg_path):
                 with open(cfg_path) as f:
-                    vision_cfg = json.load(f).get("vision_config", {})
+                    cfg = json.load(f)
+                vision_cfg = cfg.get("vision_config") or cfg.get("vision") or {}  # HF's, or the training export's
                 if "window_size" in vision_cfg:
                     kwargs["window_size"] = vision_cfg["window_size"]
         return super().from_pretrained(path, **kwargs)
@@ -68,3 +69,6 @@ class ColQwen2_5Processor(ColQwen2Processor):  # noqa: N801 (the reference's nam
                                                          grid, self.merge_size, self._window_patches)
         batch["window_id"] = window_id
         return batch
+
+
+ColQwen2_5_Processor = ColQwen2_5Processor  # the reference's other name (processing_colqwen2_5.py)

@@ -77,8 +77,10 @@ class LoraAdapters(nn.Module):
             raise ValueError(f"LoRA target pattern matched no kernels: {spec.target_pattern}")
         int8 = [path for path, _, mod in matched if mod.weight.dtype == torch.int8]
         if int8:
-            raise NotImplementedError(f"LoRA over stored-int8 weights ({int8[0]}, ...) needs quantize_frozen_base, "
-                                      "which is not ported yet (ROADMAP.md Queue 1 item 2)")
+            raise ValueError(f"LoRA adapts float weights only, as the JAX package does: {int8[0]} (and "
+                             f"{len(int8) - 1} more) hold stored int8. Dequantize them first "
+                             "(ops.quant_dense.dequantize_params), or quantize only layers the adapters do not "
+                             "target (ColModelTrainingConfig(quantize_frozen_base=True) stores the vision tower)")
         for p in model.parameters():
             p.requires_grad_(False)
         self.paths: List[str] = [path for path, _, _ in matched]

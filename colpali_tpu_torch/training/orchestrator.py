@@ -20,6 +20,7 @@ from colpali_tpu_torch.data.collator import VisualRetrieverCollator
 from colpali_tpu_torch.data.prefetch import prefetch
 from colpali_tpu_torch.data.sampler import SingleDatasetBatchSampler
 from colpali_tpu_torch.evaluation.evaluator import evaluate_retrieval_from_index
+from colpali_tpu_torch.ops.quant_dense import dequantize_state_dict, quantize_params
 from colpali_tpu_torch.retrieval.store import DeviceIndexBuilder
 from colpali_tpu_torch.training.checkpointing import CheckpointManager, save_pretrained
 from colpali_tpu_torch.training.lora import LoraAdapters
@@ -38,9 +39,14 @@ class ColModelTrainingConfig:
     frozen, only the rank-r adapters train, and :meth:`ColModelTraining.save`
     exports the merged weights.
 
-    Not ported yet, and refused: ``mesh`` (multi-GPU), and
-    ``quantize_frozen_base`` (the serving half of ``ops/quant_dense`` is
-    ported; the frozen, quantized base under LoRA is next). ``remat_policy``
+    ``quantize_frozen_base`` (LoRA runs only) stores the frozen vision
+    tower's projections as int8 before the adapters are attached:
+    ``quantize_params(model, min_dim=quant_min_dim, path_filter=<"visual" or
+    "vision" in the path>)``, so the tower runs on kernels Q1a/Q1b and records
+    no gradient, and :meth:`ColModelTraining.save` exports its ``q * scale``,
+    the values training computed with. It changes the training numerics.
+
+    Not ported yet, and refused: ``mesh`` (multi-GPU). ``remat_policy``
     accepts ``None`` or ``"full"`` only: ``torch.utils.checkpoint`` saves
     nothing inside a layer, and has no counterpart of the JAX package's
     named policies such as ``"dots"``; whether layers are checkpointed at
@@ -72,6 +78,7 @@ class ColModelTrainingConfig:
     pad_patches_to: Optional[Any] = None
     remat_policy: Optional[str] = None
     quantize_frozen_base: bool = False
+    quant_min_dim: int = 512  # projections with a dim below this stay in the model's dtype
     device: Any = "cuda"
 
 
@@ -81,9 +88,8 @@ class ColModelTraining:
     def __init__(self, config: ColModelTrainingConfig):
         if config.mesh is not None:
             raise NotImplementedError("ColModelTrainingConfig(mesh=...): multi-GPU training is not ported yet")
-        if config.quantize_frozen_base:
-            raise NotImplementedError("quantize_frozen_base (LoRA over a frozen stored-int8 base) is not ported "
-                                      "yet (ROADMAP.md Queue 1 item 2); ops/quant_dense serves stored int8 only")
+        if config.quantize_frozen_base and config.peft is None:
+            raise ValueError("quantize_frozen_base stores the frozen vision tower as int8 under LoRA: pass peft=")
         if config.remat_policy not in (None, "full"):
             raise NotImplementedError(
                 f"remat_policy={config.remat_policy!r}: torch.utils.checkpoint has no named policies; "
@@ -102,7 +108,11 @@ class ColModelTraining:
             self.model.load_state_dict(config.params)
 
         adapters = None
+        self.quantized_paths: list = []
         if config.peft is not None:
+            if config.quantize_frozen_base:  # only the vision tower, which the adapters never target
+                self.quantized_paths = quantize_params(self.model, min_dim=config.quant_min_dim,
+                                                       path_filter=lambda p: "visual" in p or "vision" in p)
             # the base is frozen: optimizer state exists for the adapters only
             adapters = LoraAdapters(self.model, config.peft, seed=config.seed + 1)
         self.state = TrainState(self.model, config.train, adapters)
@@ -269,10 +279,15 @@ class ColModelTraining:
 
     def save(self, output_dir: Optional[str] = None) -> None:
         """Final export. With a peft recipe the export is the merged weights
-        ``W + (alpha/r) A @ B``: a checkpoint that serves as it is."""
+        ``W + (alpha/r) A @ B``: a checkpoint that serves as it is. A
+        stored-int8 frozen tower is exported as ``q * scale`` in the model's
+        dtype."""
         out = output_dir or self.config.output_dir
         adapters = self.state.adapters
         state_dict = adapters.merged_state_dict(self.model) if adapters is not None else self.model.state_dict()
+        if self.quantized_paths:
+            dtype = next(p.dtype for p in self.model.parameters() if p.is_floating_point())
+            state_dict = dequantize_state_dict(state_dict, dtype)
         save_pretrained(out, state_dict, config=getattr(self.model, "config", None))
         proc = self.config.processor
         if proc is not None and hasattr(proc, "save_pretrained"):

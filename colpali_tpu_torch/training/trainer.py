@@ -115,19 +115,29 @@ def to_device(batch: Batch, device) -> Dict[str, torch.Tensor]:
     return out
 
 
+# the inputs of a prefixed sub-batch that the models' forwards take beside ids and mask: the pages' pixels, and the
+# Qwen2-VL family's vision geometry, window ids and M-RoPE positions
+MODEL_INPUTS = ("pixel_values", "vision_hpos", "vision_wpos", "patch_mask", "window_id", "position_ids")
+
+
 def forward_prefixed(model: nn.Module, batch: Batch, prefix: str) -> torch.Tensor:
-    """One prefixed forward. Negative docs arrive as ``(B, n_neg, ...)`` and
-    are flattened into the batch dim for the model."""
+    """One prefixed forward, with every input of :data:`MODEL_INPUTS` the
+    sub-batch holds (the JAX package's ``_forward`` passes the pixels
+    alone, which loses the Qwen models' geometry). Negative docs arrive as
+    ``(B, n_neg, ...)`` and are flattened into the batch dim for the model:
+    axis 0 and 1 of each input, but axes 1 and 2 of ``position_ids (3, B,
+    n_neg, S)``, whose batch axis is its second (the collator may also hand
+    them over already flat, ``(3, B * n_neg, S)``)."""
     ids = batch[f"{prefix}input_ids"]
     mask = batch[f"{prefix}attention_mask"]
-    pixels = batch.get(f"{prefix}pixel_values")
+    inputs = {name: batch[f"{prefix}{name}"] for name in MODEL_INPUTS if f"{prefix}{name}" in batch}
     if ids.ndim == 3:
         b, n, s = ids.shape
-        if pixels is not None:
-            pixels = pixels.reshape(b * n, *pixels.shape[2:])
-        emb = model(ids.reshape(b * n, s), mask.reshape(b * n, s), pixels)
+        inputs = {name: x.reshape(3, b * n, -1) if name == "position_ids" else x.reshape(b * n, *x.shape[2:])
+                  for name, x in inputs.items()}
+        emb = model(ids.reshape(b * n, s), mask.reshape(b * n, s), **inputs)
         return emb.reshape(b, n, *emb.shape[1:])
-    return model(ids, mask, pixels)
+    return model(ids, mask, **inputs)
 
 
 def compute_loss(model: nn.Module, batch: Batch, loss_fn: Callable, has_negatives: bool):

@@ -281,8 +281,9 @@ def test_wrappers_reject_bad_inputs(dev):
         tm.maxsim_pallas_tm(torch.zeros((1, 4, 128), device=dev), torch.zeros((8, 256, 128), device=dev))
     q = torch.zeros((1, 8, 1, 80), device=dev, dtype=torch.bfloat16, requires_grad=True)
     seg = torch.ones((1, 8), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="backward kernels are built for head dims"):
-        flash_attention(q, q, q, seg, 0.1)  # K6's backward: D 72 and 256 only
+    q64 = torch.zeros((1, 8, 1, 64), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(ValueError, match="built for head dims"):
+        flash_attention(q64, q64, q64, seg, 0.1)  # K6 and its backward: D 72, 80, 128 and 256 only
     with pytest.raises(ValueError, match="forward only"):
         flash_seqmajor(q, q, q, seg, 0.1)
 
@@ -473,7 +474,12 @@ def test_device_index_builder_on_card_matches_host_packed_index(dev, kw):
     np.testing.assert_allclose(s_a, s_b, rtol=1e-4)
 
 
-K6_BWD_CASES = [case for case in K6_CASES if case[4] in BACKWARD_HEAD_DIMS] + [(2, 130, 8, 2, 256, 0, True)]
+K6_BWD_CASES = [case for case in K6_CASES if case[4] in BACKWARD_HEAD_DIMS] + [
+    (2, 130, 8, 2, 256, 0, True),
+    (2, 200, 16, 2, 128, 0, True),  # Qwen2.5-VL-3B's decoder: GQA 16/2, causal
+    (2, 130, 12, 2, 128, 9, False),  # Qwen2-VL-2B's heads, padded, a token alone in its segment
+    (3, 33, 4, 4, 80, 4, False),  # D=80, one partial tile
+]
 
 
 @pytest.mark.parametrize("b,s,h,hkv,d,pad,causal", K6_BWD_CASES)
@@ -807,6 +813,63 @@ def test_k6_causal_gqa_with_left_padding_matches_plain(dev, h, hkv, s):
     assert share <= 1.0, f"K6 causal vs plain: {share:.2f} of the tolerance at the worst element"
 
 
+def _assert_close_per_row(got, want, rows):
+    """K6's rule with the RMS per query row (over heads and dims), on the rows that are not padding."""
+    got, want = got[rows].float(), want[rows].float()
+    atol = K6_ATOL_RMS * want.pow(2).mean(dim=(1, 2), keepdim=True).sqrt()
+    share = ((got - want).abs() / (atol + K6_RTOL * want.abs())).max().item()
+    assert share <= 1.0, f"{share:.2f} of the tolerance at the worst element"
+
+
+QWEN_BWD_CASES = [
+    # b, s, h, hkv, d, segments, causal
+    (8, 64, 16, 2, 128, "left", True),  # the collated queries of Qwen2.5-VL-3B
+    (8, 760, 16, 2, 128, "left", True),  # its decoder over pages, rows left-padded
+    (8, 760, 12, 2, 128, "left", True),  # Qwen2-VL-2B's decoder
+    (3, 480, 16, 16, 80, "window", False),  # the vision towers' windowed blocks
+    (3, 480, 16, 16, 80, "full", False),  # their full-attention blocks (pad patches in segment -1)
+]
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,kind,causal", QWEN_BWD_CASES)
+def test_k6_backward_at_qwen_shapes_matches_plain_per_row(dev, b, s, h, hkv, d, kind, causal):
+    """K6's backward where LoRA and full fine-tuning of the Qwen2-VL family
+    put it, against ``flash_attention_backward_plain`` by the forward's
+    rule per query row (causal rows after left padding see few keys), and
+    bit-equal on a second call."""
+    g = _gen(dev, s + d + h)
+    if kind == "left":
+        pos = torch.arange(s, device=dev)[None]
+        seg = ((pos >= 17 * torch.arange(b, device=dev)[:, None]) & (pos < s - 5)).to(torch.int32).contiguous()
+    else:
+        seg = _window_segments(dev, b, pad=100)
+        if kind == "full":
+            seg = torch.where(seg >= 0, 1, -1).to(torch.int32).contiguous()
+    q, k, v = (torch.randn((b, s, n, d), generator=g, device=dev).to(torch.bfloat16).requires_grad_()
+               for n in (h, hkv, hkv))
+    rows = seg > 0 if kind == "left" else seg >= 0
+    d_out = torch.randn((b, s, h, d), generator=g, device=dev).to(torch.bfloat16) * rows[:, :, None, None]
+    before = FLASH_ATTENTION_BWD.launches
+    got = torch.autograd.grad(flash_attention(q, k, v, seg, d**-0.5, causal), (q, k, v), d_out)
+    again = torch.autograd.grad(flash_attention(q, k, v, seg, d**-0.5, causal), (q, k, v), d_out)
+    assert FLASH_ATTENTION_BWD.launches == before + 2
+    with torch.no_grad():
+        out, lse = _forward_cuda(q, k, v, seg, d**-0.5, causal, True)
+        want = flash_attention_backward_plain(q, k, v, seg, d_out, d**-0.5, causal, out=out, lse=lse)
+    # a row whose only key is itself has dq = 0 up to the rounding of rowsum(dO * o): held apart, absolutely
+    keys = seg[:, :, None] == seg[:, None, :]
+    if causal:
+        keys &= torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+    alone = rows & (keys.sum(-1) == 1)
+    for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(a, a2) and torch.isfinite(a).all()
+        if name == "dq":
+            assert a[alone].float().abs().max().item() <= 1e-4 if alone.any() else True
+            _assert_close_per_row(a, w, rows & ~alone)
+        else:
+            _assert_close_per_row(a, w, rows)
+
+
 def test_colqwen2_5_stored_int8_on_card_matches_cpu_route(dev, tmp_path):
     """``load_retriever(family="colqwen2_5", quantize=True)`` on a
     checkpoint written by the port (1,176-wide patch embedding, 3,420-wide
@@ -854,3 +917,65 @@ def test_colqwen2_5_stored_int8_on_card_matches_cpu_route(dev, tmp_path):
     a, b = np.concatenate(out[str(dev)]), np.concatenate(out["cpu"])
     cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
     assert np.isfinite(a).all() and cos.mean() >= 0.998 and cos.min() >= 0.99, (cos.mean(), cos.min())
+
+
+def test_qwen_lora_step_on_card_matches_plain_route(dev):
+    """One LoRA step of a small ColQwen2.5 in bf16 on the card (D=80 vision
+    heads over windows, a causal GQA 4/2 decoder at D=128, remat): the loss
+    and the adapter gradient through K6 and its backward kernels against the
+    plain route (K6's plain version, autograd through it), on the smooth
+    probe, phase 9's rule: loss within 1e-2 relative, gradient cosine >=
+    0.99. The backward runs twice a decoder layer (queries and pages) at
+    D=128 and never at D=80 (the tower is frozen)."""
+    from unittest import mock
+
+    from colpali_tpu_torch.data.collator import VisualRetrieverCollator
+    from colpali_tpu_torch.losses import ColbertLoss
+    from colpali_tpu_torch.models.common import hf_init_
+    from colpali_tpu_torch.models.qwen2_5_vl import ColQwen2_5, Qwen25VLConfig, Qwen25VLVisionConfig
+    from colpali_tpu_torch.models.qwen2_vl import Qwen2TextConfig
+    from colpali_tpu_torch.ops import flash_attention as fa
+    from colpali_tpu_torch.processors.qwen2_5_vl import ColQwen2_5Processor
+    from colpali_tpu_torch.training import trainer
+    from colpali_tpu_torch.training.lora import LoraAdapters, LoraSpec
+    from colpali_tpu_torch.utils.testing import qwen_word_tokenizer
+
+    cfg = Qwen25VLConfig(vision=Qwen25VLVisionConfig(depth=2, hidden_size=640, num_heads=8, intermediate_size=3420,
+                                                     out_hidden_size=512, fullatt_block_indexes=(1,)),
+                         text=Qwen2TextConfig(hidden_size=512, intermediate_size=1024, num_hidden_layers=2,
+                                              num_attention_heads=4, num_key_value_heads=2, head_dim=128))
+    model = ColQwen2_5(cfg, device=dev, dtype=torch.bfloat16, remat=True)
+    gen = _gen(dev, 11)
+    hf_init_(model, gen)
+    words = "find the page with revenue figures user Describe image.".split()
+    proc = ColQwen2_5Processor(qwen_word_tokenizer(words), max_num_visual_tokens=256, device=dev)
+    pages = [np.random.default_rng(i).integers(0, 256, size=(420, 300, 3), dtype=np.uint8) for i in range(4)]
+    examples = [{"query": q, "pos_target": p} for q, p in zip(["find the page", "revenue figures", "the page",
+                                                                  "figures"], pages)]
+    batch = trainer.to_device(VisualRetrieverCollator(proc)(examples), dev)
+    peft = LoraSpec(rank=8, alpha=16, dropout=0.1)
+    adapters = LoraAdapters(model, peft)
+    with torch.no_grad():
+        for b in adapters.b:  # off zero, so that a takes a gradient too
+            b.normal_(0.0, 0.02, generator=gen)
+    state = trainer.create_train_state(model, trainer.TrainConfig(), adapters)
+    loss_fn = ColbertLoss(use_smooth_max=True)
+
+    def step():
+        trainer.begin_step(state, peft, 0)
+        loss, _, _ = trainer.compute_loss(model, batch, loss_fn, False)
+        loss.backward()
+        grad = torch.cat([p.grad.flatten().double() for p in state.params])
+        state.optimizer.zero_grad(set_to_none=True)
+        return loss.item(), grad
+
+    before = dict(fa.BACKWARD_LAUNCHES_BY_HEAD_DIM)
+    loss, grad = step()
+    launched = {d: fa.BACKWARD_LAUNCHES_BY_HEAD_DIM[d] - before[d] for d in before}
+    assert launched[128] == 2 * cfg.text.num_hidden_layers and launched[80] == 0, launched
+    with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
+        plain_loss, plain_grad = step()
+    cos = (grad @ plain_grad / (grad.norm() * plain_grad.norm())).item()
+    assert np.isfinite(loss) and abs(loss - plain_loss) <= 1e-2 * abs(plain_loss), (loss, plain_loss)
+    assert cos >= 0.99, cos
+    adapters.detach()

@@ -6,7 +6,9 @@ kernels) against ``jax.grad`` of the JAX package's einsum path masked with
 Same q, k, v, segments and output gradient from a numpy seed. Tolerance:
 fp32, atol=2e-5 on gradients of order 1 (products and the softmax summed in
 another order). Head dims 12 and 32 stand in for 72 (not a multiple of 16)
-and 256. Segment ids cannot leave a row without a key (a token matches
+and 256; the Qwen2-VL family's 128 (the decoders: causal GQA 16/2 and 12/2
+with left padding) and 80 (the vision towers' windows) run at their own
+width. Segment ids cannot leave a row without a key (a token matches
 itself, also under ``causal``); the nearest case, a token alone in its
 segment, is covered: its probability is 1 and its dq is zero.
 """
@@ -40,6 +42,8 @@ def segments(kind, b, s):
         seg[1, s - 4:] = 0
         seg[b - 1, s - 9:] = 0
         return seg
+    if kind == "left":  # a decoder batch: rows left-padded by 0, 4 and 9 tokens (segment 0)
+        return (np.arange(s)[None] >= np.array([0, 4, 9])[:b, None]).astype(np.int32)
     if kind == "window":
         seg = (np.arange(s) // 5)[None].repeat(b, 0).astype(np.int32)
         seg[1, -3:] = -1
@@ -57,6 +61,9 @@ CASES = [
     (4, 2, 12, "window", False),  # GQA inside windows
     (2, 2, 12, "window", True),  # causal inside windows
     (4, 1, 32, "alone", True),  # a row whose only key is itself, under a causal mask over MQA
+    (16, 2, 128, "left", True),  # Qwen2.5-VL-3B's decoder: GQA 16/2, causal, left padding
+    (12, 2, 128, "left", True),  # Qwen2-VL-2B's decoder: GQA 12/2
+    (4, 4, 80, "window", False),  # the Qwen vision towers' windowed blocks
 ]
 
 

@@ -1,0 +1,77 @@
+"""The port's import surface against the reference's (a move from one
+package to the other is a change of the import).
+
+- Every name that a reference ``__init__`` exports from a module the port
+  has, and that module defines, is exported at the same path of the port
+  (the same object). Modules not ported yet, and names of ported modules
+  that wait (the Bi models, JAX's functional LoRA), are skipped.
+- The ``_target_``s of the three training recipes resolve with
+  ``colpali_tpu.`` read as ``colpali_tpu_torch.``, all but
+  ``utils.dataset_loading.load_train_set`` (ROADMAP.md Queue 1 item 9).
+"""
+
+import ast
+import importlib
+from pathlib import Path
+
+import pytest
+import yaml
+
+from colpali_tpu_torch.configs import _resolve
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _reference_exports():
+    """(package, module, name) of every ``from colpali_tpu.<module> import name``
+    in the reference's ``__init__`` files."""
+    for init in sorted((REPO / "colpali_tpu").rglob("__init__.py")):
+        package = ".".join(init.parent.relative_to(REPO).parts)
+        for node in ast.parse(init.read_text()).body:
+            if isinstance(node, ast.ImportFrom) and (node.module or "").startswith("colpali_tpu."):
+                for alias in node.names:
+                    yield package, node.module, alias.name
+
+
+def _port_name(dotted):
+    return "colpali_tpu_torch" + dotted[len("colpali_tpu"):]
+
+
+def test_every_ported_name_is_exported_where_the_reference_exports_it():
+    exported = 0
+    for package, module, name in _reference_exports():
+        if not (REPO / Path(*_port_name(module).split("."))).with_suffix(".py").exists():
+            continue  # a module not ported yet (ROADMAP.md Queue 1)
+        if not hasattr(importlib.import_module(_port_name(module)), name):
+            continue  # a name of a ported module that waits (the Bi models, JAX's functional LoRA)
+        assert getattr(importlib.import_module(_port_name(package)), name) is \
+            getattr(importlib.import_module(_port_name(module)), name), f"{_port_name(package)}.{name}"
+        exported += 1
+    assert exported >= 65
+    from colpali_tpu_torch import load_retriever as top  # noqa: F401
+    from colpali_tpu_torch.models import ColQwen2_5  # noqa: F401
+    from colpali_tpu_torch.training import ColModelTraining, ColModelTrainingConfig, LoraSpec, TrainConfig  # noqa: F401
+
+
+def _targets(node):
+    if isinstance(node, dict):
+        if "_target_" in node:
+            yield node["_target_"]
+        for value in node.values():
+            yield from _targets(value)
+    elif isinstance(node, list):
+        for value in node:
+            yield from _targets(value)
+
+
+@pytest.mark.parametrize("recipe", ["train_colpali.yaml", "train_colqwen2.yaml", "train_colqwen2_5.yaml"])
+def test_recipe_targets_resolve_in_the_port(recipe):
+    targets = sorted(set(_targets(yaml.safe_load((REPO / "configs" / recipe).read_text()))))
+    missing = []
+    for target in targets:
+        try:
+            _resolve(_port_name(target))
+        except (ImportError, AttributeError):
+            missing.append(target)
+    assert missing == ["colpali_tpu.utils.dataset_loading.load_train_set"]  # ROADMAP.md Queue 1 item 9
+    assert len(targets) >= 8

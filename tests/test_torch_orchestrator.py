@@ -124,11 +124,19 @@ def test_full_fine_tuning_and_epoch_end_eval(tmp_path):
 def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         make_app(tmp_path, mesh=object())
-    with pytest.raises(NotImplementedError, match="quant_dense"):
-        make_app(tmp_path, quantize_frozen_base=True)
     with pytest.raises(NotImplementedError, match="named policies"):
         make_app(tmp_path, remat_policy="dots")
     make_app(tmp_path, remat_policy="full").close()
+
+
+def test_quantize_frozen_base_stores_only_the_vision_tower_and_needs_lora(tmp_path):
+    with pytest.raises(ValueError, match="peft"):
+        make_app(tmp_path, peft=None, quantize_frozen_base=True)
+    app = make_app(tmp_path, quantize_frozen_base=True, quant_min_dim=16)
+    stored = {name for name, m in app.model.named_modules() if getattr(m, "stored", False)}
+    assert stored and all(name.startswith("model.vision_tower.") for name in stored)
+    assert len(app.quantized_paths) == len(stored)
+    app.close()
 
 
 def test_cli_trains_from_yaml(tmp_path):

@@ -367,7 +367,7 @@ def test_export_and_lora_refuse_a_quantized_model(tiny):
     qd.quantize_params(model, min_dim=16)
     with pytest.raises(ValueError, match="dequantize_params"):
         export_colpali_state_dict(model.state_dict())
-    with pytest.raises(NotImplementedError, match="quantize_frozen_base"):
+    with pytest.raises(ValueError, match="quantize_frozen_base"):
         LoraAdapters(model, LoraSpec(rank=4))
     float_state = _port_model(tiny, tiny[2]).state_dict()
     with pytest.raises(ValueError, match="dequantize_params"):
