@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, page-embedding and training paths once on one GPU.
 
-The serving path runs for ColPali-3B (phases 3, 4 and 7) and for the
-Qwen2-VL family, ColQwen2.5-3B and ColQwen2-2B (phase 8); training for
-ColPali-3B (phase 5) and the Qwen2-VL family (phase 9).
+The serving path runs for ColPali-3B (phases 3, 4 and 7), for the
+Qwen2-VL family, ColQwen2.5-3B and ColQwen2-2B (phase 8), and for the
+Idefics3/SmolVLM family, colSmol-256M, with the single-vector Bi models
+(phase 10); training for ColPali-3B (phase 5) and the Qwen2-VL family
+(phase 9).
 
 Run from the repository root with no arguments:
 
@@ -129,8 +131,33 @@ Phases (a few lines of output each, then two JSON lines):
    2 steps, 227 Q1b launches a step, no gradient through it, the export
    holding ``q * scale``, a step timed); ColQwen2-2B's 2 LoRA steps and its
    route check; one full fine-tuning step of ColQwen2.5 at full width cut
-   to 4 vision blocks and 2 text layers (batch 4), through the D=80
+   to 4 vision blocks and 2 text layers (batch 8), through the D=80
    backward, its gradient against the plain route.
+
+10. the Idefics3/SmolVLM family (after phase 9): colSmol-256M at its
+   published widths (SigLIP-B/16-512 12 x 768, pixel shuffle by 4, a
+   12,288 -> 576 connector, SmolLM2-135M 30 x 576 with GQA 9/3 x 64; 0.256 B
+   seeded random bf16 parameters) written as an HF checkpoint with a
+   word-level tokenizer holding Idefics3's special tokens and read back by
+   ``load_retriever(family="colidefics3")`` in bf16 and with
+   ``quantize=True`` (223 stored-int8 layers); K6 at D=64 against its plain
+   version at the path's shapes (the vision tower over 8 pages' 104 tiles,
+   the causal decoder over the pages' prompts with rows right-padded under
+   the key-padding mask, the queries), bit-equal on a second call, beside
+   SDPA; Q1a/Q1b bit-equal to their plain versions at the (M, K, N) of a page
+   forward and the query forwards (K 576, 768, 1,536, 3,072 and 12,288) and
+   timed; 16 seeded 1,275 x 1,650 pages (13 tiles each) through
+   ``embed_dataset`` on both models, a two-tier int8 index behind
+   ``make_handler`` for each finding the 4 planted pages at rank 1 on the
+   tiered and the exact route of ``/search_text``, ``serve.py --checkpoint
+   --family colidefics3`` answering one, every K6 launch at D=64 and none
+   through its plain version; K1-K3 against plain on both indexes; the K6
+   route against the plain route and stored int8 against bf16 per token;
+   forward and encode timings and two profiles; then BiIdefics3 at full
+   width (on the checkpoint's backbone), BiPaliProj and BiQwen2_5 at full
+   width cut to 2 + 2 layers: each vector through the K6 route against the
+   plain route, and the Bi processor's ``score`` finding planted pages.
+   Each phase from 8 on logs the GiB held on the card as it starts.
 
 Every K6 and K11 case prints, beside its time by CUDA events, TFLOP/s,
 the share of its bound, and SDPA with a boolean mask and, where the
@@ -265,12 +292,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def free_memory(phase: str) -> None:
-    """Collect what an earlier phase left in reference cycles (servers and
-    handlers holding models and indexes) before the next phase allocates."""
+def free_memory(phase: str) -> float:
+    """Collect what an earlier phase left in reference cycles before the next
+    phase allocates, and log (and return) the GiB still allocated on the
+    card. Servers are closed with ``RetrievalServer.server_close``, which
+    stops the batcher threads that hold their indexes and models."""
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"{phase}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB held on the card as it starts")
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"{phase}: {held:.2f} GiB held on the card as it starts")
+    return held
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -314,8 +345,9 @@ def k2_bound(b: int, nq: int, c: int, np_: int, d: int, value_bytes: int) -> dic
 def reset_launches() -> None:
     for spec in KERNELS.values():
         spec["counter"].reset()
-    for d in fa.BACKWARD_LAUNCHES_BY_HEAD_DIM:
-        fa.BACKWARD_LAUNCHES_BY_HEAD_DIM[d] = 0
+    for by_dim in (fa.FORWARD_LAUNCHES_BY_HEAD_DIM, fa.BACKWARD_LAUNCHES_BY_HEAD_DIM):
+        for d in by_dim:
+            by_dim[d] = 0
 
 
 def read_launches(phase: str, names=SERVING_KERNELS) -> dict:
@@ -327,10 +359,11 @@ def read_launches(phase: str, names=SERVING_KERNELS) -> dict:
     return launches
 
 
-def device_ms(fn, calls: int = 5) -> float:
+def device_ms(fn, calls: int = 5):
     """Device time of ``fn`` per call from ``torch.profiler``, summed over
     the kernels it launches: their own time, where back-to-back launches of
-    a small kernel measure the host's launch rate instead."""
+    a small kernel measure the host's launch rate instead. None when the
+    profiler records no device time (it drops kernels late in a long run)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -339,8 +372,9 @@ def device_ms(fn, calls: int = 5) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / calls
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / calls
+    return total or None
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -992,7 +1026,6 @@ def phase_slice(device: torch.device, encoder) -> dict:
     """Drive the text-in served path through its entry points; returns each
     kernel's launch count over the requests."""
     import tempfile
-    from http.server import ThreadingHTTPServer
     import threading
 
     from colpali_tpu_torch import serve
@@ -1018,7 +1051,7 @@ def phase_slice(device: torch.device, encoder) -> dict:
         f"{index.coarse_pool}, built in {t_build:.1f} s, saved + loaded, nbytes {index.nbytes}")
 
     files = [f"doc_{i}" for i in range(index.num_docs)]
-    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(index, files, encoder=encoder))
+    httpd = serve.RetrievalServer(("127.0.0.1", 0), serve.make_handler(index, files, encoder=encoder))
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{httpd.server_port}"
@@ -1102,20 +1135,27 @@ def k6_shapes(model, processor, encoder) -> dict:
 
 
 def k6_case(gen: torch.Generator, device: torch.device, b: int, s: int, h: int, hkv: int, d: int,
-            lengths, seg: torch.Tensor = None, causal: bool = False, label: str = "") -> dict:
+            lengths, seg: torch.Tensor = None, causal: bool = False, label: str = "",
+            kv_seg: torch.Tensor = None) -> dict:
     """K6 against its plain version (valid rows) and beside SDPA with a
     boolean mask, at one shape; ``lengths`` right-pads each row, or ``seg``
     gives the segment ids (valid rows: ids >= 1 where ids are 0/1, >= 0 where
-    pad is -1, as Qwen2.5's window ids)."""
+    pad is -1, as Qwen2.5's window ids), and ``kv_seg`` the keys' own ids
+    (the key-padding mask: every row is held). A second call must give the
+    same bits."""
     q, k, v = (torch.randn((b, s, n, d), generator=gen, device=device).to(torch.bfloat16) for n in (h, hkv, hkv))
     if seg is None:
         seg = torch.ones((b, s), dtype=torch.int32, device=device)
         if lengths is not None:
             seg = (torch.arange(s, device=device)[None] < torch.tensor(lengths, device=device)[:, None]).to(torch.int32)
     scale = d**-0.5
+    keys = {} if kv_seg is None else {"kv_segments": kv_seg}
     rows = seg >= 0 if bool((seg < 0).any()) else seg.bool()
-    got = fa.flash_attention(q, k, v, seg, scale, causal)[rows].float()
-    want = fa.flash_attention_plain(q, k, v, seg, scale, causal)[rows].float()
+    out = fa.flash_attention(q, k, v, seg, scale, causal, **keys)
+    if not torch.equal(out, fa.flash_attention(q, k, v, seg, scale, causal, **keys)):
+        raise AssertionError(f"K6 B={b} S={s} H={h}/{hkv} D={d}{label}: two calls differ")
+    got = out[rows].float()
+    want = fa.flash_attention_plain(q, k, v, seg, scale, causal, **keys)[rows].float()
     atol = K6_ATOL_RMS * want.pow(2).mean().sqrt().item()
     err = (got - want).abs()
     if causal:  # K11's rule: the RMS per query row (the first rows under a causal mask see few keys)
@@ -1127,7 +1167,7 @@ def k6_case(gen: torch.Generator, device: torch.device, b: int, s: int, h: int, 
     else:
         torch.testing.assert_close(got, want, rtol=K6_RTOL, atol=atol)
         limit_share = (err / (atol + K6_RTOL * want.abs())).max().item()  # of the tolerance, at the worst element
-    allowed = seg[:, :, None] == seg[:, None, :]
+    allowed = seg[:, :, None] == (seg if kv_seg is None else kv_seg)[:, None, :]
     if causal:
         allowed &= torch.ones((s, s), dtype=torch.bool, device=device).tril()
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -1135,16 +1175,16 @@ def k6_case(gen: torch.Generator, device: torch.device, b: int, s: int, h: int, 
     def sdpa(mask):
         return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=h != hkv)
 
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * seg.numel()
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * seg.numel() * (1 if kv_seg is None else 2)
     pairs = allowed.sum().item()  # (query, key) pairs that this data attends
-    r = dict(ms=time_ms(lambda: fa.flash_attention(q, k, v, seg, scale, causal)),
-             device_ms=device_ms(lambda: fa.flash_attention(q, k, v, seg, scale, causal)),
-             graph_ms=graph_ms(lambda: fa.flash_attention(q, k, v, seg, scale, causal)),
-             plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, seg, scale, causal), reps=2),
+    r = dict(ms=time_ms(lambda: fa.flash_attention(q, k, v, seg, scale, causal, **keys)),
+             device_ms=device_ms(lambda: fa.flash_attention(q, k, v, seg, scale, causal, **keys)),
+             graph_ms=graph_ms(lambda: fa.flash_attention(q, k, v, seg, scale, causal, **keys)),
+             plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, seg, scale, causal, **keys), reps=2),
              library_ms=time_ms(sdpa(allowed[:, None])), max_abs_err=err.max().item(), atol=atol,
              limit_share=limit_share, **bound(nbytes, 4 * pairs * h * d, "bf16"),
              shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}" + ("" if lengths is None else " key padding") + label)
-    if lengths is None and not causal and bool((seg == seg[0, 0]).all()):
+    if lengths is None and kv_seg is None and not causal and bool((seg == seg[0, 0]).all()):
         r["library_unmasked_ms"] = time_ms(sdpa(None))  # one segment: SDPA without a mask (its flash backend)
     if pairs < b * s * s:  # masked work: the bound over every pair, which the kernel's tiles still visit
         r["bound_ms_all_pairs"] = bound(nbytes, 4 * b * s * s * h * d, "bf16")["bound_ms"]
@@ -1161,7 +1201,8 @@ def library_note(r: dict) -> str:
     """The yardsticks and rates of one K6/K11 case, for its log line."""
     unmasked = f", SDPA without a mask {r['library_unmasked_ms']:.3f} ms" if "library_unmasked_ms" in r else ""
     masked = f", SDPA with a boolean mask {r['library_masked_ms']:.3f} ms" if "library_masked_ms" in r else ""
-    device = f"device {r['device_ms']:.4f} ms (profiler), " if "device_ms" in r else ""
+    device = "" if "device_ms" not in r else "device not measured (profiler), " if r["device_ms"] is None else \
+        f"device {r['device_ms']:.4f} ms (profiler), "
     device += f"from a CUDA graph {r['graph_ms']:.4f} ms, " if "graph_ms" in r else ""
     return (f"{device}SDPA {r['library_ms']:.3f} ms{unmasked}{masked}, "
             f"{r['tflops']:.0f} TFLOP/s, {r['bound_share']:.1%} of the bound")
@@ -1327,7 +1368,6 @@ def phase_pages(device: torch.device, model, processor, encoder) -> tuple:
     """Drive the page-embedding path: pages -> embeddings -> a served
     two-tier index. Returns the launches over the path, K6's timings, K1-K3's
     timings at full-page length, and pages/min with the forward check."""
-    from http.server import ThreadingHTTPServer
     import threading
 
     from colpali_tpu_torch import serve
@@ -1381,7 +1421,7 @@ def phase_pages(device: torch.device, model, processor, encoder) -> tuple:
     planted = page_ids[:: PAGES // PLANTED_PAGES][:PLANTED_PAGES]
     queries = [embs[page_ids.index(i)][:PAGE_QUERY_TOKENS] for i in planted]
     files = [f"page_{i}" for i in range(index.num_docs)]
-    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(index, files, encoder=encoder))
+    httpd = serve.RetrievalServer(("127.0.0.1", 0), serve.make_handler(index, files, encoder=encoder))
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{httpd.server_port}"
@@ -1695,13 +1735,12 @@ def checkpoint_readback(device: torch.device, model, in_memory: dict, loaded: di
     in memory; their query and page embeddings must be bit-equal. Then a
     ``QueryEncoder`` of the loaded model answers ``/search_text`` behind
     ``make_handler``, each query finding its own embedding at rank 1."""
-    from http.server import ThreadingHTTPServer
     import threading
 
     from colpali_tpu_torch.models.paligemma import ColPali
     from colpali_tpu_torch.retrieval.serving import QueryEncoder
     from colpali_tpu_torch.retrieval.store import CorpusIndex
-    from colpali_tpu_torch.serve import make_handler
+    from colpali_tpu_torch.serve import RetrievalServer, make_handler
 
     t0 = time.perf_counter()
     models = {}
@@ -1724,7 +1763,7 @@ def checkpoint_readback(device: torch.device, model, in_memory: dict, loaded: di
     del models["in_memory"]
     encoder = QueryEncoder(models["loaded"], processor)
     docs = encoder.encode(QUERIES)
-    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(CorpusIndex(docs, device=device), list(QUERIES),
+    httpd = RetrievalServer(("127.0.0.1", 0), make_handler(CorpusIndex(docs, device=device), list(QUERIES),
                                                                encoder=encoder))
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     try:
@@ -2217,7 +2256,6 @@ def phase_stored_int8(device: torch.device, model, processor, smi: str) -> tuple
     serving ``/search_text`` and embedding pages, beside the bf16 model.
     Returns the launches over that path, Q1a/Q1b's timings and the rest."""
     import tempfile
-    from http.server import ThreadingHTTPServer
     import threading
 
     from colpali_tpu_torch import serve
@@ -2316,8 +2354,8 @@ def phase_stored_int8(device: torch.device, model, processor, smi: str) -> tuple
         docs[doc_id, : q.shape[0]] = q
     index = CorpusIndex(docs, dtype="int8", prefilter="binary", coarse_pool=COARSE_POOL, device=device)
     del docs
-    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(index, [f"doc_{i}" for i in range(index.num_docs)],
-                                                                     encoder=qenc))
+    httpd = serve.RetrievalServer(("127.0.0.1", 0), serve.make_handler(
+        index, [f"doc_{i}" for i in range(index.num_docs)], encoder=qenc))
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     url = f"http://127.0.0.1:{httpd.server_port}"
     try:
@@ -2562,7 +2600,6 @@ def phase_qwen(device: torch.device, smi: str, ckpt: str) -> tuple:
     check. Returns the launches over the path, the new kernel rows and the
     rest."""
     import tempfile
-    from http.server import ThreadingHTTPServer
     import threading
 
     from colpali_tpu_torch import serve
@@ -2661,7 +2698,7 @@ def phase_qwen(device: torch.device, smi: str, ckpt: str) -> tuple:
                     for i, e in enumerate(embs[label])] + list(filler)
             corpora[label] = docs
             index = CorpusIndex(docs, dtype="int8", prefilter="binary", coarse_pool=COARSE_POOL, device=device)
-            httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(
+            httpd = serve.RetrievalServer(("127.0.0.1", 0), serve.make_handler(
                 index, [f"doc_{i}" for i in range(index.num_docs)], encoder=enc))
             threading.Thread(target=httpd.serve_forever, daemon=True).start()
             url = f"http://127.0.0.1:{httpd.server_port}"
@@ -2790,6 +2827,7 @@ QWEN_QUANT_STEPS = 2
 QWEN_LR = 5e-5  # phase 5's: the recipe's 2e-4 without its 100 warm-up steps overshoots on random weights
 # full fine-tuning at full width, cut in depth: 4 vision blocks (the last one full attention) and 2 text layers
 FULL_FT_VISION_DEPTH, FULL_FT_TEXT_LAYERS = 4, 2
+FULL_FT_BATCH = 8  # the recipe's batch: it fits since the served handlers' batcher threads are stopped
 # kernel route vs plain route, one step from the same state, batch and dropout masks (phase 5's rule): the
 # recipe loss by value (its max over page tokens makes the routes' gradients flow through other tokens where
 # their picks differ), the adapter gradient by cosine on the smooth probe (no max anywhere); the full
@@ -2923,7 +2961,6 @@ def qwen_readback(device: torch.device, export_dir: str, merged: dict, config) -
     merged weights as they were in memory, bit for bit; its
     ``QueryEncoder`` behind ``make_handler`` finds a page planted with a
     query's tokens at rank 1."""
-    from http.server import ThreadingHTTPServer
     import threading
 
     from colpali_tpu_torch.auto import load_retriever
@@ -2931,7 +2968,7 @@ def qwen_readback(device: torch.device, export_dir: str, merged: dict, config) -
     from colpali_tpu_torch.models.qwen2_5_vl import ColQwen2_5
     from colpali_tpu_torch.retrieval.serving import QueryEncoder
     from colpali_tpu_torch.retrieval.store import CorpusIndex
-    from colpali_tpu_torch.serve import make_handler
+    from colpali_tpu_torch.serve import RetrievalServer, make_handler
 
     t0 = time.perf_counter()
     back, proc = load_retriever(export_dir, family="colqwen2_5", device=device)
@@ -2955,7 +2992,7 @@ def qwen_readback(device: torch.device, export_dir: str, merged: dict, config) -
     docs = embed_dataset(back, proc, pages, batch_size=len(pages))
     planted = 2
     docs[planted] = np.concatenate([docs[planted], encoder.encode(QUERIES[:1])[0]])
-    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(CorpusIndex(docs, device=device),
+    httpd = RetrievalServer(("127.0.0.1", 0), make_handler(CorpusIndex(docs, device=device),
                                                                [f"page_{i}" for i in range(len(docs))],
                                                                encoder=encoder))
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
@@ -3215,12 +3252,11 @@ def phase_qwen_training(device: torch.device, smi: str, ckpt: str) -> tuple:
     # lr 1e-2: Adam's first update is about lr an element, which must pass half a bf16 ulp of a norm weight near 1
     fstate = trainer.create_train_state(full, trainer.TrainConfig(learning_rate=1e-2, warmup_steps=0,
                                                                   total_steps=100, weight_decay=0.0))
-    # 4 of the 8 examples: the plain route keeps each vision block's fp32 logits for its backward (4.5 GB a
-    # block at batch 8)
-    batch = {k: v[:, :4] if k.endswith("position_ids") else v[:4] for k, v in batch.items()}
+    # the plain route keeps each vision block's fp32 logits for its backward (4.5 GB a block at batch 8)
+    batch = {k: v[:, :FULL_FT_BATCH] if k.endswith("position_ids") else v[:FULL_FT_BATCH] for k, v in batch.items()}
     reset_launches()
     route_full = hold_routes(f"full fine-tuning ({FULL_FT_VISION_DEPTH} vision blocks, {FULL_FT_TEXT_LAYERS} text "
-                             "layers, batch 4)", fstate, batch, loss_fn, None)
+                             f"layers, batch {FULL_FT_BATCH})", fstate, batch, loss_fn, None)
     e_launches = launch_counts()  # both losses' kernel routes: one page forward each
     # the step on the smooth probe: the recipe loss's max over page tokens can leave the whole tower without a
     # gradient where no image token is picked, as on random weights
@@ -3238,8 +3274,8 @@ def phase_qwen_training(device: torch.device, smi: str, ckpt: str) -> tuple:
     n_full = sum(p.numel() for p in full.parameters())
     log(f"  full fine-tuning, ColQwen2.5 at full width cut to {FULL_FT_VISION_DEPTH} vision blocks (block "
         f"{FULL_FT_VISION_DEPTH - 1} full attention) and {FULL_FT_TEXT_LAYERS} text layers ({n_full / 1e9:.3f} B "
-        f"parameters, batch 4): every parameter took a gradient and moved in one step on the smooth probe; K6 "
-        f"backward by head dim over the two route checks' kernel routes {e_launches['bwd_by_head_dim']}")
+        f"parameters, batch {FULL_FT_BATCH}): every parameter took a gradient and moved in one step on the smooth "
+        f"probe; K6 backward by head dim over the two route checks' kernel routes {e_launches['bwd_by_head_dim']}")
     extra["full_fine_tuning"] = dict(params=n_full, route=route_full, launches=e_launches)
     fstate.model.zero_grad(set_to_none=True)
     del full, fstate, before, batch
@@ -3251,6 +3287,369 @@ def phase_qwen_training(device: torch.device, smi: str, ckpt: str) -> tuple:
                     int8_gemm=quant_launches["int8_gemm"])
     extra["launches_by_head_dim"] = {str(d): n for d, n in by_dim.items()}
     return launches, k6_bwd, extra
+
+
+# -- phase 10: the Idefics3/SmolVLM family, ColSmol (run after phase 9) -------------------------------
+
+SMOL_PAGES = 16  # two batches of 8
+SMOL_PLANTED = (1, 6, 10, 13)  # pages whose docs also hold QUERIES[i]'s tokens, i = 0..3
+SMOL_FILLER_DOCS = 4_096
+SMOL_TILES = 13  # a 1,275 x 1,650 page within the longest edge of 2,048: 4 x 3 tiles of 512 px and the global view
+# colSmol-256M's stored-int8 layers: 12 x 6 in the vision tower (q/k/v/o, fc1, fc2), the 12,288 -> 576 connector,
+# 30 x 5 in the text layers (their k/v, 576 -> 192, the patch embedding and the 128-d head stay bf16)
+SMOL_STORED_LAYERS = 12 * 6 + 1 + 30 * 5
+BI_COS_MIN = 0.999  # a Bi vector through the K6 route against the plain route
+BI_PLANTED = (1, 3, 4, 6)  # of a batch of 8 pages: each takes query i's vector, i = 0..3
+
+
+def smol_config():
+    """colSmol-256M at its published widths (``scripts/validate_checkpoint.py::make_synth_colsmol``): the
+    SigLIP-B/16-512 vision tower (12 x 768, 12 heads), pixel shuffle by 4, the SmolLM2-135M text decoder
+    (30 x 576, 9/3 heads of 64, MLP 1,536, vocab 49,280)."""
+    from colpali_tpu_torch.models.idefics3 import Idefics3Config, Idefics3VisionConfig
+    from colpali_tpu_torch.models.qwen2_vl import Qwen2TextConfig
+
+    return Idefics3Config(vision=Idefics3VisionConfig(),
+                          text=Qwen2TextConfig(vocab_size=49280, hidden_size=576, intermediate_size=1536,
+                                               num_hidden_layers=30, num_attention_heads=9, num_key_value_heads=3,
+                                               head_dim=64, rope_theta=100000.0, rms_norm_eps=1e-5,
+                                               mrope_section=(32,), attention_bias=False),
+                          scale_factor=4, image_token_id=49190)
+
+
+def smol_tokenizer():
+    """A word-level tokenizer over the prompt's and QUERIES' words with Idefics3's special tokens."""
+    from colpali_tpu_torch.utils.testing import idefics3_word_tokenizer
+
+    return idefics3_word_tokenizer("User: Describe the image. Assistant:".split() + " ".join(QUERIES).split())
+
+
+def smol_k6_cases(device: torch.device, batch: dict, cfg, encoder_feed: dict) -> dict:
+    """K6 at D=64 against its plain version at the path's shapes: the vision
+    tower over a batch's tiles (no mask), the decoder over the pages' prompts
+    (causal GQA 9/3, rows right-padded by 0-56 tokens under the key-padding
+    mask) and over the queries as the query encoder pads them."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 50)
+    v, t = cfg.vision, cfg.text
+    n_tiles = int(np.asarray(batch["tile_mask"]).size)
+    b, s_text = batch["input_ids"].shape
+    right = (torch.arange(s_text, device=device)[None] < s_text - 8 * torch.arange(b, device=device)[:, None])
+    q_mask = torch.as_tensor(encoder_feed["attention_mask"], device=device).to(torch.int32).contiguous()
+    heads = (t.num_attention_heads, t.num_key_value_heads, t.head_dim)
+    cases = {
+        "vision": (n_tiles, v.num_patches, v.num_attention_heads, v.num_attention_heads, v.head_dim, None, None,
+                   False, f" ({n_tiles // b} tiles a page)", None),
+        "text": (b, s_text, *heads, None, None, True, " causal, rows right-padded by 0-56 (key-padding mask)",
+                 right.to(torch.int32).contiguous()),
+        "queries": (*q_mask.shape, *heads, None, None, True, " causal, the query encoder's padding (key-padding mask)",
+                    q_mask),
+    }
+    out = {}
+    for name, (bb, ss, h, hkv, d, lengths, seg, causal, label, kv_seg) in cases.items():
+        if kv_seg is not None:
+            seg = torch.ones_like(kv_seg)
+        r = k6_case(gen, device, bb, ss, h, hkv, d, lengths, seg=seg, causal=causal, label=label, kv_seg=kv_seg)
+        extra = f", bound over all pairs {r['bound_ms_all_pairs']:.4f} ms" if "bound_ms_all_pairs" in r else ""
+        log(f"phase colsmol: K6 {name} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"{library_note(r)}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}, max_abs_err "
+            f"{r['max_abs_err']:.3g} (atol {r['atol']:.3g}, {r['limit_share']:.0%} of the tolerance), bit-equal on "
+            "a second call")
+        out[name] = r
+    torch.cuda.empty_cache()
+    return out
+
+
+def bi_check(name: str, model, feeds: list, device: torch.device, score, planted: tuple) -> dict:
+    """A Bi model's single vectors of each feed (pages, then queries) through
+    the K6 route and the plain route (cosine per vector >= BI_COS_MIN), and
+    its processor's ``score`` finding each planted page at rank 1: page
+    ``planted[i]``'s vector replaced by query i's."""
+    def run():
+        with torch.inference_mode():
+            return [model(**{k: torch.as_tensor(v).to(device) for k, v in f.items() if k != "image_grid_thw"})
+                    .float().cpu().numpy() for f in feeds]
+
+    kernel = run()
+    with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
+        plain = run()
+    a, b = np.concatenate(kernel), np.concatenate(plain)
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+    pages, queries = kernel[0].copy(), kernel[-1]
+    for i, p in enumerate(planted):
+        pages[p] = queries[i]
+    top = score(list(queries[: len(planted)]), list(pages)).argmax(axis=1).tolist()
+    out = dict(vectors=len(a), dim=a.shape[1], min_cos=float(cos.min()), mean_cos=float(cos.mean()), top=top)
+    if not (np.isfinite(a).all() and out["min_cos"] >= BI_COS_MIN and top == list(planted)):
+        raise AssertionError(f"{name}: {out}, limits min cos >= {BI_COS_MIN}, planted {list(planted)}")
+    log(f"  {name}: {len(a)} vectors of {a.shape[1]}, K6 route vs plain route mean cos {out['mean_cos']:.6f}, min "
+        f"cos {out['min_cos']:.6f} (limit {BI_COS_MIN}, {share(1 - out['min_cos'], 1 - BI_COS_MIN)}); score finds "
+        f"each planted page at rank 1 {top}")
+    return out
+
+
+def phase_colsmol(device: torch.device, smi: str) -> tuple:
+    """Drive the Idefics3/SmolVLM family's serving path: colSmol-256M written
+    as an HF checkpoint and read back by ``load_retriever(family=
+    "colidefics3")`` in bf16 and stored int8, pages through
+    ``embed_dataset``, ``/search_text`` through ``make_handler`` and
+    ``serve.py --checkpoint --family colidefics3``; K6 at D=64 at the path's
+    shapes; then the Bi models (BiIdefics3 at full width, BiPaliProj and
+    BiQwen2_5 at cut depth). Returns the launches over the path, the kernel
+    rows and the rest."""
+    import dataclasses
+    import tempfile
+    import threading
+
+    from colpali_tpu_torch import serve
+    from colpali_tpu_torch.auto import load_retriever
+    from colpali_tpu_torch.evaluation.evaluator import embed_dataset
+    from colpali_tpu_torch.models.common import hf_init_
+    from colpali_tpu_torch.models.configs import GemmaConfig, PaliGemmaConfig, SiglipVisionConfig
+    from colpali_tpu_torch.models.idefics3 import BiIdefics3, ColIdefics3
+    from colpali_tpu_torch.models.layers import QDense
+    from colpali_tpu_torch.models.paligemma import BiPaliProj
+    from colpali_tpu_torch.models.qwen2_5_vl import BiQwen2_5
+    from colpali_tpu_torch.processors.bi import BiIdefics3Processor, BiPaliProcessor, BiQwen2_5_Processor
+    from colpali_tpu_torch.retrieval.serving import QueryEncoder
+    from colpali_tpu_torch.retrieval.store import CorpusIndex
+    from colpali_tpu_torch.serve import RetrievalServer
+    from colpali_tpu_torch.utils.testing import write_idefics3_checkpoint
+
+    held = free_memory("phase colsmol")
+    cfg = smol_config()
+    pages = make_pages(SMOL_PAGES, SEED + 51)
+    extra = dict(held_gib_at_start=held)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        model = ColIdefics3(cfg, dim=DIM, device=device, dtype=torch.bfloat16)
+        hf_init_(model, torch.Generator(device=device).manual_seed(SEED + 52))
+        n_params = sum(p.numel() for p in model.parameters())
+        write_idefics3_checkpoint(tmp, model, smol_tokenizer())
+        backbone = {k: v for k, v in model.state_dict().items() if k.startswith("model.")}  # BiIdefics3's, below
+        del model
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model, processor = load_retriever(tmp, family="colidefics3", device=device)
+        torch.cuda.synchronize()
+        t_bf16 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        qmodel, qproc = load_retriever(tmp, family="colidefics3", device=device, quantize=True)
+        torch.cuda.synchronize()
+        t_int8 = time.perf_counter() - t0
+        stored = sum(isinstance(m, QDense) and m.stored for m in qmodel.modules())
+        bytes_int8, bytes_bf16 = (sum(t.numel() * t.element_size() for t in m.state_dict().values())
+                                  for m in (qmodel, model))
+        v, t = cfg.vision, cfg.text
+        log(f"phase colsmol: colSmol-256M, vision {v.num_hidden_layers} x {v.hidden_size} (MLP {v.intermediate_size}, "
+            f"{v.num_attention_heads} heads x {v.head_dim}, {v.image_size} px tiles of {v.num_patches} patches), pixel "
+            f"shuffle {cfg.scale_factor} ({cfg.image_seq_len} tokens a tile, connector "
+            f"{v.hidden_size * cfg.scale_factor**2} -> {t.hidden_size}), text {t.num_hidden_layers} x {t.hidden_size} "
+            f"(MLP {t.intermediate_size}, heads {t.num_attention_heads}/{t.num_key_value_heads} x {t.head_dim}, vocab "
+            f"{t.vocab_size}): {n_params / 1e9:.3f} B params; HF checkpoint written in {t_write:.1f} s, "
+            f"load_retriever {t_bf16:.1f} s (bf16), {t_int8:.1f} s (quantize=True: {stored} stored-int8 layers, "
+            f"{bytes_int8 / 1e9:.3f} GB against {bytes_bf16 / 1e9:.3f} GB)")
+        if stored != SMOL_STORED_LAYERS:
+            raise AssertionError(f"load_retriever(quantize=True): {stored} stored-int8 layers, expected "
+                                 f"{SMOL_STORED_LAYERS}")
+        batch = pages[:PAGE_BATCH]
+        feed = {k: torch.as_tensor(v).to(device)
+                for k, v in processor.process_images(batch, device_pixels=True).items()}
+        n_tiles = int(feed["tile_mask"].sum(1).max())
+        n_image = int((feed["input_ids"] == cfg.image_token_id).sum(1).max())
+        page_tokens = feed["input_ids"].shape[1]
+        if n_tiles != SMOL_TILES or n_image != SMOL_TILES * cfg.image_seq_len:
+            raise AssertionError(f"a {PAGE_HW[1]} x {PAGE_HW[0]} page: {n_tiles} tiles, {n_image} image tokens; "
+                                 f"expected {SMOL_TILES}")
+        encoders = {"bf16": QueryEncoder(model, processor), "int8": QueryEncoder(qmodel, qproc)}
+        for enc in encoders.values():
+            enc.warmup()
+        k6 = smol_k6_cases(device, {k: v.cpu().numpy() for k, v in feed.items() if k != "pixel_values"}, cfg,
+                           encoders["bf16"]._pad_static(processor.process_queries(QUERIES))[0])
+
+        # Q1a/Q1b at the (M, K, N) of one stored-int8 page forward and the query forwards (x8, x1), by hooks
+        with torch.inference_mode():
+            page_mkn = q1_path_shapes(qmodel, lambda: qmodel(**feed))
+            model(**feed)
+        query_mkn = q1_path_shapes(qmodel, lambda: (encoders["int8"].encode(QUERIES),
+                                                    encoders["int8"].encode(QUERIES[:1])))
+        checks = q1_checks(device, page_mkn + query_mkn, edge_ks=(576, 12288))
+        log(f"phase colsmol: Q1a and Q1b bit-equal to their plain versions in {checks['q1b_cases']} Q1b cases at the "
+            f"page forward's (M, K, N) {page_mkn} and the query forwards' {query_mkn}; Q1a on edge rows at K 576 "
+            "and 12,288")
+        q1_rows, q1_gemms = q1_timing(device, page_mkn + query_mkn)
+        extra["q1_checks"] = dict(checks, page_forward_mkn=page_mkn, query_forward_mkn=query_mkn)
+
+        # the path, counted: pages embedded, /search_text through make_handler on each model, serve.py; K6's
+        # plain version counted apart, which the path must never reach on the card
+        reset_launches()
+        plain_calls = [0]
+        plain = fa.flash_attention_plain
+
+        def counted_plain(*args, **kwargs):
+            plain_calls[0] += 1
+            return plain(*args, **kwargs)
+
+        with mock.patch.object(fa, "flash_attention_plain", counted_plain):
+            t0 = time.perf_counter()
+            embs = {"bf16": embed_dataset(model, processor, pages, batch_size=PAGE_BATCH)}
+            t_embed_bf16 = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            embs["int8"] = embed_dataset(qmodel, qproc, pages, batch_size=PAGE_BATCH)
+            t_embed_int8 = time.perf_counter() - t0
+            for label, es in embs.items():
+                for e in es:
+                    if e.shape[0] != page_tokens or not np.isfinite(e).all() or \
+                            np.abs(np.linalg.norm(e, axis=-1) - 1).max() > 1e-2:
+                        raise AssertionError(f"{label} page embedding {e.shape}: not {page_tokens} finite unit rows")
+            gen = torch.Generator(device=device).manual_seed(SEED + 53)
+            filler = torch.randn((SMOL_FILLER_DOCS, DOC_TOKENS, DIM), generator=gen, device=device)
+            filler = (filler / filler.norm(dim=-1, keepdim=True)).cpu().numpy()
+            served, corpora = {}, {}
+            for label, enc in encoders.items():
+                planted_q = enc.encode(QUERIES[: len(SMOL_PLANTED)])
+                docs = [np.concatenate([e, planted_q[SMOL_PLANTED.index(i)]]) if i in SMOL_PLANTED else e
+                        for i, e in enumerate(embs[label])] + list(filler)
+                corpora[label] = docs
+                index = CorpusIndex(docs, dtype="int8", prefilter="binary", coarse_pool=COARSE_POOL, device=device)
+                httpd = RetrievalServer(("127.0.0.1", 0), serve.make_handler(
+                    index, [f"doc_{i}" for i in range(index.num_docs)], encoder=enc))
+                threading.Thread(target=httpd.serve_forever, daemon=True).start()
+                url = f"http://127.0.0.1:{httpd.server_port}"
+                try:
+                    tiered = [_http(url, "/search_text", {"queries": [q], "k": 10})
+                              for q in QUERIES[: len(SMOL_PLANTED)]]  # one a request: the tiered route
+                    exact = _http(url, "/search_text", {"queries": QUERIES, "k": 10})  # 8 > 4: the exact route
+                finally:
+                    httpd.shutdown()
+                    httpd.server_close()
+                for out in (*tiered, exact):
+                    _check_ranked(f"/search_text ({label})", out, len(out["doc_ids"]))
+                top = ([out["doc_ids"][0][0] for out in tiered],
+                       [row[0] for row in exact["doc_ids"][: len(SMOL_PLANTED)]])
+                if top[0] != list(SMOL_PLANTED) or top[1] != list(SMOL_PLANTED):
+                    raise AssertionError(f"{label} /search_text at rank 1: tiered {top[0]}, exact {top[1]}, planted "
+                                         f"{list(SMOL_PLANTED)}")
+                served[label] = (index, planted_q)
+            npz = f"{tmp}/corpus.npz"
+            np.savez(npz, **{f"emb_{i}": d for i, d in enumerate(corpora["int8"])})
+            t0 = time.perf_counter()
+            httpd = serve.make_server([npz, "--port", "0", "--device", str(device), "--prefilter", "--checkpoint", tmp,
+                                       "--family", "colidefics3"])
+            t_serve = time.perf_counter() - t0
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            try:
+                cli = _http(f"http://127.0.0.1:{httpd.server_port}", "/search_text",
+                            {"queries": [QUERIES[0]], "k": 10})
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+            if cli["doc_ids"][0][0] != SMOL_PLANTED[0]:
+                raise AssertionError(f"serve.py --family colidefics3: rank 1 {cli['doc_ids'][0][0]}, planted "
+                                     f"{SMOL_PLANTED[0]}")
+        launches = read_launches("colSmol", ("flash_attention", "quantize_rows", "int8_gemm", "binary_maxsim",
+                                             "gather_rerank", "maxsim_int8"))
+        by_dim = {d: n for d, n in fa.FORWARD_LAUNCHES_BY_HEAD_DIM.items() if n}
+        if plain_calls[0] or set(by_dim) != {64}:
+            raise AssertionError(f"colSmol path: K6 launches by head dim {by_dim}, {plain_calls[0]} calls of K6's "
+                                 "plain version; expected D=64 alone on the kernel")
+        log(f"  path: {SMOL_PAGES} pages ({page_tokens} tokens, {SMOL_TILES} tiles each) through embed_dataset, each "
+            f"model warm (bf16 {SMOL_PAGES / t_embed_bf16 * 60:.0f} pages/min, stored int8 "
+            f"{SMOL_PAGES / t_embed_int8 * 60:.0f}); a {served['int8'][0].num_docs}-doc x "
+            f"{served['int8'][0].doc_tokens}-token two-tier int8 index behind make_handler for each model: each of "
+            f"{len(SMOL_PLANTED)} planted pages at rank 1 on the tiered and the exact route of /search_text; serve.py "
+            f"--checkpoint --family colidefics3 (stored int8) started in {t_serve:.1f} s and found it too; launches "
+            f"{launches}, K6 by head dim {by_dim}, K6's plain version called {plain_calls[0]} times")
+        del corpora, filler
+
+        # K1, K2 and K3 against their plain versions on each served index (not counted)
+        k123 = {}
+        for label, (index, planted_q) in served.items():
+            held_k = hold_k123(index, served_queries(planted_q, device))
+            k123[label] = {k: held_k[k] for k in ("k1_err", "k2_err", "k3_err")}
+            log(f"phase colsmol: K1, K2 and K3 against their plain versions on the {label} index ({index.num_docs} "
+                f"docs x Np={index.doc_tokens}, the {len(planted_q)} planted queries at Nq={SERVED_TOKENS}): max abs "
+                f"err K1 {held_k['k1_err']:.3g} (bit for bit), K2 {held_k['k2_err']:.3g}, K3 {held_k['k3_err']:.3g} "
+                f"(rtol {RTOL}, atol {ATOL})")
+        del served, index, held_k
+        torch.cuda.empty_cache()
+
+        # checks beside the path (not counted): K6 route vs plain route, stored int8 vs bf16
+        route = dict(
+            pages=forward_check(f"colSmol-256M page forward ({PAGE_BATCH} pages)",
+                                lambda: embed_dataset(model, processor, batch, batch_size=PAGE_BATCH)),
+            queries=forward_check(f"colSmol-256M query forward ({len(QUERIES)} queries)",
+                                  lambda: encoders["bf16"].encode(QUERIES)))
+        for name, r in route.items():
+            log(f"    shares of the limits: mean cos {share(1 - r['mean_cos'], 1 - FORWARD_COS_MEAN)}, min cos "
+                f"{share(1 - r['min_cos'], 1 - FORWARD_COS_MIN)}, max abs {share(r['max_abs'], FORWARD_ATOL)}")
+        accuracy = {
+            "pages": cos_check(f"{PAGE_BATCH} pages, stored int8 vs bf16", embs["int8"][:PAGE_BATCH],
+                               embs["bf16"][:PAGE_BATCH], INT8_COS_MEAN, INT8_COS_MIN),
+            "queries": cos_check(f"{len(QUERIES)} queries, stored int8 vs bf16", encoders["int8"].encode(QUERIES),
+                                 encoders["bf16"].encode(QUERIES), INT8_COS_MEAN, INT8_COS_MIN)}
+
+        # end to end, bf16 and stored int8 in turns: one forward of 8 pages (CUDA events), encode x1 / x8
+        e2e = {}
+        for label in ("bf16", "int8", "int8 again", "bf16 again"):
+            m, enc = (model, encoders["bf16"]) if label.startswith("bf16") else (qmodel, encoders["int8"])
+            r = dict(page_forward_ms=forward_ms(m, feed))
+            for b_, texts in (("x1", QUERIES[:1]), ("x8", QUERIES)):
+                enc.encode(texts)
+                walls = []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    enc.encode(texts)
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                r[f"encode_{b_}_ms"] = float(np.median(walls))
+            r["pages_per_min_forward"] = PAGE_BATCH / r["page_forward_ms"] * 6e4
+            e2e[label] = r
+            log(f"  {label} ({smi}): forward of {PAGE_BATCH} pages {r['page_forward_ms']:.1f} ms "
+                f"({r['pages_per_min_forward']:.0f} pages/min of forward alone), encode x1 {r['encode_x1_ms']:.2f} ms, "
+                f"x8 {r['encode_x8_ms']:.2f} ms")
+        with torch.inference_mode():
+            profiles = {label: kernel_breakdown(f"one {label} colSmol-256M forward of {PAGE_BATCH} pages",
+                                                lambda m=m: m(**feed)) for label, m in (("bf16", model),
+                                                                                       ("stored-int8", qmodel))}
+        query_feed = {k: torch.as_tensor(v).to(device) for k, v in processor.process_queries(QUERIES).items()}
+        del encoders, qmodel, embs
+        torch.cuda.empty_cache()
+
+        # the Bi models: BiIdefics3 at full width on the checkpoint's backbone, then BiPaliProj and BiQwen2_5 at
+        # full width cut in depth (their backbones run at full depth in phases 4 and 8)
+        bi = {}
+        bmodel = BiIdefics3(cfg, device=device, dtype=torch.bfloat16).eval()
+        bmodel.load_state_dict(backbone)
+        bproc = BiIdefics3Processor.from_pretrained(tmp, device=device)
+        bi["BiIdefics3"] = bi_check("BiIdefics3 (colSmol-256M, last pooling)", bmodel, [feed, query_feed], device,
+                                    bproc.score, BI_PLANTED)
+        del bmodel, backbone, feed, query_feed, model
+        torch.cuda.empty_cache()
+    pali_cfg = PaliGemmaConfig(vision=SiglipVisionConfig(num_hidden_layers=2), text=GemmaConfig(num_hidden_layers=2))
+    pmodel = BiPaliProj(pali_cfg, device=device, dtype=torch.bfloat16).eval()
+    hf_init_(pmodel, torch.Generator(device=device).manual_seed(SEED + 54))
+    pproc = BiPaliProcessor(WordTokenizer(pali_cfg.image_token_index), device=device)
+    bi["BiPaliProj"] = bi_check("BiPaliProj (ColPali-3B widths, 2 + 2 layers, mean pooling, 1,024-d projection)",
+                                pmodel, [pproc.process_images(pages[:PAGE_BATCH]), pproc.process_queries(QUERIES)],
+                                device, pproc.score, BI_PLANTED)
+    del pmodel
+    cfg25 = qwen_configs()[0]
+    cfg25 = dataclasses.replace(cfg25, vision=dataclasses.replace(cfg25.vision, depth=2, fullatt_block_indexes=(1,)),
+                                text=dataclasses.replace(cfg25.text, num_hidden_layers=2))
+    qwmodel = BiQwen2_5(cfg25, device=device, dtype=torch.bfloat16).eval()
+    hf_init_(qwmodel, torch.Generator(device=device).manual_seed(SEED + 55))
+    qwproc = BiQwen2_5_Processor(qwen_tokenizer(), max_num_visual_tokens=768, device=device)
+    bi["BiQwen2_5"] = bi_check("BiQwen2_5 (ColQwen2.5-3B widths, 2 + 2 layers, last pooling)", qwmodel,
+                               [qwproc.process_images(pages[:PAGE_BATCH], device_pixels=True),
+                                qwproc.process_queries(QUERIES)], device, qwproc.score, BI_PLANTED)
+    del qwmodel
+    torch.cuda.empty_cache()
+    extra.update(k6=k6, k123=k123, params=n_params, stored_int8_layers=stored, weight_bytes_int8=bytes_int8,
+                 weight_bytes_bf16=bytes_bf16, page_tokens=page_tokens, tiles=SMOL_TILES, route_check=route,
+                 int8_vs_bf16=accuracy, end_to_end=e2e, page_profile=profiles, bi=bi,
+                 launches_by_head_dim={str(d): n for d, n in by_dim.items()},
+                 pages_per_min=dict(bf16=SMOL_PAGES / t_embed_bf16 * 60, int8=SMOL_PAGES / t_embed_int8 * 60))
+    timings = {"flash_attention": k6, "quantize_rows": dict(shapes=q1_rows), "int8_gemm": dict(shapes=q1_gemms)}
+    return launches, timings, extra
 
 
 def main() -> int:
@@ -3278,6 +3677,7 @@ def main() -> int:
         qwen_launches, qwen_timings, qwen_extra = phase_qwen(device, smi, qwen_dir)
         free_memory("phase qwen training")
         qt_launches, qt_bwd, qt_extra = phase_qwen_training(device, smi, qwen_dir)
+    smol_launches, smol_timings, smol_extra = phase_colsmol(device, smi)
     timings["flash_attention"] = dict(k6["siglip"], gemma_page=k6["gemma_page"], gemma_query=k6["gemma_query"])
     timings["flash_attention_bwd"] = dict(k6_bwd["gemma_page"], gemma_query=k6_bwd["gemma_query"],
                                           gemma_query_padded=k6_bwd["gemma_query_padded"], siglip=k6_bwd["siglip"])
@@ -3315,11 +3715,18 @@ def main() -> int:
             entry["launches_qwen_training"] = qt_launches[name]
         if name == "flash_attention_bwd":  # phase 9: by head dim over the LoRA steps, and at the family's shapes
             entry.update(launches_qwen_training_by_head_dim=qt_extra["launches_by_head_dim"], qwen_training=qt_bwd)
+        if name in smol_launches:  # over phase 10's path: colSmol-256M's pages, /search_text and serve.py
+            entry["launches_colsmol_slice"] = smol_launches[name]
+        if name == "flash_attention":  # phase 10's K6 launches by head dim (D=64 alone) and its D=64 cases
+            entry.update(launches_colsmol_by_head_dim=smol_extra["launches_by_head_dim"],
+                         colsmol_d64=smol_timings["flash_attention"])
+        elif name in smol_timings:
+            entry["colsmol"] = smol_timings[name]
         kernels.append(dict(entry, **timings[name]))
     print(json.dumps({"kernels": kernels, "pages_per_min": extra["pages_per_min"],
                       "forward_check": extra["forward_check"], "page_profile": extra["page_profile"],
                       "training": train_extra, "stored_int8": quant_extra, "qwen": qwen_extra,
-                      "qwen_training": qt_extra}))
+                      "qwen_training": qt_extra, "colsmol": smol_extra}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

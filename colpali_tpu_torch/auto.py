@@ -11,8 +11,9 @@ processor with the family's ``from_pretrained``::
 
 The port holds the weights in the module, so it returns ``(model,
 processor)`` where JAX returns ``(model, variables, processor)``. The
-``colpali``, ``colqwen2`` and ``colqwen2_5`` families are ported; the other
-families are detected and raise. No hub download is made.
+``colpali``, ``colqwen2``, ``colqwen2_5`` and ``colidefics3`` families are
+ported (their Col models, as in JAX: a Bi model is built from its class);
+the other families are detected and raise. No hub download is made.
 """
 
 from __future__ import annotations
@@ -44,10 +45,12 @@ _PORTED: Dict[str, Tuple[str, str, str, str, str, Dict[str, Any]]] = {
     "colqwen2_5": ("models.qwen2_5_vl.ColQwen2_5", "models.qwen2_5_vl.Qwen25VLConfig",
                    "processors.qwen2_5_vl.ColQwen2_5Processor", "load_colqwen25_params",
                    "export_colqwen25_state_dict", {"max_num_visual_tokens": 768}),
+    "colidefics3": ("models.idefics3.ColIdefics3", "models.idefics3.Idefics3Config",
+                    "processors.idefics3.ColIdefics3Processor", "load_colidefics3_params",
+                    "export_colidefics3_state_dict", {}),
 }
 # where each family that is not ported yet waits in ROADMAP.md
-_NOT_PORTED = {f: "Queue 1 item 8" for f in ("colidefics3", "colgemma3", "colqwen3", "colmodernvbert", "colqwen3_5",
-                                              "colqwen_omni")}
+_NOT_PORTED = {f: "Queue 1 item 8" for f in ("colgemma3", "colqwen3", "colmodernvbert", "colqwen3_5", "colqwen_omni")}
 
 
 def _resolve(dotted: str):

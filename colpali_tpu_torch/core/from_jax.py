@@ -1,11 +1,13 @@
 """Carry a JAX parameter tree over to the port's state dict.
 
-The JAX package's ``ColPali``, ``ColQwen2`` or ``ColQwen2_5`` params (a
-nested dict with numpy leaves, as ``jax.tree.map(np.asarray, variables)``
-gives them) become the state dict of the port's model of the same name:
+The JAX package's ``ColPali``, ``ColQwen2``, ``ColQwen2_5`` or
+``ColIdefics3`` params, or those of a Bi model (``DenseHead``'s ``head/proj``
+included), a nested dict with numpy leaves as ``jax.tree.map(np.asarray,
+variables)`` gives them, become the state dict of the port's model of the
+same name:
 
 - flax ``Dense`` kernels ``(in, out)`` become ``nn.Linear`` weights ``(out, in)``;
-- the SigLIP patch ``Conv`` kernel ``(p, p, 3, hidden)`` (HWIO) becomes the
+- the SigLIP (and Idefics3) patch ``Conv`` kernel ``(p, p, 3, hidden)`` (HWIO) becomes the
   im2col ``nn.Linear`` weight ``(hidden, p * p * 3)`` (Qwen's patch embedding
   is a ``Dense`` already);
 - ``embedding`` leaves (token and position embeddings) become ``weight``;
@@ -30,7 +32,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-_CONVERTED = ("model/language_model/", "model/vision_tower/", "model/multi_modal_projector/", "model/visual/", "head/")
+_CONVERTED = ("model/language_model/", "model/vision_tower/", "model/multi_modal_projector/", "model/visual/",
+              "model/vision_model/", "model/modality_projection/", "model/text_model/", "head/")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:

@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 from colpali_tpu_torch.core.hf_loader import (
+    IDEFICS3_RULES,
     PALIGEMMA_RULES,
     QWEN2_VL_RULES,
     QWEN25_VL_RULES,
@@ -198,6 +199,14 @@ def export_colqwen25_state_dict(state_dict: Mapping[str, torch.Tensor], channels
     return _export_qwen(state_dict, QWEN25_VL_RULES, channels, temporal_patch_size, patch_size, strict)
 
 
+def export_colidefics3_state_dict(state_dict: Mapping[str, torch.Tensor],
+                                  strict: bool = True) -> Dict[str, torch.Tensor]:
+    """The port's ``ColIdefics3`` state dict -> HF torch-layout state dict,
+    the vision model, connector and text model nested under ``model.``."""
+    state = export_state_dict(state_dict, IDEFICS3_RULES, strict=strict)
+    return dress_keys_modern(state, ("vision_model", "text_model", "connector"))
+
+
 def export_for_config(state_dict: Mapping[str, torch.Tensor], config: Any = None) -> Dict[str, torch.Tensor]:
     """Export ``state_dict`` with the exporter that
     :func:`colpali_tpu_torch.auto.exporter_for` names for ``config``'s
@@ -208,7 +217,7 @@ def export_for_config(state_dict: Mapping[str, torch.Tensor], config: Any = None
     if config is None:
         return export_colpali_state_dict(state_dict)
     export = globals()[exporter_for(config)]
-    if export is export_colpali_state_dict:
+    if export in (export_colpali_state_dict, export_colidefics3_state_dict):
         return export(state_dict)
     v = config.vision
     return export(state_dict, channels=v.in_channels, temporal_patch_size=v.temporal_patch_size,

@@ -1,5 +1,6 @@
 """HF checkpoint -> the port's state dict (counterpart of
-:mod:`colpali_tpu.core.hf_loader`: the PaliGemma and Qwen2-VL families).
+:mod:`colpali_tpu.core.hf_loader`: the PaliGemma, Qwen2-VL and Idefics3
+families).
 
 Checkpoint keys are first normalized across transformers-version layouts
 and merged-LoRA exports (:data:`PALIGEMMA_KEY_REMAPS`, unmerged LoRA
@@ -260,3 +261,53 @@ def load_colqwen25_params(checkpoint_dir: str, strict: bool = True) -> Dict[str,
     """A (Col)Qwen2.5-VL HF checkpoint directory -> the port's ``ColQwen2_5``
     state dict."""
     return _load_qwen(checkpoint_dir, QWEN25_VL_RULES, strict)
+
+
+# --- the Idefics3/SmolVLM family ---------------------------------------------
+
+IDEFICS3_KEY_REMAPS: Tuple[Tuple[str, str], ...] = (
+    (r"^base_model\.model\.", ""),
+    (r"^model\.", ""),
+    (r"\.lora_[AB]\.", ".__lora__."),
+)
+
+_I3_VT = r"vision_model\."
+_I3_LAYER = _I3_VT + r"encoder\.layers\.(\d+)\."
+_I3_TEXT = r"text_model\.layers\.(\d+)\."
+IDEFICS3_RULES: Tuple[_RuleT, ...] = (
+    # --- SigLIP-style vision tower ---
+    (_I3_VT + r"embeddings\.patch_embedding\.weight", "model.vision_model.patch_embedding.weight", t_conv2d),
+    (_I3_VT + r"embeddings\.patch_embedding\.bias", "model.vision_model.patch_embedding.bias", t_id),
+    (_I3_VT + r"embeddings\.position_embedding\.weight", "model.vision_model.position_embedding.weight", t_id),
+    (_I3_LAYER + r"layer_norm([12])\.weight", "model.vision_model.layers.{i}.layer_norm{j}.weight", t_id),
+    (_I3_LAYER + r"layer_norm([12])\.bias", "model.vision_model.layers.{i}.layer_norm{j}.bias", t_id),
+    (_I3_LAYER + r"self_attn\.(q|k|v)_proj\.weight", "model.vision_model.layers.{i}.self_attn.{j}_proj.weight", t_id),
+    (_I3_LAYER + r"self_attn\.(q|k|v)_proj\.bias", "model.vision_model.layers.{i}.self_attn.{j}_proj.bias", t_id),
+    (_I3_LAYER + r"self_attn\.out_proj\.weight", "model.vision_model.layers.{i}.self_attn.o_proj.weight", t_id),
+    (_I3_LAYER + r"self_attn\.out_proj\.bias", "model.vision_model.layers.{i}.self_attn.o_proj.bias", t_id),
+    (_I3_LAYER + r"mlp\.fc([12])\.weight", "model.vision_model.layers.{i}.mlp.fc{j}.weight", t_id),
+    (_I3_LAYER + r"mlp\.fc([12])\.bias", "model.vision_model.layers.{i}.mlp.fc{j}.bias", t_id),
+    (_I3_VT + r"post_layernorm\.weight", "model.vision_model.post_layernorm.weight", t_id),
+    (_I3_VT + r"post_layernorm\.bias", "model.vision_model.post_layernorm.bias", t_id),
+    # --- connector ---
+    (r"connector\.modality_projection\.proj\.weight", "model.modality_projection.weight", t_id),
+    # --- Llama/SmolLM text decoder ---
+    (r"text_model\.embed_tokens\.weight", "model.text_model.embed_tokens.weight", t_id),
+    (_I3_TEXT + r"(input_layernorm|post_attention_layernorm)\.weight", "model.text_model.layers.{i}.{j}.weight", t_id),
+    (_I3_TEXT + r"self_attn\.(q|k|v|o)_proj\.weight", "model.text_model.layers.{i}.self_attn.{j}_proj.weight", t_id),
+    (_I3_TEXT + r"mlp\.(gate|up|down)_proj\.weight", "model.text_model.layers.{i}.mlp.{j}_proj.weight", t_id),
+    (r"text_model\.norm\.weight", "model.text_model.norm.weight", t_id),
+    # --- retrieval head (named `linear` in ColIdefics3) ---
+    (r"linear\.weight", "head.linear.weight", t_id),
+    (r"linear\.bias", "head.linear.bias", t_id),
+    # --- dropped ---
+    (r"lm_head\.weight", "", t_id),
+    (r".*rotary_emb\.inv_freq", "", t_id),
+)
+
+
+def load_colidefics3_params(checkpoint_dir: str, strict: bool = True) -> Dict[str, torch.Tensor]:
+    """A (Col)Idefics3/SmolVLM HF checkpoint directory -> the port's
+    ``ColIdefics3`` state dict (in the checkpoint's dtypes, on the CPU)."""
+    state = load_safetensors_dir(checkpoint_dir)
+    return convert_state_dict(state, IDEFICS3_RULES, IDEFICS3_KEY_REMAPS, strict=strict)

@@ -3,19 +3,23 @@
 // Replaces colpali_tpu/models/layers.py::flash_attention_padded, which drives
 // the stock Pallas TPU flash kernel through _flash_kernel_call, and
 // colpali_tpu/ops/flash_seqmajor.py::flash_seqmajor (K11). From
-// q (B, S, H, D) and k, v (B, S, Hkv, D) with H % Hkv == 0 and segment ids
-// seg (B, S) int32:
+// q (B, S, H, D) and k, v (B, S, Hkv, D) with H % Hkv == 0, the query rows'
+// segment ids seg (B, S) int32 and the keys' kv_seg (B, S) int32 (the stock
+// TPU kernel's SegmentIds(q=, kv=); most callers pass one array for both):
 //
 //   out[b, i, h] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, h / (H / Hkv)]) v[b, j, h / (H / Hkv)]
 //
-// over the keys j with seg[b, j] == seg[b, i] (and j <= i when causal), with
-// fp32 logits, an fp32 online softmax and fp32 accumulation. Pad tokens carry
-// their own segment id, so pad rows attend only to pad rows, as on the TPU;
-// callers mask them.
+// over the keys j with kv_seg[b, j] == seg[b, i] (and j <= i when causal),
+// with fp32 logits, an fp32 online softmax and fp32 accumulation. Pad tokens
+// carry their own segment id, so pad rows attend only to pad rows, as on the
+// TPU; callers mask them. Query ids of 1 on every row over key ids of the
+// validity mask give a key-padding mask instead: every row, pad rows too,
+// attends to the valid keys (the JAX package's additive-bias route, which
+// the Idefics3 decoder's right-padded rows follow).
 //
 // What bounds it on an H100: tensor-core throughput. At SigLIP's shape
 // (S = 1024, D = 72) a (b, h) pair does 4 * S^2 * D = 302 MFLOP on 0.6 MB of
-// q, k, v; at Gemma's (S = 1029, D = 256, 8 query heads on one KV head)
+// q, k, v (at the Idefics3 tower's D = 64, 268 MFLOP on 0.5 MB); at Gemma's (S = 1029, D = 256, 8 query heads on one KV head)
 // 1.1 GFLOP per pair. Both sit far above the card's 295 FLOP/byte ridge, so
 // the design feeds the tensor cores the way Hopper allows (hopper.cuh):
 //
@@ -27,7 +31,7 @@
 //   head. A group with an odd number of heads leaves the last CTA's second
 //   consumer idle: it keeps the barrier protocol and writes nothing.
 // - K and V tiles (128 keys at D <= 128, 64 at D = 256) come through an
-//   mbarrier ring (4 stages at D = 80, 3 at 128, 2 at 256), filled by TMA
+//   mbarrier ring (4 stages at D = 64 and 80, 3 at 128, 2 at 256), filled by TMA
 //   from 4-D tensor maps over the tensors' own (D, H, S, B) strides: no
 //   copy, no repeat of the KV head, zeros past S and past D from the
 //   hardware. The producer also stages the tile's key segment ids. Q is
@@ -76,7 +80,8 @@ constexpr int kConsumerRegs = 232, kProducerRegs = 40;
 constexpr int kBarTurn = 1;  // named barriers 1 and 2: consumer 0's and consumer 1's turn to issue products
 
 struct FwdArgs {
-  const int32_t* seg;  // (B, S)
+  const int32_t* seg;     // (B, S): the query rows' segment ids
+  const int32_t* kv_seg;  // (B, S): the keys'
   __nv_bfloat16* out;  // (B, S, H, D) contiguous
   float* lse;          // (B, H, S) or null
   int s, h, hkv, d, causal;
@@ -199,7 +204,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       load_tile<DP, kRows>(s_q, q_maps, w0.head, w0.row0, bi, bar_q);
       if (w1.active) load_tile<DP, kRows>(s_q + QTILE, q_maps, w1.head, w1.row0, bi, bar_q);
     }
-    const int32_t* seg_row = a.seg + static_cast<int64_t>(bi) * a.s;
+    const int32_t* seg_row = a.kv_seg + static_cast<int64_t>(bi) * a.s;
     for (int t = 0; t < n_tiles; ++t) {
       const int stage = t % STAGES;
       mbar_wait(bar_empty + 8 * stage, ((t / STAGES) & 1) ^ 1);
@@ -378,20 +383,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, int b, Strides q
 }  // namespace
 
 // Strides are in elements; the head dim of q, k and v must be contiguous,
-// d one of 72, 80, 128 and 256, and every row and the base 16-byte aligned
+// d one of 64, 72, 80, 128 and 256, and every row and the base 16-byte aligned
 // (the wrapper checks all of it). lse, when not null, receives each row's
 // log-sum-exp of the scaled logits in base 2 as (B, H, S) fp32, which the
 // backward kernels read.
-extern "C" int colpali_flash_attention(const void* q, const void* k, const void* v, const void* seg, void* out,
-                                       void* lse, int b, int s, int h, int hkv, int d, int64_t q_sb, int64_t q_ss,
+extern "C" int colpali_flash_attention(const void* q, const void* k, const void* v, const void* seg,
+                                       const void* kv_seg, void* out, void* lse, int b, int s, int h, int hkv, int d, int64_t q_sb, int64_t q_ss,
                                        int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
                                        int64_t v_ss, int64_t v_sh, float scale, int causal, void* stream) {
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
-  const FwdArgs a{static_cast<const int32_t*>(seg), static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), s, h,
-                  hkv, d, causal, scale * 1.4426950408889634f};  // softmax in base 2
+  const FwdArgs a{static_cast<const int32_t*>(seg), static_cast<const int32_t*>(kv_seg),
+                  static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), s, h, hkv, d, causal,
+                  scale * 1.4426950408889634f};  // softmax in base 2
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the head dims of the models that run it: SigLIP 72, Qwen2-VL's vision tower 80 and text tower 128, Gemma 256
+  // the head dims of the models that run it: the Idefics3 towers 64 (a bf16 row of 64 is one 128-byte swizzle
+  // atom: no narrow chunk, no padding), SigLIP 72, Qwen2-VL's vision tower 80 and text tower 128, Gemma 256
   switch (d) {
+    case 64: return launch<64>(q, k, v, b, qs, ks, vs, a, st);
     case 72:
     case 80: return launch<80>(q, k, v, b, qs, ks, vs, a, st);
     case 128: return launch<128>(q, k, v, b, qs, ks, vs, a, st);

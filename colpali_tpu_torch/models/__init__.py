@@ -2,19 +2,29 @@
 reference's flat exports of the ported families."""
 
 from colpali_tpu_torch.models.configs import (  # noqa: F401
+    DenseHeadConfig,
     GemmaConfig,
     MultiVectorHeadConfig,
     PaliGemmaConfig,
     SiglipVisionConfig,
 )
-from colpali_tpu_torch.models.paligemma import ColPali, PaliGemmaBackbone  # noqa: F401
+from colpali_tpu_torch.models.idefics3 import (  # noqa: F401
+    BiIdefics3,
+    ColIdefics3,
+    Idefics3Backbone,
+    Idefics3Config,
+    Idefics3VisionConfig,
+)
+from colpali_tpu_torch.models.paligemma import BiPali, BiPaliProj, ColPali, PaliGemmaBackbone  # noqa: F401
 from colpali_tpu_torch.models.qwen2_5_vl import (  # noqa: F401
+    BiQwen2_5,
     ColQwen2_5,
     Qwen25VLBackbone,
     Qwen25VLConfig,
     Qwen25VLVisionConfig,
 )
 from colpali_tpu_torch.models.qwen2_vl import (  # noqa: F401
+    BiQwen2,
     ColQwen2,
     Qwen2TextConfig,
     Qwen2VLBackbone,

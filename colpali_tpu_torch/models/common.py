@@ -8,6 +8,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from colpali_tpu_torch.models.configs import DenseHeadConfig
 from colpali_tpu_torch.models.layers import Device, LayerNorm, QDense, RMSNorm, l2_normalize
 
 
@@ -28,20 +29,59 @@ def merge_image_embeddings(
 
 class MultiVectorHead(nn.Module):
     """Late-interaction head: linear -> L2 normalize -> zero the padding
-    (and, given ``image_token_mask``, every non-image token)."""
+    (and, given ``image_token_mask``, every non-image token). The linear is
+    named ``proj_name`` (ColIdefics3 names it ``linear``)."""
 
     def __init__(self, hidden_size: int, dim: int = 128, device: Device = "cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, proj_name: str = "custom_text_proj"):
         super().__init__()
-        self.custom_text_proj = QDense(hidden_size, dim, bias=True, device=device, dtype=dtype)
+        self.proj_name = proj_name
+        setattr(self, proj_name, QDense(hidden_size, dim, bias=True, device=device, dtype=dtype))
 
     def forward(self, hidden_states: torch.Tensor, attention_mask: torch.Tensor,
                 image_token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        proj = l2_normalize(self.custom_text_proj(hidden_states))
+        proj = l2_normalize(getattr(self, self.proj_name)(hidden_states))
         proj = proj * attention_mask[..., None].to(proj.dtype)
         if image_token_mask is not None:
             proj = proj * image_token_mask[..., None].to(proj.dtype)
         return proj
+
+
+class DenseHead(nn.Module):
+    """Bi-encoder head: pool (``mean`` over the mask, ``cls`` = position 0,
+    ``last`` = the literal last position) -> the optional ``proj`` -> the
+    optional Matryoshka cut to ``embedding_dim`` -> L2 normalize.
+
+    ``last`` takes ``hidden[:, -1]`` whatever the mask says, as the JAX
+    package and the reference do (they assume left padding): on a
+    right-padded batch that is a pad position for every row shorter than the
+    longest. Mean pooling sums in fp32 and returns fp32, as JAX promotes it;
+    ``cls`` and ``last`` keep the hidden states' dtype."""
+
+    def __init__(self, config: DenseHeadConfig, hidden_size: int, device: Device = "cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if config.pooling_strategy not in ("mean", "cls", "last"):
+            raise ValueError(f"Unknown pooling strategy: {config.pooling_strategy}")
+        self.config = config
+        self.dtype = dtype
+        if config.projection_dim is not None:
+            self.proj = QDense(hidden_size, config.projection_dim, bias=True, device=device, dtype=dtype)
+
+    def forward(self, hidden_states: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        if cfg.pooling_strategy == "mean":
+            mask = attention_mask.float()
+            pooled = (hidden_states.float() * mask[..., None]).sum(1) / mask.sum(1, keepdim=True).clamp_min(1.0)
+        elif cfg.pooling_strategy == "cls":
+            pooled = hidden_states[:, 0]
+        else:
+            pooled = hidden_states[:, -1]
+        if cfg.projection_dim is not None:
+            pooled = self.proj(pooled.to(self.dtype))
+        if cfg.embedding_dim is not None:
+            pooled = pooled[..., : cfg.embedding_dim]
+        return l2_normalize(pooled)
 
 
 @torch.no_grad()

@@ -7,7 +7,7 @@ mechanical. The defaults are ColPali-3B (PaliGemma-3B at 448 px).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,3 +104,12 @@ class MultiVectorHeadConfig:
 
     dim: int = 128
     mask_non_image_embeddings: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseHeadConfig:
+    """Bi-encoder pooling head shared by every Bi* model."""
+
+    pooling_strategy: str = "mean"  # cls | last | mean
+    projection_dim: Optional[int] = None  # BiPaliProj: 1024
+    embedding_dim: Optional[int] = None  # Matryoshka truncation (BiGemma3)

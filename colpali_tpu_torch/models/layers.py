@@ -228,7 +228,8 @@ class Attention(nn.Module):
     rotary embeddings, ``head_dim**-0.5`` scaling, through K6.
 
     ``segments`` (B, S) ids or a ``mask`` (B, S) of token validity select
-    the keys each query sees (neither: full attention)."""
+    the keys each query sees (neither: full attention); ``kv_segments``
+    gives the keys ids apart from the queries' (K6's ``kv_segments``)."""
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int, num_kv_heads: Optional[int] = None,
                  use_bias: bool = False, out_bias: Optional[bool] = None,
@@ -252,6 +253,7 @@ class Attention(nn.Module):
         mask: Optional[torch.Tensor] = None,
         segments: Optional[torch.Tensor] = None,
         causal: bool = False,
+        kv_segments: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         b, s, _ = x.shape
         hd = self.head_dim
@@ -265,7 +267,8 @@ class Attention(nn.Module):
         seg = segments if segments is not None else mask
         if seg is None:
             seg = torch.ones((b, s), dtype=torch.int32, device=x.device)
-        out = fa.flash_attention(q, k, v, seg.to(torch.int32).contiguous(), self.scale, causal)
+        keys = {} if kv_segments is None else {"kv_segments": kv_segments.to(torch.int32).contiguous()}
+        out = fa.flash_attention(q, k, v, seg.to(torch.int32).contiguous(), self.scale, causal, **keys)
         return self.o_proj(out.reshape(b, s, self.num_heads * hd))
 
 

@@ -21,8 +21,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from colpali_tpu_torch.models.common import MultiVectorHead, merge_image_embeddings
-from colpali_tpu_torch.models.configs import PaliGemmaConfig
+from colpali_tpu_torch.models.common import DenseHead, MultiVectorHead, merge_image_embeddings
+from colpali_tpu_torch.models.configs import DenseHeadConfig, PaliGemmaConfig
 from colpali_tpu_torch.models.gemma import GemmaDecoder
 from colpali_tpu_torch.models.layers import Device, QDense, frozen
 from colpali_tpu_torch.models.siglip import SiglipVisionTower
@@ -99,3 +99,35 @@ class ColPali(nn.Module):
         if pixel_values is not None and self.mask_non_image_embeddings:
             image_mask = input_ids == self.config.image_token_index
         return self.head(hidden, attention_mask, image_mask)
+
+
+class BiPali(nn.Module):
+    """Single-vector (bi-encoder) retriever over PaliGemma: the backbone's
+    hidden states pooled by :class:`DenseHead` (mean by default) into one
+    L2-normalized vector a row. ``projection_dim=1024`` is BiPaliProj."""
+
+    def __init__(self, config: PaliGemmaConfig, pooling_strategy: str = "mean", projection_dim: Optional[int] = None,
+                 device: Device = "cuda", dtype: torch.dtype = torch.float32, remat: bool = False):
+        super().__init__()
+        self.config = config
+        self.model = PaliGemmaBackbone(config, device=device, dtype=dtype, remat=remat)
+        self.head = DenseHead(DenseHeadConfig(pooling_strategy=pooling_strategy, projection_dim=projection_dim),
+                              config.text.hidden_size, device=device, dtype=dtype)
+
+    def set_remat(self, remat: bool) -> None:
+        """Turn the per-layer checkpointing of both towers on or off."""
+        self.model.vision_tower.remat = remat
+        self.model.language_model.remat = remat
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                pixel_values: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.head(self.model(input_ids, attention_mask, pixel_values), attention_mask)
+
+
+class BiPaliProj(BiPali):
+    """BiPali with the trained 1024-d projection head (the reference's
+    separate class; here BiPali with the projection on by default)."""
+
+    def __init__(self, config: PaliGemmaConfig, pooling_strategy: str = "mean", projection_dim: Optional[int] = 1024,
+                 device: Device = "cuda", dtype: torch.dtype = torch.float32, remat: bool = False):
+        super().__init__(config, pooling_strategy, projection_dim, device=device, dtype=dtype, remat=remat)

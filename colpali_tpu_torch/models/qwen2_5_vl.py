@@ -27,6 +27,7 @@ from torch import nn
 from colpali_tpu_torch.models.common import merge_image_embeddings
 from colpali_tpu_torch.models.layers import Attention, Device, GatedMLP, QDense, RMSNorm, run_layer
 from colpali_tpu_torch.models.qwen2_vl import (
+    BiQwen2,
     ColQwen2,
     Qwen2Decoder,
     Qwen2TextConfig,
@@ -177,3 +178,10 @@ class ColQwen2_5(ColQwen2):  # noqa: N801 (the reference's name)
     @staticmethod
     def _backbone(config, device, dtype, remat) -> nn.Module:
         return Qwen25VLBackbone(config, device=device, dtype=dtype, remat=remat)
+
+
+class BiQwen2_5(BiQwen2):  # noqa: N801 (the reference's name)
+    """Single-vector retriever over Qwen2.5-VL: BiQwen2's head over
+    :class:`Qwen25VLBackbone`."""
+
+    _backbone = staticmethod(ColQwen2_5._backbone)

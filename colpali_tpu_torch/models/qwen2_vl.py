@@ -22,12 +22,13 @@ map one onto the other.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import torch
 from torch import nn
 
-from colpali_tpu_torch.models.common import MultiVectorHead, merge_image_embeddings
+from colpali_tpu_torch.models.common import DenseHead, MultiVectorHead, merge_image_embeddings
+from colpali_tpu_torch.models.configs import DenseHeadConfig
 from colpali_tpu_torch.models.layers import (
     ACTIVATIONS,
     Attention,
@@ -249,21 +250,32 @@ class Qwen2DecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, eps=cfg.rms_norm_eps, add_unit_offset=False, **kw)
         self.mlp = GatedMLP(cfg.hidden_size, cfg.intermediate_size, activation="silu", **kw)
 
-    def forward(self, x: torch.Tensor, segments: torch.Tensor, rope) -> torch.Tensor:
-        # causal over the valid tokens (segment 1); pad tokens (segment 0) see pad tokens only
-        x = x + self.self_attn(self.input_layernorm(x), rope=rope, segments=segments, causal=True)
+    def forward(self, x: torch.Tensor, segments: torch.Tensor, rope,
+                kv_segments: Optional[torch.Tensor] = None) -> torch.Tensor:
+        # causal over the valid tokens (segment 1); pad tokens (segment 0) see pad tokens only, or, with the
+        # keys' own ids, every row sees the valid keys
+        x = x + self.self_attn(self.input_layernorm(x), rope=rope, segments=segments, causal=True,
+                               kv_segments=kv_segments)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
 class Qwen2Decoder(nn.Module):
-    """Qwen2(-VL) text decoder over pre-merged input embeddings."""
+    """Qwen2(-VL) text decoder over pre-merged input embeddings.
+
+    By default pad tokens attend to pad tokens (the mask as K6's segment
+    ids, as the JAX package's flash route does). ``key_padding=True`` gives
+    the mask to the keys alone: every row, pad rows too, attends causally to
+    the valid keys, as JAX's additive-bias route (``make_attention_bias``)
+    and HF do. The Idefics3 decoder pads on the right and takes it, so a pad
+    position's hidden state (which ``last`` pooling reads) is JAX's."""
 
     def __init__(self, config: Qwen2TextConfig, device: Device = "cuda", dtype: torch.dtype = torch.float32,
-                 remat: bool = False):
+                 remat: bool = False, key_padding: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
         self.remat = remat
+        self.key_padding = key_padding
         self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size, device=device, dtype=dtype)
         self.layers = nn.ModuleList(Qwen2DecoderLayer(config, device=device, dtype=dtype)
                                     for _ in range(config.num_hidden_layers))
@@ -280,8 +292,11 @@ class Qwen2Decoder(nn.Module):
         rope = mrope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, cfg.mrope_section)
         x = inputs_embeds.to(self.dtype)
         segments = attention_mask.to(torch.int32).contiguous()  # K6's segment ids, converted once
+        keys = None
+        if self.key_padding:
+            segments, keys = torch.ones_like(segments), segments
         for layer in self.layers:
-            x = run_layer(layer, self.remat, x, segments, rope)
+            x = run_layer(layer, self.remat, x, segments, rope, keys)
         return self.norm(x)
 
 
@@ -347,3 +362,23 @@ class ColQwen2(nn.Module):
         if pixel_values is not None and self.mask_non_image_embeddings:
             image_mask = input_ids == self.config.image_token_id
         return self.head(hidden, attention_mask, image_mask)
+
+
+class BiQwen2(nn.Module):
+    """Single-vector retriever over Qwen2-VL (reference modeling_biqwen2.py):
+    :class:`DenseHead` over the backbone, ``last`` pooling by default (the
+    processor pads on the left, so the last position is a real token)."""
+
+    def __init__(self, config: Qwen2VLConfig, pooling_strategy: str = "last", device: Device = "cuda",
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
+        super().__init__()
+        self.config = config
+        self.model = self._backbone(config, device, dtype, remat)
+        self.head = DenseHead(DenseHeadConfig(pooling_strategy=pooling_strategy), config.text.hidden_size,
+                              device=device, dtype=dtype)
+
+    _backbone = staticmethod(ColQwen2._backbone)
+    set_remat = ColQwen2.set_remat
+
+    def forward(self, input_ids, attention_mask, pixel_values=None, **vision_kwargs) -> torch.Tensor:
+        return self.head(self.model(input_ids, attention_mask, pixel_values, **vision_kwargs), attention_mask)

@@ -7,7 +7,11 @@ stock Pallas TPU flash kernel) and of the einsum path of
 ``H % Hkv == 0`` and ``segments (B, S)`` int32, each query attends to the
 keys of its own segment (and, with ``causal``, not past itself). A token
 validity mask is a segment id: valid tokens attend to valid tokens, pad
-tokens to pad tokens, and callers mask the pad rows.
+tokens to pad tokens, and callers mask the pad rows. ``kv_segments`` gives
+the keys ids of their own, as the stock TPU kernel's ``SegmentIds(q=,
+kv=)`` does: ones for the queries over the validity mask for the keys is
+the JAX package's key-padding bias (``make_attention_bias``), under which
+pad rows attend to the valid keys.
 
 :func:`flash_attention` launches ``csrc/flash_attention.cu`` for CUDA
 tensors (bf16 only; no padding or K/V repeat in device memory) and runs
@@ -16,30 +20,39 @@ goes through :class:`FlashAttention`: the forward also writes each row's
 log-sum-exp and the backward launches ``csrc/flash_attention_bwd.cu`` (the
 counterpart of the stock TPU kernel's ``_flash_attention_bwd_dkv`` and
 ``_flash_attention_bwd_dq``). On the CPU autograd differentiates the plain
-version, which is also the oracle for the backward kernels.
+version, which is also the oracle for the backward kernels. The backward
+kernels take one array of segment ids and the head dims of
+:data:`BACKWARD_HEAD_DIMS`: a gradient through the card at another head
+dim, or with ``kv_segments``, raises (ROADMAP.md Queue 1 item 11).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from colpali_tpu_torch.ops._cuda import F32, I32, I64, P, CudaKernel, check_cuda, on_cpu
 
-FLASH_ATTENTION = CudaKernel("colpali_flash_attention", [P, P, P, P, P, P, *[I32] * 5, *[I64] * 9, F32, I32])
+FLASH_ATTENTION = CudaKernel("colpali_flash_attention", [*[P] * 7, *[I32] * 5, *[I64] * 9, F32, I32])
 FLASH_ATTENTION_BWD = CudaKernel("colpali_flash_attention_bwd", [*[P] * 11, *[I32] * 5, *[I64] * 9, F32, I32])
-HEAD_DIMS = (72, 80, 128, 256)  # the forward's: SigLIP, Qwen2-VL's vision and text towers (K11), Gemma
-BACKWARD_HEAD_DIMS = HEAD_DIMS  # the backward kernels are built for the forward's head dims
+HEAD_DIMS = (64, 72, 80, 128, 256)  # the forward's: the Idefics3 towers, SigLIP, Qwen2-VL's towers (K11), Gemma
+BACKWARD_HEAD_DIMS = (72, 80, 128, 256)  # D=64's backward comes with the Idefics3 family's training
+FORWARD_LAUNCHES_BY_HEAD_DIM = {d: 0 for d in HEAD_DIMS}  # K6's launches (not K11's), counted where launched
 BACKWARD_LAUNCHES_BY_HEAD_DIM = {d: 0 for d in BACKWARD_HEAD_DIMS}  # counted where the backward is launched
+BACKWARD_WAITS = "ROADMAP.md Queue 1 item 11: colSmol and the Bi models train"
 
 
-def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segments: torch.Tensor) -> None:
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segments: torch.Tensor,
+                  kv_segments: Optional[torch.Tensor] = None) -> None:
     b, s, h, d = q.shape
     if k.ndim != 4 or k.shape != v.shape or (k.shape[0], k.shape[1], k.shape[3]) != (b, s, d):
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be (B={b}, S={s}, Hkv, D={d})")
     if h % k.shape[2] != 0:
         raise ValueError(f"query heads ({h}) must be a multiple of kv heads ({k.shape[2]})")
-    if tuple(segments.shape) != (b, s):
-        raise ValueError(f"segments {tuple(segments.shape)} != {(b, s)}")
+    for name, seg in (("segments", segments), ("kv_segments", kv_segments)):
+        if seg is not None and tuple(seg.shape) != (b, s):
+            raise ValueError(f"{name} {tuple(seg.shape)} != {(b, s)}")
 
 
 def flash_attention_plain(
@@ -49,16 +62,19 @@ def flash_attention_plain(
     segments: torch.Tensor,
     scale: float,
     causal: bool = False,
+    kv_segments: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K6's plain version, the segment-masked einsum: fp32 logits, an
-    additive ``finfo(float32).min`` bias where segments differ (or a key lies
-    past the query, with ``causal``), fp32 softmax cast to the input dtype,
-    query heads grouped over their KV head."""
+    additive ``finfo(float32).min`` bias where a query's segment and a key's
+    differ (or the key lies past the query, with ``causal``), fp32 softmax
+    cast to the input dtype, query heads grouped over their KV head. The
+    keys' ids are ``kv_segments``, else ``segments``."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, s, hkv, h // hkv, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
-    allowed = segments[:, :, None] == segments[:, None, :]  # (B, Sq, Sk)
+    keys = segments if kv_segments is None else kv_segments
+    allowed = segments[:, :, None] == keys[:, None, :]  # (B, Sq, Sk)
     if causal:
         allowed = allowed & torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
     zero = torch.zeros((), dtype=torch.float32, device=q.device)
@@ -117,7 +133,8 @@ def _check_rows(name: str, t: torch.Tensor) -> None:
                          f"(strides {t.stride()})")
 
 
-def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segments: torch.Tensor) -> None:
+def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segments: torch.Tensor,
+                       kv_segments: Optional[torch.Tensor] = None) -> None:
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev:
@@ -127,23 +144,28 @@ def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segmen
                             "(run the model in bf16 on the card)")
         _check_rows(name, t)
     check_cuda("segments", segments, torch.int32, dev)
+    if kv_segments is not None:
+        check_cuda("kv_segments", kv_segments, torch.int32, dev)
     if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"head dim {q.shape[3]}: the flash kernel is built for head dims {HEAD_DIMS}")
 
 
 def _forward_cuda(q, k, v, segments, scale: float, causal: bool, with_lse: bool,
-                  kernel: CudaKernel = FLASH_ATTENTION):
+                  kernel: CudaKernel = FLASH_ATTENTION, kv_segments: Optional[torch.Tensor] = None):
     """Launch the forward kernel -> ``(out, lse | None)``; ``lse`` is
     ``(B, H, S)`` fp32, the base-2 log-sum-exp of the scaled logits.
     ``kernel`` is the launch counter (K6's, or K11's for the same kernel)."""
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
+    keys = segments if kv_segments is None else kv_segments
     if b * s * h:
-        kernel(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), segments.data_ptr(), out.data_ptr(),
-               lse.data_ptr() if with_lse else None,
+        kernel(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), segments.data_ptr(), keys.data_ptr(),
+               out.data_ptr(), lse.data_ptr() if with_lse else None,
                b, s, h, k.shape[2], d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                float(scale), int(causal))
+        if kernel is FLASH_ATTENTION:
+            FORWARD_LAUNCHES_BY_HEAD_DIM[d] += 1
     return out, lse
 
 
@@ -163,6 +185,9 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, segments, scale, causal):
+        if q.shape[3] not in BACKWARD_HEAD_DIMS:
+            raise NotImplementedError(f"K6's backward at head dim {q.shape[3]} is not built (it takes "
+                                      f"{BACKWARD_HEAD_DIMS}); it waits for {BACKWARD_WAITS}")
         out, lse = _forward_cuda(q, k, v, segments, scale, causal, with_lse=True)
         ctx.save_for_backward(q, k, v, segments, out, lse)
         ctx.scale, ctx.causal = float(scale), bool(causal)
@@ -190,6 +215,9 @@ def flash_attention_backward(q, k, v, segments, out, lse, d_out, scale: float, c
     b, s, h, d = q.shape
     hkv = k.shape[2]
     d_out = d_out.contiguous()
+    if d not in BACKWARD_HEAD_DIMS:
+        raise NotImplementedError(f"K6's backward at head dim {d} is not built (it takes {BACKWARD_HEAD_DIMS}); "
+                                  f"it waits for {BACKWARD_WAITS}")
     for name, t, shape, dtype in (("out", out, q.shape, torch.bfloat16), ("d_out", d_out, q.shape, torch.bfloat16),
                                   ("lse", lse, (b, h, s), torch.float32)):
         if tuple(t.shape) != tuple(shape):
@@ -215,20 +243,26 @@ def flash_attention(
     segments: torch.Tensor,
     scale: float,
     causal: bool = False,
+    kv_segments: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K6: segment-masked attention -> ``(B, S, H, D)`` in q's dtype.
 
     On CUDA, q, k and v must be bf16 with the head dim contiguous (any
     batch, sequence and head strides that are multiples of 8) and ``D`` one
-    of :data:`HEAD_DIMS`, which the backward kernels take too; ``segments``
-    is contiguous int32. When autograd is
+    of :data:`HEAD_DIMS`; ``segments`` (and ``kv_segments``, the keys' ids
+    where they differ from the queries') are contiguous int32. When autograd is
     recording and an input needs a gradient, the call goes through
-    :class:`FlashAttention` (the forward then also writes the log-sum-exp);
-    otherwise the forward alone is launched, as when serving."""
-    _check_shapes(q, k, v, segments)
+    :class:`FlashAttention` (the forward then also writes the log-sum-exp),
+    which raises at a head dim outside :data:`BACKWARD_HEAD_DIMS` or with
+    ``kv_segments``; otherwise the forward alone is launched, as when
+    serving."""
+    _check_shapes(q, k, v, segments, kv_segments)
     if on_cpu(q):
-        return flash_attention_plain(q, k, v, segments, scale, causal)
-    _check_cuda_inputs(q, k, v, segments)
+        return flash_attention_plain(q, k, v, segments, scale, causal, kv_segments)
+    _check_cuda_inputs(q, k, v, segments, kv_segments)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if kv_segments is not None:
+            raise NotImplementedError(f"K6's backward takes one array of segment ids; a gradient with kv_segments "
+                                      f"waits for {BACKWARD_WAITS}")
         return FlashAttention.apply(q, k, v, segments, scale, causal)
-    return _forward_cuda(q, k, v, segments, scale, causal, with_lse=False)[0]
+    return _forward_cuda(q, k, v, segments, scale, causal, with_lse=False, kv_segments=kv_segments)[0]

@@ -1,4 +1,11 @@
 from colpali_tpu_torch.processors.base import BaseVisualRetrieverProcessor  # noqa: F401
+from colpali_tpu_torch.processors.bi import (  # noqa: F401
+    BiIdefics3Processor,
+    BiPaliProcessor,
+    BiQwen2_5_Processor,
+    BiQwen2Processor,
+)
 from colpali_tpu_torch.processors.colpali import ColPaliProcessor  # noqa: F401
+from colpali_tpu_torch.processors.idefics3 import ColIdefics3Processor  # noqa: F401
 from colpali_tpu_torch.processors.qwen2_5_vl import ColQwen2_5_Processor, ColQwen2_5Processor  # noqa: F401
 from colpali_tpu_torch.processors.qwen2_vl import ColQwen2Processor  # noqa: F401

@@ -218,10 +218,17 @@ def _resize_normalize(
     antialias: bool = True,
 ) -> torch.Tensor:
     """``(B, H0, W0, 3)`` uint8 -> ``(B, height, width, 3)`` fp32 on the
-    images' device: resize on 0..255 floats (two fp32 products with the
-    per-axis weights; a gather for ``"nearest"``), then ``x / 255``, then
-    ``(x - mean) / std``, the HF image processors' order."""
-    x = images_u8.float()
+    images' device: resize on 0..255 floats (:func:`resize_float`), then
+    ``x / 255``, then ``(x - mean) / std``, the HF image processors' order."""
+    return normalize_pixels(resize_float(images_u8.float(), height, width, method, antialias), mean, std)
+
+
+def resize_float(x: torch.Tensor, height: int, width: int, method: str = "bicubic",
+                 antialias: bool = True) -> torch.Tensor:
+    """``jax.image.resize`` of fp32 ``(B, H0, W0, C)`` to ``(B, height,
+    width, C)`` on x's device: two fp32 products with the per-axis weights
+    (:func:`resize_weights`; an axis already at its size is left alone), a
+    gather for ``"nearest"``."""
     h0, w0 = x.shape[1:3]
     dev = x.device
     if method == "nearest":
@@ -236,7 +243,7 @@ def _resize_normalize(
         if w0 != width:
             ww = torch.from_numpy(resize_weights(w0, width, method, antialias)).to(dev)
             x = torch.einsum("wj,biwc->bijc", ww, x)
-    return normalize_pixels(x, mean, std)
+    return x
 
 
 def preprocess_images_fixed(

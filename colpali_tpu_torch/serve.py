@@ -46,15 +46,20 @@ def load_corpus(path: str):
 
 def make_handler(index, files, window_ms: float = 2.0, exact_threshold: int = 4, encoder=None):
     """An HTTP handler class serving ``index``; ``encoder`` (a QueryEncoder
-    or EncodeBatcher) enables ``/search_text``."""
+    or EncodeBatcher) enables ``/search_text``. The class's ``close()``
+    stops the batcher threads it started, which hold the index and the
+    model: :class:`RetrievalServer` calls it from ``server_close()``."""
+    owned = []  # the batchers started here: their dispatcher threads keep the index and the model alive
     if encoder is not None and not isinstance(encoder, EncodeBatcher):
         # concurrent /search_text requests merge into single encode forwards
         encoder = EncodeBatcher(encoder, window_ms=window_ms)
+        owned.append(encoder)
 
     lock = threading.Lock()  # extend() mutates the index; searches race it
     # concurrent /search requests merge into single sweeps; merged batches
     # above exact_threshold route to the exact sweep
     batcher = MicroBatcher(index, window_ms=window_ms, exact_threshold=exact_threshold, lock=lock)
+    owned.append(batcher)
     batcher.warmup()
     stats_lock = threading.Lock()
     latencies: list = []  # last 1024 search latencies (ms)
@@ -149,10 +154,25 @@ def make_handler(index, files, window_ms: float = 2.0, exact_threshold: int = 4,
         def log_message(self, fmt, *fmt_args):
             pass  # quiet
 
+        @staticmethod
+        def close() -> None:
+            for b in owned:
+                b.close()
+
     return Handler
 
 
-def make_server(argv=None) -> ThreadingHTTPServer:
+class RetrievalServer(ThreadingHTTPServer):
+    """``ThreadingHTTPServer`` over a :func:`make_handler` class:
+    ``server_close()`` also stops the handler's batcher threads, so the
+    index and the query encoder's model are freed with the server."""
+
+    def server_close(self) -> None:
+        super().server_close()
+        self.RequestHandlerClass.close()
+
+
+def make_server(argv=None) -> RetrievalServer:
     """Parse the command line, build the index (and the query encoder) and
     return the server, not yet serving."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -167,8 +187,8 @@ def make_server(argv=None) -> ThreadingHTTPServer:
                         help="after building, persist the packed index here and keep serving")
     parser.add_argument("--checkpoint", help="HF-format retriever checkpoint dir: loads the model and "
                         "processor in-process and enables POST /search_text")
-    parser.add_argument("--family", help="checkpoint family: colpali, colqwen2 or colqwen2_5 (else detected "
-                        "from its config.json)")
+    parser.add_argument("--family", help="checkpoint family: colpali, colqwen2, colqwen2_5 or colidefics3 (else "
+                        "detected from its config.json)")
     parser.add_argument("--no-quantize", action="store_true",
                         help="with --checkpoint: serve the checkpoint's bf16 weights instead of stored int8")
     args = parser.parse_args(argv)
@@ -201,7 +221,7 @@ def make_server(argv=None) -> ThreadingHTTPServer:
         print(f"Text-in serving: query encoder loaded from {args.checkpoint} "
               f"({'bf16' if args.no_quantize else 'stored-int8'} weights)")
     print(f"Serving {index.num_docs} docs ({index.nbytes / 2**20:.1f} MiB on {args.device}) on :{args.port}")
-    return ThreadingHTTPServer(("0.0.0.0", args.port), make_handler(index, files, encoder=encoder))
+    return RetrievalServer(("0.0.0.0", args.port), make_handler(index, files, encoder=encoder))
 
 
 def main(argv=None) -> None:

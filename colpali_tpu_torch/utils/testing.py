@@ -3,8 +3,9 @@
 :mod:`colpali_tpu.utils.dataset_loading`): a tiny ColPali config, a
 hash-based processor, a synthetic dataset, and an HF-layout checkpoint of a
 Qwen-family model with a word-level tokenizer whose special tokens sit at
-Qwen2's ids (:func:`write_qwen_checkpoint`), which ``load_retriever`` reads
-through ``transformers``."""
+Qwen2's ids (:func:`write_qwen_checkpoint`) or of a ColIdefics3 with
+Idefics3's specials (:func:`write_idefics3_checkpoint`), which
+``load_retriever`` reads through ``transformers``."""
 
 from __future__ import annotations
 
@@ -114,25 +115,48 @@ QWEN2_SPECIAL_TOKENS = {"<|endoftext|>": 151643, "<|im_start|>": 151644, "<|im_e
                         "<|video_pad|>": 151656}
 
 
-def qwen_word_tokenizer(words: Sequence[str]):
+def _word_tokenizer(words: Sequence[str], specials: dict, pad_token: str):
     """A ``transformers`` fast tokenizer over ``words``: a whitespace-split
     WordLevel model (``<unk>`` at 0, the words from 1, reserved tokens up to
-    the first special id, so the vocabulary has no holes) with
-    :data:`QWEN2_SPECIAL_TOKENS` pinned to their ids as special tokens and
-    ``<|endoftext|>`` as its pad token."""
+    the last special id, so the vocabulary has no holes) with ``specials``
+    pinned to their ids as special tokens and ``pad_token`` (one of them)
+    as its pad token."""
     from tokenizers import Tokenizer, models, pre_tokenizers
     from transformers import PreTrainedTokenizerFast
 
     vocab = {"<unk>": 0}
     for w in words:
         vocab.setdefault(w, len(vocab))
-    specials = sorted(QWEN2_SPECIAL_TOKENS.values())
-    vocab.update({f"<|reserved_{i}|>": i for i in range(len(vocab), specials[-1] + 1) if i not in specials})
-    vocab.update(QWEN2_SPECIAL_TOKENS)
+    ids = sorted(specials.values())
+    if ids[0] < len(vocab):
+        raise ValueError(f"{len(vocab)} words reach the first special id {ids[0]}")
+    vocab.update({f"<|reserved_{i}|>": i for i in range(len(vocab), ids[-1] + 1) if i not in ids})
+    vocab.update(specials)
     tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
     tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
-    return PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="<unk>", pad_token="<|endoftext|>",
-                                   additional_special_tokens=[t for t in QWEN2_SPECIAL_TOKENS if t != "<|endoftext|>"])
+    return PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="<unk>", pad_token=pad_token,
+                                   additional_special_tokens=[t for t in specials if t != pad_token])
+
+
+def qwen_word_tokenizer(words: Sequence[str]):
+    """:func:`_word_tokenizer` with :data:`QWEN2_SPECIAL_TOKENS` at their
+    ids and ``<|endoftext|>`` as its pad token."""
+    return _word_tokenizer(words, QWEN2_SPECIAL_TOKENS, "<|endoftext|>")
+
+
+# Idefics3's special tokens at the ids of scripts/validate_checkpoint.py's colSmol tokenizer (the <row_r_col_c>
+# markers of grids up to 6 x 6 at 49,153-49,188), and a pad token of its own
+IDEFICS3_SPECIAL_TOKENS = {"<global-img>": 49152,
+                           **{f"<row_{r}_col_{c}>": 49153 + (r - 1) * 6 + (c - 1)
+                              for r in range(1, 7) for c in range(1, 7)},
+                           "<fake_token_around_image>": 49189, "<image>": 49190, "<end_of_utterance>": 49191,
+                           "<|im_start|>": 49192, "<pad>": 49193}
+
+
+def idefics3_word_tokenizer(words: Sequence[str]):
+    """:func:`_word_tokenizer` with :data:`IDEFICS3_SPECIAL_TOKENS` at their
+    ids and ``<pad>`` as its pad token."""
+    return _word_tokenizer(words, IDEFICS3_SPECIAL_TOKENS, "<pad>")
 
 
 def qwen_hf_config(config) -> dict:
@@ -171,4 +195,39 @@ def write_qwen_checkpoint(directory: str, model, tokenizer, max_num_visual_token
                    "temporal_patch_size": v.temporal_patch_size,
                    "size": {"shortest_edge": 56 * 56, "longest_edge": max_num_visual_tokens * factor**2},
                    "image_mean": list(CLIP_MEAN), "image_std": list(CLIP_STD)}, f)
+    tokenizer.save_pretrained(directory)
+
+
+def idefics3_hf_config(config) -> dict:
+    """The HF ``config.json`` of an ``Idefics3Config``: ``vision_config``,
+    ``text_config`` (``head_dim`` implied by the heads, no q/k/v bias),
+    ``scale_factor`` and ``image_token_id``."""
+    text = {k: v for k, v in dataclasses.asdict(config.text).items()
+            if k not in ("mrope_section", "head_dim", "attention_bias")}
+    if config.text.head_dim * config.text.num_attention_heads != config.text.hidden_size:
+        raise ValueError("an HF Idefics3 text config implies head_dim = hidden_size / num_attention_heads")
+    return {"model_type": "idefics3", "architectures": ["ColIdefics3"],
+            "vision_config": {**dataclasses.asdict(config.vision), "model_type": "idefics3_vision"},
+            "text_config": {**text, "model_type": "llama"}, "scale_factor": config.scale_factor,
+            "image_token_id": config.image_token_id}
+
+
+def write_idefics3_checkpoint(directory: str, model, tokenizer, longest_edge: int = None) -> None:
+    """``model`` (a ``ColIdefics3``) as an HF-format checkpoint in
+    ``directory``: ``model.safetensors`` by the port's exporter (through
+    :mod:`colpali_tpu_torch.core.safetensors`), ``config.json``,
+    ``preprocessor_config.json`` (the tile size, ``longest_edge``, four
+    tiles a side by default, and SmolVLM's mean and std of 0.5),
+    ``processor_config.json`` (``image_seq_len``) and the tokenizer's files."""
+    from colpali_tpu_torch.training.checkpointing import save_pretrained
+
+    save_pretrained(directory, model.state_dict(), config=model.config)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(idefics3_hf_config(model.config), f)
+    tile = model.config.vision.image_size
+    with open(os.path.join(directory, "preprocessor_config.json"), "w") as f:
+        json.dump({"max_image_size": {"longest_edge": tile}, "size": {"longest_edge": longest_edge or 4 * tile},
+                   "image_mean": [0.5, 0.5, 0.5], "image_std": [0.5, 0.5, 0.5]}, f)
+    with open(os.path.join(directory, "processor_config.json"), "w") as f:
+        json.dump({"image_seq_len": model.config.image_seq_len}, f)
     tokenizer.save_pretrained(directory)

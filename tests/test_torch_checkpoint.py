@@ -37,7 +37,7 @@ from colpali_tpu.models.configs import PaliGemmaConfig  # noqa: E402
 from colpali_tpu.models.paligemma import ColPali as JaxColPali  # noqa: E402
 from colpali_tpu.training.checkpointing import save_pretrained as jax_save_pretrained  # noqa: E402
 from colpali_tpu_torch import serve  # noqa: E402
-from colpali_tpu_torch.auto import detect_family, exporter_for, load_retriever  # noqa: E402
+from colpali_tpu_torch.auto import _PORTED, detect_family, exporter_for, load_retriever  # noqa: E402
 from colpali_tpu_torch.core import safetensors  # noqa: E402
 from colpali_tpu_torch.core.from_jax import state_dict_from_jax  # noqa: E402
 from colpali_tpu_torch.core.hf_export import export_colpali_state_dict  # noqa: E402
@@ -180,8 +180,9 @@ def test_load_retriever_refuses_what_is_not_ported(ckpt, tmp_path):
     quantized, _ = load_retriever(ckpt, quantize=True, dtype=torch.float32, device="cpu")
     plain, _ = load_retriever(ckpt, dtype=torch.float32, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(quantized.state_dict().values(), plain.state_dict().values()))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):  # colqwen2 and colqwen2_5 are ported
-        load_retriever(ckpt, family="colidefics3", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):  # colqwen2, colqwen2_5, colidefics3 are ported
+        load_retriever(ckpt, family="colgemma3", device="cpu")
+    assert {"colpali", "colqwen2", "colqwen2_5", "colidefics3"} <= set(_PORTED)
     for cfg in ({"model_type": "paligemma"}, {"model_type": "qwen2_vl"}, {"architectures": ["ColQwen2_5Omni"]},
                 {"architectures": ["ColSmol"]}, {"model_type": "gemma3"}):
         assert detect_family(cfg) == jax_detect_family(cfg)

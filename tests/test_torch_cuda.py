@@ -281,9 +281,12 @@ def test_wrappers_reject_bad_inputs(dev):
         tm.maxsim_pallas_tm(torch.zeros((1, 4, 128), device=dev), torch.zeros((8, 256, 128), device=dev))
     q = torch.zeros((1, 8, 1, 80), device=dev, dtype=torch.bfloat16, requires_grad=True)
     seg = torch.ones((1, 8), dtype=torch.int32, device=dev)
-    q64 = torch.zeros((1, 8, 1, 64), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    q96 = torch.zeros((1, 8, 1, 96), device=dev, dtype=torch.bfloat16, requires_grad=True)
     with pytest.raises(ValueError, match="built for head dims"):
-        flash_attention(q64, q64, q64, seg, 0.1)  # K6 and its backward: D 72, 80, 128 and 256 only
+        flash_attention(q96, q96, q96, seg, 0.1)  # K6: D 64, 72, 80, 128 and 256 only
+    q64 = torch.zeros((1, 8, 1, 64), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        flash_attention(q64, q64, q64, seg, 0.1)  # its backward: D 72, 80, 128 and 256 only
     with pytest.raises(ValueError, match="forward only"):
         flash_seqmajor(q, q, q, seg, 0.1)
 
@@ -366,7 +369,7 @@ def test_k6_reads_strided_views_and_counts_launches(dev):
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention(q.float(), k.float(), v.float(), seg, d**-0.5)
     with pytest.raises(ValueError, match="head dim"):
-        flash_attention(q[..., :64], k[..., :64], v[..., :64], seg, 64**-0.5)
+        flash_attention(q[..., :96], k[..., :96], v[..., :96], seg, 96**-0.5)
     assert FLASH_ATTENTION.launches == before + 1
 
 
@@ -979,3 +982,63 @@ def test_qwen_lora_step_on_card_matches_plain_route(dev):
     assert np.isfinite(loss) and abs(loss - plain_loss) <= 1e-2 * abs(plain_loss), (loss, plain_loss)
     assert cos >= 0.99, cos
     adapters.detach()
+
+
+# -- K6 at D=64: the Idefics3 (colSmol-256M) towers, forward only ---------------------------------------------------
+
+D64_CASES = [
+    # b, s, h, hkv, key padding (valid lengths of the rows), causal
+    (16, 1024, 12, 12, None, False),  # the vision tower over 512 px tiles (16 of a batch's 104)
+    (8, 880, 9, 3, (880, 870, 860, 850, 840, 830, 700, 600), True),  # the decoder over pages, right-padded
+    (8, 32, 9, 3, (9, 12, 7, 20, 15, 11, 14, 10), True),  # the query encoder's bucket, right-padded
+]
+
+
+@pytest.mark.parametrize("b,s,h,hkv,lengths,causal", D64_CASES)
+def test_k6_d64_matches_plain_and_is_bit_equal(dev, b, s, h, hkv, lengths, causal):
+    """K6 at D=64 against its plain version, by K11's rule per query row
+    under a causal mask; the decoder's rows under the key-padding mask
+    (every query id 1, the keys' ids the validity mask: pad rows attend to
+    the valid keys, as JAX's additive bias has it), so every row is held.
+    Two calls agree bit for bit."""
+    from colpali_tpu_torch.ops import flash_attention as fa
+
+    d = 64
+    g = _gen(dev, s + h)
+    q, k, v = (torch.randn((b, s, n, d), generator=g, device=dev).to(torch.bfloat16) for n in (h, hkv, hkv))
+    seg = torch.ones((b, s), dtype=torch.int32, device=dev)
+    keys = None
+    if lengths is not None:
+        keys = (torch.arange(s, device=dev)[None] < torch.tensor(lengths, device=dev)[:, None]).to(torch.int32)
+    before = fa.FORWARD_LAUNCHES_BY_HEAD_DIM[64]
+    got = flash_attention(q, k, v, seg, d**-0.5, causal, kv_segments=keys)
+    again = flash_attention(q, k, v, seg, d**-0.5, causal, kv_segments=keys)
+    assert fa.FORWARD_LAUNCHES_BY_HEAD_DIM[64] == before + 2 and torch.equal(got, again)
+    want = flash_attention_plain(q, k, v, seg, d**-0.5, causal, kv_segments=keys)
+    if causal:
+        _assert_close_per_row(got, want, torch.ones((b, s), dtype=torch.bool, device=dev))
+    else:
+        _assert_k6_close(got, want)
+
+
+def test_k6_d64_backward_and_kv_segments_gradient_raise(dev):
+    """The backward kernels are not built at D=64, nor for distinct key
+    ids: autograd through the card raises, naming the ROADMAP item; nothing
+    falls back to the plain route."""
+    from colpali_tpu_torch.ops import flash_attention as fa
+
+    g = _gen(dev, 64)
+    seg = torch.ones((2, 40), dtype=torch.int32, device=dev)
+    for d, keys in ((64, None), (128, seg.clone())):
+        q, k, v = (torch.randn((2, 40, 4, d), generator=g, device=dev).to(torch.bfloat16).requires_grad_()
+                   for _ in range(3))
+        before = (FLASH_ATTENTION.launches, FLASH_ATTENTION_BWD.launches)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+            flash_attention(q, k, v, seg, d**-0.5, True, kv_segments=keys)
+        assert (FLASH_ATTENTION.launches, FLASH_ATTENTION_BWD.launches) == before
+    with torch.no_grad():
+        out, lse = _forward_cuda(q[..., :64].contiguous(), k[..., :64].contiguous(), v[..., :64].contiguous(), seg,
+                                 0.125, True, True)
+    with pytest.raises(NotImplementedError, match="head dim 64"):
+        fa.flash_attention_backward(q[..., :64].detach().contiguous(), k[..., :64].detach().contiguous(),
+                                    v[..., :64].detach().contiguous(), seg, out, lse, out, 0.125, True)

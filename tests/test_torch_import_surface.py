@@ -4,8 +4,8 @@ package to the other is a change of the import).
 - Every name that a reference ``__init__`` exports from a module the port
   has, and that module defines, is exported at the same path of the port
   (the same object). Modules not ported yet, and names of ported modules
-  that wait (the Bi models, JAX's functional LoRA), are skipped.
-- The ``_target_``s of the three training recipes resolve with
+  that wait (JAX's functional LoRA, ``BiQwen3Processor``), are skipped.
+- The ``_target_``s of the five training recipes resolve with
   ``colpali_tpu.`` read as ``colpali_tpu_torch.``, all but
   ``utils.dataset_loading.load_train_set`` (ROADMAP.md Queue 1 item 9).
 """
@@ -43,13 +43,14 @@ def test_every_ported_name_is_exported_where_the_reference_exports_it():
         if not (REPO / Path(*_port_name(module).split("."))).with_suffix(".py").exists():
             continue  # a module not ported yet (ROADMAP.md Queue 1)
         if not hasattr(importlib.import_module(_port_name(module)), name):
-            continue  # a name of a ported module that waits (the Bi models, JAX's functional LoRA)
+            continue  # a name of a ported module that waits (JAX's functional LoRA, BiQwen3Processor)
         assert getattr(importlib.import_module(_port_name(package)), name) is \
             getattr(importlib.import_module(_port_name(module)), name), f"{_port_name(package)}.{name}"
         exported += 1
-    assert exported >= 65
+    assert exported >= 80
     from colpali_tpu_torch import load_retriever as top  # noqa: F401
-    from colpali_tpu_torch.models import ColQwen2_5  # noqa: F401
+    from colpali_tpu_torch.models import BiIdefics3, BiPaliProj, ColIdefics3, ColQwen2_5  # noqa: F401
+    from colpali_tpu_torch.processors import BiQwen2_5_Processor, ColIdefics3Processor  # noqa: F401
     from colpali_tpu_torch.training import ColModelTraining, ColModelTrainingConfig, LoraSpec, TrainConfig  # noqa: F401
 
 
@@ -64,7 +65,8 @@ def _targets(node):
             yield from _targets(value)
 
 
-@pytest.mark.parametrize("recipe", ["train_colpali.yaml", "train_colqwen2.yaml", "train_colqwen2_5.yaml"])
+@pytest.mark.parametrize("recipe", ["train_colpali.yaml", "train_colqwen2.yaml", "train_colqwen2_5.yaml",
+                                    "train_colidefics3.yaml", "train_bipali.yaml"])
 def test_recipe_targets_resolve_in_the_port(recipe):
     targets = sorted(set(_targets(yaml.safe_load((REPO / "configs" / recipe).read_text()))))
     missing = []
