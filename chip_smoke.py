@@ -4,8 +4,8 @@
 The serving path runs for ColPali-3B (phases 3, 4 and 7), for the
 Qwen2-VL family, ColQwen2.5-3B and ColQwen2-2B (phase 8), and for the
 Idefics3/SmolVLM family, colSmol-256M, with the single-vector Bi models
-(phase 10); training for ColPali-3B (phase 5) and the Qwen2-VL family
-(phase 9).
+(phase 10); training for ColPali-3B (phase 5), the Qwen2-VL family
+(phase 9) and the Idefics3 family with the Bi models (phase 11).
 
 Run from the repository root with no arguments:
 
@@ -157,6 +157,28 @@ Phases (a few lines of output each, then two JSON lines):
    width (on the checkpoint's backbone), BiPaliProj and BiQwen2_5 at full
    width cut to 2 + 2 layers: each vector through the K6 route against the
    plain route, and the Bi processor's ``score`` finding planted pages.
+11. colSmol training (after phase 10): K6's backward at D=64 against its
+   plain version (and the exact gradient) at the path's shapes: the causal
+   decoder over 8 pages' prompts with queries id 1 and the keys the
+   validity mask (every query row read), the collated queries, and the
+   vision tower over 104 tiles (full fine-tuning only; against the exact
+   gradient, beside the same draw at D=80), bit-equal on a second call, timed beside SDPA's backward and its bound; colSmol-256M
+   at full width written as an HF checkpoint, read by
+   ``load_retriever(family="colidefics3", remat=True)`` and trained
+   through ``ColModelTraining`` from ``configs/train_colidefics3.yaml``
+   (its loss and LoRA through ``configs.instantiate``; batch 8, 4 steps over 32
+   pages of 13 tiles): 60 K6 backward launches a step, all at D=64, none
+   through the plain version; one step against the plain route,
+   ``evaluate()`` over 32 pages (bf16 index, K5), the merged export read
+   back by ``load_retriever`` and served through ``/search_text``, a run
+   resumed from step 2 repeating step 3's loss, a step at the recipe's
+   batch of 32 with and without remat, a profile of one at 8, and one
+   step over a stored-int8 frozen vision tower (72 layers); BiIdefics3
+   from ``train_biidefics3.yaml`` (2 steps, queries of unequal lengths so
+   that ``last`` reads pad rows, against the plain route in bf16 and in
+   fp32, a step at its recipe's batch of 64); BiPaliProj and BiQwen2_5 at
+   full width cut to 2 + 2 layers, one LoRA step each through
+   ``ColModelTraining`` against the plain route.
    Each phase from 8 on logs the GiB held on the card as it starts.
 
 Every K6 and K11 case prints, beside its time by CUDA events, TFLOP/s,
@@ -1543,6 +1565,9 @@ K6_BWD_RTOL, K6_BWD_ATOL_RMS = K6_RTOL, K6_ATOL_RMS
 # probe, which averages over all of them). In that run the routes picked another hardest negative for 1 of 8
 # queries and another best page token for 28 of 224 query tokens, and the recipe loss's cosine was 0.896
 PLAIN_ROUTE_LOSS_RTOL, PLAIN_ROUTE_FROZEN_GRAD_COS, PLAIN_ROUTE_SMOOTH_GRAD_COS = 1e-2, 0.996, 0.9996
+# K6's backward against the exact gradient at a model's shapes, per query row (phase 11's text case): the card-only
+# tests' rule for the kernels against autograd through the plain version in fp32 (tests/test_torch_cuda.py)
+K6_BWD_ORACLE_ATOL_RMS = 6e-2
 RESUME_LOSS_RTOL = 1e-5  # a resumed run repeats the loss of step 3: every kernel sums in a fixed order
 
 
@@ -1602,18 +1627,21 @@ def k6_bwd_case(gen: torch.Generator, device: torch.device, b: int, s: int, h: i
                       + (" + a token alone in its segment" if alone else ""))
 
 
-def k6_bwd_timing(q, k, v, seg, d_out, fwd_out, lse, scale: float, causal: bool, plain_out) -> dict:
+def k6_bwd_timing(q, k, v, seg, d_out, fwd_out, lse, scale: float, causal: bool, plain_out,
+                  kv_seg: torch.Tensor = None) -> dict:
     """K6's backward kernels timed by CUDA events beside the plain version's
     backward (autograd through ``plain_out``), SDPA's backward with the
     equivalent boolean mask (and without one where the segments are all
     one) and the bound: the larger of the bytes and 2.5x the forward's
-    products over the pairs this data attends."""
+    products over the pairs this data attends. ``kv_seg``: the keys' own
+    ids."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     with torch.no_grad():
-        ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, seg, fwd_out, lse, d_out, scale, causal))
+        ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, seg, fwd_out, lse, d_out, scale, causal,
+                                                         kv_segments=kv_seg))
     plain_ms = time_ms(lambda: torch.autograd.grad(plain_out, (q, k, v), d_out, retain_graph=True), reps=2)
-    allowed = seg[:, :, None] == seg[:, None, :]
+    allowed = seg[:, :, None] == (seg if kv_seg is None else kv_seg)[:, None, :]
     if causal:
         allowed &= torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
@@ -1624,10 +1652,11 @@ def k6_bwd_timing(q, k, v, seg, d_out, fwd_out, lse, scale: float, causal: bool,
         return time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), d_out_t, retain_graph=True))
 
     pairs = allowed.sum().item()
-    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * seg.numel() + 4 * b * h * s  # q, o, dO, dq; k, v, dk, dv
+    # q, o, dO, dq; k, v, dk, dv; the ids; the row log-sum-exp
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * seg.numel() * (1 if kv_seg is None else 2) + 4 * b * h * s
     r = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_backward(allowed[:, None]),
              **bound(nbytes, 2.5 * 4 * pairs * h * d, "bf16"))
-    if not causal and bool((seg == seg[0, 0]).all()):  # one segment: SDPA without a mask computes the same function
+    if kv_seg is None and not causal and bool((seg == seg[0, 0]).all()):  # one segment: SDPA without a mask
         r["library_unmasked_ms"] = sdpa_backward(None)
     return dict(r, **rates(3.5 * 4 * pairs * h * d, r))  # the kernels' seven products, 3.5x the forward's
 
@@ -2846,54 +2875,92 @@ def launch_counts() -> dict:
 
 
 def k6_bwd_row_case(gen: torch.Generator, device: torch.device, b: int, s: int, h: int, hkv: int, d: int,
-                    seg: torch.Tensor, rows: torch.Tensor, causal: bool, label: str) -> dict:
-    """K6's backward at one of the Qwen family's shapes against
+                    seg: torch.Tensor, rows: torch.Tensor, causal: bool, label: str, kv_seg: torch.Tensor = None,
+                    held: tuple = ("rounded",)) -> dict:
+    """K6's backward at one of a family's shapes against
     ``flash_attention_backward_plain`` (the kernels' roundings in plain
     PyTorch, from the forward kernel's output and log-sum-exp) by the
     forward's rule with the RMS per query row (key row for dk and dv), two
     batch rows at a time; a query row whose only key is itself has dq = 0
     up to the rounding of rowsum(dO * o) and is held at 1e-4 absolutely.
     A second call must give the same bits; then :func:`k6_bwd_timing`.
-    ``rows``: the tokens that are not padding."""
+    ``rows``: the query rows whose output is read (dO is zero elsewhere).
+    ``kv_seg``: the keys' own ids; the key rows held are then those whose
+    id is not 0, and the others must take no gradient at all. ``held``:
+    the oracles whose rule must hold, "rounded" (the plain version above,
+    whose shares are always returned) and "exact" (autograd through the
+    plain version on the inputs upcast to fp32, at K6_BWD_ORACLE_ATOL_RMS of
+    the row's RMS). With "exact", also returned: its shares
+    (``exact_shares``), those of the rounded plain version itself against it
+    (``rounded_to_exact_shares``), and at the worst element by the 2% rule
+    the kernel's value and both oracles' (``worst``)."""
     q, k, v = (torch.randn((b, s, n, d), generator=gen, device=device).to(torch.bfloat16).requires_grad_()
                for n in (h, hkv, hkv))
     d_out = torch.randn((b, s, h, d), generator=gen, device=device).to(torch.bfloat16) * rows[:, :, None, None]
     scale = d**-0.5
+    keys = {} if kv_seg is None else {"kv_segments": kv_seg}
+    key_rows = rows if kv_seg is None else kv_seg != 0
     before = fa.FLASH_ATTENTION_BWD.launches
-    got = torch.autograd.grad(fa.flash_attention(q, k, v, seg, scale, causal), (q, k, v), d_out)
-    again = torch.autograd.grad(fa.flash_attention(q, k, v, seg, scale, causal), (q, k, v), d_out)
+    got = torch.autograd.grad(fa.flash_attention(q, k, v, seg, scale, causal, **keys), (q, k, v), d_out)
+    again = torch.autograd.grad(fa.flash_attention(q, k, v, seg, scale, causal, **keys), (q, k, v), d_out)
     if fa.FLASH_ATTENTION_BWD.launches != before + 2:
         raise AssertionError(f"K6 backward{label}: autograd did not reach the backward kernels")
     for name, a, a2 in zip(("dq", "dk", "dv"), got, again):
         if not torch.equal(a, a2) or not torch.isfinite(a).all():
             raise AssertionError(f"K6 backward{label}: {name} not finite or not bit-equal on a second call")
-    allowed = seg[:, :, None] == seg[:, None, :]
+        if name != "dq" and a[~key_rows].any():
+            raise AssertionError(f"K6 backward{label}: {name} of a key that no query attends is not zero")
+    allowed = seg[:, :, None] == (seg if kv_seg is None else kv_seg)[:, None, :]
     if causal:
         allowed &= torch.ones((s, s), dtype=torch.bool, device=device).tril()
     alone = rows & (allowed.sum(-1) == 1)
+    rules = dict(rounded=K6_ATOL_RMS, **({"exact": K6_BWD_ORACLE_ATOL_RMS} if "exact" in held else {}))
+    shares = {oracle: dict(dq=0.0, dk=0.0, dv=0.0) for oracle in (*rules, "rounded_to_exact")}
+    worst = {}
     with torch.no_grad():
-        fwd_out, lse = fa._forward_cuda(q, k, v, seg, scale, causal, True)
-        shares, errs, alone_max = dict(dq=0.0, dk=0.0, dv=0.0), dict(dq=0.0, dk=0.0, dv=0.0), 0.0
-        for i in range(0, b, 2):
-            sl = slice(i, i + 2)
-            want = fa.flash_attention_backward_plain(q[sl], k[sl], v[sl], seg[sl], d_out[sl], scale, causal,
-                                                     out=fwd_out[sl], lse=lse[sl])
-            for name, g, w in zip(("dq", "dk", "dv"), got, want):
-                keep = rows[sl] & ~alone[sl] if name == "dq" else rows[sl]
-                g, w = g[sl][keep].float(), w[keep].float()
-                atol = K6_ATOL_RMS * w.pow(2).mean(dim=(1, 2), keepdim=True).sqrt()
-                shares[name] = max(shares[name], ((g - w).abs() / (atol + K6_RTOL * w.abs())).max().item())
-                errs[name] = max(errs[name], (g - w).abs().max().item())
-            if alone[sl].any():
-                alone_max = max(alone_max, got[0][sl][alone[sl]].float().abs().max().item())
-            del want
-    if max(shares.values()) > 1.0 or alone_max > 1e-4:
-        raise AssertionError(f"K6 backward{label} vs the same roundings in plain PyTorch: shares of the per-row "
-                             f"tolerance {shares}, dq of a row alone with itself {alone_max}")
-    r = k6_bwd_timing(q, k, v, seg, d_out, fwd_out, lse, scale, causal, fa.flash_attention_plain(q, k, v, seg, scale,
-                                                                                              causal))
-    return dict(r, max_abs_err=max(errs.values()), limit_share=max(shares.values()), shares=shares,
-                alone_dq_max=alone_max, shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}{label}")
+        fwd_out, lse = fa._forward_cuda(q, k, v, seg, scale, causal, True, **keys)
+    errs, alone_max = dict(dq=0.0, dk=0.0, dv=0.0), 0.0
+    for i in range(0, b, 2):
+        sl = slice(i, i + 2)
+        sub = {} if kv_seg is None else {"kv_segments": kv_seg[sl]}
+        wants = {}
+        with torch.no_grad():
+            wants["rounded"] = fa.flash_attention_backward_plain(q[sl], k[sl], v[sl], seg[sl], d_out[sl], scale,
+                                                                 causal, out=fwd_out[sl], lse=lse[sl], **sub)
+        if "exact" in rules:
+            q32, k32, v32 = (t[sl].detach().float().requires_grad_() for t in (q, k, v))
+            wants["exact"] = torch.autograd.grad(fa.flash_attention_plain(q32, k32, v32, seg[sl], scale, causal,
+                                                                          **sub), (q32, k32, v32), d_out[sl].float())
+            del q32, k32, v32
+        for j, name in enumerate(("dq", "dk", "dv")):
+            keep = rows[sl] & ~alone[sl] if name == "dq" else key_rows[sl]
+            g, w = got[j][sl][keep].float(), {oracle: want[j][keep].float() for oracle, want in wants.items()}
+            pairs = {oracle: (g, w[oracle]) for oracle in rules}
+            if "exact" in w:  # the rounded plain version's own distance from the exact gradient, by the exact rule
+                pairs["rounded_to_exact"] = (w["rounded"], w["exact"])
+            for pair, (x, y) in pairs.items():
+                atol = rules.get(pair, K6_BWD_ORACLE_ATOL_RMS) * y.pow(2).mean(dim=(1, 2), keepdim=True).sqrt()
+                ratio = ((x - y).abs() / (atol + K6_RTOL * y.abs())).flatten()
+                at = ratio.argmax()
+                if ratio[at].item() > shares[pair][name]:
+                    shares[pair][name] = ratio[at].item()
+                    if pair == "rounded" and "exact" in w:  # the worst element by the 2% rule, kernel and oracles
+                        worst[name] = dict(kernel=g.flatten()[at].item(),
+                                           **{oracle: v.flatten()[at].item() for oracle, v in w.items()})
+            errs[name] = max(errs[name], (g - w["rounded"]).abs().max().item())
+        if alone[sl].any():
+            alone_max = max(alone_max, got[0][sl][alone[sl]].float().abs().max().item())
+        del wants
+    if max(max(shares[oracle].values()) for oracle in held) > 1.0 or alone_max > 1e-4:
+        raise AssertionError(f"K6 backward{label} vs the plain version: shares of the per-row tolerance {shares} "
+                             f"(held: {held}), dq of a row alone with itself {alone_max}")
+    r = k6_bwd_timing(q, k, v, seg, d_out, fwd_out, lse, scale, causal,
+                      fa.flash_attention_plain(q, k, v, seg, scale, causal, kv_seg), kv_seg=kv_seg)
+    out = dict(r, max_abs_err=max(errs.values()), limit_share=max(max(shares[oracle].values()) for oracle in held),
+               shares=shares["rounded"], alone_dq_max=alone_max, shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}{label}")
+    if "exact" in rules:
+        out.update(exact_shares=shares["exact"], rounded_to_exact_shares=shares["rounded_to_exact"], worst=worst)
+    return out
 
 
 def qwen_bwd_cases(device: torch.device, batch: dict, cfg25, cfg2) -> dict:
@@ -2934,13 +3001,15 @@ def qwen_bwd_cases(device: torch.device, batch: dict, cfg25, cfg2) -> dict:
     return out
 
 
-def hold_routes(name: str, state, batch, recipe_loss, peft) -> dict:
+def hold_routes(name: str, state, batch, recipe_loss, peft, probe=None) -> dict:
     """:func:`route_gap` on the recipe loss (its value held) and on the
-    smooth probe (its value and gradient cosine held)."""
+    smooth probe (its value and gradient cosine held): by default InfoNCE
+    over the smooth max of the late-interaction scores; a single-vector
+    model passes its own."""
     from colpali_tpu_torch.losses import ColbertLoss
 
     out = {}
-    for what, fn in (("recipe loss", recipe_loss), ("smooth probe", ColbertLoss(use_smooth_max=True))):
+    for what, fn in (("recipe loss", recipe_loss), ("smooth probe", probe or ColbertLoss(use_smooth_max=True))):
         (k, *_), (p, *_), r = route_gap(state, batch, fn, peft)
         out[what] = r
         held = what == "smooth probe"
@@ -2948,16 +3017,16 @@ def hold_routes(name: str, state, batch, recipe_loss, peft) -> dict:
             f"{r['loss_relative']:.2e}, limit {QWEN_ROUTE_LOSS_RTOL}, {share(r['loss_relative'], QWEN_ROUTE_LOSS_RTOL)}), "
             f"gradient cosine {r['grad_cos']:.6f}" + (f" (limit {QWEN_ROUTE_GRAD_COS}, "
                                                       f"{share(1 - r['grad_cos'], 1 - QWEN_ROUTE_GRAD_COS)})"
-                                                      if held else " (not held: it follows the picks)")
+                                                      if held else " (not held: the smooth probe's is)")
             + f", norm ratio {r['grad_norm_ratio']:.4f}")
         if r["loss_relative"] > QWEN_ROUTE_LOSS_RTOL or (held and r["grad_cos"] < QWEN_ROUTE_GRAD_COS):
             raise AssertionError(f"{name}, kernel route vs plain route, {what}: {r}")
     return out
 
 
-def qwen_readback(device: torch.device, export_dir: str, merged: dict, config) -> dict:
-    """The merged export read back by ``load_retriever(family="colqwen2_5")``:
-    its query and page embeddings equal those of a fresh model holding the
+def export_readback(device: torch.device, export_dir: str, merged: dict, config, cls, family: str, name: str) -> dict:
+    """The merged export read back by ``load_retriever(family=family)``:
+    its query and page embeddings equal those of a fresh ``cls`` holding the
     merged weights as they were in memory, bit for bit; its
     ``QueryEncoder`` behind ``make_handler`` finds a page planted with a
     query's tokens at rank 1."""
@@ -2965,14 +3034,13 @@ def qwen_readback(device: torch.device, export_dir: str, merged: dict, config) -
 
     from colpali_tpu_torch.auto import load_retriever
     from colpali_tpu_torch.evaluation.evaluator import embed_dataset
-    from colpali_tpu_torch.models.qwen2_5_vl import ColQwen2_5
     from colpali_tpu_torch.retrieval.serving import QueryEncoder
     from colpali_tpu_torch.retrieval.store import CorpusIndex
     from colpali_tpu_torch.serve import RetrievalServer, make_handler
 
     t0 = time.perf_counter()
-    back, proc = load_retriever(export_dir, family="colqwen2_5", device=device)
-    in_memory = ColQwen2_5(config, dim=DIM, device=device, dtype=torch.bfloat16).eval()
+    back, proc = load_retriever(export_dir, family=family, device=device)
+    in_memory = cls(config, dim=DIM, device=device, dtype=torch.bfloat16).eval()
     in_memory.load_state_dict(merged)
     del merged
     t_load = time.perf_counter() - t0
@@ -2980,13 +3048,12 @@ def qwen_readback(device: torch.device, export_dir: str, merged: dict, config) -
     emb = {}
     with torch.no_grad():
         for key, m in (("loaded", back), ("in_memory", in_memory)):
-            emb[key] = [m(**{k: torch.as_tensor(np.asarray(v)).to(device) for k, v in feed.items()
-                             if k != "image_grid_thw"})
+            emb[key] = [m(**{k: torch.as_tensor(v).to(device) for k, v in feed.items() if k != "image_grid_thw"})
                         for feed in (proc.process_queries(QUERIES), proc.process_images(pages[:2]))]
     for what, a, b in zip(("queries", "pages"), emb["loaded"], emb["in_memory"]):
         if not torch.equal(a, b) or not torch.isfinite(a.float()).all():
-            raise AssertionError(f"Qwen export read back: {what} embeddings differ from the in-memory model's by up to "
-                                 f"{(a.float() - b.float()).abs().max().item()}")
+            raise AssertionError(f"{name} export read back: {what} embeddings differ from the in-memory model's by up "
+                                 f"to {(a.float() - b.float()).abs().max().item()}")
     del in_memory
     encoder = QueryEncoder(back, proc)
     docs = embed_dataset(back, proc, pages, batch_size=len(pages))
@@ -3001,12 +3068,13 @@ def qwen_readback(device: torch.device, export_dir: str, merged: dict, config) -
     finally:
         httpd.shutdown()
         httpd.server_close()
-    _check_ranked("/search_text (the Qwen export read back)", out, 1)
+    _check_ranked(f"/search_text (the {name} export read back)", out, 1)
     if out["doc_ids"][0][0] != planted:
-        raise AssertionError(f"/search_text over the read-back Qwen export: top-4 {out['doc_ids'][0]}, planted {planted}")
+        raise AssertionError(f"/search_text over the read-back {name} export: top-4 {out['doc_ids'][0]}, planted "
+                             f"{planted}")
     r = dict(seconds=time.perf_counter() - t0, load_seconds=t_load, query_shape=list(emb["loaded"][0].shape),
              page_shape=list(emb["loaded"][1].shape))
-    log(f"  export read back by load_retriever(family=\"colqwen2_5\") into a fresh ColQwen2.5-3B: query "
+    log(f"  export read back by load_retriever(family=\"{family}\") into a fresh {name}: query "
         f"{tuple(emb['loaded'][0].shape)} and page {tuple(emb['loaded'][1].shape)} embeddings bit-equal to a model "
         f"holding the merged weights in memory; its QueryEncoder behind make_handler found the planted page at rank 1 "
         f"through /search_text ({r['seconds']:.1f} s)")
@@ -3123,7 +3191,7 @@ def phase_qwen_training(device: torch.device, smi: str, ckpt: str) -> tuple:
         t_save = time.perf_counter() - t0
         merged = app.state.adapters.merged_state_dict(model)
         log(f"  save(): merged weights as model.safetensors (HF layout) in {t_save:.1f} s")
-        readback = qwen_readback(device, f"{tmp}/run", merged, cfg25)
+        readback = export_readback(device, f"{tmp}/run", merged, cfg25, ColQwen2_5, "colqwen2_5", "ColQwen2.5-3B")
         del merged
         app.close()
         os.remove(f"{tmp}/run/model.safetensors")
@@ -3387,6 +3455,27 @@ def bi_check(name: str, model, feeds: list, device: torch.device, score, planted
     return out
 
 
+def bi_pali_config():
+    """BiPaliProj's config in phases 10 and 11: ColPali-3B's widths cut to 2 + 2 layers."""
+    from colpali_tpu_torch.models.configs import GemmaConfig, PaliGemmaConfig, SiglipVisionConfig
+
+    return PaliGemmaConfig(vision=SiglipVisionConfig(num_hidden_layers=2), text=GemmaConfig(num_hidden_layers=2))
+
+
+@contextlib.contextmanager
+def counted_plain_k6():
+    """K6's plain version counted while the block runs (``calls[0]``); on
+    the card a path must never reach it."""
+    calls, plain = [0], fa.flash_attention_plain
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return plain(*args, **kwargs)
+
+    with mock.patch.object(fa, "flash_attention_plain", counted):
+        yield calls
+
+
 def phase_colsmol(device: torch.device, smi: str) -> tuple:
     """Drive the Idefics3/SmolVLM family's serving path: colSmol-256M written
     as an HF checkpoint and read back by ``load_retriever(family=
@@ -3404,7 +3493,6 @@ def phase_colsmol(device: torch.device, smi: str) -> tuple:
     from colpali_tpu_torch.auto import load_retriever
     from colpali_tpu_torch.evaluation.evaluator import embed_dataset
     from colpali_tpu_torch.models.common import hf_init_
-    from colpali_tpu_torch.models.configs import GemmaConfig, PaliGemmaConfig, SiglipVisionConfig
     from colpali_tpu_torch.models.idefics3 import BiIdefics3, ColIdefics3
     from colpali_tpu_torch.models.layers import QDense
     from colpali_tpu_torch.models.paligemma import BiPaliProj
@@ -3482,14 +3570,7 @@ def phase_colsmol(device: torch.device, smi: str) -> tuple:
         # the path, counted: pages embedded, /search_text through make_handler on each model, serve.py; K6's
         # plain version counted apart, which the path must never reach on the card
         reset_launches()
-        plain_calls = [0]
-        plain = fa.flash_attention_plain
-
-        def counted_plain(*args, **kwargs):
-            plain_calls[0] += 1
-            return plain(*args, **kwargs)
-
-        with mock.patch.object(fa, "flash_attention_plain", counted_plain):
+        with counted_plain_k6() as plain_calls:
             t0 = time.perf_counter()
             embs = {"bf16": embed_dataset(model, processor, pages, batch_size=PAGE_BATCH)}
             t_embed_bf16 = time.perf_counter() - t0
@@ -3624,7 +3705,7 @@ def phase_colsmol(device: torch.device, smi: str) -> tuple:
                                     bproc.score, BI_PLANTED)
         del bmodel, backbone, feed, query_feed, model
         torch.cuda.empty_cache()
-    pali_cfg = PaliGemmaConfig(vision=SiglipVisionConfig(num_hidden_layers=2), text=GemmaConfig(num_hidden_layers=2))
+    pali_cfg = bi_pali_config()
     pmodel = BiPaliProj(pali_cfg, device=device, dtype=torch.bfloat16).eval()
     hf_init_(pmodel, torch.Generator(device=device).manual_seed(SEED + 54))
     pproc = BiPaliProcessor(WordTokenizer(pali_cfg.image_token_index), device=device)
@@ -3650,6 +3731,441 @@ def phase_colsmol(device: torch.device, smi: str) -> tuple:
                  pages_per_min=dict(bf16=SMOL_PAGES / t_embed_bf16 * 60, int8=SMOL_PAGES / t_embed_int8 * 60))
     timings = {"flash_attention": k6, "quantize_rows": dict(shapes=q1_rows), "int8_gemm": dict(shapes=q1_gemms)}
     return launches, timings, extra
+
+
+# -- phase 11: colSmol training (run after phase 10) -------------------------------------------------------------
+
+SMOL_TRAIN_PAGES = 32  # four batches of 8
+SMOL_EVAL_PAGES = 32
+SMOL_TRAIN_STEPS, SMOL_RESUME_AT, BI_TRAIN_STEPS = 4, 2, 2
+SMOL_RECIPE_BATCH, BI_RECIPE_BATCH = 32, 64  # global_batch_size of train_colidefics3.yaml and train_biidefics3.yaml
+SMOL_VISION_STORED = 12 * 6  # quantize_frozen_base: q/k/v/o, fc1 and fc2 of each SigLIP layer; the connector stays bf16
+SMOL_QUANT_MIN_DIM = 512  # ColModelTrainingConfig's default quant_min_dim
+# a single-vector model's smooth probe for the plain-route check: in-batch InfoNCE over the dot products at
+# temperature 1 (the recipes' 0.02 scales the routes' gaps in the vectors by 50 in the logits)
+BI_PROBE_TEMPERATURE = 1.0
+
+
+def smol_dataset(n: int, seed: int, first: int = 0):
+    """``n`` seeded 1,275 x 1,650 pages (13 tiles each) with QUERIES in turn:
+    queries of unequal lengths, which the Idefics3 processors pad on the
+    right."""
+    from colpali_tpu_torch.data.dataset import ColPaliEngineDataset
+
+    return ColPaliEngineDataset([{"query": QUERIES[(first + i) % len(QUERIES)], "pos_target": page}
+                                 for i, page in enumerate(make_pages(n, seed))])
+
+
+def smol_bwd_cases(device: torch.device, batch: dict, cfg) -> dict:
+    """K6's backward at D=64 where colSmol's training puts it: the decoder
+    over the pages' prompts (causal GQA 9/3, rows right-padded by 0-56,
+    queries id 1 and the keys the validity mask, every query row read), over
+    the collated queries (the same ids), and the vision tower over a batch's
+    tiles, which only full fine-tuning backpropagates through. The text and
+    query cases are held by the forward's rule against the rounded plain
+    version (2% of the row RMS); the text case also against the exact
+    gradient (K6_BWD_ORACLE_ATOL_RMS). The vision case, no mask and 82 M
+    elements a gradient, is held against the exact gradient alone: at 2%
+    the rounded plain version's own noise (fp32 sums in another order, bf16
+    outputs that round the other way) reaches the limit at some element.
+    Its 2% share is printed, and beside it that of the same shape at D=80
+    (the Qwen2.5 vision tower's head dim) drawn from the same generator
+    state: the yardstick of how far the 2% rule reads at this size."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 61)
+    v, t = cfg.vision, cfg.text
+    b, s_text = batch["doc_input_ids"].shape
+    right = (torch.arange(s_text, device=device)[None] < s_text - 8 * torch.arange(b, device=device)[:, None])
+    right = right.to(torch.int32).contiguous()
+    q_mask = batch["query_attention_mask"].to(torch.int32).contiguous()
+    tiles = int(batch["doc_tile_mask"].numel())
+    heads = (t.num_attention_heads, t.num_key_value_heads, t.head_dim)
+    vision = (tiles, v.num_patches, v.num_attention_heads, v.num_attention_heads)
+    full_ft = f" ({tiles // b} tiles a page, full fine-tuning only)"
+    cases = {
+        "text": (b, s_text, *heads, right, True, " causal, rows right-padded by 0-56 under the key-padding mask",
+                 ("rounded", "exact")),
+        "queries": (*q_mask.shape, *heads, q_mask, True, " causal, the collated queries (key-padding mask)",
+                    ("rounded",)),
+        "vision": (*vision, v.head_dim, None, False, full_ft, ("exact",)),
+        "vision_d80": (*vision, 80, None, False, " (the vision shape at D=80, the same draw as the vision case)",
+                       ("exact",)),
+    }
+    out = {}
+    for name, (bb, ss, h, hkv, d, kv_seg, causal, label, held) in cases.items():
+        if name == "vision":
+            vision_draw = gen.get_state()
+        elif name == "vision_d80":
+            gen.set_state(vision_draw)
+        seg = torch.ones((bb, ss), dtype=torch.int32, device=device)
+        r = out[name] = k6_bwd_row_case(gen, device, bb, ss, h, hkv, d, seg, seg.bool(), causal, label,
+                                        kv_seg=kv_seg, held=held)
+        rounded = "held" if "rounded" in held else "not held"
+        exact = "" if "exact_shares" not in r else (
+            ", against the exact gradient ({rule:.0%} of the row RMS, held) dq {dq:.0%} dk {dk:.0%} dv {dv:.0%}"
+            .format(rule=K6_BWD_ORACLE_ATOL_RMS, **r["exact_shares"]) +
+            " (the rounded plain version's own: dq {dq:.0%} dk {dk:.0%} dv {dv:.0%})"
+            .format(**r["rounded_to_exact_shares"]) +
+            "; at the worst element by the 2% rule, kernel / rounded / exact: " + ", ".join(
+                f"{n} {w['kernel']:.6g} / {w['rounded']:.6g} / {w['exact']:.6g}" for n, w in r["worst"].items()))
+        log(f"phase colsmol training: K6 backward {name} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, backward: {library_note(r)} (7 products), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g}, share of the tolerance against the rounded "
+            f"plain version ({K6_ATOL_RMS:.0%} of the row RMS, {rounded}) dq {r['shares']['dq']:.1%} dk "
+            f"{r['shares']['dk']:.1%} dv {r['shares']['dv']:.1%}{exact}; bit-equal on a second call")
+        torch.cuda.empty_cache()
+    return out
+
+
+def hold_bi_routes(name: str, state, batch, recipe_loss, peft, probe, fp32_model) -> dict:
+    """A single-vector model's train step against the plain route, and both
+    against the plain route in fp32 (``fp32_model``: the same model built
+    in fp32; it takes the bf16 weights and the adapters, and the same
+    dropout masks). The recipe loss's value and the smooth probe's are held
+    against the plain route (relative 1e-2); the probe's gradient through
+    the kernels is held against the fp32 gradient (cosine >= 0.99) and must
+    stand no farther from it than 1.5x the plain route's own distance. The
+    cosine between the two bf16 routes is printed, not held: with one
+    vector a row the gradient reaches the adapters through one position,
+    and the first H100 run read 0.98925 between them for BiIdefics3 at 30
+    layers, each route 0.9916-0.9917 from the fp32 gradient."""
+    from colpali_tpu_torch.training import trainer
+    from colpali_tpu_torch.training.lora import LoraAdapters
+
+    (rk, *_), (rp, *_), rr = route_gap(state, batch, recipe_loss, peft)
+    log(f"  {name}, kernel route vs plain route, recipe loss: loss {rk:.6f} vs {rp:.6f} (relative "
+        f"{rr['loss_relative']:.2e}, limit {QWEN_ROUTE_LOSS_RTOL}, {share(rr['loss_relative'], QWEN_ROUTE_LOSS_RTOL)}), "
+        f"gradient cosine {rr['grad_cos']:.6f} (not held)")
+    if rr["loss_relative"] > QWEN_ROUTE_LOSS_RTOL:
+        raise AssertionError(f"{name}, kernel route vs plain route, recipe loss: {rr}")
+    out = dict(recipe_loss=rr)
+    (k, kg, *_), (p, pg, *_), r = route_gap(state, batch, probe, peft)
+    fp32_model.load_state_dict(state.model.state_dict())
+    adapters = LoraAdapters(fp32_model, peft)
+    adapters.load_tree(state.adapters.tree())
+    state32 = trainer.create_train_state(fp32_model, state.config, adapters)
+    state32.step = state.step  # the same dropout masks
+    with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
+        e, eg, *_ = adapter_gradient(state32, batch, probe, peft, SEED)
+    adapters.detach()
+    kg, pg, eg = kg.double(), pg.double(), eg.double()
+
+    def cos(a, b):
+        return (a @ b / (a.norm() * b.norm())).item()
+
+    r.update(loss_fp32=e, grad_cos_fp32=cos(kg, eg), plain_grad_cos_fp32=cos(pg, eg))
+    log(f"  {name}, smooth probe against the plain route in bf16 and in fp32: loss kernel {k:.6f}, plain {p:.6f} "
+        f"(relative {r['loss_relative']:.2e}, limit {QWEN_ROUTE_LOSS_RTOL}), fp32 {e:.6f}; gradient cosine to fp32 {r['grad_cos_fp32']:.6f} (limit {QWEN_ROUTE_GRAD_COS}, "
+        f"{share(1 - r['grad_cos_fp32'], 1 - QWEN_ROUTE_GRAD_COS)}; the plain route's {r['plain_grad_cos_fp32']:.6f}), "
+        f"kernel to plain {r['grad_cos']:.6f} (not held)")
+    if r["loss_relative"] > QWEN_ROUTE_LOSS_RTOL or r["grad_cos_fp32"] < QWEN_ROUTE_GRAD_COS or \
+            1 - r["grad_cos_fp32"] > 1.5 * (1 - r["plain_grad_cos_fp32"]):
+        raise AssertionError(f"{name}, kernel route vs plain route and fp32: {r}")
+    out["smooth_probe"] = r
+    return out
+
+
+def repeat_batch(batch: dict, times: int) -> dict:
+    """A collated batch ``times`` over along the batch axis (a timed step at
+    a recipe's batch size, without collating as many pages)."""
+    return {k: torch.cat([v] * times) for k, v in batch.items()}
+
+
+def phase_smol_training(device: torch.device, smi: str) -> tuple:
+    """Drive the Idefics3 family's training path: K6's backward at D=64 at
+    the path's shapes (a); colSmol-256M written as an HF checkpoint, read by
+    ``load_retriever(family="colidefics3", remat=True)`` and trained through
+    ``ColModelTraining`` from ``configs/train_colidefics3.yaml``'s loss and
+    LoRA: 4 steps, the plain route, eval, resume, the merged export read
+    back and served, steps timed at the recipe's batch and one step over a
+    stored-int8 frozen vision tower (b); BiIdefics3 from
+    ``train_biidefics3.yaml`` (c); BiPaliProj and BiQwen2_5 at cut depth,
+    one step each (d). Returns the launches over the path, the backward's
+    cases and the rest."""
+    import dataclasses
+    import os
+    import shutil
+
+    from colpali_tpu_torch.auto import load_retriever
+    import yaml
+
+    from colpali_tpu_torch.configs import instantiate
+    from colpali_tpu_torch.data.collator import VisualRetrieverCollator
+    from colpali_tpu_torch.losses import BiEncoderLoss, BiPairwiseCELoss
+    from colpali_tpu_torch.models.common import hf_init_
+    from colpali_tpu_torch.models.idefics3 import BiIdefics3, ColIdefics3
+    from colpali_tpu_torch.models.layers import QDense
+    from colpali_tpu_torch.models.paligemma import BiPaliProj
+    from colpali_tpu_torch.models.qwen2_5_vl import BiQwen2_5
+    from colpali_tpu_torch.processors.bi import BiIdefics3Processor, BiPaliProcessor, BiQwen2_5_Processor
+    from colpali_tpu_torch.training import trainer
+    from colpali_tpu_torch.training.lora import LoraAdapters, LoraSpec
+    from colpali_tpu_torch.training.orchestrator import ColModelTraining, ColModelTrainingConfig
+    from colpali_tpu_torch.utils.testing import write_idefics3_checkpoint
+
+    held = free_memory("phase colsmol training")
+    bi_probe = BiEncoderLoss(temperature=BI_PROBE_TEMPERATURE)
+    t_phase = time.perf_counter()
+    recipes = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    cfg = smol_config()
+    t = cfg.text
+    train_config = trainer.TrainConfig(learning_rate=QWEN_LR, warmup_steps=0, total_steps=2500)
+    train_set = smol_dataset(SMOL_TRAIN_PAGES, SEED + 62)
+    eval_set = smol_dataset(SMOL_EVAL_PAGES, SEED + 63, first=SMOL_TRAIN_PAGES)
+    extra = dict(held_gib_at_start=held)
+    with tempfile.TemporaryDirectory() as tmp:
+        model = ColIdefics3(cfg, dim=DIM, device=device, dtype=torch.bfloat16)
+        hf_init_(model, torch.Generator(device=device).manual_seed(SEED + 60))
+        write_idefics3_checkpoint(f"{tmp}/ckpt", model, smol_tokenizer())
+        backbone = {k: v for k, v in model.state_dict().items() if k.startswith("model.")}  # BiIdefics3's, in (c)
+        del model
+        model, processor = load_retriever(f"{tmp}/ckpt", family="colidefics3", device=device, remat=True)
+        batch = trainer.to_device(VisualRetrieverCollator(processor)([train_set[i] for i in range(TRAIN_BATCH)]),
+                                  device)
+        k6_bwd = smol_bwd_cases(device, batch, cfg)
+
+        # -- (b) colSmol-256M through ColModelTraining from the recipe ----------------------------------------
+        def recipe(name, out, m, proc, **overrides):
+            """The recipe's ``config`` tree built by the port, with the nodes
+            that name files absent here (checkpoint, processor, datasets)
+            and the run's size replaced."""
+            with open(os.path.join(recipes, name)) as f:
+                node = yaml.safe_load(f)["config"]
+            node.update(model=m, processor=proc, params=None, train_datasets=[train_set], output_dir=out,
+                        global_batch_size=TRAIN_BATCH, log_steps=1, train=train_config, seed=SEED, device=device,
+                        **overrides)
+            return instantiate(node)
+
+        def make_app(out, **kw):
+            return ColModelTraining(ColModelTrainingConfig(**recipe(
+                "train_colidefics3.yaml", out, model, processor, eval_dataset=eval_set, eval_batch_size=TRAIN_BATCH,
+                save_steps=SMOL_RESUME_AT, save_total_limit=SMOL_TRAIN_STEPS, **kw)))
+
+        app = make_app(f"{tmp}/run", max_steps=SMOL_TRAIN_STEPS)
+        peft, loss_fn = app.config.peft, app.config.loss_func
+        n_adapters, n_trainable = len(app.state.adapters.paths), sum(p.numel() for p in app.state.params)
+        seen, moved = [], []
+
+        def on_step(step, metrics):
+            seen.append((step, float(metrics["loss"]), float(metrics["grad_norm"])))
+            if step == 1:
+                moved.extend(bool(b.detach().abs().max() > 0) for b in app.state.adapters.b)
+
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with counted_plain_k6() as plain_calls:
+            summary = app.train(on_step=on_step)
+        torch.cuda.synchronize()
+        train_launches = launch_counts()
+        peak_train = torch.cuda.max_memory_allocated() / 2**30
+        by_dim = train_launches["bwd_by_head_dim"]
+        per_step = 2 * t.num_hidden_layers  # a query and a page forward a step need a gradient: 60
+        if [s for s, _, _ in seen] != list(range(1, SMOL_TRAIN_STEPS + 1)) or \
+                not all(np.isfinite(l) and l > 0 and np.isfinite(g) and g > 0 for _, l, g in seen):
+            raise AssertionError(f"colSmol-256M steps: {seen}")
+        if len(moved) != n_adapters or not all(moved):
+            raise AssertionError(f"{moved.count(False)} of {n_adapters} adapters did not move in step 1")
+        if by_dim[t.head_dim] != SMOL_TRAIN_STEPS * per_step or sum(by_dim.values()) != by_dim[t.head_dim] or \
+                train_launches["flash_attention_bwd"] != by_dim[t.head_dim] or plain_calls[0]:
+            raise AssertionError(f"K6 backward over {SMOL_TRAIN_STEPS} colSmol LoRA steps: {train_launches}, "
+                                 f"{plain_calls[0]} calls of the plain version; expected {per_step} a step at "
+                                 f"D={t.head_dim} alone")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] colSmol-256M, ColModelTraining from train_colidefics3.yaml ({smi}): {n_adapters} adapted layers, "
+            f"{n_trainable / 1e6:.2f} M trainable parameters, {type(loss_fn).__name__}, LoRA r{peft.rank} "
+            f"a{peft.alpha:g} dropout {peft.dropout}, remat, batch {TRAIN_BATCH}; "
+            + ", ".join(f"step {s} loss {l:.4f} grad_norm {g:.4f}" for s, l, g in seen)
+            + f"; {summary['train_samples_per_second']:.2f} examples/s with collation and checkpoints; K6 forward "
+            f"{train_launches['flash_attention']}, backward {train_launches['flash_attention_bwd']} "
+            f"({train_launches['flash_attention_bwd'] // SMOL_TRAIN_STEPS} a step, by head dim {by_dim}), K6's plain "
+            f"version called {plain_calls[0]} times; peak memory {peak_train:.2f} GiB")
+        extra["route_colsmol"] = hold_routes("colSmol-256M LoRA", app.state, batch, loss_fn, peft)
+
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = app.evaluate()
+        t_eval = time.perf_counter() - t0
+        eval_launches = launch_counts()
+        index = app.eval_index
+        if not {"eval_loss", "eval_ndcg@1", "eval_ndcg@5"} <= set(metrics) or \
+                not all(np.isfinite(x) for x in metrics.values()) or not eval_launches["maxsim_bf16"] or \
+                (index.dtype, index.num_docs, index._store.device.type) != ("bf16", SMOL_EVAL_PAGES, device.type):
+            raise AssertionError(f"evaluate(): {metrics}, index {index.dtype} {index.num_docs}, {eval_launches}")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] evaluate(): {SMOL_EVAL_PAGES} held-out pages in {t_eval:.1f} s, bf16 index {index.num_docs} x "
+            f"{index.doc_tokens} built on the card and searched by K5 ({eval_launches['maxsim_bf16']} launch(es)); "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(metrics.items())))
+        app.save()
+        merged = app.state.adapters.merged_state_dict(model)
+        readback = export_readback(device, f"{tmp}/run", merged, cfg, ColIdefics3, "colidefics3", "colSmol-256M")
+        del merged
+        app.close()
+
+        os.makedirs(f"{tmp}/resumed/checkpoints")
+        shutil.copy(f"{tmp}/run/checkpoints/step_{SMOL_RESUME_AT}.pt", f"{tmp}/resumed/checkpoints/")
+        shutil.rmtree(f"{tmp}/run")
+        resumed = make_app(f"{tmp}/resumed", max_steps=SMOL_RESUME_AT + 1, resume_from_checkpoint=True)
+        tail = []
+        resumed.train(on_step=lambda step, m: tail.append((step, float(m["loss"]))))
+        resumed.close()
+        first = seen[SMOL_RESUME_AT][1]
+        if [s for s, _ in tail] != [SMOL_RESUME_AT + 1] or abs(tail[0][1] - first) > RESUME_LOSS_RTOL * abs(first):
+            raise AssertionError(f"resumed run: {tail}, the first run's step {SMOL_RESUME_AT + 1} loss {first}")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] resumed from step {SMOL_RESUME_AT}: step {SMOL_RESUME_AT + 1} loss {tail[0][1]:.8f} vs {first:.8f} in "
+            f"the first run (limit {RESUME_LOSS_RTOL} relative)")
+
+        # the recipe's batch of 32, remat on and off (batch 8 four times over: the shapes count, not the pages)
+        big = repeat_batch(batch, SMOL_RECIPE_BATCH // TRAIN_BATCH)
+        adapters = LoraAdapters(model, peft, seed=SEED + 1)
+        state = trainer.create_train_state(model, train_config, adapters)
+        steps = {}
+        for remat in (True, False):
+            model.set_remat(remat)
+            steps["remat" if remat else "no_remat"] = r = timed_steps(state, big, loss_fn, peft, SEED, steps=2)
+            log(f"  colSmol-256M LoRA step, batch {SMOL_RECIPE_BATCH} (the recipe's), remat {'on' if remat else 'off'} "
+                f"({smi}): {r['wall']:.1f} ms/step ({SMOL_RECIPE_BATCH / r['wall'] * 1e3:.1f} examples/s without "
+                f"collation), forward {r['forward']:.1f} ms, backward {r['backward']:.1f} ms, optimizer "
+                f"{r['optimizer']:.1f} ms, host and idle {r['wall'] - r['forward'] - r['backward'] - r['optimizer']:.1f} "
+                f"ms, peak memory {r['peak_gib']:.2f} GiB ({r['allocated_before_gib']:.2f} GiB held before the step)")
+        model.set_remat(True)
+        step_fn = trainer.make_train_step(loss_fn, peft=peft, seed=SEED)
+        steps["batch8_ms"] = timed_steps(state, batch, loss_fn, peft, SEED, steps=2)
+        steps["batch8_profile"] = kernel_breakdown(f"one colSmol-256M LoRA step, batch {TRAIN_BATCH}, remat on",
+                                                   lambda: step_fn(state, batch)["loss"].item())
+        adapters.detach()
+        del big, state, adapters
+        extra.update(losses=[l for _, l, _ in seen], grad_norms=[g for _, _, g in seen], eval=metrics,
+                     examples_per_s_end_to_end=summary["train_samples_per_second"], peak_train_gib=peak_train,
+                     step_ms=steps, checkpoint_readback=readback, resumed_loss=tail[0][1], trainable=n_trainable,
+                     launches_per_step={"flash_attention_bwd": train_launches["flash_attention_bwd"] // SMOL_TRAIN_STEPS})
+
+        # one step over a stored-int8 frozen vision tower (the model's tower stays int8 from here on)
+        qapp = ColModelTraining(ColModelTrainingConfig(**recipe(
+            "train_colidefics3.yaml", f"{tmp}/quant", model, processor, max_steps=1, save_steps=100,
+            quantize_frozen_base=True, quant_min_dim=SMOL_QUANT_MIN_DIM)))
+        stored = [name for name, m in model.named_modules() if isinstance(m, QDense) and m.stored]
+        if len(stored) != SMOL_VISION_STORED or not all(n.startswith("model.vision_model.") for n in stored):
+            raise AssertionError(f"quantize_frozen_base stored {len(stored)} layers, expected the vision tower's "
+                                 f"{SMOL_VISION_STORED}")
+        reset_launches()
+        qseen = []
+        qapp.train(on_step=lambda step, m: qseen.append(float(m["loss"])))
+        torch.cuda.synchronize()
+        quant_launches = launch_counts()
+        qapp.close()
+        if quant_launches["int8_gemm"] != SMOL_VISION_STORED or not quant_launches["quantize_rows"] or \
+                len(qseen) != 1 or not np.isfinite(qseen[0]) or \
+                quant_launches["bwd_by_head_dim"][t.head_dim] != per_step:
+            raise AssertionError(f"quantize_frozen_base step {qseen}, launches {quant_launches}; expected "
+                                 f"{SMOL_VISION_STORED} Q1b launches and {per_step} K6 backward launches")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] quantize_frozen_base: {len(stored)} stored-int8 vision layers (the connector stays bf16); one step, "
+            f"loss {qseen[0]:.4f}; Q1a {quant_launches['quantize_rows']} and Q1b {quant_launches['int8_gemm']} "
+            f"launches, K6 backward {quant_launches['bwd_by_head_dim'][t.head_dim]}")
+        extra["quantize_frozen_base"] = dict(stored_layers=len(stored), loss=qseen[0], launches=quant_launches)
+        del model, app, qapp, resumed
+        torch.cuda.empty_cache()
+
+        # -- (c) BiIdefics3 from train_biidefics3.yaml: queries of unequal lengths, `last` on pad rows ------------
+        bmodel = BiIdefics3(cfg, device=device, dtype=torch.bfloat16, remat=True)
+        bmodel.load_state_dict(backbone)
+        del backbone
+        bproc = BiIdefics3Processor.from_pretrained(f"{tmp}/ckpt", device=device)
+        bapp = ColModelTraining(ColModelTrainingConfig(**recipe("train_biidefics3.yaml", f"{tmp}/bi", bmodel, bproc,
+                                                                max_steps=BI_TRAIN_STEPS, save_steps=100)))
+        bpeft, bloss = bapp.config.peft, bapp.config.loss_func
+        bbatch = trainer.to_device(VisualRetrieverCollator(bproc)([train_set[i] for i in range(TRAIN_BATCH)]), device)
+        pad_rows = int((bbatch["query_attention_mask"][:, -1] == 0).sum())
+        if not pad_rows or not isinstance(bloss, BiEncoderLoss):
+            raise AssertionError(f"BiIdefics3: {pad_rows} right-padded queries, loss {type(bloss).__name__}")
+        reset_launches()
+        bseen = []
+        with counted_plain_k6() as plain_calls:
+            bapp.train(on_step=lambda step, m: bseen.append((float(m["loss"]), float(m["grad_norm"]))))
+        torch.cuda.synchronize()
+        bi_launches = launch_counts()
+        if len(bseen) != BI_TRAIN_STEPS or not np.isfinite(bseen).all() or plain_calls[0] or \
+                bi_launches["bwd_by_head_dim"][t.head_dim] != BI_TRAIN_STEPS * per_step:
+            raise AssertionError(f"BiIdefics3 steps {bseen}, launches {bi_launches}, plain calls {plain_calls[0]}")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] BiIdefics3 (colSmol-256M's backbone, last pooling), ColModelTraining from train_biidefics3.yaml: "
+            f"{BiEncoderLoss.__name__}, batch {TRAIN_BATCH} with {pad_rows} right-padded queries (`last` reads a pad "
+            "row); " + ", ".join(f"step {i + 1} loss {l:.4f} grad_norm {g:.4f}" for i, (l, g) in enumerate(bseen))
+            + f"; K6 backward {bi_launches['flash_attention_bwd']} (by head dim {bi_launches['bwd_by_head_dim']})")
+        extra["route_biidefics3"] = hold_bi_routes("BiIdefics3 LoRA", bapp.state, bbatch, bloss, bpeft, bi_probe,
+                                                   BiIdefics3(cfg, device=device, dtype=torch.float32, remat=True))
+        torch.cuda.empty_cache()
+        bapp.close()
+        badapters = LoraAdapters(bmodel, bpeft, seed=SEED + 1)
+        bstate = trainer.create_train_state(bmodel, train_config, badapters)
+        huge = repeat_batch(bbatch, BI_RECIPE_BATCH // TRAIN_BATCH)
+        bi_step = timed_steps(bstate, huge, bloss, bpeft, SEED, steps=1)
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] BiIdefics3 LoRA step, batch {BI_RECIPE_BATCH} (the recipe's), remat on ({smi}): {bi_step['wall']:.1f} "
+            f"ms/step ({BI_RECIPE_BATCH / bi_step['wall'] * 1e3:.1f} examples/s without collation), forward "
+            f"{bi_step['forward']:.1f} ms, backward {bi_step['backward']:.1f} ms, optimizer {bi_step['optimizer']:.1f} "
+            f"ms, peak memory {bi_step['peak_gib']:.2f} GiB")
+        bi_step["batch8_profile"] = kernel_breakdown(
+            f"one BiIdefics3 LoRA step, batch {TRAIN_BATCH}, remat on",
+            lambda: trainer.make_train_step(bloss, peft=bpeft, seed=SEED)(bstate, bbatch)["loss"].item())
+        badapters.detach()
+        extra["biidefics3"] = dict(losses=[l for l, _ in bseen], launches=bi_launches, step_ms=bi_step,
+                                   right_padded_queries=pad_rows)
+        del bmodel, bapp, bstate, badapters, huge, bbatch
+        torch.cuda.empty_cache()
+
+    # -- (d) BiPaliProj and BiQwen2_5 at full width cut to 2 + 2 layers: one LoRA step each, the recipes' losses
+    # (train_bipali.yaml's, train_biqwen2.yaml's) ------------------------------------------------------------------
+    pali_cfg = bi_pali_config()
+    cfg25 = qwen_configs()[0]
+    cfg25 = dataclasses.replace(cfg25, vision=dataclasses.replace(cfg25.vision, depth=2, fullatt_block_indexes=(1,)),
+                                text=dataclasses.replace(cfg25.text, num_hidden_layers=2))
+    others = {
+        "BiPaliProj": (lambda: BiPaliProj(pali_cfg, device=device, dtype=torch.bfloat16, remat=True),
+                       lambda: BiPaliProcessor(WordTokenizer(pali_cfg.image_token_index), device=device),
+                       BiPairwiseCELoss(), pali_cfg.text.head_dim, SEED + 64),
+        "BiQwen2_5": (lambda: BiQwen2_5(cfg25, device=device, dtype=torch.bfloat16, remat=True),
+                      lambda: BiQwen2_5_Processor(qwen_tokenizer(), max_num_visual_tokens=768, device=device),
+                      BiEncoderLoss(), cfg25.text.head_dim, SEED + 65),
+    }
+    small_set = smol_dataset(TRAIN_BATCH, SEED + 66)
+    other_out = {}
+    for name, (build, make_proc, other_loss, head_dim, seed) in others.items():
+        m = build()
+        hf_init_(m, torch.Generator(device=device).manual_seed(seed))
+        proc = make_proc()
+        with tempfile.TemporaryDirectory() as out:
+            oapp = ColModelTraining(ColModelTrainingConfig(
+                model=m, processor=proc, loss_func=other_loss, train_datasets=[small_set], output_dir=out,
+                global_batch_size=TRAIN_BATCH, log_steps=1, save_steps=100, peft=LoraSpec(rank=32, alpha=32,
+                                                                                            dropout=0.1),
+                train=train_config, seed=SEED, device=device, max_steps=1))
+            reset_launches()
+            oloss = []
+            with counted_plain_k6() as plain_calls:
+                oapp.train(on_step=lambda step, mt: oloss.append(float(mt["loss"])))
+            torch.cuda.synchronize()
+            o_launches = launch_counts()
+            obatch = trainer.to_device(VisualRetrieverCollator(proc)([small_set[i] for i in range(TRAIN_BATCH)]),
+                                       device)
+            expect = 2 * 2  # a query and a page forward, 2 text layers; the frozen tower takes none
+            if len(oloss) != 1 or not np.isfinite(oloss[0]) or plain_calls[0] or \
+                    o_launches["bwd_by_head_dim"][head_dim] != expect or \
+                    sum(o_launches["bwd_by_head_dim"].values()) != expect:
+                raise AssertionError(f"{name} LoRA step: loss {oloss}, launches {o_launches}, plain calls "
+                                     f"{plain_calls[0]}; expected {expect} backward launches at D={head_dim}")
+            log(f"  [{time.perf_counter() - t_phase:.0f} s] {name} at full width, 2 + 2 layers, one LoRA step through ColModelTraining "
+                f"({type(other_loss).__name__}): loss {oloss[0]:.4f}; K6 backward by head dim "
+                f"{ {d: n for d, n in o_launches['bwd_by_head_dim'].items() if n} }")
+            other_out[name] = dict(loss=oloss[0], launches=o_launches,
+                                   route=hold_routes(f"{name} LoRA", oapp.state, obatch, other_loss, oapp.config.peft,
+                                                     bi_probe))
+            oapp.close()
+        del m, oapp, obatch
+        torch.cuda.empty_cache()
+    extra["other_bi"] = other_out
+    extra["seconds"] = time.perf_counter() - t_phase
+    log(f"phase colsmol training: {extra['seconds']:.1f} s")
+    launches = dict(flash_attention_bwd=train_launches["flash_attention_bwd"],
+                    flash_attention=train_launches["flash_attention"] + eval_launches["flash_attention"],
+                    maxsim_bf16=eval_launches["maxsim_bf16"], quantize_rows=quant_launches["quantize_rows"],
+                    int8_gemm=quant_launches["int8_gemm"])
+    extra["launches_by_head_dim"] = {str(d): n for d, n in by_dim.items()}
+    return launches, k6_bwd, extra
 
 
 def main() -> int:
@@ -3678,6 +4194,7 @@ def main() -> int:
         free_memory("phase qwen training")
         qt_launches, qt_bwd, qt_extra = phase_qwen_training(device, smi, qwen_dir)
     smol_launches, smol_timings, smol_extra = phase_colsmol(device, smi)
+    st_launches, st_bwd, st_extra = phase_smol_training(device, smi)
     timings["flash_attention"] = dict(k6["siglip"], gemma_page=k6["gemma_page"], gemma_query=k6["gemma_query"])
     timings["flash_attention_bwd"] = dict(k6_bwd["gemma_page"], gemma_query=k6_bwd["gemma_query"],
                                           gemma_query_padded=k6_bwd["gemma_query_padded"], siglip=k6_bwd["siglip"])
@@ -3722,11 +4239,16 @@ def main() -> int:
                          colsmol_d64=smol_timings["flash_attention"])
         elif name in smol_timings:
             entry["colsmol"] = smol_timings[name]
+        if name in st_launches:  # over phase 11's path: colSmol-256M's LoRA steps, eval and quantized-base step
+            entry["launches_colsmol_training"] = st_launches[name]
+        if name == "flash_attention_bwd":  # phase 11: by head dim over the LoRA steps (D=64), and its D=64 cases
+            entry.update(launches_colsmol_training_by_head_dim=st_extra["launches_by_head_dim"],
+                         colsmol_training_d64=st_bwd)
         kernels.append(dict(entry, **timings[name]))
     print(json.dumps({"kernels": kernels, "pages_per_min": extra["pages_per_min"],
                       "forward_check": extra["forward_check"], "page_profile": extra["page_profile"],
                       "training": train_extra, "stored_int8": quant_extra, "qwen": qwen_extra,
-                      "qwen_training": qt_extra, "colsmol": smol_extra}))
+                      "qwen_training": qt_extra, "colsmol": smol_extra, "colsmol_training": st_extra}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -25,8 +25,17 @@ from typing import Any, Dict
 
 TARGET_KEY = "_target_"
 
+# the training recipes under ``configs/`` name the JAX package's classes; the port reads ``colpali_tpu.X`` as
+# ``colpali_tpu_torch.X``
+JAX_PACKAGE, PORT_PACKAGE = "colpali_tpu.", "colpali_tpu_torch."
+# options of the JAX package's models that the port has no counterpart of: ``scan_layers`` stacks the layers under
+# ``nn.scan`` for XLA's compile time; the port runs its layers in a Python loop
+JAX_ONLY_OPTIONS = ("scan_layers",)
+
 
 def _resolve(path: str) -> Any:
+    if path.startswith(JAX_PACKAGE):
+        path = PORT_PACKAGE + path[len(JAX_PACKAGE):]
     module_name, _, attr = path.rpartition(".")
     if not module_name:
         raise ValueError(f"_target_ must be a dotted path, got: {path}")
@@ -39,9 +48,11 @@ def _resolve(path: str) -> Any:
 
 
 def instantiate(node: Any) -> Any:
-    """Depth-first instantiation of ``_target_`` nodes."""
+    """Depth-first instantiation of ``_target_`` nodes, a ``colpali_tpu.``
+    target read as the port's and :data:`JAX_ONLY_OPTIONS` dropped. A node
+    that is neither a dict nor a list (a built object) is taken as it is."""
     if isinstance(node, dict):
-        materialized = {k: instantiate(v) for k, v in node.items() if k != TARGET_KEY}
+        materialized = {k: instantiate(v) for k, v in node.items() if k != TARGET_KEY and k not in JAX_ONLY_OPTIONS}
         if TARGET_KEY in node:
             return _resolve(node[TARGET_KEY])(**materialized)
         return materialized

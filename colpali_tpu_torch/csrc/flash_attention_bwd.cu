@@ -27,7 +27,8 @@
 // 2. dkv: one CTA per (64-key block, KV head, batch row), no split of D.
 //    K and V are loaded once; the CTA loops over the query heads of its KV
 //    head and over 64-query tiles in a fixed order, and Q, dO and the
-//    tiles' L, Delta and segment ids come through the ring. Consumer 0
+//    tiles' L, Delta and query segment ids come through the ring; the CTA's
+//    keys compare their own ids (kv_seg). Consumer 0
 //    computes S^T = K Q^T over the full D, turns it into P^T and hands it to
 //    consumer 1 through shared memory (fp32, so dS is computed from the
 //    same P as in one thread); consumer 1 computes dP^T = V dO^T over the
@@ -48,10 +49,15 @@
 //    (135 MB at the page shape, growing with S^2) to save two products that
 //    cost about as much. At D = 256 the key tile is 32 keys so that Q and dO
 //    of both consumers (128 KB) and two ring stages fit.
-// Built for the forward's head dims: DP = 80 (D 72 and 80: SigLIP, the Qwen2-VL
-// vision towers), 128 (the Qwen2 decoders) and 256 (Gemma). At DP = 128 dkv
-// takes 150,840 bytes of shared memory and dq 165,688, three stages each, and
-// the register split stays 2 x 128 x 232 + 128 x 40.
+// Built for the forward's head dims: DP = 64 (the Idefics3 towers: a row is one
+// 128-byte swizzle atom, four ring stages in each kernel), 80 (D 72 and 80:
+// SigLIP, the Qwen2-VL vision towers), 128 (the Qwen2 decoders) and 256 (Gemma).
+// The queries' ids (seg) and the keys' (kv_seg) are separate arrays, as in the
+// forward: the Idefics3 decoder gives every query id 1 and the keys the
+// validity mask, so pad rows attend to the valid keys (JAX's key-padding bias).
+// At DP = 128 dkv takes 150,840 bytes of shared memory and dq 165,688, three
+// stages each; at DP = 64 about 100 KB each with four. The register split
+// stays 2 x 128 x 232 + 128 x 40 at every DP.
 // Rows past S, dims past D and masked pairs contribute zeros; a row with no
 // allowed key has L = -inf and P = 0 everywhere, so its gradients are zero,
 // never NaN. q, k and v are read through their strides as in the forward;
@@ -73,7 +79,8 @@ constexpr int kConsumerRegs = 232, kProducerRegs = 40;
 constexpr int kBarPFull = 1, kBarPEmpty = 2;  // named barriers of the P^T hand-over
 
 struct BwdArgs {
-  const int32_t* seg;     // (B, S)
+  const int32_t* seg;     // (B, S), the queries' ids
+  const int32_t* kv_seg;  // (B, S), the keys' ids (seg itself where they are the same)
   const float* lse;       // (B, H, S)
   float* delta;           // (B, H, S), written by delta_kernel
   __nv_bfloat16 *dq, *dk, *dv;  // (B, S, H, D) and (B, S, Hkv, D) contiguous
@@ -104,8 +111,8 @@ __global__ void delta_kernel(const __nv_bfloat16* __restrict__ d_out, const __nv
 // ---- dk, dv -----------------------------------------------------------------
 
 template <int DP>
-__host__ __device__ constexpr int dkv_stages() {
-  return DP == 256 ? 2 : 3;
+__host__ __device__ constexpr int dkv_stages() {  // at D = 64 a ring tile is 8 KB: one stage more
+  return DP == 256 ? 2 : DP == 64 ? 4 : 3;
 }
 
 template <int DP>
@@ -162,7 +169,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       load_tile<DP, kRows>(s_k, k_maps, kv_head, k0, bi, bar_kv);
       load_tile<DP, kRows>(s_v, v_maps, kv_head, k0, bi, bar_kv);
     }
-    const int32_t* seg_row = a.seg + static_cast<int64_t>(bi) * a.s;
+    const int32_t* seg_row = a.seg + static_cast<int64_t>(bi) * a.s;  // the ring's queries
     for (int t = 0; t < n_tiles; ++t) {
       const int stage = t % STAGES;
       const int head = kv_head * group + t / q_tiles, q0 = q_begin + (t % q_tiles) * kRows;
@@ -190,7 +197,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tg = lane & 3;
   const int key_lo = k0 + warp * 16 + g, key_hi = key_lo + 8;
-  const int32_t* seg_row = a.seg + static_cast<int64_t>(bi) * a.s;
+  const int32_t* seg_row = a.kv_seg + static_cast<int64_t>(bi) * a.s;  // the CTA's own keys
   const int seg_lo = key_lo < a.s ? seg_row[key_lo] : 0, seg_hi = key_hi < a.s ? seg_row[key_hi] : 0;
 
   float acc[DP / 2];
@@ -273,7 +280,7 @@ __host__ __device__ constexpr int dq_keys() {  // keys per ring tile
 
 template <int DP>
 __host__ __device__ constexpr int dq_stages() {
-  return DP == 256 ? 2 : 3;
+  return DP == 256 ? 2 : DP == 64 ? 4 : 3;
 }
 
 template <int DP>
@@ -329,7 +336,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         load_tile<DP, kRows>(s_do + OWN, do_maps, w1.head, w1.row0, bi, bar_own);
       }
     }
-    const int32_t* seg_row = a.seg + static_cast<int64_t>(bi) * a.s;
+    const int32_t* seg_row = a.kv_seg + static_cast<int64_t>(bi) * a.s;  // the ring's keys
     for (int t = 0; t < n_tiles; ++t) {
       const int stage = t % STAGES;
       mbar_wait(bar_empty + 8 * stage, ((t / STAGES) & 1) ^ 1);
@@ -353,7 +360,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const ConsumerRows w = wg == 0 ? w0 : w1;
   const int my_head = w.head, my_end = w.k_end;
   const int row_lo = w.row0 + warp * 16 + g, row_hi = row_lo + 8;
-  const int32_t* seg_row = a.seg + static_cast<int64_t>(bi) * a.s;
+  const int32_t* seg_row = a.seg + static_cast<int64_t>(bi) * a.s;  // the block's own queries
   const int64_t stat = (static_cast<int64_t>(bi) * a.h + my_head) * a.s;
   const bool in_lo = my_end > 0 && row_lo < a.s, in_hi = my_end > 0 && row_hi < a.s;
   const int seg_lo = in_lo ? seg_row[row_lo] : 0, seg_hi = in_hi ? seg_row[row_hi] : 0;
@@ -480,19 +487,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
 // q, k and v as in colpali_flash_attention (element strides, contiguous head
 // dim, 16-byte aligned base and rows); out, d_out, dq (B, S, H, D) and dk, dv
 // (B, S, Hkv, D) contiguous bf16; lse (B, H, S) as the forward wrote it;
-// delta (B, H, S) fp32 workspace. d is one of the forward's head dims: 72, 80, 128 and 256.
+// delta (B, H, S) fp32 workspace; seg the queries' ids and kv_seg the keys' (B, S) int32, as in the forward.
+// d is one of the forward's head dims: 64, 72, 80, 128 and 256.
 extern "C" int colpali_flash_attention_bwd(const void* q, const void* k, const void* v, const void* seg,
-                                           const void* out, const void* d_out, const void* lse, void* delta,
-                                           void* dq, void* dk, void* dv, int b, int s, int h, int hkv, int d,
+                                           const void* kv_seg, const void* out, const void* d_out, const void* lse,
+                                           void* delta, void* dq, void* dk, void* dv, int b, int s, int h, int hkv, int d,
                                            int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
                                            int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale,
                                            int causal, void* stream) {
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
-  const BwdArgs a{static_cast<const int32_t*>(seg), static_cast<const float*>(lse), static_cast<float*>(delta),
+  const BwdArgs a{static_cast<const int32_t*>(seg), static_cast<const int32_t*>(kv_seg),
+                  static_cast<const float*>(lse), static_cast<float*>(delta),
                   static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
                   s, h, hkv, d, causal, scale, scale * 1.4426950408889634f};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 64: return launch<64>(q, k, v, out, d_out, b, qs, ks, vs, a, st);    // the Idefics3 towers
     case 72:                                                                   // SigLIP
     case 80: return launch<80>(q, k, v, out, d_out, b, qs, ks, vs, a, st);    // the Qwen2-VL vision towers
     case 128: return launch<128>(q, k, v, out, d_out, b, qs, ks, vs, a, st);  // the Qwen2 decoders

@@ -34,7 +34,7 @@ from torch import nn
 from colpali_tpu_torch.models.common import DenseHead, MultiVectorHead, merge_image_embeddings
 from colpali_tpu_torch.models.configs import DenseHeadConfig, SiglipVisionConfig
 from colpali_tpu_torch.models.layers import Device, QDense, frozen, run_layer
-from colpali_tpu_torch.models.qwen2_vl import Qwen2Decoder, Qwen2TextConfig, text_positions
+from colpali_tpu_torch.models.qwen2_vl import Qwen2Decoder, Qwen2TextConfig, from_export_config, text_positions
 from colpali_tpu_torch.models.siglip import SiglipVisionTower
 
 
@@ -85,6 +85,10 @@ class Idefics3Config:
 
     @classmethod
     def from_hf_config(cls, cfg: Mapping[str, Any]) -> "Idefics3Config":
+        """From an HF ``config.json``, or from the ``dataclasses.asdict``
+        layout that the training export writes (``vision``/``text``)."""
+        if "vision" in cfg and "vision_config" not in cfg:
+            return from_export_config(cls, Idefics3VisionConfig, cfg)
         return cls(
             vision=Idefics3VisionConfig.from_hf_config(cfg["vision_config"]),
             text=Qwen2TextConfig.from_hf_config({**cfg["text_config"], "attention_bias": False}),

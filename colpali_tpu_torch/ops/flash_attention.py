@@ -21,9 +21,7 @@ log-sum-exp and the backward launches ``csrc/flash_attention_bwd.cu`` (the
 counterpart of the stock TPU kernel's ``_flash_attention_bwd_dkv`` and
 ``_flash_attention_bwd_dq``). On the CPU autograd differentiates the plain
 version, which is also the oracle for the backward kernels. The backward
-kernels take one array of segment ids and the head dims of
-:data:`BACKWARD_HEAD_DIMS`: a gradient through the card at another head
-dim, or with ``kv_segments``, raises (ROADMAP.md Queue 1 item 11).
+kernels take every head dim of the forward and the keys' own ids.
 """
 
 from __future__ import annotations
@@ -35,12 +33,10 @@ import torch
 from colpali_tpu_torch.ops._cuda import F32, I32, I64, P, CudaKernel, check_cuda, on_cpu
 
 FLASH_ATTENTION = CudaKernel("colpali_flash_attention", [*[P] * 7, *[I32] * 5, *[I64] * 9, F32, I32])
-FLASH_ATTENTION_BWD = CudaKernel("colpali_flash_attention_bwd", [*[P] * 11, *[I32] * 5, *[I64] * 9, F32, I32])
-HEAD_DIMS = (64, 72, 80, 128, 256)  # the forward's: the Idefics3 towers, SigLIP, Qwen2-VL's towers (K11), Gemma
-BACKWARD_HEAD_DIMS = (72, 80, 128, 256)  # D=64's backward comes with the Idefics3 family's training
+FLASH_ATTENTION_BWD = CudaKernel("colpali_flash_attention_bwd", [*[P] * 12, *[I32] * 5, *[I64] * 9, F32, I32])
+HEAD_DIMS = (64, 72, 80, 128, 256)  # both directions: the Idefics3 towers, SigLIP, Qwen2-VL's towers (K11), Gemma
 FORWARD_LAUNCHES_BY_HEAD_DIM = {d: 0 for d in HEAD_DIMS}  # K6's launches (not K11's), counted where launched
-BACKWARD_LAUNCHES_BY_HEAD_DIM = {d: 0 for d in BACKWARD_HEAD_DIMS}  # counted where the backward is launched
-BACKWARD_WAITS = "ROADMAP.md Queue 1 item 11: colSmol and the Bi models train"
+BACKWARD_LAUNCHES_BY_HEAD_DIM = {d: 0 for d in HEAD_DIMS}  # counted where the backward is launched
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segments: torch.Tensor,
@@ -84,7 +80,7 @@ def flash_attention_plain(
 
 
 def flash_attention_backward_plain(q, k, v, segments, d_out, scale: float, causal: bool = False, out=None,
-                                   lse=None):
+                                   lse=None, kv_segments=None):
     """K6's backward written out in plain PyTorch with the kernels' own
     arithmetic -> ``(dq, dk, dv)`` in q's dtype.
 
@@ -97,13 +93,15 @@ def flash_attention_backward_plain(q, k, v, segments, d_out, scale: float, causa
     tensor-core operands there). It differs from the kernels only in the
     order of the fp32 sums, so the card-only tests hold the kernels to it far
     more tightly than to the exact gradient. ``out`` and ``lse (B, H, S)``
-    default to the plain forward's."""
+    default to the plain forward's; ``kv_segments`` are the keys' ids, as
+    in :func:`flash_attention_plain`."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     group = h // hkv
     qf, dof = (t.float().reshape(b, s, hkv, group, d) for t in (q, d_out))
     kf, vf = k.float(), v.float()
-    allowed = segments[:, :, None] == segments[:, None, :]
+    keys = segments if kv_segments is None else kv_segments
+    allowed = segments[:, :, None] == keys[:, None, :]
     if causal:
         allowed = allowed & torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
     allowed = allowed[:, None, None]  # (B, 1, 1, Sq, Sk)
@@ -112,7 +110,7 @@ def flash_attention_backward_plain(q, k, v, segments, d_out, scale: float, causa
         lse = torch.logsumexp(x.masked_fill(~allowed, float("-inf")) * 0.6931471805599453, dim=-1) * 1.4426950408889634
         lse = lse.reshape(b, h, s)
     if out is None:
-        out = flash_attention_plain(q, k, v, segments, scale, causal)
+        out = flash_attention_plain(q, k, v, segments, scale, causal, kv_segments)
     lse = lse.reshape(b, hkv, group, s)
     p = torch.where(allowed & torch.isfinite(lse)[..., None], torch.exp2(x - lse[..., None]), 0.0)
     delta = (dof * out.float().reshape(b, s, hkv, group, d)).sum(-1).permute(0, 2, 3, 1)  # (B, Hkv, G, S)
@@ -184,40 +182,38 @@ class FlashAttention(torch.autograd.Function):
     ``S`` and ``dP``: seven products against the forward's two."""
 
     @staticmethod
-    def forward(ctx, q, k, v, segments, scale, causal):
-        if q.shape[3] not in BACKWARD_HEAD_DIMS:
-            raise NotImplementedError(f"K6's backward at head dim {q.shape[3]} is not built (it takes "
-                                      f"{BACKWARD_HEAD_DIMS}); it waits for {BACKWARD_WAITS}")
-        out, lse = _forward_cuda(q, k, v, segments, scale, causal, with_lse=True)
-        ctx.save_for_backward(q, k, v, segments, out, lse)
+    def forward(ctx, q, k, v, segments, scale, causal, kv_segments=None):
+        out, lse = _forward_cuda(q, k, v, segments, scale, causal, with_lse=True, kv_segments=kv_segments)
+        ctx.save_for_backward(q, k, v, segments, kv_segments, out, lse)
         ctx.scale, ctx.causal = float(scale), bool(causal)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        q, k, v, segments, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, segments, out, lse, d_out, ctx.scale, ctx.causal)
-        return dq, dk, dv, None, None, None
+        q, k, v, segments, kv_segments, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, segments, out, lse, d_out, ctx.scale, ctx.causal,
+                                              kv_segments=kv_segments)
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_attention_backward(q, k, v, segments, out, lse, d_out, scale: float, causal: bool = False):
+def flash_attention_backward(q, k, v, segments, out, lse, d_out, scale: float, causal: bool = False,
+                             kv_segments: Optional[torch.Tensor] = None):
     """K6's backward on CUDA tensors: ``(dq, dk, dv)``, contiguous bf16,
     shaped like q, k and v. ``out`` and ``lse`` are what the forward
-    returned for these inputs; ``d_out`` may have any strides (it is made
-    contiguous). Raises for dtypes or head dims the kernels are not built
-    for."""
-    _check_shapes(q, k, v, segments)
+    returned for these inputs (with the same ``kv_segments``, the keys' ids
+    where they differ from the queries'); ``d_out`` may have any strides
+    (it is made contiguous). Raises for dtypes or head dims the kernels are
+    not built for."""
+    _check_shapes(q, k, v, segments, kv_segments)
     if on_cpu(q):
         raise ValueError("the backward kernels run on CUDA tensors; on the CPU autograd differentiates "
                          "flash_attention_plain")
-    _check_cuda_inputs(q, k, v, segments)
+    _check_cuda_inputs(q, k, v, segments, kv_segments)
     dev = q.device
     b, s, h, d = q.shape
     hkv = k.shape[2]
     d_out = d_out.contiguous()
-    if d not in BACKWARD_HEAD_DIMS:
-        raise NotImplementedError(f"K6's backward at head dim {d} is not built (it takes {BACKWARD_HEAD_DIMS}); "
-                                  f"it waits for {BACKWARD_WAITS}")
+    keys = segments if kv_segments is None else kv_segments
     for name, t, shape, dtype in (("out", out, q.shape, torch.bfloat16), ("d_out", d_out, q.shape, torch.bfloat16),
                                   ("lse", lse, (b, h, s), torch.float32)):
         if tuple(t.shape) != tuple(shape):
@@ -228,10 +224,10 @@ def flash_attention_backward(q, k, v, segments, out, lse, d_out, scale: float, c
     dv = torch.empty((b, s, hkv, d), dtype=torch.bfloat16, device=dev)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
     if b * s * h:
-        FLASH_ATTENTION_BWD(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), segments.data_ptr(), out.data_ptr(),
-                            d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                            dv.data_ptr(), b, s, h, hkv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                            float(scale), int(causal))
+        FLASH_ATTENTION_BWD(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), segments.data_ptr(), keys.data_ptr(),
+                            out.data_ptr(), d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                            dk.data_ptr(), dv.data_ptr(), b, s, h, hkv, d, *q.stride()[:3], *k.stride()[:3],
+                            *v.stride()[:3], float(scale), int(causal))
         BACKWARD_LAUNCHES_BY_HEAD_DIM[d] += 1
     return dq, dk, dv
 
@@ -252,17 +248,13 @@ def flash_attention(
     of :data:`HEAD_DIMS`; ``segments`` (and ``kv_segments``, the keys' ids
     where they differ from the queries') are contiguous int32. When autograd is
     recording and an input needs a gradient, the call goes through
-    :class:`FlashAttention` (the forward then also writes the log-sum-exp),
-    which raises at a head dim outside :data:`BACKWARD_HEAD_DIMS` or with
-    ``kv_segments``; otherwise the forward alone is launched, as when
-    serving."""
+    :class:`FlashAttention` (the forward then also writes the log-sum-exp
+    and the backward launches its kernels, never the plain version);
+    otherwise the forward alone is launched, as when serving."""
     _check_shapes(q, k, v, segments, kv_segments)
     if on_cpu(q):
         return flash_attention_plain(q, k, v, segments, scale, causal, kv_segments)
     _check_cuda_inputs(q, k, v, segments, kv_segments)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if kv_segments is not None:
-            raise NotImplementedError(f"K6's backward takes one array of segment ids; a gradient with kv_segments "
-                                      f"waits for {BACKWARD_WAITS}")
-        return FlashAttention.apply(q, k, v, segments, scale, causal)
+        return FlashAttention.apply(q, k, v, segments, scale, causal, kv_segments)
     return _forward_cuda(q, k, v, segments, scale, causal, with_lse=False, kv_segments=kv_segments)[0]

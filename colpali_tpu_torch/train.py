@@ -5,7 +5,8 @@ and save (counterpart of ``scripts/train_colbert.py``).
 
 The file's ``config`` mapping holds the fields of
 :class:`ColModelTrainingConfig`; nodes with ``_target_`` are instantiated
-(see :mod:`colpali_tpu_torch.configs`). The config file is copied into the
+(see :mod:`colpali_tpu_torch.configs`), so a recipe under ``configs/``
+builds the port's classes. The config file is copied into the
 output directory. The run happens on the card unless the config says
 ``device: cpu``.
 """

@@ -189,7 +189,13 @@ class ColModelTraining:
         retrieval metrics of every eval query against the whole eval corpus.
         Doc embeddings go straight from the eval forward into a bf16 index
         built on the device (:class:`DeviceIndexBuilder`), which is searched
-        exactly (kernel K5). Results are cached by train step."""
+        exactly (kernel K5). Results are cached by train step.
+
+        Multi-vector models only, as in the JAX package: a single-vector
+        (Bi) model's ``(B, D)`` query embeddings have no token axis for the
+        query mask, where JAX's ``q[i][q_mask[i]]`` raises an IndexError.
+        Here the first eval batch's embeddings refuse such a model with a
+        ValueError that says so."""
         step_now = self.state.step
         cached = getattr(self, "_eval_cache", None)
         if cached is not None and cached[0] == step_now:
@@ -200,6 +206,10 @@ class ColModelTraining:
         losses, q_embs, doc_outs = [], [], []
         for batch in self._eval_batches:
             loss, q, d = self.eval_step(self.state, to_device(batch, self.device))
+            if q.ndim != 3:
+                raise ValueError(f"evaluate() ranks multi-vector embeddings (B, tokens, dim); this model returns "
+                                 f"{tuple(q.shape)} single vectors, which the JAX package's evaluate() cannot mask "
+                                 "either (it indexes a (dim,) vector with the (tokens,) query mask and raises)")
             losses.append(loss)
             q = q.float().cpu().numpy()
             q_mask = np.asarray(batch["query_attention_mask"]).astype(bool)

@@ -115,9 +115,9 @@ def to_device(batch: Batch, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-# the inputs of a prefixed sub-batch that the models' forwards take beside ids and mask: the pages' pixels, and the
-# Qwen2-VL family's vision geometry, window ids and M-RoPE positions
-MODEL_INPUTS = ("pixel_values", "vision_hpos", "vision_wpos", "patch_mask", "window_id", "position_ids")
+# the inputs of a prefixed sub-batch that the models' forwards take beside ids and mask: the pages' pixels, the
+# Qwen2-VL family's vision geometry, window ids and M-RoPE positions, and the Idefics3 family's tile validity
+MODEL_INPUTS = ("pixel_values", "vision_hpos", "vision_wpos", "patch_mask", "window_id", "position_ids", "tile_mask")
 
 
 def forward_prefixed(model: nn.Module, batch: Batch, prefix: str) -> torch.Tensor:
@@ -125,9 +125,10 @@ def forward_prefixed(model: nn.Module, batch: Batch, prefix: str) -> torch.Tenso
     sub-batch holds (the JAX package's ``_forward`` passes the pixels
     alone, which loses the Qwen models' geometry). Negative docs arrive as
     ``(B, n_neg, ...)`` and are flattened into the batch dim for the model:
-    axis 0 and 1 of each input, but axes 1 and 2 of ``position_ids (3, B,
-    n_neg, S)``, whose batch axis is its second (the collator may also hand
-    them over already flat, ``(3, B * n_neg, S)``)."""
+    axis 0 and 1 of each input (the Idefics3 tiles ``(B, n_neg, T, S, S,
+    3)`` and ``tile_mask (B, n_neg, T)`` too), but axes 1 and 2 of
+    ``position_ids (3, B, n_neg, S)``, whose batch axis is its second (the
+    collator may also hand them over already flat, ``(3, B * n_neg, S)``)."""
     ids = batch[f"{prefix}input_ids"]
     mask = batch[f"{prefix}attention_mask"]
     inputs = {name: batch[f"{prefix}{name}"] for name in MODEL_INPUTS if f"{prefix}{name}" in batch}

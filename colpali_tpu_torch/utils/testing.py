@@ -231,3 +231,43 @@ def write_idefics3_checkpoint(directory: str, model, tokenizer, longest_edge: in
     with open(os.path.join(directory, "processor_config.json"), "w") as f:
         json.dump({"image_seq_len": model.config.image_seq_len}, f)
     tokenizer.save_pretrained(directory)
+
+
+# queries of unequal lengths: the Idefics3 processors pad on the right, so under ``last`` pooling the shorter rows
+# read a pad position (whose gradient reaches the valid keys through K6's ``kv_segments``)
+IDEFICS3_TRAIN_QUERIES = ("what is the total revenue of the company in the last quarter ?", "a", "find the chart",
+                          "describe the quarterly report page")
+
+
+def tiny_idefics3_config(head_dim: int = 64):
+    """An Idefics3 at toy width and depth with colSmol's architecture: a
+    2-layer vision tower (two heads of ``head_dim``) over 64 px tiles of 16 px
+    patches, pixel shuffle 2 (four tokens a tile), a 2-layer Qwen2 (Llama)
+    decoder with GQA 3/1 heads of ``head_dim``, colSmol's vocabulary and
+    ``<image>`` id (so :data:`IDEFICS3_SPECIAL_TOKENS` fit)."""
+    from colpali_tpu_torch.models.idefics3 import Idefics3Config, Idefics3VisionConfig
+    from colpali_tpu_torch.models.qwen2_vl import Qwen2TextConfig
+
+    return Idefics3Config(
+        vision=Idefics3VisionConfig(hidden_size=2 * head_dim, intermediate_size=4 * head_dim, num_hidden_layers=2,
+                                    num_attention_heads=2, image_size=64, patch_size=16),
+        text=Qwen2TextConfig(vocab_size=49280, hidden_size=3 * head_dim, intermediate_size=6 * head_dim,
+                             num_hidden_layers=2, num_attention_heads=3, num_key_value_heads=1, head_dim=head_dim,
+                             rope_theta=100000.0, rms_norm_eps=1e-5, mrope_section=(head_dim // 2,),
+                             attention_bias=False),
+        scale_factor=2, image_token_id=49190)
+
+
+def idefics3_training_examples(n: int, tile: int = 64, negatives: int = 0, seed: int = 0) -> list:
+    """``n`` training examples for an Idefics3 processor of ``tile`` px tiles
+    and a longest edge of ``4 * tile``: seeded noise pages of unequal tile
+    counts (4 x 3 and the global view, 3 x 2 and it, and a page within one
+    tile), :data:`IDEFICS3_TRAIN_QUERIES` in turn, and ``negatives`` pages
+    of negatives each."""
+    rng = np.random.default_rng(seed)
+    shapes = ((5 * tile, 3 * tile + tile // 8), (5 * tile // 2, 3 * tile // 2), (tile - 4, tile // 2 + 8))
+    pages = [rng.integers(0, 256, size=(*shapes[i % len(shapes)], 3), dtype=np.uint8)
+             for i in range(n * (1 + negatives))]
+    return [{"query": IDEFICS3_TRAIN_QUERIES[i % len(IDEFICS3_TRAIN_QUERIES)], "pos_target": pages[i],
+             **({"neg_target": pages[n + negatives * i: n + negatives * (i + 1)]} if negatives else {})}
+            for i in range(n)]

@@ -47,7 +47,7 @@ import pytest
 import torch
 
 from colpali_tpu_torch.ops.flash_attention import (
-    BACKWARD_HEAD_DIMS,
+    BACKWARD_LAUNCHES_BY_HEAD_DIM,
     FLASH_ATTENTION,
     FLASH_ATTENTION_BWD,
     _forward_cuda,
@@ -285,8 +285,9 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="built for head dims"):
         flash_attention(q96, q96, q96, seg, 0.1)  # K6: D 64, 72, 80, 128 and 256 only
     q64 = torch.zeros((1, 8, 1, 64), device=dev, dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        flash_attention(q64, q64, q64, seg, 0.1)  # its backward: D 72, 80, 128 and 256 only
+    before = FLASH_ATTENTION_BWD.launches
+    flash_attention(q64, q64, q64, seg, 0.1).sum().backward()  # its backward: every head dim of the forward
+    assert FLASH_ATTENTION_BWD.launches == before + 1 and torch.isfinite(q64.grad).all()
     with pytest.raises(ValueError, match="forward only"):
         flash_seqmajor(q, q, q, seg, 0.1)
 
@@ -477,7 +478,7 @@ def test_device_index_builder_on_card_matches_host_packed_index(dev, kw):
     np.testing.assert_allclose(s_a, s_b, rtol=1e-4)
 
 
-K6_BWD_CASES = [case for case in K6_CASES if case[4] in BACKWARD_HEAD_DIMS] + [
+K6_BWD_CASES = K6_CASES + [
     (2, 130, 8, 2, 256, 0, True),
     (2, 200, 16, 2, 128, 0, True),  # Qwen2.5-VL-3B's decoder: GQA 16/2, causal
     (2, 130, 12, 2, 128, 9, False),  # Qwen2-VL-2B's heads, padded, a token alone in its segment
@@ -984,7 +985,7 @@ def test_qwen_lora_step_on_card_matches_plain_route(dev):
     adapters.detach()
 
 
-# -- K6 at D=64: the Idefics3 (colSmol-256M) towers, forward only ---------------------------------------------------
+# -- K6 at D=64: the Idefics3 (colSmol-256M) towers --------------------------------------------------------------------
 
 D64_CASES = [
     # b, s, h, hkv, key padding (valid lengths of the rows), causal
@@ -1021,24 +1022,140 @@ def test_k6_d64_matches_plain_and_is_bit_equal(dev, b, s, h, hkv, lengths, causa
         _assert_k6_close(got, want)
 
 
-def test_k6_d64_backward_and_kv_segments_gradient_raise(dev):
-    """The backward kernels are not built at D=64, nor for distinct key
-    ids: autograd through the card raises, naming the ROADMAP item; nothing
-    falls back to the plain route."""
-    from colpali_tpu_torch.ops import flash_attention as fa
+# K6's backward at D=64: colSmol's decoder (queries id 1, keys the validity mask) and vision tower
+D64_BWD_CASES = [
+    # b, s, h, hkv, key padding (valid lengths of the rows), causal, the keys' own ids
+    (8, 866, 9, 3, (866, 858, 850, 842, 834, 826, 818, 810), True, True),  # the decoder over pages, under LoRA
+    (8, 32, 9, 3, (9, 12, 7, 20, 15, 11, 14, 10), True, True),  # the collated queries, under LoRA
+    (8, 866, 9, 3, (866, 858, 850, 842, 834, 826, 818, 810), True, False),  # one id array: pad rows see pad keys
+    (16, 1024, 12, 12, None, False, False),  # the vision tower (16 of a batch's 104 tiles), full fine-tuning only
+]
 
-    g = _gen(dev, 64)
-    seg = torch.ones((2, 40), dtype=torch.int32, device=dev)
-    for d, keys in ((64, None), (128, seg.clone())):
-        q, k, v = (torch.randn((2, 40, 4, d), generator=g, device=dev).to(torch.bfloat16).requires_grad_()
-                   for _ in range(3))
-        before = (FLASH_ATTENTION.launches, FLASH_ATTENTION_BWD.launches)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            flash_attention(q, k, v, seg, d**-0.5, True, kv_segments=keys)
-        assert (FLASH_ATTENTION.launches, FLASH_ATTENTION_BWD.launches) == before
+
+@pytest.mark.parametrize("b,s,h,hkv,lengths,causal,own_keys", D64_BWD_CASES)
+def test_k6_d64_backward_matches_plain_per_row(dev, b, s, h, hkv, lengths, causal, own_keys):
+    """K6's backward at D=64 against ``flash_attention_backward_plain`` by
+    the forward's rule per query row (key row for dk and dv), bit-equal on
+    a second call (a row whose only key is itself, the first under a causal
+    mask, has dq = 0 up to rounding and is held at 1e-4 absolutely). With
+    the keys' own ids every query row is held (pad rows
+    attend to the valid keys, and their dO reaches those keys' dk and dv:
+    ``last`` pooling reads such a row), and a pad key takes no gradient at
+    all."""
+    d = 64
+    g = _gen(dev, s + h + own_keys)
+    q, k, v = (torch.randn((b, s, n, d), generator=g, device=dev).to(torch.bfloat16).requires_grad_()
+               for n in (h, hkv, hkv))
+    valid = torch.ones((b, s), dtype=torch.bool, device=dev)
+    if lengths is not None:
+        valid = torch.arange(s, device=dev)[None] < torch.tensor(lengths, device=dev)[:, None]
+    mask = valid.to(torch.int32).contiguous()
+    seg, keys = (torch.ones_like(mask), mask) if own_keys else (mask, None)
+    rows = torch.ones_like(valid) if own_keys else valid  # query rows whose output is read
+    allowed = seg[:, :, None] == (seg if keys is None else keys)[:, None, :]
+    if causal:
+        allowed &= torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+    alone = rows & (allowed.sum(-1) == 1)  # its only key is itself: dq = 0 up to rounding, held absolutely
+    d_out = torch.randn((b, s, h, d), generator=g, device=dev).to(torch.bfloat16) * rows[:, :, None, None]
+    before = (FLASH_ATTENTION_BWD.launches, BACKWARD_LAUNCHES_BY_HEAD_DIM[64])
+    got = torch.autograd.grad(flash_attention(q, k, v, seg, d**-0.5, causal, kv_segments=keys), (q, k, v), d_out)
+    again = torch.autograd.grad(flash_attention(q, k, v, seg, d**-0.5, causal, kv_segments=keys), (q, k, v), d_out)
+    assert (FLASH_ATTENTION_BWD.launches, BACKWARD_LAUNCHES_BY_HEAD_DIM[64]) == (before[0] + 2, before[1] + 2)
     with torch.no_grad():
-        out, lse = _forward_cuda(q[..., :64].contiguous(), k[..., :64].contiguous(), v[..., :64].contiguous(), seg,
-                                 0.125, True, True)
-    with pytest.raises(NotImplementedError, match="head dim 64"):
-        fa.flash_attention_backward(q[..., :64].detach().contiguous(), k[..., :64].detach().contiguous(),
-                                    v[..., :64].detach().contiguous(), seg, out, lse, out, 0.125, True)
+        out, lse = _forward_cuda(q, k, v, seg, d**-0.5, causal, True, kv_segments=keys)
+    for i in range(0, b, 4):  # the plain backward's fp32 (B, H, S, S) terms, four rows at a time
+        sl = slice(i, i + 4)
+        with torch.no_grad():
+            want = flash_attention_backward_plain(q[sl], k[sl], v[sl], seg[sl], d_out[sl], d**-0.5, causal,
+                                                  out=out[sl], lse=lse[sl],
+                                                  kv_segments=None if keys is None else keys[sl])
+        for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+            a, a2 = a[sl], a2[sl]
+            assert torch.equal(a, a2) and torch.isfinite(a).all(), name
+            _assert_close_per_row(a, w, rows[sl] & ~alone[sl] if name == "dq" else valid[sl])
+            if name == "dq":
+                assert a[alone[sl]].float().abs().max().item() <= 1e-4 if alone[sl].any() else True
+            else:
+                assert not a[~valid[sl]].any(), f"{name} of a key that no query attends"
+        del want
+
+
+def test_k6_backward_reads_the_queries_and_the_keys_ids_apart(dev):
+    """Ids that differ between queries and keys everywhere: the backward
+    must match the plain version given the same two arrays, and the plain
+    version with the arrays swapped must not (so a kernel that read one
+    array in place of the other could not pass), at D=64 and 128."""
+    b, s = 2, 200
+    g = _gen(dev, 21)
+    for d, h, hkv in ((64, 9, 3), (128, 4, 2)):
+        q, k, v = (torch.randn((b, s, n, d), generator=g, device=dev).to(torch.bfloat16).requires_grad_()
+                   for n in (h, hkv, hkv))
+        seg = torch.randint(1, 4, (b, s), generator=g, device=dev, dtype=torch.int32)
+        keys = torch.randint(1, 4, (b, s), generator=g, device=dev, dtype=torch.int32)
+        d_out = torch.randn((b, s, h, d), generator=g, device=dev).to(torch.bfloat16)
+        got = torch.autograd.grad(flash_attention(q, k, v, seg, d**-0.5, kv_segments=keys), (q, k, v), d_out)
+        with torch.no_grad():
+            out, lse = _forward_cuda(q, k, v, seg, d**-0.5, False, True, kv_segments=keys)
+            want = flash_attention_backward_plain(q, k, v, seg, d_out, d**-0.5, out=out, lse=lse, kv_segments=keys)
+            swapped = flash_attention_backward_plain(q, k, v, keys, d_out, d**-0.5, kv_segments=seg)
+        rows = torch.ones((b, s), dtype=torch.bool, device=dev)
+        for a, w, x in zip(got, want, swapped):
+            _assert_close_per_row(a, w, rows)
+            with pytest.raises(AssertionError):
+                _assert_close_per_row(a, x, rows)
+
+
+def test_colsmol_lora_step_on_card_matches_cpu_route(dev, tmp_path):
+    """One LoRA step of a small ColIdefics3 at head dim 64 (2 + 2 layers,
+    GQA 3/1, remat) in bf16 on the card against the same checkpoint in fp32
+    on the CPU route (autograd through K6's plain version), on the smooth
+    probe over right-padded queries and pages of 13, 7 and 1 tiles: loss
+    within 1e-2 relative, adapter-gradient cosine >= 0.99. On the card the
+    backward runs at D=64 twice a decoder layer (queries and pages) and
+    never through the plain version; the frozen tower takes none."""
+    import contextlib
+    from unittest import mock
+
+    from colpali_tpu_torch.auto import load_retriever
+    from colpali_tpu_torch.data.collator import VisualRetrieverCollator
+    from colpali_tpu_torch.losses import ColbertLoss
+    from colpali_tpu_torch.models.common import hf_init_
+    from colpali_tpu_torch.models.idefics3 import ColIdefics3
+    from colpali_tpu_torch.ops import flash_attention as fa
+    from colpali_tpu_torch.training import trainer
+    from colpali_tpu_torch.training.lora import LoraAdapters, LoraSpec
+    from colpali_tpu_torch.utils.testing import (IDEFICS3_TRAIN_QUERIES, idefics3_training_examples,
+                                                 idefics3_word_tokenizer, tiny_idefics3_config,
+                                                 write_idefics3_checkpoint)
+
+    cfg = tiny_idefics3_config(64)
+    base = ColIdefics3(cfg, device="cpu", dtype=torch.bfloat16)
+    hf_init_(base, torch.Generator().manual_seed(3))
+    words = "User: Describe the image. Assistant:".split() + " ".join(IDEFICS3_TRAIN_QUERIES).split()
+    write_idefics3_checkpoint(str(tmp_path), base, idefics3_word_tokenizer(words))
+    examples = idefics3_training_examples(4)
+    peft = LoraSpec(rank=8, alpha=16, dropout=0.1)
+    loss_fn = ColbertLoss(use_smooth_max=True)
+    runs = {}
+    for where, dtype in ((dev, torch.bfloat16), ("cpu", torch.float32)):
+        model, proc = load_retriever(str(tmp_path), family="colidefics3", device=where, dtype=dtype, remat=True)
+        batch = trainer.to_device(VisualRetrieverCollator(proc)(examples), where)
+        adapters = LoraAdapters(model, peft)
+        with torch.no_grad():
+            for i, b in enumerate(adapters.b):  # off zero (the same values on both), so that a takes a gradient too
+                b.copy_(torch.randn(b.shape, generator=torch.Generator().manual_seed(i)) * 0.02)
+        state = trainer.create_train_state(model, trainer.TrainConfig(), adapters)
+        before = dict(fa.BACKWARD_LAUNCHES_BY_HEAD_DIM)
+        refuse = mock.Mock(side_effect=AssertionError("K6's plain version ran on the card"))
+        with mock.patch.object(fa, "flash_attention_plain", refuse) if where == dev else contextlib.nullcontext():
+            trainer.begin_step(state, peft, 0)
+            loss, _, _ = trainer.compute_loss(model, batch, loss_fn, False)
+            loss.backward()
+        launched = {d: fa.BACKWARD_LAUNCHES_BY_HEAD_DIM[d] - before[d] for d in before}
+        assert launched == {d: 2 * cfg.text.num_hidden_layers if where == dev and d == 64 else 0 for d in before}
+        runs[str(where)] = loss.item(), torch.cat([p.grad.flatten().double().cpu() for p in state.params])
+        adapters.detach()
+    (loss, grad), (cpu_loss, cpu_grad) = runs[str(dev)], runs["cpu"]
+    cos = (grad @ cpu_grad / (grad.norm() * cpu_grad.norm())).item()
+    assert np.isfinite(loss) and abs(loss - cpu_loss) <= 1e-2 * abs(cpu_loss), (loss, cpu_loss)
+    assert cos >= 0.99, cos

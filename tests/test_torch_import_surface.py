@@ -5,9 +5,11 @@ package to the other is a change of the import).
   has, and that module defines, is exported at the same path of the port
   (the same object). Modules not ported yet, and names of ported modules
   that wait (JAX's functional LoRA, ``BiQwen3Processor``), are skipped.
-- The ``_target_``s of the five training recipes resolve with
-  ``colpali_tpu.`` read as ``colpali_tpu_torch.``, all but
-  ``utils.dataset_loading.load_train_set`` (ROADMAP.md Queue 1 item 9).
+- The ``_target_``s of the six training recipes resolve in the port
+  (``configs._resolve`` reads ``colpali_tpu.`` as ``colpali_tpu_torch.``), all but
+  ``utils.dataset_loading.load_train_set`` (ROADMAP.md Queue 1 item 9);
+  ``load_config``, which ``python -m colpali_tpu_torch.train`` calls,
+  builds a recipe with the port's classes.
 """
 
 import ast
@@ -17,7 +19,7 @@ from pathlib import Path
 import pytest
 import yaml
 
-from colpali_tpu_torch.configs import _resolve
+from colpali_tpu_torch.configs import _resolve, load_config
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -66,14 +68,37 @@ def _targets(node):
 
 
 @pytest.mark.parametrize("recipe", ["train_colpali.yaml", "train_colqwen2.yaml", "train_colqwen2_5.yaml",
-                                    "train_colidefics3.yaml", "train_bipali.yaml"])
+                                    "train_colidefics3.yaml", "train_bipali.yaml", "train_biidefics3.yaml"])
 def test_recipe_targets_resolve_in_the_port(recipe):
     targets = sorted(set(_targets(yaml.safe_load((REPO / "configs" / recipe).read_text()))))
     missing = []
     for target in targets:
         try:
-            _resolve(_port_name(target))
+            _resolve(target)
         except (ImportError, AttributeError):
             missing.append(target)
     assert missing == ["colpali_tpu.utils.dataset_loading.load_train_set"]  # ROADMAP.md Queue 1 item 9
     assert len(targets) >= 8
+
+
+def test_load_config_builds_a_jax_recipe_with_the_ports_classes(tmp_path):
+    """``train_colidefics3.yaml`` with a tiny model in place of colSmol and
+    without the nodes that name absent files: ``colpali_tpu.`` targets are
+    read as the port's and JAX's ``scan_layers`` is dropped."""
+    from colpali_tpu_torch.losses import ColbertPairwiseCELoss
+    from colpali_tpu_torch.models import ColIdefics3
+    from colpali_tpu_torch.training import LoraSpec, TrainConfig
+
+    recipe = yaml.safe_load((REPO / "configs" / "train_colidefics3.yaml").read_text())
+    node = recipe["config"]
+    assert node["model"]["scan_layers"] is True  # the port has no such option
+    node["model"].update(config={"_target_": "colpali_tpu_torch.utils.testing.tiny_idefics3_config", "head_dim": 8},
+                         device="cpu")
+    for key in ("processor", "params", "train_datasets"):
+        del node[key]
+    (tmp_path / "recipe.yaml").write_text(yaml.safe_dump(recipe))
+    config = load_config(str(tmp_path / "recipe.yaml"))
+    assert type(config["model"]) is ColIdefics3 and config["model"].model.text_model.remat
+    assert type(config["loss_func"]) is ColbertPairwiseCELoss
+    assert type(config["peft"]) is LoraSpec and config["peft"].rank == 32
+    assert type(config["train"]) is TrainConfig and config["train"].learning_rate == 2e-4
