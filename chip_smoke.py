@@ -2,10 +2,11 @@
 """Drive the PyTorch/CUDA port's serving, page-embedding and training paths once on one GPU.
 
 The serving path runs for ColPali-3B (phases 3, 4 and 7), for the
-Qwen2-VL family, ColQwen2.5-3B and ColQwen2-2B (phase 8), and for the
+Qwen2-VL family, ColQwen2.5-3B and ColQwen2-2B (phase 8), for the
 Idefics3/SmolVLM family, colSmol-256M, with the single-vector Bi models
-(phase 10); training for ColPali-3B (phase 5), the Qwen2-VL family
-(phase 9) and the Idefics3 family with the Bi models (phase 11).
+(phase 10), and for the Gemma3 family, Gemma3-4B (phase 12); training for
+ColPali-3B (phase 5), the Qwen2-VL family (phase 9), the Idefics3 family
+with the Bi models (phase 11) and the Gemma3 family (phase 13).
 
 Run from the repository root with no arguments:
 
@@ -179,7 +180,42 @@ Phases (a few lines of output each, then two JSON lines):
    fp32, a step at its recipe's batch of 64); BiPaliProj and BiQwen2_5 at
    full width cut to 2 + 2 layers, one LoRA step each through
    ``ColModelTraining`` against the plain route.
-   Each phase from 8 on logs the GiB held on the card as it starts.
+12. the Gemma3 family (after phase 11): Gemma3-4B at its published widths
+   (SigLIP-So400m at 896 px, 27 x 1,152, 16 heads of 72, 4,096 patches
+   pooled 4 x 4 to 256 soft tokens; the text decoder 34 x 2,560, 8/4 heads
+   of 256, MLP 10,240, vocab 262,208, a window of 1,024 on 5 layers of 6;
+   4.3 B seeded random bf16 parameters) written by
+   ``utils.testing.write_gemma3_checkpoint`` with a word-level tokenizer
+   holding Gemma3's special tokens and read back by
+   ``load_retriever(family="colgemma3")`` in bf16 and with
+   ``quantize=True`` (400 stored-int8 layers); K6 at the tower's shape (B=8,
+   S=4,096, H=16, D=72) against its plain version, bit-equal on a second
+   call, beside SDPA masked and unmasked; the biased text attention (no
+   kernel, as in JAX) timed beside SDPA; Q1a/Q1b bit-equal to their plain
+   versions at the (M, K, N) of a page forward and the query forwards and
+   timed; 27 K6 launches a page forward and none a query forward; 16 seeded
+   pages through ``embed_dataset`` on both models, a 4,096-doc two-tier int8
+   index at the pages' token count behind ``make_handler`` for each, the 4
+   planted pages at rank 1 on the tiered and the exact route of
+   ``/search_text``, ``serve.py --checkpoint --family colgemma3`` answering
+   one, every K6 launch at D=72 and none through its plain version; K1-K3
+   against plain on both indexes; the K6 route against the plain route and
+   stored int8 against bf16 per token; an 8-page forward and encode x1/x8
+   timed in turns, two profiles; BiGemma3 at full width with
+   ``embedding_dim=768`` through both routes and its processor's ``score``.
+13. Gemma3 training (after phase 12, on its checkpoint): Gemma3-4B read by
+   ``load_retriever(family="colgemma3", remat=True)`` and trained through
+   ``ColModelTraining`` from ``configs/train_colgemma3.yaml`` (its
+   ``ColbertLoss(temperature=0.02)`` and LoRA through
+   ``configs.instantiate``; batch 8, 4 steps over 32 pages): 27 K6 forward
+   launches a step (the frozen tower) and no backward (the text attention
+   is biased), none through the plain version; one step against the plain
+   route, ``evaluate()`` over 16 pages (bf16 index, K5), the merged export
+   read back by ``load_retriever`` and served, a step with and without
+   remat and a profile of one, one step over a stored-int8 frozen vision
+   tower (162 layers); BiGemma3 from ``train_bigemma3.yaml``, 2 steps.
+   Each phase from 8 on logs the GiB held on the card as it starts; every
+   phase's seconds are logged as it ends and listed in the JSON line.
 
 Every K6 and K11 case prints, beside its time by CUDA events, TFLOP/s,
 the share of its bound, and SDPA with a boolean mask and, where the
@@ -4168,33 +4204,612 @@ def phase_smol_training(device: torch.device, smi: str) -> tuple:
     return launches, k6_bwd, extra
 
 
+# -- phase 12: the Gemma3 family (ColGemma3, BiGemma3) at Gemma3-4B's widths ------------------------------------
+
+GEMMA_PAGES = 16  # two batches of 8
+GEMMA_PLANTED = (1, 6, 10, 13)  # pages whose docs also hold QUERIES[i]'s tokens, i = 0..3
+GEMMA_INDEX_DOCS = 4_096  # the pages and seeded filler docs at the pages' token count
+# Gemma3-4B's stored-int8 layers (JAX's quantize_params over the same tree, tests/test_torch_gemma3.py): 34 x 7
+# text projections (k/v 2,560 -> 1,024 included) and 27 x 6 SigLIP ones; the patch embedding, the raw
+# mm_input_projection, the embeddings and the 128-d head stay bf16
+GEMMA_STORED_LAYERS = 34 * 7 + 27 * 6
+GEMMA_BI_DIM = 768  # BiGemma3's smallest Matryoshka cut
+
+
+def gemma3_config():
+    """Gemma3-4B (``google/gemma-3-4b-it``'s widths, the JAX package's defaults): SigLIP-So400m at 896 px
+    (27 x 1,152, 16 heads of 72, 64 x 64 patches pooled to 256 soft tokens), the text decoder 34 x 2,560 (8/4
+    heads of 256, MLP 10,240, vocab 262,208, window 1,024, every 6th layer global)."""
+    from colpali_tpu_torch.models.gemma3 import Gemma3Config
+
+    return Gemma3Config()
+
+
+def biased_attention_case(gen: torch.Generator, device: torch.device, feed: dict, cfg) -> dict:
+    """The text attention's biased path (no kernel: XLA's einsum route in
+    JAX) at a page batch's shape, under Gemma3's sliding-window bias with
+    its image blocks: CUDA events beside SDPA with the same mask as a
+    boolean (every row of a page batch sees a key), its bound over the
+    attended pairs, and its gap to SDPA."""
+    from colpali_tpu_torch.models.gemma3 import gemma3_attention_bias
+    from colpali_tpu_torch.models.layers import biased_attention
+
+    t = cfg.text
+    ids, mask = feed["input_ids"], feed["attention_mask"]
+    b, s = ids.shape
+    h, hkv, d = t.num_attention_heads, t.num_key_value_heads, t.head_dim
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=device).to(torch.bfloat16) for n in (h, hkv, hkv))
+    bias = gemma3_attention_bias(mask, ids == cfg.image_token_index, t.sliding_window)
+    scale = t.query_pre_attn_scalar**-0.5
+    allowed = bias == 0  # (B, 1, S, S)
+    out = biased_attention(q, k, v, bias, scale)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed, scale=scale, enable_gqa=True)
+
+    gap = (out.float() - sdpa().transpose(1, 2).float()).abs().max().item()
+    pairs = allowed.sum().item()
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * bias.numel()
+    r = dict(ms=time_ms(lambda: biased_attention(q, k, v, bias, scale)), library_ms=time_ms(sdpa), max_abs_vs_sdpa=gap,
+             **bound(nbytes, 4 * pairs * h * d, "bf16"), shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}, sliding window "
+             f"{t.sliding_window} and image blocks")
+    return dict(r, **rates(4 * pairs * h * d, r))
+
+
+def phase_gemma3(device: torch.device, smi: str, ckpt: str) -> tuple:
+    """Drive the Gemma3 family's serving path: Gemma3-4B written by
+    ``write_gemma3_checkpoint`` into ``ckpt`` and read back by
+    ``load_retriever(family="colgemma3")`` in bf16 and stored int8; K6 at
+    the vision tower's shape (D=72, S=4,096) and the biased text attention
+    timed; Q1a/Q1b at the path's (M, K, N); pages through
+    ``embed_dataset``, ``/search_text`` through ``make_handler`` and
+    ``serve.py --checkpoint --family colgemma3``; the K6 route against the
+    plain route, stored int8 against bf16; forward and encode timings and
+    profiles; then BiGemma3 at full width. Returns the launches over the
+    path, the kernel rows and the rest."""
+    import os
+    import threading
+
+    from colpali_tpu_torch import serve
+    from colpali_tpu_torch.auto import load_retriever
+    from colpali_tpu_torch.core.hf_loader import load_colgemma3_params
+    from colpali_tpu_torch.evaluation.evaluator import embed_dataset
+    from colpali_tpu_torch.models.gemma3 import BiGemma3
+    from colpali_tpu_torch.models.layers import QDense
+    from colpali_tpu_torch.processors.gemma3 import BiGemma3Processor
+    from colpali_tpu_torch.retrieval.serving import QueryEncoder
+    from colpali_tpu_torch.retrieval.store import CorpusIndex
+    from colpali_tpu_torch.serve import RetrievalServer
+    from colpali_tpu_torch.utils.testing import write_gemma3_checkpoint
+
+    held = free_memory("phase gemma3")
+    t_phase = time.perf_counter()
+    cfg = gemma3_config()
+    v, t = cfg.vision, cfg.text
+    pages = make_pages(GEMMA_PAGES, SEED + 70)
+    extra = dict(held_gib_at_start=held)
+    t0 = time.perf_counter()
+    write_gemma3_checkpoint(ckpt, cfg, seed=SEED + 71, words=" ".join(QUERIES).split(), device=device)
+    torch.cuda.empty_cache()
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, processor = load_retriever(ckpt, family="colgemma3", device=device)
+    torch.cuda.synchronize()
+    t_bf16 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qmodel, qproc = load_retriever(ckpt, family="colgemma3", device=device, quantize=True)
+    torch.cuda.synchronize()
+    t_int8 = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    stored = sum(isinstance(m, QDense) and m.stored for m in qmodel.modules())
+    bytes_int8, bytes_bf16 = (sum(x.numel() * x.element_size() for x in m.state_dict().values())
+                              for m in (qmodel, model))
+    log(f"phase gemma3: Gemma3-4B, vision {v.num_hidden_layers} x {v.hidden_size} (MLP {v.intermediate_size}, "
+        f"{v.num_attention_heads} heads x {v.head_dim}, {v.image_size} px, {v.num_patches} patches pooled to "
+        f"{cfg.mm_tokens_per_image} soft tokens), text {t.num_hidden_layers} x {t.hidden_size} (MLP "
+        f"{t.intermediate_size}, heads {t.num_attention_heads}/{t.num_key_value_heads} x {t.head_dim}, vocab "
+        f"{t.vocab_size}, window {t.sliding_window}, one layer in {t.sliding_window_pattern} global): "
+        f"{n_params / 1e9:.3f} B params; HF checkpoint written in {t_write:.1f} s, load_retriever {t_bf16:.1f} s "
+        f"(bf16), {t_int8:.1f} s (quantize=True: {stored} stored-int8 layers, {bytes_int8 / 1e9:.3f} GB against "
+        f"{bytes_bf16 / 1e9:.3f} GB)")
+    if stored != GEMMA_STORED_LAYERS:
+        raise AssertionError(f"load_retriever(quantize=True): {stored} stored-int8 layers, expected "
+                             f"{GEMMA_STORED_LAYERS}")
+    batch = pages[:PAGE_BATCH]
+    feed = {k: torch.as_tensor(x).to(device) for k, x in processor.process_images(batch, device_pixels=True).items()}
+    page_tokens = feed["input_ids"].shape[1]
+    n_image = (feed["input_ids"] == cfg.image_token_index).sum(1)
+    if not bool((n_image == cfg.mm_tokens_per_image).all()) or tuple(feed["pixel_values"].shape[1:3]) != \
+            (v.image_size, v.image_size):
+        raise AssertionError(f"a page: {n_image.tolist()} image tokens, pixels {tuple(feed['pixel_values'].shape)}")
+    encoders = {"bf16": QueryEncoder(model, processor), "int8": QueryEncoder(qmodel, qproc)}
+    for enc in encoders.values():
+        enc.warmup()
+
+    # K6 at the vision tower's shape, and the biased text attention (no kernel), each timed
+    gen = torch.Generator(device=device).manual_seed(SEED + 72)
+    k6 = k6_case(gen, device, PAGE_BATCH, v.num_patches, v.num_attention_heads, v.num_attention_heads, v.head_dim,
+                 None, label=" (SigLIP-So400m at 896 px, 8 pages)")
+    log(f"phase gemma3: K6 vision [{k6['shape']}]: kernel {k6['ms']:.3f} ms, plain {k6['plain_ms']:.3f} ms, "
+        f"{library_note(k6)}, bound {k6['bound_ms']:.4f} ms ({k6['bound_by']}), max_abs_err {k6['max_abs_err']:.3g} "
+        f"(atol {k6['atol']:.3g}, {k6['limit_share']:.0%} of the tolerance), bit-equal on a second call")
+    torch.cuda.empty_cache()
+    biased = biased_attention_case(gen, device, feed, cfg)
+    log(f"phase gemma3: biased text attention [{biased['shape']}] (no kernel): {biased['ms']:.3f} ms, SDPA with the "
+        f"mask as booleans {biased['library_ms']:.3f} ms (max abs gap {biased['max_abs_vs_sdpa']:.3g}), bound "
+        f"{biased['bound_ms']:.4f} ms ({biased['bound_by']}), {biased['bound_share']:.1%} of it; "
+        f"{t.num_hidden_layers} a page forward and a query forward")
+
+    # Q1a/Q1b at the (M, K, N) of one stored-int8 page forward and the query forwards (x8, x1), by hooks
+    with torch.inference_mode():
+        page_mkn = q1_path_shapes(qmodel, lambda: qmodel(**feed))
+    query_mkn = q1_path_shapes(qmodel, lambda: (encoders["int8"].encode(QUERIES),
+                                                encoders["int8"].encode(QUERIES[:1])))
+    checks = q1_checks(device, page_mkn + query_mkn, edge_ks=(1152, 10240))
+    log(f"phase gemma3: Q1a and Q1b bit-equal to their plain versions in {checks['q1b_cases']} Q1b cases at the page "
+        f"forward's (M, K, N) {page_mkn} and the query forwards' {query_mkn}; Q1a on edge rows at K 1,152 and 10,240")
+    q1_rows, q1_gemms = q1_timing(device, page_mkn + query_mkn)
+    extra["q1_checks"] = dict(checks, page_forward_mkn=page_mkn, query_forward_mkn=query_mkn)
+
+    # K6 launches of one page forward and one query forward
+    reset_launches()
+    with torch.inference_mode():
+        model(**feed)
+    per_page_forward = dict(fa.FORWARD_LAUNCHES_BY_HEAD_DIM)
+    reset_launches()
+    encoders["bf16"].encode(QUERIES)
+    per_query_forward = fa.FLASH_ATTENTION.launches
+    if {d: n for d, n in per_page_forward.items() if n} != {v.head_dim: v.num_hidden_layers} or per_query_forward:
+        raise AssertionError(f"K6 launches: a page forward {per_page_forward}, a query forward {per_query_forward}; "
+                             f"expected {v.num_hidden_layers} at D={v.head_dim} and none")
+
+    # the path, counted: pages embedded, /search_text through make_handler on each model, serve.py
+    reset_launches()
+    with counted_plain_k6() as plain_calls:
+        t0 = time.perf_counter()
+        embs = {"bf16": embed_dataset(model, processor, pages, batch_size=PAGE_BATCH)}
+        t_embed_bf16 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        embs["int8"] = embed_dataset(qmodel, qproc, pages, batch_size=PAGE_BATCH)
+        t_embed_int8 = time.perf_counter() - t0
+        for label, es in embs.items():
+            for e in es:
+                if e.shape[0] != page_tokens or not np.isfinite(e).all() or \
+                        np.abs(np.linalg.norm(e, axis=-1) - 1).max() > 1e-2:
+                    raise AssertionError(f"{label} page embedding {e.shape}: not {page_tokens} finite unit rows")
+        gen = torch.Generator(device=device).manual_seed(SEED + 73)
+        filler = torch.randn((GEMMA_INDEX_DOCS - GEMMA_PAGES, page_tokens, DIM), generator=gen, device=device)
+        filler = (filler / filler.norm(dim=-1, keepdim=True)).cpu().numpy()
+        served, corpora = {}, {}
+        for label, enc in encoders.items():
+            planted_q = enc.encode(QUERIES[: len(GEMMA_PLANTED)])
+            docs = [np.concatenate([e, planted_q[GEMMA_PLANTED.index(i)]]) if i in GEMMA_PLANTED else e
+                    for i, e in enumerate(embs[label])] + list(filler)
+            corpora[label] = docs
+            index = CorpusIndex(docs, dtype="int8", prefilter="binary", coarse_pool=COARSE_POOL, device=device)
+            httpd = RetrievalServer(("127.0.0.1", 0), serve.make_handler(
+                index, [f"doc_{i}" for i in range(index.num_docs)], encoder=enc))
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            url = f"http://127.0.0.1:{httpd.server_port}"
+            try:
+                tiered = [_http(url, "/search_text", {"queries": [q], "k": 10})
+                          for q in QUERIES[: len(GEMMA_PLANTED)]]  # one a request: the tiered route
+                exact = _http(url, "/search_text", {"queries": QUERIES, "k": 10})  # 8 > 4: the exact route
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+            for out in (*tiered, exact):
+                _check_ranked(f"/search_text ({label})", out, len(out["doc_ids"]))
+            top = ([out["doc_ids"][0][0] for out in tiered], [row[0] for row in exact["doc_ids"][: len(GEMMA_PLANTED)]])
+            if top[0] != list(GEMMA_PLANTED) or top[1] != list(GEMMA_PLANTED):
+                raise AssertionError(f"{label} /search_text at rank 1: tiered {top[0]}, exact {top[1]}, planted "
+                                     f"{list(GEMMA_PLANTED)}")
+            served[label] = (index, planted_q)
+        npz = f"{ckpt}/corpus.npz"
+        np.savez(npz, **{f"emb_{i}": d for i, d in enumerate(corpora["int8"])})
+        t0 = time.perf_counter()
+        httpd = serve.make_server([npz, "--port", "0", "--device", str(device), "--prefilter", "--checkpoint", ckpt,
+                                   "--family", "colgemma3"])
+        t_serve = time.perf_counter() - t0
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            cli = _http(f"http://127.0.0.1:{httpd.server_port}", "/search_text", {"queries": [QUERIES[0]], "k": 10})
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        os.remove(npz)
+        if cli["doc_ids"][0][0] != GEMMA_PLANTED[0]:
+            raise AssertionError(f"serve.py --family colgemma3: rank 1 {cli['doc_ids'][0][0]}, planted "
+                                 f"{GEMMA_PLANTED[0]}")
+    launches = read_launches("Gemma3", ("flash_attention", "quantize_rows", "int8_gemm", "binary_maxsim",
+                                        "gather_rerank", "maxsim_int8"))
+    by_dim = {d: n for d, n in fa.FORWARD_LAUNCHES_BY_HEAD_DIM.items() if n}
+    page_forwards = 2 * (GEMMA_PAGES // PAGE_BATCH)  # embed_dataset on each model; the queries launch none
+    if plain_calls[0] or by_dim != {v.head_dim: page_forwards * v.num_hidden_layers}:
+        raise AssertionError(f"Gemma3 path: K6 launches by head dim {by_dim}, {plain_calls[0]} calls of K6's plain "
+                             f"version; expected {v.num_hidden_layers} at D={v.head_dim} a page forward, "
+                             f"{page_forwards} page forwards")
+    log(f"  [{time.perf_counter() - t_phase:.0f} s] path: {GEMMA_PAGES} pages ({page_tokens} tokens) through "
+        f"embed_dataset, each model warm (bf16 {GEMMA_PAGES / t_embed_bf16 * 60:.0f} pages/min, stored int8 "
+        f"{GEMMA_PAGES / t_embed_int8 * 60:.0f}); a {served['int8'][0].num_docs}-doc x {served['int8'][0].doc_tokens}"
+        f"-token two-tier int8 index behind make_handler for each model: each of {len(GEMMA_PLANTED)} planted pages "
+        f"at rank 1 on the tiered and the exact route of /search_text; serve.py --checkpoint --family colgemma3 "
+        f"(stored int8) started in {t_serve:.1f} s and found it too; launches {launches}, K6 by head dim {by_dim} "
+        f"({v.num_hidden_layers} a page forward, none a query forward), K6's plain version called {plain_calls[0]} "
+        "times")
+    del corpora, filler
+
+    k123 = {}
+    for label, (index, planted_q) in served.items():
+        held_k = hold_k123(index, served_queries(planted_q, device))
+        k123[label] = {k: held_k[k] for k in ("k1_err", "k2_err", "k3_err")}
+        log(f"phase gemma3: K1, K2 and K3 against their plain versions on the {label} index ({index.num_docs} docs x "
+            f"Np={index.doc_tokens}): max abs err K1 {held_k['k1_err']:.3g} (bit for bit), K2 {held_k['k2_err']:.3g}, "
+            f"K3 {held_k['k3_err']:.3g} (rtol {RTOL}, atol {ATOL})")
+    del served, index, held_k
+    torch.cuda.empty_cache()
+
+    # checks beside the path (not counted): K6 route vs plain route, stored int8 vs bf16
+    route = dict(
+        pages=forward_check(f"Gemma3-4B page forward ({PAGE_BATCH} pages)",
+                            lambda: embed_dataset(model, processor, batch, batch_size=PAGE_BATCH)),
+        queries=forward_check(f"Gemma3-4B query forward ({len(QUERIES)} queries)",
+                              lambda: encoders["bf16"].encode(QUERIES)))
+    for name, r in route.items():
+        log(f"    shares of the limits: mean cos {share(1 - r['mean_cos'], 1 - FORWARD_COS_MEAN)}, min cos "
+            f"{share(1 - r['min_cos'], 1 - FORWARD_COS_MIN)}, max abs {share(r['max_abs'], FORWARD_ATOL)}")
+    torch.cuda.empty_cache()
+    accuracy = {
+        "pages": cos_check(f"{PAGE_BATCH} pages, stored int8 vs bf16", embs["int8"][:PAGE_BATCH],
+                           embs["bf16"][:PAGE_BATCH], INT8_COS_MEAN, INT8_COS_MIN),
+        "queries": cos_check(f"{len(QUERIES)} queries, stored int8 vs bf16", encoders["int8"].encode(QUERIES),
+                             encoders["bf16"].encode(QUERIES), INT8_COS_MEAN, INT8_COS_MIN)}
+
+    # end to end, bf16 and stored int8 in turns: one forward of 8 pages (CUDA events), encode x1 / x8
+    e2e = {}
+    for label in ("bf16", "int8", "int8 again", "bf16 again"):
+        m, enc = (model, encoders["bf16"]) if label.startswith("bf16") else (qmodel, encoders["int8"])
+        r = dict(page_forward_ms=forward_ms(m, feed))
+        for b_, texts in (("x1", QUERIES[:1]), ("x8", QUERIES)):
+            enc.encode(texts)
+            walls = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                enc.encode(texts)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            r[f"encode_{b_}_ms"] = float(np.median(walls))
+        r["pages_per_min_forward"] = PAGE_BATCH / r["page_forward_ms"] * 6e4
+        e2e[label] = r
+        log(f"  {label} ({smi}): forward of {PAGE_BATCH} pages {r['page_forward_ms']:.1f} ms "
+            f"({r['pages_per_min_forward']:.0f} pages/min of forward alone), encode x1 {r['encode_x1_ms']:.2f} ms, "
+            f"x8 {r['encode_x8_ms']:.2f} ms")
+    with torch.inference_mode():
+        profiles = {label: kernel_breakdown(f"one {label} Gemma3-4B forward of {PAGE_BATCH} pages",
+                                            lambda m=m: m(**feed)) for label, m in (("bf16", model),
+                                                                                   ("stored-int8", qmodel))}
+    query_feed = {k: torch.as_tensor(x).to(device) for k, x in processor.process_queries(QUERIES).items()}
+    del encoders, qmodel, embs
+    torch.cuda.empty_cache()
+
+    # BiGemma3 at full width on the checkpoint's backbone, its first 768 dims
+    bmodel = BiGemma3(cfg, embedding_dim=GEMMA_BI_DIM, device=device, dtype=torch.bfloat16).eval()
+    del model
+    torch.cuda.empty_cache()
+    bmodel.load_state_dict({k: x for k, x in load_colgemma3_params(ckpt).items() if k.startswith("model.")})
+    bproc = BiGemma3Processor.from_pretrained(ckpt, device=device)
+    bi = bi_check(f"BiGemma3 (Gemma3-4B, mean pooling, embedding_dim {GEMMA_BI_DIM})", bmodel, [feed, query_feed],
+                  device, bproc.score, BI_PLANTED)
+    del bmodel, feed, query_feed
+    torch.cuda.empty_cache()
+    extra.update(k6_vision=k6, biased_attention=biased, k123=k123, params=n_params, stored_int8_layers=stored,
+                 weight_bytes_int8=bytes_int8, weight_bytes_bf16=bytes_bf16, page_tokens=page_tokens,
+                 route_check=route, int8_vs_bf16=accuracy, end_to_end=e2e, page_profile=profiles, bigemma3=bi,
+                 k6_per_page_forward=per_page_forward[v.head_dim], k6_per_query_forward=per_query_forward,
+                 launches_by_head_dim={str(d): n for d, n in by_dim.items()},
+                 pages_per_min=dict(bf16=GEMMA_PAGES / t_embed_bf16 * 60, int8=GEMMA_PAGES / t_embed_int8 * 60),
+                 write_load_seconds=dict(write=t_write, bf16=t_bf16, int8=t_int8))
+    extra["seconds"] = time.perf_counter() - t_phase
+    log(f"phase gemma3: {extra['seconds']:.1f} s")
+    timings = {"flash_attention": k6, "quantize_rows": dict(shapes=q1_rows), "int8_gemm": dict(shapes=q1_gemms)}
+    return launches, timings, extra
+
+
+# -- phase 13: Gemma3 training (run after phase 12, on its checkpoint) -----------------------------------------------
+
+GEMMA_TRAIN_PAGES = 32  # four batches of 8
+GEMMA_EVAL_PAGES = 16
+GEMMA_TRAIN_STEPS, GEMMA_BI_STEPS = 4, 2
+GEMMA_VISION_STORED = 27 * 6  # quantize_frozen_base: q/k/v/o, fc1 and fc2 of each SigLIP layer
+# the least distance of a ColbertLoss from ln B (every page of a batch scoring alike, where a step carries no
+# ranking). On seeded random weights every query token's hard max falls on the 4 template tokens that open every
+# page (<bos><start_of_turn>user\n; causal, so the same in all pages), and the loss reads ln 8 exactly; phase 13
+# trains with mask_non_image_embeddings, which scores a page by its 256 image tokens alone
+GEMMA_TIED_MARGIN = 0.05
+
+
+def page_score_spread(model, batch: dict, image_token: int) -> dict:
+    """The in-batch MaxSim scores (normalized by the query's length) of a
+    collated batch under ``model``, with the page's non-image tokens kept
+    and masked: the least spread of a query's scores across the pages, and
+    the share of query tokens whose best page token lies before the image
+    block (the template, the same in every page)."""
+    out = {}
+    keep = model.mask_non_image_embeddings
+    valid = batch["query_attention_mask"].bool()
+    first = int((batch["doc_input_ids"][0] == image_token).nonzero()[0])
+    with torch.no_grad():
+        q = model(batch["query_input_ids"], batch["query_attention_mask"]).float()
+        for masked in (False, True):
+            model.mask_non_image_embeddings = masked
+            d = model(batch["doc_input_ids"], batch["doc_attention_mask"], batch["doc_pixel_values"]).float()
+            best, at = torch.einsum("bnd,csd->bcns", q, d).max(-1)
+            scores = best.sum(-1) / valid.sum(1, keepdim=True)
+            out["masked" if masked else "unmasked"] = dict(
+                min_spread=(scores.max(1).values - scores.min(1).values).min().item(),
+                on_template=(at[valid[:, None].expand_as(at)] < first).float().mean().item())
+    model.mask_non_image_embeddings = keep
+    return out
+
+
+def phase_gemma3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
+    """Drive the Gemma3 family's training path on phase 12's checkpoint:
+    Gemma3-4B read by ``load_retriever(family="colgemma3", remat=True)`` and
+    trained through ``ColModelTraining`` from ``configs/train_colgemma3.yaml``'s
+    loss and LoRA (4 steps at batch 8 over 32 pages; the text attention is
+    biased, so no K6 backward runs: the tower is frozen and K6 runs its
+    forward), the plain route, ``evaluate()`` (K5), the merged export read
+    back and served, a step timed with and without remat and profiled, one
+    step over a stored-int8 frozen vision tower; then BiGemma3 from
+    ``train_bigemma3.yaml`` (2 steps). ColGemma3 trains with
+    ``mask_non_image_embeddings`` (:data:`GEMMA_TIED_MARGIN`): the
+    ColbertLoss of the first step and of the stored-int8 step, each taken
+    with fresh adapters, must lie that far from ln 8 (the eval's, after 4
+    steps that flatten the scores, need not). Returns the launches over the
+    path and the rest."""
+    import math
+    import os
+
+    import yaml
+
+    from colpali_tpu_torch.auto import load_retriever
+    from colpali_tpu_torch.configs import instantiate
+    from colpali_tpu_torch.core.hf_loader import load_colgemma3_params
+    from colpali_tpu_torch.data.collator import VisualRetrieverCollator
+    from colpali_tpu_torch.losses import BiEncoderLoss, ColbertLoss
+    from colpali_tpu_torch.models.gemma3 import BiGemma3, ColGemma3
+    from colpali_tpu_torch.models.layers import QDense
+    from colpali_tpu_torch.processors.gemma3 import BiGemma3Processor
+    from colpali_tpu_torch.training import trainer
+    from colpali_tpu_torch.training.lora import LoraAdapters
+    from colpali_tpu_torch.training.orchestrator import ColModelTraining, ColModelTrainingConfig
+
+    held = free_memory("phase gemma3 training")
+    t_phase = time.perf_counter()
+    recipes = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    cfg = gemma3_config()
+    v = cfg.vision
+    train_config = trainer.TrainConfig(learning_rate=QWEN_LR, warmup_steps=0, total_steps=2500)
+    train_set = smol_dataset(GEMMA_TRAIN_PAGES, SEED + 74)
+    eval_set = smol_dataset(GEMMA_EVAL_PAGES, SEED + 75, first=GEMMA_TRAIN_PAGES)
+    extra = dict(held_gib_at_start=held)
+    model, processor = load_retriever(ckpt, family="colgemma3", device=device, remat=True,
+                                      mask_non_image_embeddings=True)
+    batch = trainer.to_device(VisualRetrieverCollator(processor)([train_set[i] for i in range(TRAIN_BATCH)]), device)
+    tied = math.log(TRAIN_BATCH)
+    spread = page_score_spread(model, batch, cfg.image_token_index)
+    log(f"  Gemma3-4B, the first batch's in-batch scores: page tokens kept, {spread['unmasked']['on_template']:.1%} "
+        f"of the query tokens' maxima on the template that opens every page, least spread of a query's scores "
+        f"across the pages {spread['unmasked']['min_spread']:.5f}; non-image tokens masked (as trained here), "
+        f"{spread['masked']['on_template']:.1%} and {spread['masked']['min_spread']:.5f}")
+    if not spread["masked"]["min_spread"] > 0:
+        raise AssertionError(f"Gemma3-4B: a query scores every page of the batch alike under "
+                             f"mask_non_image_embeddings: {spread}")
+    extra["score_spread"] = spread
+
+    def recipe(name, out, m, proc, **overrides):
+        """The recipe's ``config`` tree built by the port, with the nodes that
+        name files absent here (checkpoint, processor, datasets) and the
+        run's size replaced."""
+        with open(os.path.join(recipes, name)) as f:
+            node = yaml.safe_load(f)["config"]
+        node.update(model=m, processor=proc, params=None, train_datasets=[train_set], output_dir=out,
+                    global_batch_size=TRAIN_BATCH, log_steps=1, train=train_config, seed=SEED, device=device,
+                    **overrides)
+        return instantiate(node)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        app = ColModelTraining(ColModelTrainingConfig(**recipe(
+            "train_colgemma3.yaml", f"{tmp}/run", model, processor, eval_dataset=eval_set,
+            eval_batch_size=TRAIN_BATCH, max_steps=GEMMA_TRAIN_STEPS, save_steps=100)))
+        peft, loss_fn = app.config.peft, app.config.loss_func
+        if not isinstance(loss_fn, ColbertLoss) or loss_fn.temperature != 0.02:
+            raise AssertionError(f"train_colgemma3.yaml's loss: {loss_fn}")
+        n_adapters, n_trainable = len(app.state.adapters.paths), sum(p.numel() for p in app.state.params)
+        seen, moved = [], []
+
+        def on_step(step, metrics):
+            seen.append((step, float(metrics["loss"]), float(metrics["grad_norm"])))
+            if step == 1:
+                moved.extend(bool(b.detach().abs().max() > 0) for b in app.state.adapters.b)
+
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with counted_plain_k6() as plain_calls:
+            summary = app.train(on_step=on_step)
+        torch.cuda.synchronize()
+        train_launches = launch_counts()
+        peak_train = torch.cuda.max_memory_allocated() / 2**30
+        per_step = v.num_hidden_layers  # one page forward a step through the frozen tower; the queries take none
+        if [s for s, _, _ in seen] != list(range(1, GEMMA_TRAIN_STEPS + 1)) or \
+                not all(np.isfinite(l) and l > 0 and np.isfinite(g) and g > 0 for _, l, g in seen):
+            raise AssertionError(f"Gemma3-4B steps: {seen}")
+        if len(moved) != n_adapters or not all(moved):
+            raise AssertionError(f"{moved.count(False)} of {n_adapters} adapters did not move in step 1")
+        if abs(seen[0][1] - tied) < GEMMA_TIED_MARGIN:
+            raise AssertionError(f"Gemma3-4B step 1: ColbertLoss {seen[0][1]:.6f}, within {GEMMA_TIED_MARGIN} of "
+                                 f"ln {TRAIN_BATCH} = {tied:.6f}: the pages score alike")
+        if train_launches["flash_attention"] != GEMMA_TRAIN_STEPS * per_step or \
+                train_launches["flash_attention_bwd"] or plain_calls[0]:
+            raise AssertionError(f"K6 over {GEMMA_TRAIN_STEPS} Gemma3 LoRA steps: {train_launches}, {plain_calls[0]} "
+                                 f"calls of the plain version; expected {per_step} forward launches a step and no "
+                                 "backward (the tower is frozen, the text attention biased)")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] Gemma3-4B, ColModelTraining from train_colgemma3.yaml "
+            f"({smi}): {n_adapters} adapted layers, {n_trainable / 1e6:.2f} M trainable parameters, "
+            f"{type(loss_fn).__name__}(temperature {loss_fn.temperature}), LoRA r{peft.rank} a{peft.alpha:g} dropout "
+            f"{peft.dropout}, remat, batch {TRAIN_BATCH}; "
+            + ", ".join(f"step {s} loss {l:.4f} grad_norm {g:.4f}" for s, l, g in seen)
+            + f"; {summary['train_samples_per_second']:.2f} examples/s with collation and checkpoints; K6 forward "
+            f"{train_launches['flash_attention']} ({per_step} a step, D={v.head_dim}), backward "
+            f"{train_launches['flash_attention_bwd']}, K6's plain version called {plain_calls[0]} times; peak memory "
+            f"{peak_train:.2f} GiB")
+        extra["route"] = hold_routes("Gemma3-4B LoRA", app.state, batch, loss_fn, peft)
+
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = app.evaluate()
+        t_eval = time.perf_counter() - t0
+        eval_launches = launch_counts()
+        index = app.eval_index
+        if not {"eval_loss", "eval_ndcg@1", "eval_ndcg@5"} <= set(metrics) or \
+                not all(np.isfinite(x) for x in metrics.values()) or not eval_launches["maxsim_bf16"] or \
+                (index.dtype, index.num_docs, index._store.device.type) != ("bf16", GEMMA_EVAL_PAGES, device.type):
+            raise AssertionError(f"evaluate(): {metrics}, index {index.dtype} {index.num_docs}, {eval_launches}")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] evaluate(): {GEMMA_EVAL_PAGES} held-out pages in {t_eval:.1f} "
+            f"s, bf16 index {index.num_docs} x {index.doc_tokens} built on the card and searched by K5 "
+            f"({eval_launches['maxsim_bf16']} launch(es)); " + ", ".join(f"{k} {x:.4f}" for k, x in sorted(metrics.items())))
+        app.save()
+        merged = app.state.adapters.merged_state_dict(model)
+        app.close()
+        readback = export_readback(device, f"{tmp}/run", merged, cfg, ColGemma3, "colgemma3", "Gemma3-4B")
+        del merged
+
+        # a step at batch 8 with and without remat, and a profile of one
+        adapters = LoraAdapters(model, peft, seed=SEED + 1)
+        state = trainer.create_train_state(model, train_config, adapters)
+        steps = {}
+        for remat in (True, False):
+            model.set_remat(remat)
+            steps["remat" if remat else "no_remat"] = r = timed_steps(state, batch, loss_fn, peft, SEED, steps=2)
+            log(f"  Gemma3-4B LoRA step, batch {TRAIN_BATCH}, remat {'on' if remat else 'off'} ({smi}): "
+                f"{r['wall']:.1f} ms/step ({TRAIN_BATCH / r['wall'] * 1e3:.1f} examples/s without collation), forward "
+                f"{r['forward']:.1f} ms, backward {r['backward']:.1f} ms, optimizer {r['optimizer']:.1f} ms, host and "
+                f"idle {r['wall'] - r['forward'] - r['backward'] - r['optimizer']:.1f} ms, peak memory "
+                f"{r['peak_gib']:.2f} GiB ({r['allocated_before_gib']:.2f} GiB held before the step)")
+        model.set_remat(True)
+        step_fn = trainer.make_train_step(loss_fn, peft=peft, seed=SEED)
+        steps["profile"] = kernel_breakdown(f"one Gemma3-4B LoRA step, batch {TRAIN_BATCH}, remat on",
+                                            lambda: step_fn(state, batch)["loss"].item())
+        adapters.detach()
+        del state, adapters
+        extra.update(losses=[l for _, l, _ in seen], grad_norms=[g for _, _, g in seen], eval=metrics,
+                     examples_per_s_end_to_end=summary["train_samples_per_second"], peak_train_gib=peak_train,
+                     step_ms=steps, checkpoint_readback=readback, trainable=n_trainable,
+                     launches_per_step={"flash_attention": per_step, "flash_attention_bwd": 0})
+
+        # one step over a stored-int8 frozen vision tower (the model's tower stays int8 from here on)
+        qapp = ColModelTraining(ColModelTrainingConfig(**recipe(
+            "train_colgemma3.yaml", f"{tmp}/quant", model, processor, max_steps=1, save_steps=100,
+            quantize_frozen_base=True)))
+        stored = [name for name, m in model.named_modules() if isinstance(m, QDense) and m.stored]
+        if len(stored) != GEMMA_VISION_STORED or not all(n.startswith("model.vision_tower.") for n in stored):
+            raise AssertionError(f"quantize_frozen_base stored {len(stored)} layers, expected the vision tower's "
+                                 f"{GEMMA_VISION_STORED}")
+        reset_launches()
+        qseen = []
+        qapp.train(on_step=lambda step, m: qseen.append(float(m["loss"])))
+        torch.cuda.synchronize()
+        quant_launches = launch_counts()
+        qapp.close()
+        if quant_launches["int8_gemm"] != GEMMA_VISION_STORED or not quant_launches["quantize_rows"] or \
+                len(qseen) != 1 or not np.isfinite(qseen[0]) or abs(qseen[0] - tied) < GEMMA_TIED_MARGIN or \
+                quant_launches["flash_attention"] != per_step:
+            raise AssertionError(f"quantize_frozen_base step {qseen}, launches {quant_launches}; expected "
+                                 f"{GEMMA_VISION_STORED} Q1b launches and {per_step} K6 launches")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] quantize_frozen_base: {len(stored)} stored-int8 vision layers "
+            f"(mm_input_projection stays bf16); one step, loss {qseen[0]:.4f}; Q1a {quant_launches['quantize_rows']} "
+            f"and Q1b {quant_launches['int8_gemm']} launches, K6 {quant_launches['flash_attention']}")
+        extra["quantize_frozen_base"] = dict(stored_layers=len(stored), loss=qseen[0], launches=quant_launches)
+        del model, app, qapp
+        torch.cuda.empty_cache()
+
+        # BiGemma3 from train_bigemma3.yaml on the checkpoint's backbone: 2 steps
+        bmodel = BiGemma3(cfg, device=device, dtype=torch.bfloat16, remat=True)
+        bmodel.load_state_dict({k: x for k, x in load_colgemma3_params(ckpt).items() if k.startswith("model.")})
+        bproc = BiGemma3Processor.from_pretrained(ckpt, device=device)
+        bapp = ColModelTraining(ColModelTrainingConfig(**recipe("train_bigemma3.yaml", f"{tmp}/bi", bmodel, bproc,
+                                                                max_steps=GEMMA_BI_STEPS, save_steps=100)))
+        bloss = bapp.config.loss_func
+        if not isinstance(bloss, BiEncoderLoss):
+            raise AssertionError(f"train_bigemma3.yaml's loss: {bloss}")
+        reset_launches()
+        bseen = []
+        with counted_plain_k6() as plain_calls:
+            bapp.train(on_step=lambda step, m: bseen.append((float(m["loss"]), float(m["grad_norm"]))))
+        torch.cuda.synchronize()
+        bi_launches = launch_counts()
+        bapp.close()
+        if len(bseen) != GEMMA_BI_STEPS or not np.isfinite(bseen).all() or plain_calls[0] or \
+                bi_launches["flash_attention"] != GEMMA_BI_STEPS * per_step or bi_launches["flash_attention_bwd"]:
+            raise AssertionError(f"BiGemma3 steps {bseen}, launches {bi_launches}, plain calls {plain_calls[0]}")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] BiGemma3 (Gemma3-4B's backbone, mean pooling), ColModelTraining "
+            f"from train_bigemma3.yaml: {BiEncoderLoss.__name__}, batch {TRAIN_BATCH}; "
+            + ", ".join(f"step {i + 1} loss {l:.4f} grad_norm {g:.4f}" for i, (l, g) in enumerate(bseen))
+            + f"; K6 forward {bi_launches['flash_attention']}, backward {bi_launches['flash_attention_bwd']}")
+        extra["bigemma3"] = dict(losses=[l for l, _ in bseen], launches=bi_launches)
+        del bmodel, bapp
+        torch.cuda.empty_cache()
+    extra["seconds"] = time.perf_counter() - t_phase
+    log(f"phase gemma3 training: {extra['seconds']:.1f} s")
+    launches = dict(flash_attention=train_launches["flash_attention"] + eval_launches["flash_attention"],
+                    maxsim_bf16=eval_launches["maxsim_bf16"], quantize_rows=quant_launches["quantize_rows"],
+                    int8_gemm=quant_launches["int8_gemm"])
+    return launches, extra
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script only runs on a GPU", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
-    smi = phase_device()
-    timings, corpora = phase_kernels(device)
-    ops_launches, ops = phase_ops(device, *corpora)
+    seconds = {}
+    t_start = time.perf_counter()
+
+    def timed(name: str, fn, *args):
+        """``fn(*args)``, its seconds logged and kept under ``name``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        log(f"[{name}: {seconds[name]:.1f} s, {time.perf_counter() - t_start:.1f} s since the start]")
+        return out
+
+    smi = timed("1 device", phase_device)
+    timings, corpora = timed("2 kernels", phase_kernels, device)
+    ops_launches, ops = timed("6 ops entry points", phase_ops, device, *corpora)
     del corpora
     torch.cuda.empty_cache()
     timings.update(ops)
-    model, processor, encoder = build_model(device)
-    text_launches = phase_slice(device, encoder)
-    launches, k6, page, extra, (bf16_launches, timings["gather_rerank_bf16"]) = phase_pages(device, model, processor,
-                                                                                           encoder)
+    model, processor, encoder = timed("3 build ColPali-3B", build_model, device)
+    text_launches = timed("3 text slice", phase_slice, device, encoder)
+    launches, k6, page, extra, (bf16_launches, timings["gather_rerank_bf16"]) = timed(
+        "4 page slice", phase_pages, device, model, processor, encoder)
     del encoder
-    train_slice, train_steps, k6_bwd, eval_index, train_extra = phase_training(device, model, processor, smi)
-    quant_launches, quant_timings, quant_extra = phase_stored_int8(device, model, processor, smi)
+    train_slice, train_steps, k6_bwd, eval_index, train_extra = timed("5 training", phase_training, device, model,
+                                                                      processor, smi)
+    quant_launches, quant_timings, quant_extra = timed("7 stored int8", phase_stored_int8, device, model, processor,
+                                                       smi)
     timings.update(quant_timings)
     del model, processor
     free_memory("phase qwen")
     with tempfile.TemporaryDirectory() as qwen_dir:  # phase 8's ColQwen2.5-3B checkpoint, which phase 9 trains
-        qwen_launches, qwen_timings, qwen_extra = phase_qwen(device, smi, qwen_dir)
+        qwen_launches, qwen_timings, qwen_extra = timed("8 Qwen2-VL family", phase_qwen, device, smi, qwen_dir)
         free_memory("phase qwen training")
-        qt_launches, qt_bwd, qt_extra = phase_qwen_training(device, smi, qwen_dir)
-    smol_launches, smol_timings, smol_extra = phase_colsmol(device, smi)
-    st_launches, st_bwd, st_extra = phase_smol_training(device, smi)
+        qt_launches, qt_bwd, qt_extra = timed("9 Qwen training", phase_qwen_training, device, smi, qwen_dir)
+    smol_launches, smol_timings, smol_extra = timed("10 colSmol", phase_colsmol, device, smi)
+    st_launches, st_bwd, st_extra = timed("11 colSmol training", phase_smol_training, device, smi)
+    with tempfile.TemporaryDirectory() as gemma_dir:  # phase 12's Gemma3-4B checkpoint, which phase 13 trains
+        gemma_launches, gemma_timings, gemma_extra = timed("12 Gemma3 family", phase_gemma3, device, smi, gemma_dir)
+        gt_launches, gt_extra = timed("13 Gemma3 training", phase_gemma3_training, device, smi, gemma_dir)
     timings["flash_attention"] = dict(k6["siglip"], gemma_page=k6["gemma_page"], gemma_query=k6["gemma_query"])
     timings["flash_attention_bwd"] = dict(k6_bwd["gemma_page"], gemma_query=k6_bwd["gemma_query"],
                                           gemma_query_padded=k6_bwd["gemma_query_padded"], siglip=k6_bwd["siglip"])
@@ -4244,11 +4859,22 @@ def main() -> int:
         if name == "flash_attention_bwd":  # phase 11: by head dim over the LoRA steps (D=64), and its D=64 cases
             entry.update(launches_colsmol_training_by_head_dim=st_extra["launches_by_head_dim"],
                          colsmol_training_d64=st_bwd)
+        if name in gemma_launches:  # over phase 12's path: Gemma3-4B's pages, /search_text and serve.py
+            entry["launches_gemma3_slice"] = gemma_launches[name]
+        if name == "flash_attention":  # phase 12's K6 launches by head dim (D=72 alone) and its vision case
+            entry.update(launches_gemma3_by_head_dim=gemma_extra["launches_by_head_dim"],
+                         gemma3_vision=gemma_timings["flash_attention"])
+        elif name in gemma_timings:
+            entry["gemma3"] = gemma_timings[name]
+        if name in gt_launches:  # over phase 13's path: Gemma3-4B's LoRA steps, eval and quantized-base step
+            entry["launches_gemma3_training"] = gt_launches[name]
         kernels.append(dict(entry, **timings[name]))
     print(json.dumps({"kernels": kernels, "pages_per_min": extra["pages_per_min"],
                       "forward_check": extra["forward_check"], "page_profile": extra["page_profile"],
                       "training": train_extra, "stored_int8": quant_extra, "qwen": qwen_extra,
-                      "qwen_training": qt_extra, "colsmol": smol_extra, "colsmol_training": st_extra}))
+                      "qwen_training": qt_extra, "colsmol": smol_extra, "colsmol_training": st_extra,
+                      "gemma3": gemma_extra, "gemma3_training": gt_extra, "phase_seconds": seconds,
+                      "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -11,8 +11,8 @@ processor with the family's ``from_pretrained``::
 
 The port holds the weights in the module, so it returns ``(model,
 processor)`` where JAX returns ``(model, variables, processor)``. The
-``colpali``, ``colqwen2``, ``colqwen2_5`` and ``colidefics3`` families are
-ported (their Col models, as in JAX: a Bi model is built from its class);
+``colpali``, ``colqwen2``, ``colqwen2_5``, ``colidefics3`` and ``colgemma3``
+families are ported (their Col models, as in JAX: a Bi model is built from its class);
 the other families are detected and raise. No hub download is made.
 """
 
@@ -48,9 +48,11 @@ _PORTED: Dict[str, Tuple[str, str, str, str, str, Dict[str, Any]]] = {
     "colidefics3": ("models.idefics3.ColIdefics3", "models.idefics3.Idefics3Config",
                     "processors.idefics3.ColIdefics3Processor", "load_colidefics3_params",
                     "export_colidefics3_state_dict", {}),
+    "colgemma3": ("models.gemma3.ColGemma3", "models.gemma3.Gemma3Config", "processors.gemma3.ColGemma3Processor",
+                  "load_colgemma3_params", "export_colgemma3_state_dict", {}),
 }
 # where each family that is not ported yet waits in ROADMAP.md
-_NOT_PORTED = {f: "Queue 1 item 8" for f in ("colgemma3", "colqwen3", "colmodernvbert", "colqwen3_5", "colqwen_omni")}
+_NOT_PORTED = {f: "Queue 1 item 8" for f in ("colqwen3", "colmodernvbert", "colqwen3_5", "colqwen_omni")}
 
 
 def _resolve(dotted: str):
@@ -112,7 +114,8 @@ def load_retriever(
     default ``min_dim=512``, JAX's set of layers: 253 of ColPali-3B's):
     served through kernels Q1a and Q1b, about 0.6 of the bf16 weights'
     bytes on the card. SigLIP's patch embedding, the k/v projections under
-    512 wide, the embeddings and the 128-d head stay in ``dtype``. The
+    512 wide, the embeddings, Gemma3's raw ``mm_input_projection`` and the
+    128-d head stay in ``dtype``. The
     Qwen families' processors default to ``max_num_visual_tokens=768``,
     as in JAX."""
     from colpali_tpu_torch.core import hf_loader

@@ -1,7 +1,7 @@
 """Carry a JAX parameter tree over to the port's state dict.
 
-The JAX package's ``ColPali``, ``ColQwen2``, ``ColQwen2_5`` or
-``ColIdefics3`` params, or those of a Bi model (``DenseHead``'s ``head/proj``
+The JAX package's ``ColPali``, ``ColQwen2``, ``ColQwen2_5``,
+``ColIdefics3`` or ``ColGemma3`` params, or those of a Bi model (``DenseHead``'s ``head/proj``
 included), a nested dict with numpy leaves as ``jax.tree.map(np.asarray,
 variables)`` gives them, become the state dict of the port's model of the
 same name:
@@ -11,6 +11,9 @@ same name:
   im2col ``nn.Linear`` weight ``(hidden, p * p * 3)`` (Qwen's patch embedding
   is a ``Dense`` already);
 - ``embedding`` leaves (token and position embeddings) become ``weight``;
+- Gemma3's ``mm_input_projection``, a raw ``(V, T)`` parameter and no
+  ``Dense``, is taken as it is (the RMSNorms' ``weight``, the q/k norms
+  and the four norms of a block included, keep their names);
 - flax ``LayerNorm`` ``scale`` becomes ``weight`` (``bias`` stays);
 - unrolled ``layers_{i}`` and ``blocks_{i}`` become ``layers.{i}`` and ``blocks.{i}``;
 - a stored-int8 tree (``quantize_params``' ``(qp, qc)``): each int8
@@ -33,7 +36,8 @@ import numpy as np
 import torch
 
 _CONVERTED = ("model/language_model/", "model/vision_tower/", "model/multi_modal_projector/", "model/visual/",
-              "model/vision_model/", "model/modality_projection/", "model/text_model/", "head/")
+              "model/vision_model/", "model/modality_projection/", "model/text_model/", "model/mm_soft_emb_norm/",
+              "model/mm_input_projection", "head/")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:

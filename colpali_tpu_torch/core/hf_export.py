@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 from colpali_tpu_torch.core.hf_loader import (
+    GEMMA3_RULES,
     IDEFICS3_RULES,
     PALIGEMMA_RULES,
     QWEN2_VL_RULES,
@@ -207,6 +208,15 @@ def export_colidefics3_state_dict(state_dict: Mapping[str, torch.Tensor],
     return dress_keys_modern(state, ("vision_model", "text_model", "connector"))
 
 
+def export_colgemma3_state_dict(state_dict: Mapping[str, torch.Tensor],
+                                strict: bool = True) -> Dict[str, torch.Tensor]:
+    """The port's ``ColGemma3`` (or ``BiGemma3``) state dict -> HF
+    torch-layout state dict, the vision tower, projector and text model
+    nested under ``model.``."""
+    state = export_state_dict(state_dict, GEMMA3_RULES, strict=strict)
+    return dress_keys_modern(state, ("vision_tower", "multi_modal_projector", "language_model"))
+
+
 def export_for_config(state_dict: Mapping[str, torch.Tensor], config: Any = None) -> Dict[str, torch.Tensor]:
     """Export ``state_dict`` with the exporter that
     :func:`colpali_tpu_torch.auto.exporter_for` names for ``config``'s
@@ -217,7 +227,7 @@ def export_for_config(state_dict: Mapping[str, torch.Tensor], config: Any = None
     if config is None:
         return export_colpali_state_dict(state_dict)
     export = globals()[exporter_for(config)]
-    if export in (export_colpali_state_dict, export_colidefics3_state_dict):
+    if export in (export_colpali_state_dict, export_colidefics3_state_dict, export_colgemma3_state_dict):
         return export(state_dict)
     v = config.vision
     return export(state_dict, channels=v.in_channels, temporal_patch_size=v.temporal_patch_size,

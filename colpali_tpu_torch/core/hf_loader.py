@@ -1,6 +1,6 @@
 """HF checkpoint -> the port's state dict (counterpart of
-:mod:`colpali_tpu.core.hf_loader`: the PaliGemma, Qwen2-VL and Idefics3
-families).
+:mod:`colpali_tpu.core.hf_loader`: the PaliGemma, Qwen2-VL, Idefics3 and
+Gemma3 families).
 
 Checkpoint keys are first normalized across transformers-version layouts
 and merged-LoRA exports (:data:`PALIGEMMA_KEY_REMAPS`, unmerged LoRA
@@ -311,3 +311,59 @@ def load_colidefics3_params(checkpoint_dir: str, strict: bool = True) -> Dict[st
     ``ColIdefics3`` state dict (in the checkpoint's dtypes, on the CPU)."""
     state = load_safetensors_dir(checkpoint_dir)
     return convert_state_dict(state, IDEFICS3_RULES, IDEFICS3_KEY_REMAPS, strict=strict)
+
+
+# --- the Gemma3 family ---------------------------------------------------------
+
+GEMMA3_KEY_REMAPS: Tuple[Tuple[str, str], ...] = (
+    (r"^base_model\.model\.", ""),
+    (r"^model\.", ""),  # ColGemma3 nests Gemma3Model under .model in some exports
+    (r"^language_model\.model\.", "language_model."),  # HF's _checkpoint_conversion_mapping
+    (r"\.lora_[AB]\.", ".__lora__."),
+)
+
+_G3_VT = r"vision_tower\.vision_model\."
+_G3_LAYER = _G3_VT + r"encoder\.layers\.(\d+)\."
+_G3_TEXT = r"language_model\.layers\.(\d+)\."
+GEMMA3_RULES: Tuple[_RuleT, ...] = (
+    # --- SigLIP vision tower (PaliGemma's layout) ---
+    (_G3_VT + r"embeddings\.patch_embedding\.weight", "model.vision_tower.patch_embedding.weight", t_conv2d),
+    (_G3_VT + r"embeddings\.patch_embedding\.bias", "model.vision_tower.patch_embedding.bias", t_id),
+    (_G3_VT + r"embeddings\.position_embedding\.weight", "model.vision_tower.position_embedding.weight", t_id),
+    (_G3_LAYER + r"layer_norm([12])\.weight", "model.vision_tower.layers.{i}.layer_norm{j}.weight", t_id),
+    (_G3_LAYER + r"layer_norm([12])\.bias", "model.vision_tower.layers.{i}.layer_norm{j}.bias", t_id),
+    (_G3_LAYER + r"self_attn\.(q|k|v)_proj\.weight", "model.vision_tower.layers.{i}.self_attn.{j}_proj.weight", t_id),
+    (_G3_LAYER + r"self_attn\.(q|k|v)_proj\.bias", "model.vision_tower.layers.{i}.self_attn.{j}_proj.bias", t_id),
+    (_G3_LAYER + r"self_attn\.out_proj\.weight", "model.vision_tower.layers.{i}.self_attn.o_proj.weight", t_id),
+    (_G3_LAYER + r"self_attn\.out_proj\.bias", "model.vision_tower.layers.{i}.self_attn.o_proj.bias", t_id),
+    (_G3_LAYER + r"mlp\.fc([12])\.weight", "model.vision_tower.layers.{i}.mlp.fc{j}.weight", t_id),
+    (_G3_LAYER + r"mlp\.fc([12])\.bias", "model.vision_tower.layers.{i}.mlp.fc{j}.bias", t_id),
+    (_G3_VT + r"post_layernorm\.weight", "model.vision_tower.post_layernorm.weight", t_id),
+    (_G3_VT + r"post_layernorm\.bias", "model.vision_tower.post_layernorm.bias", t_id),
+    (_G3_VT + r"head\..*", "", t_id),
+    # --- projector: the raw (V, T) matrix, as HF holds it ---
+    (r"multi_modal_projector\.mm_input_projection_weight", "model.mm_input_projection", t_id),
+    (r"multi_modal_projector\.mm_soft_emb_norm\.weight", "model.mm_soft_emb_norm.weight", t_id),
+    # --- Gemma3 text decoder ---
+    (r"language_model\.embed_tokens\.weight", "model.language_model.embed_tokens.weight", t_id),
+    (_G3_TEXT + r"(input_layernorm|post_attention_layernorm|pre_feedforward_layernorm|post_feedforward_layernorm)"
+     r"\.weight", "model.language_model.layers.{i}.{j}.weight", t_id),
+    (_G3_TEXT + r"self_attn\.(q|k|v|o)_proj\.weight", "model.language_model.layers.{i}.self_attn.{j}_proj.weight",
+     t_id),
+    (_G3_TEXT + r"self_attn\.(q|k)_norm\.weight", "model.language_model.layers.{i}.self_attn.{j}_norm.weight", t_id),
+    (_G3_TEXT + r"mlp\.(gate|up|down)_proj\.weight", "model.language_model.layers.{i}.mlp.{j}_proj.weight", t_id),
+    (r"language_model\.norm\.weight", "model.language_model.norm.weight", t_id),
+    # --- retrieval head ---
+    (r"custom_text_proj\.weight", "head.custom_text_proj.weight", t_id),
+    (r"custom_text_proj\.bias", "head.custom_text_proj.bias", t_id),
+    # --- dropped ---
+    (r"lm_head\.weight", "", t_id),
+    (r".*rotary_emb\.inv_freq", "", t_id),
+)
+
+
+def load_colgemma3_params(checkpoint_dir: str, strict: bool = True) -> Dict[str, torch.Tensor]:
+    """A (Col)Gemma3 HF checkpoint directory -> the port's ``ColGemma3``
+    state dict (in the checkpoint's dtypes, on the CPU)."""
+    state = load_safetensors_dir(checkpoint_dir)
+    return convert_state_dict(state, GEMMA3_RULES, GEMMA3_KEY_REMAPS, strict=strict)

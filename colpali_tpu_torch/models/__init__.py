@@ -8,6 +8,13 @@ from colpali_tpu_torch.models.configs import (  # noqa: F401
     PaliGemmaConfig,
     SiglipVisionConfig,
 )
+from colpali_tpu_torch.models.gemma3 import (  # noqa: F401
+    BiGemma3,
+    ColGemma3,
+    Gemma3Backbone,
+    Gemma3Config,
+    Gemma3TextConfig,
+)
 from colpali_tpu_torch.models.idefics3 import (  # noqa: F401
     BiIdefics3,
     ColIdefics3,

@@ -1,6 +1,5 @@
 """Transformer building blocks in PyTorch (counterparts of
-:mod:`colpali_tpu.models.layers`, the subset ColPali and the Qwen2-VL
-family use).
+:mod:`colpali_tpu.models.layers`, the subset the ported families use).
 
 Every block takes its parameters' ``device`` (the card unless the caller
 asks for the CPU) and ``dtype``; numerically sensitive reductions
@@ -12,7 +11,9 @@ the card and its plain version, the segment-masked einsum, on the CPU: fp32
 logits and softmax, MQA/GQA by grouping query heads. A token-validity mask
 is passed as segment ids, so valid tokens attend to valid tokens exactly as
 under the JAX package's additive mask, and pad rows (masked downstream)
-attend to pad tokens.
+attend to pad tokens. A mask that segment ids cannot express comes as an
+additive bias and runs :func:`biased_attention`, the JAX package's einsum
+path (XLA there, no kernel), on either device.
 
 The projections are :class:`QDense` layers (the JAX package's ``QDense``):
 ``nn.Linear`` in the exact mode, stored-int8 weights after
@@ -223,28 +224,73 @@ def shared_rows(x: torch.Tensor, *layers: QDense) -> Optional[tuple[torch.Tensor
     return quantize_rows(x.reshape(-1, x.shape[-1]))
 
 
+# fp32 attention-logits budget of the biased path's query chunking (the JAX package's _ATTN_LOGITS_BUDGET)
+ATTN_LOGITS_BUDGET = 512 * 1024 * 1024
+
+
+def biased_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, attn_bias: torch.Tensor, scale: float,
+                     q_chunk: Optional[int] = None) -> torch.Tensor:
+    """Attention under an additive bias: the JAX package's einsum path
+    (``Attention`` with ``attn_bias``, XLA there, no Pallas kernel), for
+    masks that segment ids cannot express (Gemma3's sliding window OR'd with
+    bidirectional image blocks).
+
+    ``q (B, S, H, D)``, ``k, v (B, S, Hkv, D)``, ``attn_bias`` broadcastable
+    to ``(B, Hkv, Sq, Sk)`` (``(B, 1, S, S)`` or a query-broadcast ``(B, 1,
+    1, S)``). Query heads are grouped over their KV head; the logits are
+    fp32 products times ``scale`` plus the bias in fp32, the softmax fp32,
+    cast to q's dtype before the product with v. Query rows are independent,
+    so they run in chunks of ``q_chunk`` rows (default: as many as keep the
+    fp32 logits under :data:`ATTN_LOGITS_BUDGET`, a multiple of 128, at
+    least 128), which bounds memory at ``O(chunk * S)``."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, h // hkv, d).permute(0, 2, 3, 1, 4).float()  # (B, Hkv, G, S, D)
+    kt = k.permute(0, 2, 3, 1).float()[:, :, None]  # (B, Hkv, 1, D, S)
+    vt = v.permute(0, 2, 1, 3)[:, :, None]  # (B, Hkv, 1, S, D)
+    bias = attn_bias.float()[:, :, None]  # (B, 1 | Hkv, 1, Sq | 1, Sk)
+    if q_chunk is None:
+        q_chunk = max(128, ATTN_LOGITS_BUDGET // (b * h * s * 4) // 128 * 128)
+    blocks = []
+    for start in range(0, s, q_chunk):
+        rows = slice(start, min(start + q_chunk, s))
+        logits = torch.matmul(qg[:, :, :, rows], kt) * scale
+        probs = torch.softmax(logits + (bias[..., rows, :] if bias.shape[-2] > 1 else bias), dim=-1).to(q.dtype)
+        blocks.append(torch.matmul(probs, vt))
+    out = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=3)  # (B, Hkv, G, S, D)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
 class Attention(nn.Module):
     """Multi-head attention with optional GQA/MQA, projection biases and
-    rotary embeddings, ``head_dim**-0.5`` scaling, through K6.
+    rotary embeddings through K6, or under an additive bias.
 
     ``segments`` (B, S) ids or a ``mask`` (B, S) of token validity select
     the keys each query sees (neither: full attention); ``kv_segments``
-    gives the keys ids apart from the queries' (K6's ``kv_segments``)."""
+    gives the keys ids apart from the queries' (K6's ``kv_segments``).
+    ``attn_bias`` instead runs :func:`biased_attention` (no kernel: the JAX
+    package runs it on XLA) and cannot be combined with them. ``scale``
+    defaults to ``head_dim**-0.5``; ``qk_norm_eps`` adds per-head RMSNorms
+    ``q_norm``/``k_norm`` over the head dim (Gemma's, with the unit offset),
+    applied before rope."""
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int, num_kv_heads: Optional[int] = None,
-                 use_bias: bool = False, out_bias: Optional[bool] = None,
-                 device: Device = "cuda", dtype: torch.dtype = torch.float32):
+                 use_bias: bool = False, out_bias: Optional[bool] = None, scale: Optional[float] = None,
+                 qk_norm_eps: Optional[float] = None, device: Device = "cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = head_dim
-        self.scale = head_dim**-0.5
+        self.scale = head_dim**-0.5 if scale is None else scale
         kw = dict(device=device, dtype=dtype)
         kv = self.num_kv_heads * head_dim
         self.q_proj = QDense(hidden_size, num_heads * head_dim, bias=use_bias, **kw)
         self.k_proj = QDense(hidden_size, kv, bias=use_bias, **kw)
         self.v_proj = QDense(hidden_size, kv, bias=use_bias, **kw)
         self.o_proj = QDense(num_heads * head_dim, hidden_size, bias=use_bias if out_bias is None else out_bias, **kw)
+        if qk_norm_eps is not None:
+            self.q_norm = RMSNorm(head_dim, eps=qk_norm_eps, **kw)
+            self.k_norm = RMSNorm(head_dim, eps=qk_norm_eps, **kw)
 
     def forward(
         self,
@@ -254,21 +300,30 @@ class Attention(nn.Module):
         segments: Optional[torch.Tensor] = None,
         causal: bool = False,
         kv_segments: Optional[torch.Tensor] = None,
+        attn_bias: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         b, s, _ = x.shape
         hd = self.head_dim
+        if attn_bias is not None and (mask is not None or segments is not None or kv_segments is not None or causal):
+            raise ValueError("attn_bias cannot be combined with mask, segments, kv_segments or causal (K6 honours "
+                             "only segment and causal masking): put the whole mask in the bias")
         rows = shared_rows(x, self.q_proj, self.k_proj, self.v_proj)
         q = self.q_proj(x, rows).view(b, s, self.num_heads, hd)
         k = self.k_proj(x, rows).view(b, s, self.num_kv_heads, hd)
         v = self.v_proj(x, rows).view(b, s, self.num_kv_heads, hd)
+        if hasattr(self, "q_norm"):
+            q, k = self.q_norm(q), self.k_norm(k)
         if rope is not None:
             q = apply_rope(q, *rope)
             k = apply_rope(k, *rope)
-        seg = segments if segments is not None else mask
-        if seg is None:
-            seg = torch.ones((b, s), dtype=torch.int32, device=x.device)
-        keys = {} if kv_segments is None else {"kv_segments": kv_segments.to(torch.int32).contiguous()}
-        out = fa.flash_attention(q, k, v, seg.to(torch.int32).contiguous(), self.scale, causal, **keys)
+        if attn_bias is not None:
+            out = biased_attention(q, k, v, attn_bias, self.scale)
+        else:
+            seg = segments if segments is not None else mask
+            if seg is None:
+                seg = torch.ones((b, s), dtype=torch.int32, device=x.device)
+            keys = {} if kv_segments is None else {"kv_segments": kv_segments.to(torch.int32).contiguous()}
+            out = fa.flash_attention(q, k, v, seg.to(torch.int32).contiguous(), self.scale, causal, **keys)
         return self.o_proj(out.reshape(b, s, self.num_heads * hd))
 
 

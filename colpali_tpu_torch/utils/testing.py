@@ -3,9 +3,11 @@
 :mod:`colpali_tpu.utils.dataset_loading`): a tiny ColPali config, a
 hash-based processor, a synthetic dataset, and an HF-layout checkpoint of a
 Qwen-family model with a word-level tokenizer whose special tokens sit at
-Qwen2's ids (:func:`write_qwen_checkpoint`) or of a ColIdefics3 with
-Idefics3's specials (:func:`write_idefics3_checkpoint`), which
-``load_retriever`` reads through ``transformers``."""
+Qwen2's ids (:func:`write_qwen_checkpoint`), of a ColIdefics3 with
+Idefics3's specials (:func:`write_idefics3_checkpoint`) or of a seeded
+ColGemma3 at any ``Gemma3Config`` with Gemma3's
+(:func:`write_gemma3_checkpoint`), which ``load_retriever`` reads through
+``transformers``."""
 
 from __future__ import annotations
 
@@ -115,27 +117,30 @@ QWEN2_SPECIAL_TOKENS = {"<|endoftext|>": 151643, "<|im_start|>": 151644, "<|im_e
                         "<|video_pad|>": 151656}
 
 
-def _word_tokenizer(words: Sequence[str], specials: dict, pad_token: str):
+def _word_tokenizer(words: Sequence[str], specials: dict, pad_token: str, **named):
     """A ``transformers`` fast tokenizer over ``words``: a whitespace-split
-    WordLevel model (``<unk>`` at 0, the words from 1, reserved tokens up to
-    the last special id, so the vocabulary has no holes) with ``specials``
-    pinned to their ids as special tokens and ``pad_token`` (one of them)
-    as its pad token."""
+    WordLevel model with ``specials`` pinned to their ids as special tokens
+    (``<unk>`` at 0 unless ``specials`` places it), the words at the lowest
+    free ids, reserved tokens filling the rest up to the last id (so the
+    vocabulary has no holes), ``pad_token`` (one of ``specials``) as its pad
+    token and ``named`` (``bos_token=``, ...) naming others."""
     from tokenizers import Tokenizer, models, pre_tokenizers
     from transformers import PreTrainedTokenizerFast
 
-    vocab = {"<unk>": 0}
-    for w in words:
-        vocab.setdefault(w, len(vocab))
-    ids = sorted(specials.values())
-    if ids[0] < len(vocab):
-        raise ValueError(f"{len(vocab)} words reach the first special id {ids[0]}")
-    vocab.update({f"<|reserved_{i}|>": i for i in range(len(vocab), ids[-1] + 1) if i not in ids})
+    vocab = {"<unk>": 0} if "<unk>" not in specials else {}
     vocab.update(specials)
+    taken = set(vocab.values())
+    free = (i for i in range(len(vocab) + len(words) + len(taken)) if i not in taken)
+    for w in words:
+        if w not in vocab:
+            vocab[w] = next(free)
+    used = set(vocab.values())
+    vocab.update({f"<|reserved_{i}|>": i for i in range(max(used) + 1) if i not in used})
     tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
     tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
-    return PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="<unk>", pad_token=pad_token,
-                                   additional_special_tokens=[t for t in specials if t != pad_token])
+    return PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="<unk>", pad_token=pad_token, **named,
+                                   additional_special_tokens=[t for t in specials
+                                                              if t not in (pad_token, "<unk>", *named.values())])
 
 
 def qwen_word_tokenizer(words: Sequence[str]):
@@ -159,6 +164,12 @@ def idefics3_word_tokenizer(words: Sequence[str]):
     return _word_tokenizer(words, IDEFICS3_SPECIAL_TOKENS, "<pad>")
 
 
+def _hf_number(v):
+    """An integral float as an int, as HF's configs write their integer
+    fields (a recent ``transformers`` checks the fields' types)."""
+    return int(v) if isinstance(v, float) and v.is_integer() else v
+
+
 def qwen_hf_config(config) -> dict:
     """The HF ``config.json`` of a ``Qwen2VLConfig`` or ``Qwen25VLConfig``:
     the vision fields under ``vision_config``, the text fields at the top
@@ -167,7 +178,7 @@ def qwen_hf_config(config) -> dict:
     text = {k: v for k, v in dataclasses.asdict(config.text).items() if k not in ("mrope_section", "head_dim")}
     if config.text.head_dim * config.text.num_attention_heads != config.text.hidden_size:
         raise ValueError("an HF Qwen2 config implies head_dim = hidden_size / num_attention_heads")
-    vision = {k: list(v) if isinstance(v, tuple) else int(v) if isinstance(v, float) and v.is_integer() else v
+    vision = {k: list(v) if isinstance(v, tuple) else _hf_number(v)
               for k, v in dataclasses.asdict(config.vision).items()}  # "mlp_ratio": 4, as HF writes it
     return {"model_type": "qwen2_5_vl" if qwen25 else "qwen2_vl",
             "architectures": ["ColQwen2_5" if qwen25 else "ColQwen2"], "vision_config": vision, **text,
@@ -271,3 +282,68 @@ def idefics3_training_examples(n: int, tile: int = 64, negatives: int = 0, seed:
     return [{"query": IDEFICS3_TRAIN_QUERIES[i % len(IDEFICS3_TRAIN_QUERIES)], "pos_target": pages[i],
              **({"neg_target": pages[n + negatives * i: n + negatives * (i + 1)]} if negatives else {})}
             for i in range(n)]
+
+
+# Gemma3's special tokens at the ids of scripts/gate_families.py's synthetic tokenizer; ``<image_soft_token>``
+# moves to the model config's ``image_token_index`` (262,144 in Gemma3-4B)
+GEMMA3_SPECIAL_TOKENS = {"<pad>": 0, "<unk>": 1, "<bos>": 2, "<eos>": 3, "<start_of_turn>": 4, "<end_of_turn>": 5,
+                         "<start_of_image>": 6, "<image_soft_token>": 7, "<end_of_image>": 8}
+GEMMA3_PROMPT_WORDS = ("user", "Describe", "this", "image", "Query:")
+
+
+def gemma3_word_tokenizer(words: Sequence[str], image_token_id: int = 7):
+    """:func:`_word_tokenizer` with :data:`GEMMA3_SPECIAL_TOKENS`
+    (``<image_soft_token>`` at ``image_token_id``), ``<pad>``, ``<bos>``
+    and ``<eos>`` named, over the chat template's words and ``words``."""
+    specials = {**GEMMA3_SPECIAL_TOKENS, "<image_soft_token>": image_token_id}
+    return _word_tokenizer([*GEMMA3_PROMPT_WORDS, *words], specials, "<pad>", bos_token="<bos>", eos_token="<eos>")
+
+
+def gemma3_hf_config(config) -> dict:
+    """The HF ``config.json`` of a ``Gemma3Config``, laid out as
+    ``scripts/gate_families.py`` writes it: ``vision_config`` (no pooling
+    head), ``text_config`` with the linear ``rope_scaling``,
+    ``mm_tokens_per_image`` and ``image_token_index``."""
+    text = {k: _hf_number(v) for k, v in dataclasses.asdict(config.text).items()
+            if k != "rope_scaling_factor" and v is not None}
+    if config.text.layer_types is not None:
+        text["layer_types"] = list(config.text.layer_types)
+    return {"model_type": "gemma3", "architectures": ["ColGemma3"],
+            "vision_config": {**{k: _hf_number(v) for k, v in dataclasses.asdict(config.vision).items()},
+                              "vision_use_head": False},
+            "text_config": {**text, "rope_scaling": {"rope_type": "linear",
+                                                     "factor": float(config.text.rope_scaling_factor)}},
+            "mm_tokens_per_image": config.mm_tokens_per_image, "image_token_index": config.image_token_index}
+
+
+def write_gemma3_checkpoint(directory: str, config, seed: int = 0, words: Sequence[str] = (),
+                            device="cuda") -> None:
+    """A ColGemma3 of ``config`` with seeded random bf16 weights (HF's
+    convention, :func:`~colpali_tpu_torch.models.common.hf_init_`, and the
+    raw ``mm_input_projection`` from normal(0, 0.02) too), built on
+    ``device``, as an HF-format checkpoint in ``directory``:
+    ``model.safetensors`` by the port's exporter, ``config.json``
+    (:func:`gemma3_hf_config`), ``preprocessor_config.json`` (the tower's
+    image size, mean and std 0.5), ``processor_config.json``
+    (``image_seq_length``) and :func:`gemma3_word_tokenizer`'s files over
+    ``words``."""
+    from colpali_tpu_torch.models.common import hf_init_
+    from colpali_tpu_torch.models.gemma3 import ColGemma3
+    from colpali_tpu_torch.training.checkpointing import save_pretrained
+
+    model = ColGemma3(config, device=device, dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    hf_init_(model, gen)
+    with torch.no_grad():
+        model.model.mm_input_projection.normal_(0.0, 0.02, generator=gen)
+    save_pretrained(directory, model.state_dict(), config=config)
+    del model
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(gemma3_hf_config(config), f)
+    size = config.vision.image_size
+    with open(os.path.join(directory, "preprocessor_config.json"), "w") as f:
+        json.dump({"size": {"height": size, "width": size}, "image_mean": [0.5, 0.5, 0.5],
+                   "image_std": [0.5, 0.5, 0.5]}, f)
+    with open(os.path.join(directory, "processor_config.json"), "w") as f:
+        json.dump({"image_seq_length": config.mm_tokens_per_image}, f)
+    gemma3_word_tokenizer(words, config.image_token_index).save_pretrained(directory)

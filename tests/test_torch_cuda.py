@@ -1159,3 +1159,105 @@ def test_colsmol_lora_step_on_card_matches_cpu_route(dev, tmp_path):
     cos = (grad @ cpu_grad / (grad.norm() * cpu_grad.norm())).item()
     assert np.isfinite(loss) and abs(loss - cpu_loss) <= 1e-2 * abs(cpu_loss), (loss, cpu_loss)
     assert cos >= 0.99, cos
+
+
+# -- Gemma3: SigLIP at 896 px (K6 at D=72, S=4,096) and the biased text attention ------------------------------------
+
+GEMMA3_VISION_CASES = [
+    # b, s, h, key padding (valid lengths of the rows)
+    (2, 4096, 16, None),  # the tower over two pages at 896 px (a batch of 8 in chip_smoke.py)
+    (2, 4096, 16, (4096, 3001)),  # the same with padded keys and rows, past the 2,976 tested before
+]
+
+
+@pytest.mark.parametrize("b,s,h,lengths", GEMMA3_VISION_CASES)
+def test_k6_at_gemma3_vision_shape_matches_plain_and_is_bit_equal(dev, b, s, h, lengths):
+    """K6 at D=72 and S=4,096 (Gemma3-4B's SigLIP-So400m over 64 x 64
+    patches) against its plain version by K6's rule, two calls bit-equal."""
+    from colpali_tpu_torch.ops import flash_attention as fa
+
+    d = 72
+    g = _gen(dev, s + d)
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    seg = torch.ones((b, s), dtype=torch.int32, device=dev)
+    if lengths is not None:
+        seg = (torch.arange(s, device=dev)[None] < torch.tensor(lengths, device=dev)[:, None]).to(torch.int32)
+    before = fa.FORWARD_LAUNCHES_BY_HEAD_DIM[72]
+    got = flash_attention(q, k, v, seg, d**-0.5)
+    again = flash_attention(q, k, v, seg, d**-0.5)
+    assert fa.FORWARD_LAUNCHES_BY_HEAD_DIM[72] == before + 2 and torch.equal(got, again)
+    _assert_k6_close(got, flash_attention_plain(q, k, v, seg, d**-0.5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_chunk", [None, 96])
+def test_biased_attention_on_card_matches_cpu(dev, dtype, q_chunk):
+    """The biased text attention (``models.layers.biased_attention``, no
+    kernel) on the card against the same call on the CPU, over Gemma3's
+    bias (a sliding window, image blocks, left padding) at Gemma3-4B's
+    heads (8/4 x 256): fp32 at atol 1e-5 (sums in another order), bf16
+    within two bf16 ulps of the output's scale."""
+    from colpali_tpu_torch.models.gemma3 import gemma3_attention_bias
+    from colpali_tpu_torch.models.layers import biased_attention
+
+    b, s, h, hkv, d = 4, 280, 8, 4, 256
+    g = torch.Generator().manual_seed(14)
+    q, k, v = (torch.randn((b, s, n, d), generator=g).to(dtype) for n in (h, hkv, hkv))
+    mask = (torch.arange(s)[None] >= torch.tensor([0, 5, 17, 40])[:, None]).to(torch.int32)
+    image = torch.zeros((b, s), dtype=torch.bool)
+    for row, start in enumerate((4, 9, 21, 44)):  # a block of 200 image tokens at each row's own offset
+        image[row, start:start + 200] = True
+    bias = gemma3_attention_bias(mask, image, 64)
+    want = biased_attention(q, k, v, bias, 256**-0.5, q_chunk)
+    got = biased_attention(q.to(dev), k.to(dev), v.to(dev), bias.to(dev), 256**-0.5, q_chunk).cpu()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    else:
+        scale = want.float().abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2, atol=1.6e-2 * scale)
+
+
+def test_colgemma3_forward_on_card_matches_plain_route(dev):
+    """A small ColGemma3 (SigLIP at head dim 72: 2 layers of 144 wide over
+    112 px pages; 2 text layers, 4/2 heads of 64, a window of 8) in bf16 on
+    the card, through K6 and through its plain version: per-token cosine
+    mean >= 0.998, min >= 0.995; K6 launches one a vision layer at D=72 for
+    pages and none for queries (the text attention is biased)."""
+    from unittest import mock
+
+    from colpali_tpu_torch.models.configs import SiglipVisionConfig
+    from colpali_tpu_torch.models.gemma3 import ColGemma3, Gemma3Config, Gemma3TextConfig
+    from colpali_tpu_torch.models.common import hf_init_
+    from colpali_tpu_torch.ops import flash_attention as fa
+    from colpali_tpu_torch.processors.gemma3 import ColGemma3Processor
+    from colpali_tpu_torch.utils.testing import gemma3_word_tokenizer
+
+    cfg = Gemma3Config(
+        vision=SiglipVisionConfig(hidden_size=144, intermediate_size=288, num_hidden_layers=2, num_attention_heads=2,
+                                  image_size=112, patch_size=14),
+        text=Gemma3TextConfig(vocab_size=128, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+                              num_attention_heads=4, num_key_value_heads=2, head_dim=64, query_pre_attn_scalar=48.0,
+                              sliding_window=8, sliding_window_pattern=2, rope_scaling_factor=2.0),
+        mm_tokens_per_image=16, image_token_index=7)
+    model = ColGemma3(cfg, device=dev, dtype=torch.bfloat16).eval()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    hf_init_(model, gen)
+    with torch.no_grad():
+        model.model.mm_input_projection.normal_(0.0, 0.02, generator=gen)
+    queries = ["what is the total revenue ?", "a", "find the quarterly report"]
+    proc = ColGemma3Processor(gemma3_word_tokenizer(" ".join(queries).split()), image_size=112, image_seq_length=16,
+                              device=dev)
+    pages = [np.random.default_rng(i).integers(0, 256, size=(150 + 20 * i, 120, 3), dtype=np.uint8) for i in range(3)]
+    for batch, launches in ((proc.process_images(pages, device_pixels=True), cfg.vision.num_hidden_layers),
+                            (proc.process_queries(queries), 0)):
+        feed = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        before = fa.FORWARD_LAUNCHES_BY_HEAD_DIM[72]
+        with torch.inference_mode():
+            got = model(**feed).float()
+            assert fa.FORWARD_LAUNCHES_BY_HEAD_DIM[72] == before + launches
+            with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
+                want = model(**feed).float()
+        valid = feed["attention_mask"].bool()
+        cos = torch.nn.functional.cosine_similarity(got[valid], want[valid], dim=-1)
+        assert torch.isfinite(got).all() and cos.mean() >= 0.998 and cos.min() >= 0.995, (cos.mean(), cos.min())

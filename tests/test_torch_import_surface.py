@@ -5,7 +5,7 @@ package to the other is a change of the import).
   has, and that module defines, is exported at the same path of the port
   (the same object). Modules not ported yet, and names of ported modules
   that wait (JAX's functional LoRA, ``BiQwen3Processor``), are skipped.
-- The ``_target_``s of the six training recipes resolve in the port
+- The ``_target_``s of the eight training recipes resolve in the port
   (``configs._resolve`` reads ``colpali_tpu.`` as ``colpali_tpu_torch.``), all but
   ``utils.dataset_loading.load_train_set`` (ROADMAP.md Queue 1 item 9);
   ``load_config``, which ``python -m colpali_tpu_torch.train`` calls,
@@ -49,10 +49,12 @@ def test_every_ported_name_is_exported_where_the_reference_exports_it():
         assert getattr(importlib.import_module(_port_name(package)), name) is \
             getattr(importlib.import_module(_port_name(module)), name), f"{_port_name(package)}.{name}"
         exported += 1
-    assert exported >= 80
+    assert exported >= 89
     from colpali_tpu_torch import load_retriever as top  # noqa: F401
     from colpali_tpu_torch.models import BiIdefics3, BiPaliProj, ColIdefics3, ColQwen2_5  # noqa: F401
-    from colpali_tpu_torch.processors import BiQwen2_5_Processor, ColIdefics3Processor  # noqa: F401
+    from colpali_tpu_torch.models import BiGemma3, ColGemma3, Gemma3Backbone, Gemma3Config  # noqa: F401
+    from colpali_tpu_torch.processors import BiGemma3Processor, BiGemmaProcessor3, ColGemma3Processor  # noqa: F401
+    from colpali_tpu_torch.processors import BiQwen2_5_Processor, ColGemmaProcessor3, ColIdefics3Processor  # noqa: F401
     from colpali_tpu_torch.training import ColModelTraining, ColModelTrainingConfig, LoraSpec, TrainConfig  # noqa: F401
 
 
@@ -68,7 +70,8 @@ def _targets(node):
 
 
 @pytest.mark.parametrize("recipe", ["train_colpali.yaml", "train_colqwen2.yaml", "train_colqwen2_5.yaml",
-                                    "train_colidefics3.yaml", "train_bipali.yaml", "train_biidefics3.yaml"])
+                                    "train_colidefics3.yaml", "train_bipali.yaml", "train_biidefics3.yaml",
+                                    "train_colgemma3.yaml", "train_bigemma3.yaml"])
 def test_recipe_targets_resolve_in_the_port(recipe):
     targets = sorted(set(_targets(yaml.safe_load((REPO / "configs" / recipe).read_text()))))
     missing = []
