@@ -4,9 +4,10 @@
 The serving path runs for ColPali-3B (phases 3, 4 and 7), for the
 Qwen2-VL family, ColQwen2.5-3B and ColQwen2-2B (phase 8), for the
 Idefics3/SmolVLM family, colSmol-256M, with the single-vector Bi models
-(phase 10), and for the Gemma3 family, Gemma3-4B (phase 12); training for
-ColPali-3B (phase 5), the Qwen2-VL family (phase 9), the Idefics3 family
-with the Bi models (phase 11) and the Gemma3 family (phase 13).
+(phase 10), for the Gemma3 family, Gemma3-4B (phase 12), and for the
+Qwen3-VL family, Qwen3-VL-4B (phase 14); training for ColPali-3B (phase 5),
+the Qwen2-VL family (phase 9), the Idefics3 family with the Bi models
+(phase 11), the Gemma3 family (phase 13) and the Qwen3-VL family (phase 15).
 
 Run from the repository root with no arguments:
 
@@ -97,9 +98,9 @@ Phases (a few lines of output each, then two JSON lines):
 8. the Qwen2-VL family (after phase 7): Q1a/Q1b bit-equal to their plain
    versions at every (K, N) of ColQwen2.5-3B's and ColQwen2-2B's quantized
    projections (K 1,176 and 3,420 among them, in rows padded to 16 bytes)
-   and timed; ColQwen2.5-3B at full width (vision 32 x 1,280 with 112 px
-   windows, text 36 x 2,048, 16/2 heads; 3.755 B seeded random bf16
-   parameters) written as an HF checkpoint with a word-level tokenizer at
+   and timed; ColQwen2.5-3B at full width cut in depth (vision 8 x 1,280
+   of 32 with 112 px windows and block 7 full, text 9 x 2,048 of 36, 16/2
+   heads; seeded random bf16 parameters) written as an HF checkpoint with a word-level tokenizer at
    Qwen2's special ids and read back by ``load_retriever(family=
    "colqwen2_5")`` in bf16 and with ``quantize=True``; K6 against its plain
    version at the family's shapes (the vision tower full and windowed, the
@@ -111,8 +112,8 @@ Phases (a few lines of output each, then two JSON lines):
    and ``serve.py --checkpoint --family colqwen2_5`` answering one; the K6
    route against the plain route and stored int8 against bf16 per token;
    one forward of 8 pages (CUDA events) and encode x1/x8 in turns, a
-   profile of each; then ColQwen2-2B at full width through
-   ``load_retriever(family="colqwen2")`` and its route check;
+   profile of each; then ColQwen2-2B at full width cut to 8 + 7 layers
+   through ``load_retriever(family="colqwen2")`` and its route check;
 9. Qwen training (after phase 8, on its ColQwen2.5-3B checkpoint): K6's
    backward at D=128 (the decoders over the pages' prompts, causal GQA
    16/2 and 12/2 with left padding, and over the collated queries) and at
@@ -121,15 +122,15 @@ Phases (a few lines of output each, then two JSON lines):
    and its bound; ColQwen2.5-3B read by ``load_retriever(remat=True)``
    taking 4 LoRA steps through ``ColModelTraining`` (``ColbertLoss(
    temperature=0.02)``, rank 32, alpha 32, dropout 0.1, batch 8 over 32
-   pages) with every adapter moving and the base bit-equal, 72 backward
-   launches a step all at D=128, one step's loss and adapter gradient
+   pages) with every adapter moving and the base bit-equal, 18 backward
+   launches a step (2 x 9 layers) all at D=128, one step's loss and adapter gradient
    against the plain route, ``evaluate()`` over 16 held-out pages (bf16
    index, K5), the merged export read back by ``load_retriever(family=
    "colqwen2_5")`` (embeddings bit-equal to the merged weights in memory)
    and served through ``/search_text``, a run resumed from step 2
    repeating step 3's loss, a step timed with and without remat; the same
    model over a stored-int8 frozen vision tower (``quantize_frozen_base``:
-   2 steps, 227 Q1b launches a step, no gradient through it, the export
+   2 steps, 59 Q1b launches a step, no gradient through it, the export
    holding ``q * scale``, a step timed); ColQwen2-2B's 2 LoRA steps and its
    route check; one full fine-tuning step of ColQwen2.5 at full width cut
    to 4 vision blocks and 2 text layers (batch 8), through the D=80
@@ -181,19 +182,19 @@ Phases (a few lines of output each, then two JSON lines):
    full width cut to 2 + 2 layers, one LoRA step each through
    ``ColModelTraining`` against the plain route.
 12. the Gemma3 family (after phase 11): Gemma3-4B at its published widths
-   (SigLIP-So400m at 896 px, 27 x 1,152, 16 heads of 72, 4,096 patches
-   pooled 4 x 4 to 256 soft tokens; the text decoder 34 x 2,560, 8/4 heads
-   of 256, MLP 10,240, vocab 262,208, a window of 1,024 on 5 layers of 6;
-   4.3 B seeded random bf16 parameters) written by
+   cut in depth (SigLIP-So400m at 896 px, 9 x 1,152 of 27, 16 heads of 72,
+   4,096 patches pooled 4 x 4 to 256 soft tokens; the text decoder 12 x
+   2,560 of 34, 8/4 heads of 256, MLP 10,240, vocab 262,208, a window of
+   1,024 on 5 layers of 6; seeded random bf16 parameters) written by
    ``utils.testing.write_gemma3_checkpoint`` with a word-level tokenizer
    holding Gemma3's special tokens and read back by
    ``load_retriever(family="colgemma3")`` in bf16 and with
-   ``quantize=True`` (400 stored-int8 layers); K6 at the tower's shape (B=8,
+   ``quantize=True`` (138 stored-int8 layers); K6 at the tower's shape (B=8,
    S=4,096, H=16, D=72) against its plain version, bit-equal on a second
    call, beside SDPA masked and unmasked; the biased text attention (no
    kernel, as in JAX) timed beside SDPA; Q1a/Q1b bit-equal to their plain
    versions at the (M, K, N) of a page forward and the query forwards and
-   timed; 27 K6 launches a page forward and none a query forward; 16 seeded
+   timed; 9 K6 launches a page forward and none a query forward; 16 seeded
    pages through ``embed_dataset`` on both models, a 4,096-doc two-tier int8
    index at the pages' token count behind ``make_handler`` for each, the 4
    planted pages at rank 1 on the tiered and the exact route of
@@ -207,13 +208,54 @@ Phases (a few lines of output each, then two JSON lines):
    ``load_retriever(family="colgemma3", remat=True)`` and trained through
    ``ColModelTraining`` from ``configs/train_colgemma3.yaml`` (its
    ``ColbertLoss(temperature=0.02)`` and LoRA through
-   ``configs.instantiate``; batch 8, 4 steps over 32 pages): 27 K6 forward
+   ``configs.instantiate``; batch 8, 4 steps over 32 pages): 9 K6 forward
    launches a step (the frozen tower) and no backward (the text attention
    is biased), none through the plain version; one step against the plain
    route, ``evaluate()`` over 16 pages (bf16 index, K5), the merged export
    read back by ``load_retriever`` and served, a step with and without
    remat and a profile of one, one step over a stored-int8 frozen vision
-   tower (162 layers); BiGemma3 from ``train_bigemma3.yaml``, 2 steps.
+   tower (54 layers); BiGemma3 from ``train_bigemma3.yaml``, 2 steps.
+14. the Qwen3-VL family (after phase 13): Qwen3-VL-4B at its published
+   widths (vision 27 x 1,152, 16 heads of 72, 16 px patches, a 48 x 48
+   learned position table read by four bilinear taps a patch, deepstack
+   mergers after blocks 8, 16 and 24; text 36 x 2,560, 32/8 heads of 128,
+   MLP 9,728, interleaved M-RoPE; a 320-wide head; 4.571 B seeded random bf16
+   parameters) written by ``utils.testing.write_qwen3_checkpoint`` and read
+   back by ``load_retriever(family="colqwen3")`` in bf16 and with
+   ``quantize=True`` (423 stored-int8 layers); K6 at the path's shapes (the
+   tower over 8 pages, B=8 S=2,976 D=72 with the patch mask; the decoder,
+   causal GQA 32/8 at D=128 with left padding; the queries) against its
+   plain version, bit-equal on a second call, beside SDPA masked and
+   unmasked; Q1a/Q1b bit-equal to their plain versions at the (M, K, N) of a
+   page forward and the query forwards and timed; 27 + 36 K6 launches a page
+   forward, 36 a query forward; 16 seeded pages (744 merged tokens each)
+   through ``embed_dataset`` on both models, a 4,112-doc two-tier int8 index
+   320 wide behind ``make_handler`` for each, the 4 planted pages at rank 1
+   on the tiered and the exact route of ``/search_text``, ``serve.py
+   --checkpoint --family colqwen3`` answering one, no K6 launch through its
+   plain version; K1-K3 against plain on both indexes; K3 and K10 at D=320
+   (the served sweep, B=8 Nq=64 over the int8 page index, and B=1 Nq=32 over
+   a 262,144-doc x 64-token corpus) against K3's plain version, bit-equal on
+   a second call and to each other, timed beside their bound; the K6 route
+   against the plain route and stored int8 against bf16 per token; an 8-page
+   forward and encode x1/x8 timed in turns, two profiles; BiQwen3 at full
+   width through both routes, its processor's ``score`` and against fp32.
+15. Qwen3-VL training (after phase 14, on its checkpoint): K6's backward at
+   the decoder's shapes (causal GQA 32/8 at D=128 over the pages' prompts
+   with left padding and over the collated queries) against its plain
+   version per query row, bit-equal on a second call, beside SDPA's
+   backward; Qwen3-VL-4B read by ``load_retriever(family="colqwen3",
+   remat=True)`` and trained through ``ColModelTraining`` from
+   ``configs/train_colqwen3.yaml`` (its ``ColbertLoss(temperature=0.02)`` and
+   LoRA r32 through ``configs.instantiate``; batch 8, 4 steps over 32 pages):
+   72 K6 backward launches a step, all at D=128, none through the plain
+   version, step 1's loss at least 0.05 from ln 8; one step against the
+   plain route, ``evaluate()`` over 16 pages (a 320-wide bf16 index, K5),
+   the merged export read back by ``load_retriever`` and served, a run
+   resumed from step 2 repeating step 3's loss, a step with and without
+   remat and a profile of one, one step over a stored-int8 frozen vision
+   tower (171 layers, the deepstack mergers among them); one BiQwen3 LoRA
+   step at full width cut to 2 + 2 layers.
    Each phase from 8 on logs the GiB held on the card as it starts; every
    phase's seconds are logged as it ends and listed in the JSON line.
 
@@ -233,6 +275,7 @@ launches on its slice's path; the last line is ``{"ok": true, "device": {...}}``
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import re
@@ -1392,8 +1435,8 @@ def bf16_index_check(device: torch.device, docs: list, planted: list, queries: l
 
 
 def served_queries(embs: list, device: torch.device) -> torch.Tensor:
-    """Query embeddings as a served sweep takes them: (B, SERVED_TOKENS, DIM) fp32, zero-padded."""
-    q = torch.zeros((len(embs), SERVED_TOKENS, DIM), device=device)
+    """Query embeddings as a served sweep takes them: (B, SERVED_TOKENS, D) fp32, zero-padded."""
+    q = torch.zeros((len(embs), SERVED_TOKENS, embs[0].shape[1]), device=device)
     for i, e in enumerate(embs):
         q[i, : e.shape[0]] = torch.from_numpy(e)
     return q
@@ -1405,8 +1448,9 @@ def hold_k123(index, q: torch.Tensor) -> dict:
     rerank of its top CANDIDATES, and the exact int8 sweep over ``q`` twice
     (B = 2 len(q)). Returns each kernel's max abs error and the operands."""
     qw, qv = binarize_words(q)
-    coarse = binary_maxsim_tiled(qw, qv, index._bwords, DIM)
-    k1_err = (coarse - binary_maxsim_tiled_plain(qw, qv, index._bwords, DIM)).abs().max().item()
+    d = q.shape[-1]
+    coarse = binary_maxsim_tiled(qw, qv, index._bwords, d)
+    k1_err = (coarse - binary_maxsim_tiled_plain(qw, qv, index._bwords, d)).abs().max().item()
     if k1_err != 0.0:
         raise AssertionError(f"K1 differs from its plain version at Np={index.doc_tokens}: {k1_err}")
     _, cand = top_k(coarse[:, : index.num_docs], CANDIDATES)
@@ -2533,7 +2577,10 @@ def phase_stored_int8(device: torch.device, model, processor, smi: str) -> tuple
 # Published widths: Qwen2.5-VL-3B (Qwen/Qwen2.5-VL-3B-Instruct config.json: vision 32 x 1,280, 16 heads, MLP 3,420,
 # 112 px windows, full attention in blocks 7/15/23/31, out 2,048; text 36 x 2,048, 16/2 heads x 128, MLP 11,008) and
 # Qwen2-VL-2B (Qwen/Qwen2-VL-2B-Instruct: vision 32 x 1,280, quick_gelu MLP 5,120, out 1,536; text 28 x 1,536,
-# 12/2 heads x 128, MLP 8,960); vocab 151,936. Weights are random, from SEED
+# 12/2 heads x 128, MLP 8,960); vocab 151,936. Weights are random, from SEED. Phases 8-9 run them cut in depth, to
+# keep the script's time with phases 14-15: ColQwen2.5-3B to 8 vision blocks (block 7 full
+# attention, the published one in 8) and 9 text layers, ColQwen2-2B to 8 and 7
+QWEN25_DEPTHS, QWEN2_DEPTHS = (8, 9), (8, 7)  # (vision blocks, text layers); published (32, 36) and (32, 28)
 QWEN_PAGES = 16  # two batches of 8
 QWEN_PLANTED = (1, 6, 10, 13)  # pages whose docs also hold QUERIES[i]'s tokens, i = 0..3
 QWEN_FILLER_DOCS = 4_096
@@ -2542,9 +2589,6 @@ Q1_QWEN25_SHAPES = ((1176, 1280), (1280, 1280), (1280, 3420), (3420, 1280), (512
                     (2048, 2048), (2048, 11008), (11008, 2048))  # patch embed, q/k/v/o, gate/up, down, merger; text
 Q1_QWEN2_SHAPES = ((1280, 5120), (5120, 1280), (5120, 1536), (1536, 1536), (1536, 8960), (8960, 1536))
 Q1_QWEN2_ROWS = (1, 17, 256)  # ColQwen2-2B runs in bf16 in phase 8: its other (K, N) are held at these M
-# ColQwen2.5-3B's stored-int8 layers: the patch embedding, 32 x 7 in the vision blocks, the merger's 2, 36 x 5 in
-# the text layers (their k/v, 2,048 -> 256, and the 128-d head stay bf16)
-QWEN25_STORED_LAYERS = 1 + 32 * 7 + 2 + 36 * 5
 
 
 def q1_path_shapes(model, run) -> list:
@@ -2568,14 +2612,22 @@ def q1_path_shapes(model, run) -> list:
 
 
 def qwen_configs():
-    """Full-width ColQwen2.5-3B and ColQwen2-2B configs."""
+    """ColQwen2.5-3B and ColQwen2-2B at their published widths, cut to :data:`QWEN25_DEPTHS` and
+    :data:`QWEN2_DEPTHS`."""
     from colpali_tpu_torch.models.qwen2_5_vl import Qwen25VLConfig, Qwen25VLVisionConfig
     from colpali_tpu_torch.models.qwen2_vl import Qwen2TextConfig, Qwen2VLConfig, Qwen2VLVisionConfig
 
-    qwen25 = Qwen25VLConfig(vision=Qwen25VLVisionConfig(), text=Qwen2TextConfig(
-        hidden_size=2048, intermediate_size=11008, num_hidden_layers=36, num_attention_heads=16,
-        num_key_value_heads=2))
-    return qwen25, Qwen2VLConfig(vision=Qwen2VLVisionConfig(), text=Qwen2TextConfig())
+    (v25, t25), (v2, t2) = QWEN25_DEPTHS, QWEN2_DEPTHS
+    qwen25 = Qwen25VLConfig(vision=Qwen25VLVisionConfig(depth=v25, fullatt_block_indexes=(v25 - 1,)),
+                            text=Qwen2TextConfig(hidden_size=2048, intermediate_size=11008, num_hidden_layers=t25,
+                                                 num_attention_heads=16, num_key_value_heads=2))
+    return qwen25, Qwen2VLConfig(vision=Qwen2VLVisionConfig(depth=v2), text=Qwen2TextConfig(num_hidden_layers=t2))
+
+
+def qwen25_stored_layers(cfg) -> int:
+    """ColQwen2.5's stored-int8 layers: the patch embedding, 7 a vision block, the merger's 2, 5 a text layer (its
+    k/v, 2,048 -> 256, and the 128-d head stay bf16)."""
+    return 1 + cfg.vision.depth * 7 + 2 + cfg.text.num_hidden_layers * 5
 
 
 def qwen_tokenizer():
@@ -2709,9 +2761,9 @@ def phase_qwen(device: torch.device, smi: str, ckpt: str) -> tuple:
             f"x {cfg25.text.head_dim}, vocab {cfg25.text.vocab_size}): {n_params / 1e9:.3f} B params; HF checkpoint "
             f"written in {t_write:.1f} s, load_retriever {t_bf16:.1f} s (bf16), {t_int8:.1f} s (quantize=True: "
             f"{stored} stored-int8 layers, {bytes_int8 / 1e9:.3f} GB against {bytes_bf16 / 1e9:.3f} GB)")
-        if stored != QWEN25_STORED_LAYERS:
+        if stored != qwen25_stored_layers(cfg25):
             raise AssertionError(f"load_retriever(quantize=True): {stored} stored-int8 layers, expected "
-                                 f"{QWEN25_STORED_LAYERS}")
+                                 f"{qwen25_stored_layers(cfg25)}")
         encoders = {"bf16": QueryEncoder(model, processor), "int8": QueryEncoder(qmodel, qproc)}
         for enc in encoders.values():
             enc.warmup()
@@ -3060,7 +3112,8 @@ def hold_routes(name: str, state, batch, recipe_loss, peft, probe=None) -> dict:
     return out
 
 
-def export_readback(device: torch.device, export_dir: str, merged: dict, config, cls, family: str, name: str) -> dict:
+def export_readback(device: torch.device, export_dir: str, merged: dict, config, cls, family: str, name: str,
+                    dim: int = DIM) -> dict:
     """The merged export read back by ``load_retriever(family=family)``:
     its query and page embeddings equal those of a fresh ``cls`` holding the
     merged weights as they were in memory, bit for bit; its
@@ -3076,7 +3129,7 @@ def export_readback(device: torch.device, export_dir: str, merged: dict, config,
 
     t0 = time.perf_counter()
     back, proc = load_retriever(export_dir, family=family, device=device)
-    in_memory = cls(config, dim=DIM, device=device, dtype=torch.bfloat16).eval()
+    in_memory = cls(config, dim=dim, device=device, dtype=torch.bfloat16).eval()
     in_memory.load_state_dict(merged)
     del merged
     t_load = time.perf_counter() - t0
@@ -3792,6 +3845,24 @@ def smol_dataset(n: int, seed: int, first: int = 0):
                                  for i, page in enumerate(make_pages(n, seed))])
 
 
+def recipe_config(name: str, out: str, model, processor, train_set, train_config, device: torch.device,
+                  **overrides) -> dict:
+    """``configs/<name>``'s ``config`` tree built by the port, with the nodes
+    that name files absent here (checkpoint, processor, datasets) and the
+    run's size replaced: ``ColModelTrainingConfig``'s arguments."""
+    import os
+
+    import yaml
+
+    from colpali_tpu_torch.configs import instantiate
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", name)) as f:
+        node = yaml.safe_load(f)["config"]
+    node.update(model=model, processor=processor, params=None, train_datasets=[train_set], output_dir=out,
+                global_batch_size=TRAIN_BATCH, log_steps=1, train=train_config, seed=SEED, device=device, **overrides)
+    return instantiate(node)
+
+
 def smol_bwd_cases(device: torch.device, batch: dict, cfg) -> dict:
     """K6's backward at D=64 where colSmol's training puts it: the decoder
     over the pages' prompts (causal GQA 9/3, rows right-padded by 0-56,
@@ -3922,9 +3993,6 @@ def phase_smol_training(device: torch.device, smi: str) -> tuple:
     import shutil
 
     from colpali_tpu_torch.auto import load_retriever
-    import yaml
-
-    from colpali_tpu_torch.configs import instantiate
     from colpali_tpu_torch.data.collator import VisualRetrieverCollator
     from colpali_tpu_torch.losses import BiEncoderLoss, BiPairwiseCELoss
     from colpali_tpu_torch.models.common import hf_init_
@@ -3941,7 +4009,6 @@ def phase_smol_training(device: torch.device, smi: str) -> tuple:
     held = free_memory("phase colsmol training")
     bi_probe = BiEncoderLoss(temperature=BI_PROBE_TEMPERATURE)
     t_phase = time.perf_counter()
-    recipes = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
     cfg = smol_config()
     t = cfg.text
     train_config = trainer.TrainConfig(learning_rate=QWEN_LR, warmup_steps=0, total_steps=2500)
@@ -3960,16 +4027,7 @@ def phase_smol_training(device: torch.device, smi: str) -> tuple:
         k6_bwd = smol_bwd_cases(device, batch, cfg)
 
         # -- (b) colSmol-256M through ColModelTraining from the recipe ----------------------------------------
-        def recipe(name, out, m, proc, **overrides):
-            """The recipe's ``config`` tree built by the port, with the nodes
-            that name files absent here (checkpoint, processor, datasets)
-            and the run's size replaced."""
-            with open(os.path.join(recipes, name)) as f:
-                node = yaml.safe_load(f)["config"]
-            node.update(model=m, processor=proc, params=None, train_datasets=[train_set], output_dir=out,
-                        global_batch_size=TRAIN_BATCH, log_steps=1, train=train_config, seed=SEED, device=device,
-                        **overrides)
-            return instantiate(node)
+        recipe = functools.partial(recipe_config, train_set=train_set, train_config=train_config, device=device)
 
         def make_app(out, **kw):
             return ColModelTraining(ColModelTrainingConfig(**recipe(
@@ -4209,20 +4267,30 @@ def phase_smol_training(device: torch.device, smi: str) -> tuple:
 GEMMA_PAGES = 16  # two batches of 8
 GEMMA_PLANTED = (1, 6, 10, 13)  # pages whose docs also hold QUERIES[i]'s tokens, i = 0..3
 GEMMA_INDEX_DOCS = 4_096  # the pages and seeded filler docs at the pages' token count
-# Gemma3-4B's stored-int8 layers (JAX's quantize_params over the same tree, tests/test_torch_gemma3.py): 34 x 7
-# text projections (k/v 2,560 -> 1,024 included) and 27 x 6 SigLIP ones; the patch embedding, the raw
-# mm_input_projection, the embeddings and the 128-d head stay bf16
-GEMMA_STORED_LAYERS = 34 * 7 + 27 * 6
 GEMMA_BI_DIM = 768  # BiGemma3's smallest Matryoshka cut
+# phases 12-13 run Gemma3-4B cut in depth, to keep the script's time with phases 14-15: 9 SigLIP layers
+# of 27 and 12 text layers of 34 (two of them global, as every 6th of the published 34)
+GEMMA_DEPTHS = (9, 12)
 
 
 def gemma3_config():
     """Gemma3-4B (``google/gemma-3-4b-it``'s widths, the JAX package's defaults): SigLIP-So400m at 896 px
     (27 x 1,152, 16 heads of 72, 64 x 64 patches pooled to 256 soft tokens), the text decoder 34 x 2,560 (8/4
-    heads of 256, MLP 10,240, vocab 262,208, window 1,024, every 6th layer global)."""
+    heads of 256, MLP 10,240, vocab 262,208, window 1,024, every 6th layer global); cut to :data:`GEMMA_DEPTHS`."""
+    import dataclasses
+
     from colpali_tpu_torch.models.gemma3 import Gemma3Config
 
-    return Gemma3Config()
+    cfg = Gemma3Config()
+    return dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, num_hidden_layers=GEMMA_DEPTHS[0]),
+                               text=dataclasses.replace(cfg.text, num_hidden_layers=GEMMA_DEPTHS[1]))
+
+
+def gemma3_stored_layers(cfg, vision_only: bool = False) -> int:
+    """Gemma3's stored-int8 layers (JAX's quantize_params over the same tree, tests/test_torch_gemma3.py): 6 a
+    SigLIP layer and 7 a text layer (k/v 2,560 -> 1,024 included); the patch embedding, the raw
+    mm_input_projection, the embeddings and the 128-d head stay bf16."""
+    return cfg.vision.num_hidden_layers * 6 + (0 if vision_only else cfg.text.num_hidden_layers * 7)
 
 
 def biased_attention_case(gen: torch.Generator, device: torch.device, feed: dict, cfg) -> dict:
@@ -4313,9 +4381,9 @@ def phase_gemma3(device: torch.device, smi: str, ckpt: str) -> tuple:
         f"{n_params / 1e9:.3f} B params; HF checkpoint written in {t_write:.1f} s, load_retriever {t_bf16:.1f} s "
         f"(bf16), {t_int8:.1f} s (quantize=True: {stored} stored-int8 layers, {bytes_int8 / 1e9:.3f} GB against "
         f"{bytes_bf16 / 1e9:.3f} GB)")
-    if stored != GEMMA_STORED_LAYERS:
+    if stored != gemma3_stored_layers(cfg):
         raise AssertionError(f"load_retriever(quantize=True): {stored} stored-int8 layers, expected "
-                             f"{GEMMA_STORED_LAYERS}")
+                             f"{gemma3_stored_layers(cfg)}")
     batch = pages[:PAGE_BATCH]
     feed = {k: torch.as_tensor(x).to(device) for k, x in processor.process_images(batch, device_pixels=True).items()}
     page_tokens = feed["input_ids"].shape[1]
@@ -4520,7 +4588,6 @@ def phase_gemma3(device: torch.device, smi: str, ckpt: str) -> tuple:
 GEMMA_TRAIN_PAGES = 32  # four batches of 8
 GEMMA_EVAL_PAGES = 16
 GEMMA_TRAIN_STEPS, GEMMA_BI_STEPS = 4, 2
-GEMMA_VISION_STORED = 27 * 6  # quantize_frozen_base: q/k/v/o, fc1 and fc2 of each SigLIP layer
 # the least distance of a ColbertLoss from ln B (every page of a batch scoring alike, where a step carries no
 # ranking). On seeded random weights every query token's hard max falls on the 4 template tokens that open every
 # page (<bos><start_of_turn>user\n; causal, so the same in all pages), and the loss reads ln 8 exactly; phase 13
@@ -4528,26 +4595,30 @@ GEMMA_VISION_STORED = 27 * 6  # quantize_frozen_base: q/k/v/o, fc1 and fc2 of ea
 GEMMA_TIED_MARGIN = 0.05
 
 
-def page_score_spread(model, batch: dict, image_token: int) -> dict:
+def page_score_spread(model, batch: dict, image_token: int, loss_fn=None) -> dict:
     """The in-batch MaxSim scores (normalized by the query's length) of a
     collated batch under ``model``, with the page's non-image tokens kept
-    and masked: the least spread of a query's scores across the pages, and
-    the share of query tokens whose best page token lies before the image
-    block (the template, the same in every page)."""
+    and masked: the least spread of a query's scores across the pages, the
+    share of query tokens whose best page token lies before the image block
+    (the template, the same in every page), and given ``loss_fn`` its value
+    on the batch."""
+    from colpali_tpu_torch.training.trainer import forward_prefixed
+
     out = {}
     keep = model.mask_non_image_embeddings
     valid = batch["query_attention_mask"].bool()
     first = int((batch["doc_input_ids"][0] == image_token).nonzero()[0])
     with torch.no_grad():
-        q = model(batch["query_input_ids"], batch["query_attention_mask"]).float()
+        q = forward_prefixed(model, batch, "query_").float()
         for masked in (False, True):
             model.mask_non_image_embeddings = masked
-            d = model(batch["doc_input_ids"], batch["doc_attention_mask"], batch["doc_pixel_values"]).float()
+            d = forward_prefixed(model, batch, "doc_").float()
             best, at = torch.einsum("bnd,csd->bcns", q, d).max(-1)
             scores = best.sum(-1) / valid.sum(1, keepdim=True)
             out["masked" if masked else "unmasked"] = dict(
                 min_spread=(scores.max(1).values - scores.min(1).values).min().item(),
-                on_template=(at[valid[:, None].expand_as(at)] < first).float().mean().item())
+                on_template=(at[valid[:, None].expand_as(at)] < first).float().mean().item(),
+                **({} if loss_fn is None else {"loss": loss_fn(q, d).item()}))
     model.mask_non_image_embeddings = keep
     return out
 
@@ -4568,12 +4639,8 @@ def phase_gemma3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
     steps that flatten the scores, need not). Returns the launches over the
     path and the rest."""
     import math
-    import os
-
-    import yaml
 
     from colpali_tpu_torch.auto import load_retriever
-    from colpali_tpu_torch.configs import instantiate
     from colpali_tpu_torch.core.hf_loader import load_colgemma3_params
     from colpali_tpu_torch.data.collator import VisualRetrieverCollator
     from colpali_tpu_torch.losses import BiEncoderLoss, ColbertLoss
@@ -4586,7 +4653,6 @@ def phase_gemma3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
 
     held = free_memory("phase gemma3 training")
     t_phase = time.perf_counter()
-    recipes = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
     cfg = gemma3_config()
     v = cfg.vision
     train_config = trainer.TrainConfig(learning_rate=QWEN_LR, warmup_steps=0, total_steps=2500)
@@ -4607,16 +4673,7 @@ def phase_gemma3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
                              f"mask_non_image_embeddings: {spread}")
     extra["score_spread"] = spread
 
-    def recipe(name, out, m, proc, **overrides):
-        """The recipe's ``config`` tree built by the port, with the nodes that
-        name files absent here (checkpoint, processor, datasets) and the
-        run's size replaced."""
-        with open(os.path.join(recipes, name)) as f:
-            node = yaml.safe_load(f)["config"]
-        node.update(model=m, processor=proc, params=None, train_datasets=[train_set], output_dir=out,
-                    global_batch_size=TRAIN_BATCH, log_steps=1, train=train_config, seed=SEED, device=device,
-                    **overrides)
-        return instantiate(node)
+    recipe = functools.partial(recipe_config, train_set=train_set, train_config=train_config, device=device)
 
     with tempfile.TemporaryDirectory() as tmp:
         app = ColModelTraining(ColModelTrainingConfig(**recipe(
@@ -4712,20 +4769,21 @@ def phase_gemma3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
             "train_colgemma3.yaml", f"{tmp}/quant", model, processor, max_steps=1, save_steps=100,
             quantize_frozen_base=True)))
         stored = [name for name, m in model.named_modules() if isinstance(m, QDense) and m.stored]
-        if len(stored) != GEMMA_VISION_STORED or not all(n.startswith("model.vision_tower.") for n in stored):
+        vision_stored = gemma3_stored_layers(cfg, vision_only=True)  # q/k/v/o, fc1 and fc2 of each SigLIP layer
+        if len(stored) != vision_stored or not all(n.startswith("model.vision_tower.") for n in stored):
             raise AssertionError(f"quantize_frozen_base stored {len(stored)} layers, expected the vision tower's "
-                                 f"{GEMMA_VISION_STORED}")
+                                 f"{vision_stored}")
         reset_launches()
         qseen = []
         qapp.train(on_step=lambda step, m: qseen.append(float(m["loss"])))
         torch.cuda.synchronize()
         quant_launches = launch_counts()
         qapp.close()
-        if quant_launches["int8_gemm"] != GEMMA_VISION_STORED or not quant_launches["quantize_rows"] or \
+        if quant_launches["int8_gemm"] != vision_stored or not quant_launches["quantize_rows"] or \
                 len(qseen) != 1 or not np.isfinite(qseen[0]) or abs(qseen[0] - tied) < GEMMA_TIED_MARGIN or \
                 quant_launches["flash_attention"] != per_step:
             raise AssertionError(f"quantize_frozen_base step {qseen}, launches {quant_launches}; expected "
-                                 f"{GEMMA_VISION_STORED} Q1b launches and {per_step} K6 launches")
+                                 f"{vision_stored} Q1b launches and {per_step} K6 launches")
         log(f"  [{time.perf_counter() - t_phase:.0f} s] quantize_frozen_base: {len(stored)} stored-int8 vision layers "
             f"(mm_input_projection stays bf16); one step, loss {qseen[0]:.4f}; Q1a {quant_launches['quantize_rows']} "
             f"and Q1b {quant_launches['int8_gemm']} launches, K6 {quant_launches['flash_attention']}")
@@ -4765,6 +4823,674 @@ def phase_gemma3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
                     maxsim_bf16=eval_launches["maxsim_bf16"], quantize_rows=quant_launches["quantize_rows"],
                     int8_gemm=quant_launches["int8_gemm"])
     return launches, extra
+
+
+# -- phase 14: the Qwen3-VL family, ColQwen3 at Qwen3-VL-4B (run after phase 13) ------------------------------------
+
+QWEN3_PAGES = 16  # two batches of 8
+QWEN3_PLANTED = (1, 6, 10, 13)  # pages whose docs also hold QUERIES[i]'s tokens, i = 0..3
+QWEN3_FILLER_DOCS = 2_048  # seeded filler docs of DOC_TOKENS tokens beside the pages (at least CANDIDATES)
+QWEN3_DIM = 320  # ColQwen3's head (reference modeling_colqwen3.py:49)
+# merged tokens of a 1,275 x 1,650 page at the 768-token budget and 32 px merged patches: 992 x 768 px, 62 x 48
+# patches of 16 px (2,976 a page)
+QWEN3_PAGE_TOKENS = 744
+# Qwen3-VL-4B's stored-int8 layers (JAX's quantize_params over the same tree, tests/test_torch_qwen3_vl.py): the
+# patch embedding (1,536 -> 1,152), 27 x 6 in the vision blocks, the merger's 2 and each of the 3 deepstack
+# mergers' 2, 36 x 7 in the text layers (k/v 2,560 -> 1,024 included); the 320-d head and embeddings stay bf16
+QWEN3_VISION_STORED = 1 + 27 * 6 + 2 * 4
+QWEN3_STORED_LAYERS = QWEN3_VISION_STORED + 36 * 7
+QWEN3_SWEEP_DOCS = 262_144  # K3/K10 at D=320 over 2,048 tiles x 64 tokens x 320 (5.4 GB int8)
+
+
+def qwen3_config():
+    """Qwen3-VL-4B (``Qwen/Qwen3-VL-4B-Instruct``'s widths, the JAX package's defaults,
+    ``colpali_tpu/models/qwen3_vl.py:49-107``): vision 27 x 1,152 (16 heads of 72, MLP 4,304, 16 px patches, a
+    48 x 48 position table, deepstack after blocks 8, 16 and 24, out 2,560), text 36 x 2,560 (32/8 heads of 128,
+    MLP 9,728, vocab 151,936, interleaved M-RoPE (24, 20, 20))."""
+    from colpali_tpu_torch.models.qwen3_vl import Qwen3VLConfig
+
+    return Qwen3VLConfig()
+
+
+def k3_k10_case(name: str, qi, qs, store, scales, check_tiles=None) -> dict:
+    """K3 at one shape against its plain version (over ``check_tiles`` tiles
+    at each end, or all), bit-equal on a second call, and K10 over the
+    token-major copy bit-equal to it; both timed beside the plain version and
+    the bound (the store and its scales read once, int8 operations)."""
+    full = maxsim_int8mxu_tiled(qi, qs, store, scales)
+    if not torch.equal(full, maxsim_int8mxu_tiled(qi, qs, store, scales)):
+        raise AssertionError(f"K3 {name}: two calls differ")
+    nt, np_, _, d = store.shape
+    ends = [slice(0, nt)] if check_tiles is None else [slice(0, check_tiles), slice(nt - check_tiles, nt)]
+    err = 0.0
+    for sl in ends:
+        want = maxsim_int8mxu_tiled_plain(qi, qs, store[sl], scales[sl])
+        got = full[:, sl.start * DOC_TILE: sl.stop * DOC_TILE]
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        err = max(err, (got - want).abs().max().item())
+    docs_tm = store.permute(1, 0, 2, 3).reshape(np_, nt * DOC_TILE, d).contiguous()
+    scales_tm = scales.permute(1, 0, 2).reshape(np_, nt * DOC_TILE).contiguous()
+    if not torch.equal(tm.maxsim_pallas_int8mxu_tm(qi, qs, docs_tm, scales_tm), full):
+        raise AssertionError(f"K10 {name}: not bit-equal to K3")
+    b, nq, _ = qi.shape
+    c = nt * DOC_TILE
+    r = dict(ms=time_ms(lambda: maxsim_int8mxu_tiled(qi, qs, store, scales)),
+             tm_ms=time_ms(lambda: tm.maxsim_pallas_int8mxu_tm(qi, qs, docs_tm, scales_tm)),
+             plain_ms=time_ms(lambda: maxsim_int8mxu_tiled_plain(qi, qs, store, scales), reps=2), max_abs_err=err,
+             **bound(c * np_ * (d + 4) + b * nq * (d + 4) + b * c * 4, 2 * b * nq * c * np_ * d, "int8"),
+             shape=f"B={b} Nq={nq} Np={np_} D={d} C={c}{name}")
+    del docs_tm, scales_tm
+    torch.cuda.empty_cache()
+    log(f"phase qwen3: K3 [{r['shape']}]: kernel {r['ms']:.3f} ms, K10 (token-major, bit-equal) {r['tm_ms']:.3f} ms, "
+        f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} "
+        f"of it; max_abs_err {err:.3g} (rtol {RTOL}, atol {ATOL}), bit-equal on a second call")
+    return r
+
+
+def d320_sweep_corpus(device: torch.device):
+    """A random int8 tile-major corpus of QWEN3_SWEEP_DOCS docs x DOC_TOKENS x 320 and its scales, on the card."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 80)
+    n_tiles = QWEN3_SWEEP_DOCS // DOC_TILE
+    store = torch.empty((n_tiles, DOC_TOKENS, DOC_TILE, QWEN3_DIM), dtype=torch.int8, device=device)
+    for s0 in range(0, n_tiles, 256):
+        store[s0: s0 + 256] = torch.randint(-127, 128, (min(256, n_tiles - s0), DOC_TOKENS, DOC_TILE, QWEN3_DIM),
+                                            generator=gen, device=device, dtype=torch.int8)
+    scales = (0.5 + torch.rand((n_tiles, DOC_TOKENS, DOC_TILE), generator=gen, device=device)) / (
+        127.0 * QWEN3_DIM**0.5)
+    q = torch.randn((1, QUERY_TOKENS, QWEN3_DIM), generator=gen, device=device)
+    q[:, -3:] = 0.0  # padded query tokens
+    return store, scales, q / q.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+
+
+def qwen3_k6_cases(device: torch.device, feed: dict, cfg, encoder_feed: dict) -> dict:
+    """K6 against its plain version at Qwen3-VL-4B's shapes: the vision tower
+    over 8 pages (D=72, the patch mask as the segments), the decoder over the
+    pages' prompts (causal, GQA 32/8, D=128, with left padding cut into the
+    rows) and the queries as the query encoder pads them."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 81)
+    v, t = cfg.vision, cfg.text
+    mask = feed["patch_mask"].to(torch.int32).contiguous()
+    b, s_text = feed["input_ids"].shape
+    left = (torch.arange(s_text, device=device)[None] >= 8 * torch.arange(b, device=device)[:, None]).to(torch.int32)
+    q_seg = torch.as_tensor(encoder_feed["attention_mask"], device=device).to(torch.int32).contiguous()
+    cases = {
+        "vision": (*mask.shape, v.num_heads, v.num_heads, v.head_dim, None, mask, False, " (the patch mask)"),
+        "text": (b, s_text, t.num_attention_heads, t.num_key_value_heads, t.head_dim, None, left, True,
+                 " causal, rows left-padded by 0-56"),
+        "queries": (*q_seg.shape, t.num_attention_heads, t.num_key_value_heads, t.head_dim, None, q_seg, True,
+                    " causal, the query encoder's padding"),
+    }
+    out = {}
+    for name, (bb, ss, h, hkv, d, lengths, seg, causal, label) in cases.items():
+        r = out[name] = k6_case(gen, device, bb, ss, h, hkv, d, lengths, seg=seg, causal=causal, label=label)
+        extra = f", bound over all pairs {r['bound_ms_all_pairs']:.4f} ms" if "bound_ms_all_pairs" in r else ""
+        log(f"phase qwen3: K6 {name} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"{library_note(r)}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}, max_abs_err "
+            f"{r['max_abs_err']:.3g} (atol {r['atol']:.3g}, {r['limit_share']:.0%} of the tolerance), bit-equal on a "
+            "second call")
+    torch.cuda.empty_cache()
+    return out
+
+
+def bi_fp32_check(name: str, model, fp32_model, feeds: list, device: torch.device) -> dict:
+    """A Bi model's vectors of each feed through the kernels in bf16 against
+    the same weights in fp32 on the plain route: cosine per vector >=
+    BI_COS_MIN."""
+    def run(m):
+        with torch.inference_mode():
+            return np.concatenate([m(**{k: torch.as_tensor(x).to(device) for k, x in f.items()
+                                        if k != "image_grid_thw"}).float().cpu().numpy() for f in feeds])
+
+    a = run(model)
+    with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
+        b = run(fp32_model)
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+    out = dict(vectors=len(a), min_cos=float(cos.min()), mean_cos=float(cos.mean()))
+    if not (np.isfinite(a).all() and out["min_cos"] >= BI_COS_MIN):
+        raise AssertionError(f"{name} against fp32: {out}, limit min cos >= {BI_COS_MIN}")
+    log(f"  {name}, kernels in bf16 against the plain route in fp32: {len(a)} vectors, mean cos "
+        f"{out['mean_cos']:.6f}, min cos {out['min_cos']:.6f} (limit {BI_COS_MIN}, "
+        f"{share(1 - out['min_cos'], 1 - BI_COS_MIN)})")
+    return out
+
+
+def phase_qwen3(device: torch.device, smi: str, ckpt: str) -> tuple:
+    """Drive the Qwen3-VL family's serving path: Qwen3-VL-4B written by
+    ``write_qwen3_checkpoint`` into ``ckpt`` (kept for phase 15) and read
+    back by ``load_retriever(family="colqwen3")`` in bf16 and stored int8;
+    K6 at the vision tower's and the decoder's shapes; Q1a/Q1b at the path's
+    (M, K, N); pages through ``embed_dataset``, ``/search_text`` through
+    ``make_handler`` over a 320-wide two-tier int8 index and ``serve.py
+    --checkpoint --family colqwen3``; K1-K3 held on both indexes; K3 and K10
+    at D=320 on a 262,144-doc corpus and at the served shape; the K6 route
+    against the plain route, stored int8 against bf16; forward and encode
+    timings and profiles; then BiQwen3 at full width. Returns the launches
+    over the path, the kernel rows and the rest."""
+    import os
+    import threading
+
+    from colpali_tpu_torch import serve
+    from colpali_tpu_torch.auto import load_retriever
+    from colpali_tpu_torch.evaluation.evaluator import embed_dataset
+    from colpali_tpu_torch.models.layers import QDense
+    from colpali_tpu_torch.models.qwen3_vl import BiQwen3
+    from colpali_tpu_torch.processors.bi import BiQwen3Processor
+    from colpali_tpu_torch.retrieval.serving import QueryEncoder
+    from colpali_tpu_torch.retrieval.store import CorpusIndex
+    from colpali_tpu_torch.serve import RetrievalServer
+    from colpali_tpu_torch.utils.testing import write_qwen3_checkpoint
+
+    held = free_memory("phase qwen3")
+    t_phase = time.perf_counter()
+    cfg = qwen3_config()
+    v, t = cfg.vision, cfg.text
+    pages = make_pages(QWEN3_PAGES, SEED + 82)
+    extra = dict(held_gib_at_start=held)
+    t0 = time.perf_counter()
+    write_qwen3_checkpoint(ckpt, cfg, seed=SEED + 83, words=" ".join(QUERIES).split(), device=device)
+    torch.cuda.empty_cache()
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, processor = load_retriever(ckpt, family="colqwen3", device=device)
+    torch.cuda.synchronize()
+    t_bf16 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qmodel, qproc = load_retriever(ckpt, family="colqwen3", device=device, quantize=True)
+    torch.cuda.synchronize()
+    t_int8 = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    stored = sum(isinstance(m, QDense) and m.stored for m in qmodel.modules())
+    bytes_int8, bytes_bf16 = (sum(x.numel() * x.element_size() for x in m.state_dict().values())
+                              for m in (qmodel, model))
+    log(f"phase qwen3: Qwen3-VL-4B, vision {v.depth} x {v.hidden_size} (MLP {v.intermediate_size}, {v.num_heads} heads "
+        f"x {v.head_dim}, {v.patch_size} px patches, a {v.num_grid_per_side} x {v.num_grid_per_side} position table, "
+        f"deepstack after blocks {v.deepstack_visual_indexes}, out {v.out_hidden_size}), text {t.num_hidden_layers} x "
+        f"{t.hidden_size} (MLP {t.intermediate_size}, heads {t.num_attention_heads}/{t.num_key_value_heads} x "
+        f"{t.head_dim}, vocab {t.vocab_size}, interleaved M-RoPE {t.mrope_section}), head {QWEN3_DIM}: "
+        f"{n_params / 1e9:.3f} B params; HF checkpoint written in {t_write:.1f} s, load_retriever {t_bf16:.1f} s "
+        f"(bf16), {t_int8:.1f} s (quantize=True: {stored} stored-int8 layers, {bytes_int8 / 1e9:.3f} GB against "
+        f"{bytes_bf16 / 1e9:.3f} GB)")
+    if stored != QWEN3_STORED_LAYERS or model.head.custom_text_proj.out_features != QWEN3_DIM:
+        raise AssertionError(f"load_retriever(quantize=True): {stored} stored-int8 layers, expected "
+                             f"{QWEN3_STORED_LAYERS}; head {model.head.custom_text_proj.out_features} wide")
+    batch = pages[:PAGE_BATCH]
+    feed = {k: torch.as_tensor(x).to(device) for k, x in processor.process_images(batch, device_pixels=True).items()
+            if k != "image_grid_thw"}
+    n_image = (feed["input_ids"] == cfg.image_token_id).sum(1)
+    if not bool((n_image == QWEN3_PAGE_TOKENS).all()) or feed["patch_mask"].shape[1] != 4 * QWEN3_PAGE_TOKENS:
+        raise AssertionError(f"a {PAGE_HW[1]} x {PAGE_HW[0]} page: {n_image.tolist()} merged tokens, "
+                             f"{feed['patch_mask'].shape[1]} patches; expected {QWEN3_PAGE_TOKENS}")
+    encoders = {"bf16": QueryEncoder(model, processor), "int8": QueryEncoder(qmodel, qproc)}
+    for enc in encoders.values():
+        enc.warmup()
+    k6 = qwen3_k6_cases(device, feed, cfg, encoders["bf16"]._pad_static(processor.process_queries(QUERIES))[0])
+
+    # Q1a/Q1b at the (M, K, N) of one stored-int8 page forward and the query forwards (x8, x1), by hooks
+    with torch.inference_mode():
+        page_mkn = q1_path_shapes(qmodel, lambda: qmodel(**feed))
+        model(**feed)  # the bf16 model's first page forward, so that the path below runs warm
+    query_mkn = q1_path_shapes(qmodel, lambda: (encoders["int8"].encode(QUERIES),
+                                                encoders["int8"].encode(QUERIES[:1])))
+    if any(k % 16 or n % 16 for _, k, n in page_mkn + query_mkn):
+        raise AssertionError(f"a Qwen3-VL-4B width that is not a multiple of 16: {page_mkn + query_mkn}")
+    checks = q1_checks(device, page_mkn + query_mkn, edge_ks=(1536, 4304))
+    log(f"phase qwen3: Q1a and Q1b bit-equal to their plain versions in {checks['q1b_cases']} Q1b cases at the page "
+        f"forward's (M, K, N) {page_mkn} and the query forwards' {query_mkn} (every K and N a multiple of 16); Q1a on "
+        "edge rows at K 1,536 and 4,304")
+    q1_rows, q1_gemms = q1_timing(device, page_mkn + query_mkn)
+    extra["q1_checks"] = dict(checks, page_forward_mkn=page_mkn, query_forward_mkn=query_mkn)
+
+    # K6 launches of one page forward and one query forward
+    reset_launches()
+    with torch.inference_mode():
+        model(**feed)
+    per_page_forward = {d: n for d, n in fa.FORWARD_LAUNCHES_BY_HEAD_DIM.items() if n}
+    reset_launches()
+    encoders["bf16"].encode(QUERIES)
+    per_query_forward = {d: n for d, n in fa.FORWARD_LAUNCHES_BY_HEAD_DIM.items() if n}
+    want_page = {v.head_dim: v.depth, t.head_dim: t.num_hidden_layers}
+    if per_page_forward != want_page or per_query_forward != {t.head_dim: t.num_hidden_layers}:
+        raise AssertionError(f"K6 launches: a page forward {per_page_forward}, a query forward {per_query_forward}; "
+                             f"expected {want_page} and {{{t.head_dim}: {t.num_hidden_layers}}}")
+
+    # the path, counted: pages embedded, /search_text through make_handler on each model, serve.py
+    reset_launches()
+    with counted_plain_k6() as plain_calls:
+        t0 = time.perf_counter()
+        embs = {"bf16": embed_dataset(model, processor, pages, batch_size=PAGE_BATCH)}
+        t_embed_bf16 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        embs["int8"] = embed_dataset(qmodel, qproc, pages, batch_size=PAGE_BATCH)
+        t_embed_int8 = time.perf_counter() - t0
+        page_tokens = feed["input_ids"].shape[1]
+        for label, es in embs.items():
+            for e in es:
+                if e.shape != (page_tokens, QWEN3_DIM) or not np.isfinite(e).all() or \
+                        np.abs(np.linalg.norm(e, axis=-1) - 1).max() > 1e-2:
+                    raise AssertionError(f"{label} page embedding {e.shape}: not {page_tokens} finite unit rows of "
+                                         f"{QWEN3_DIM}")
+        gen = torch.Generator(device=device).manual_seed(SEED + 84)
+        filler = torch.randn((QWEN3_FILLER_DOCS, DOC_TOKENS, QWEN3_DIM), generator=gen, device=device)
+        filler = (filler / filler.norm(dim=-1, keepdim=True)).cpu().numpy()
+        served, corpora = {}, {}
+        for label, enc in encoders.items():
+            planted_q = enc.encode(QUERIES[: len(QWEN3_PLANTED)])
+            docs = [np.concatenate([e, planted_q[QWEN3_PLANTED.index(i)]]) if i in QWEN3_PLANTED else e
+                    for i, e in enumerate(embs[label])] + list(filler)
+            corpora[label] = docs
+            index = CorpusIndex(docs, dtype="int8", prefilter="binary", coarse_pool=COARSE_POOL, device=device)
+            httpd = RetrievalServer(("127.0.0.1", 0), serve.make_handler(
+                index, [f"doc_{i}" for i in range(index.num_docs)], encoder=enc))
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            url = f"http://127.0.0.1:{httpd.server_port}"
+            try:
+                tiered = [_http(url, "/search_text", {"queries": [q], "k": 10})
+                          for q in QUERIES[: len(QWEN3_PLANTED)]]  # one a request: the tiered route
+                exact = _http(url, "/search_text", {"queries": QUERIES, "k": 10})  # 8 > 4: the exact route
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+            for out in (*tiered, exact):
+                _check_ranked(f"/search_text ({label})", out, len(out["doc_ids"]))
+            top = ([out["doc_ids"][0][0] for out in tiered], [row[0] for row in exact["doc_ids"][: len(QWEN3_PLANTED)]])
+            if top[0] != list(QWEN3_PLANTED) or top[1] != list(QWEN3_PLANTED):
+                raise AssertionError(f"{label} /search_text at rank 1: tiered {top[0]}, exact {top[1]}, planted "
+                                     f"{list(QWEN3_PLANTED)}")
+            served[label] = (index, planted_q)
+        npz = f"{ckpt}/corpus.npz"
+        np.savez(npz, **{f"emb_{i}": d for i, d in enumerate(corpora["int8"])})
+        t0 = time.perf_counter()
+        httpd = serve.make_server([npz, "--port", "0", "--device", str(device), "--prefilter", "--checkpoint", ckpt,
+                                   "--family", "colqwen3"])
+        t_serve = time.perf_counter() - t0
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            cli = _http(f"http://127.0.0.1:{httpd.server_port}", "/search_text", {"queries": [QUERIES[0]], "k": 10})
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        os.remove(npz)
+        if cli["doc_ids"][0][0] != QWEN3_PLANTED[0]:
+            raise AssertionError(f"serve.py --family colqwen3: rank 1 {cli['doc_ids'][0][0]}, planted "
+                                 f"{QWEN3_PLANTED[0]}")
+    launches = read_launches("Qwen3-VL family", ("flash_attention", "quantize_rows", "int8_gemm", "binary_maxsim",
+                                                 "gather_rerank", "maxsim_int8"))
+    by_dim = {d: n for d, n in fa.FORWARD_LAUNCHES_BY_HEAD_DIM.items() if n}
+    page_forwards = 2 * (QWEN3_PAGES // PAGE_BATCH)  # embed_dataset on each model
+    if plain_calls[0] or set(by_dim) != {v.head_dim, t.head_dim} or by_dim[v.head_dim] != page_forwards * v.depth \
+            or by_dim[t.head_dim] < page_forwards * t.num_hidden_layers:
+        raise AssertionError(f"Qwen3-VL path: K6 launches by head dim {by_dim}, {plain_calls[0]} calls of K6's plain "
+                             f"version; expected {v.depth} at D={v.head_dim} and {t.num_hidden_layers} at "
+                             f"D={t.head_dim} a page forward, {page_forwards} page forwards, and the queries' at D=128")
+    log(f"  [{time.perf_counter() - t_phase:.0f} s] path: {QWEN3_PAGES} pages ({page_tokens} tokens) through "
+        f"embed_dataset, each model warm (bf16 {QWEN3_PAGES / t_embed_bf16 * 60:.0f} pages/min, stored int8 "
+        f"{QWEN3_PAGES / t_embed_int8 * 60:.0f}); a {served['int8'][0].num_docs}-doc x {served['int8'][0].doc_tokens}"
+        f"-token x {QWEN3_DIM} two-tier int8 index behind make_handler for each model: each of {len(QWEN3_PLANTED)} "
+        f"planted pages at rank 1 on the tiered and the exact route of /search_text; serve.py --checkpoint --family "
+        f"colqwen3 (stored int8) started in {t_serve:.1f} s and found it too; launches {launches}, K6 by head dim "
+        f"{by_dim}, K6's plain version called {plain_calls[0]} times")
+    del corpora, filler
+
+    # K1, K2 and K3 against their plain versions on each served index, then K3/K10 at D=320 (not counted)
+    k123 = {}
+    for label, (index, planted_q) in served.items():
+        held_k = hold_k123(index, served_queries(planted_q, device))
+        k123[label] = {k: held_k[k] for k in ("k1_err", "k2_err", "k3_err")}
+        log(f"phase qwen3: K1, K2 and K3 against their plain versions on the {label} index ({index.num_docs} docs x "
+            f"Np={index.doc_tokens} x {QWEN3_DIM}): max abs err K1 {held_k['k1_err']:.3g} (bit for bit), K2 "
+            f"{held_k['k2_err']:.3g}, K3 {held_k['k3_err']:.3g} (rtol {RTOL}, atol {ATOL})")
+    index = served["int8"][0]
+    qi, qsc = quantize_per_token(served_queries(encoders["int8"].encode(QUERIES), device))
+    sweep = {"served": k3_k10_case(", the served sweep over the page index", qi, qsc, index._store, index._scales)}
+    del served, index, held_k, qi, qsc
+    torch.cuda.empty_cache()
+    store, scales, q = d320_sweep_corpus(device)
+    qi, qsc = quantize_per_token(q)
+    sweep["corpus"] = k3_k10_case(f", {QWEN3_SWEEP_DOCS}-doc corpus", qi, qsc, store, scales, check_tiles=CHECK_TILES)
+    del store, scales, q, qi, qsc
+    torch.cuda.empty_cache()
+
+    # checks beside the path (not counted): K6 route vs plain route, stored int8 vs bf16
+    route = dict(
+        pages=forward_check(f"Qwen3-VL-4B page forward ({PAGE_BATCH} pages)",
+                            lambda: embed_dataset(model, processor, batch, batch_size=PAGE_BATCH)),
+        queries=forward_check(f"Qwen3-VL-4B query forward ({len(QUERIES)} queries)",
+                              lambda: encoders["bf16"].encode(QUERIES)))
+    for name, r in route.items():
+        log(f"    shares of the limits: mean cos {share(1 - r['mean_cos'], 1 - FORWARD_COS_MEAN)}, min cos "
+            f"{share(1 - r['min_cos'], 1 - FORWARD_COS_MIN)}, max abs {share(r['max_abs'], FORWARD_ATOL)}")
+    torch.cuda.empty_cache()
+    accuracy = {
+        "pages": cos_check(f"{PAGE_BATCH} pages, stored int8 vs bf16", embs["int8"][:PAGE_BATCH],
+                           embs["bf16"][:PAGE_BATCH], INT8_COS_MEAN, INT8_COS_MIN),
+        "queries": cos_check(f"{len(QUERIES)} queries, stored int8 vs bf16", encoders["int8"].encode(QUERIES),
+                             encoders["bf16"].encode(QUERIES), INT8_COS_MEAN, INT8_COS_MIN)}
+
+    # end to end, bf16 and stored int8 in turns: one forward of 8 pages (CUDA events), encode x1 / x8
+    e2e = {}
+    for label in ("bf16", "int8", "int8 again", "bf16 again"):
+        m, enc = (model, encoders["bf16"]) if label.startswith("bf16") else (qmodel, encoders["int8"])
+        r = dict(page_forward_ms=forward_ms(m, feed))
+        for b_, texts in (("x1", QUERIES[:1]), ("x8", QUERIES)):
+            enc.encode(texts)
+            walls = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                enc.encode(texts)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            r[f"encode_{b_}_ms"] = float(np.median(walls))
+        r["pages_per_min_forward"] = PAGE_BATCH / r["page_forward_ms"] * 6e4
+        e2e[label] = r
+        log(f"  {label} ({smi}): forward of {PAGE_BATCH} pages {r['page_forward_ms']:.1f} ms "
+            f"({r['pages_per_min_forward']:.0f} pages/min of forward alone), encode x1 {r['encode_x1_ms']:.2f} ms, "
+            f"x8 {r['encode_x8_ms']:.2f} ms")
+    with torch.inference_mode():
+        profiles = {label: kernel_breakdown(f"one {label} Qwen3-VL-4B forward of {PAGE_BATCH} pages",
+                                            lambda m=m: m(**feed)) for label, m in (("bf16", model),
+                                                                                   ("stored-int8", qmodel))}
+    query_feed = processor.process_queries(QUERIES)
+    del encoders, qmodel, embs
+    torch.cuda.empty_cache()
+
+    # BiQwen3 at full width on the checkpoint's backbone: the K6 route against the plain route and against fp32
+    bmodel = BiQwen3(cfg, device=device, dtype=torch.bfloat16).eval()
+    bmodel.load_state_dict({k: x for k, x in model.state_dict().items() if k.startswith("model.")})
+    del model
+    torch.cuda.empty_cache()
+    bproc = BiQwen3Processor.from_pretrained(ckpt, device=device, max_num_visual_tokens=768)
+    bi_feeds = [feed, query_feed]
+    bi = bi_check("BiQwen3 (Qwen3-VL-4B, last pooling)", bmodel, bi_feeds, device, bproc.score, BI_PLANTED)
+    fp32 = BiQwen3(cfg, device=device, dtype=torch.float32).eval()
+    fp32.load_state_dict(bmodel.state_dict())
+    bi["fp32"] = bi_fp32_check("BiQwen3 (Qwen3-VL-4B)", bmodel, fp32, bi_feeds, device)
+    del bmodel, fp32, feed, query_feed, bi_feeds
+    torch.cuda.empty_cache()
+    extra.update(k6=k6, k123=k123, k3_k10_d320=sweep, params=n_params, stored_int8_layers=stored,
+                 weight_bytes_int8=bytes_int8, weight_bytes_bf16=bytes_bf16, page_tokens=page_tokens,
+                 route_check=route, int8_vs_bf16=accuracy, end_to_end=e2e, page_profile=profiles, biqwen3=bi,
+                 k6_per_page_forward={str(d): n for d, n in per_page_forward.items()},
+                 k6_per_query_forward={str(d): n for d, n in per_query_forward.items()},
+                 launches_by_head_dim={str(d): n for d, n in by_dim.items()},
+                 pages_per_min=dict(bf16=QWEN3_PAGES / t_embed_bf16 * 60, int8=QWEN3_PAGES / t_embed_int8 * 60),
+                 write_load_seconds=dict(write=t_write, bf16=t_bf16, int8=t_int8))
+    extra["seconds"] = time.perf_counter() - t_phase
+    log(f"phase qwen3: {extra['seconds']:.1f} s")
+    timings = {"flash_attention": k6, "quantize_rows": dict(shapes=q1_rows), "int8_gemm": dict(shapes=q1_gemms),
+               "maxsim_int8": sweep, "maxsim_pallas_int8mxu_tm": {k: dict(ms=r["tm_ms"], k3_ms=r["ms"],
+                                                                            plain_ms=r["plain_ms"],
+                                                                            bound_ms=r["bound_ms"], shape=r["shape"])
+                                                               for k, r in sweep.items()}}
+    return launches, timings, extra
+
+
+# -- phase 15: Qwen3-VL training (run after phase 14, on its checkpoint) ----------------------------------------------
+
+QWEN3_TRAIN_PAGES = 32  # four batches of 8
+QWEN3_EVAL_PAGES = 16
+QWEN3_TRAIN_STEPS, QWEN3_RESUME_AT = 4, 2
+# ColbertLoss's least distance from ln B (GEMMA_TIED_MARGIN's rule): the first step's and the int8 step's. The first
+# H100 run, page tokens kept, read 2.1266 at step 1 (0.047 from ln 8; 7.0% of the query tokens' maxima on the
+# template that opens every page, a query's least score spread 0.0114): phase 15 trains with
+# mask_non_image_embeddings, as phase 13 does
+QWEN3_TIED_MARGIN = 0.05
+
+
+def qwen3_bwd_cases(device: torch.device, batch: dict, cfg) -> dict:
+    """K6's backward where LoRA over Qwen3-VL-4B puts it: the decoder over
+    the pages' prompts (causal, GQA 32/8, D=128, rows left-padded by 0-56)
+    and over the collated queries (their own padding)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 87)
+    t = cfg.text
+    b, s_text = batch["doc_input_ids"].shape
+    left = (torch.arange(s_text, device=device)[None] >= 8 * torch.arange(b, device=device)[:, None]).to(torch.int32)
+    q_seg = batch["query_attention_mask"].to(torch.int32).contiguous()
+    heads = (t.num_attention_heads, t.num_key_value_heads, t.head_dim)
+    cases = {"text": (b, s_text, *heads, left, left.bool(), " causal, rows left-padded by 0-56 (Qwen3-VL-4B)"),
+             "queries": (*q_seg.shape, *heads, q_seg, q_seg.bool(), " causal, the collated queries")}
+    out = {}
+    for name, (bb, ss, h, hkv, d, seg, rows, label) in cases.items():
+        r = out[name] = k6_bwd_row_case(gen, device, bb, ss, h, hkv, d, seg, rows, True, label)
+        log(f"phase qwen3 training: K6 backward {name} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, backward: {library_note(r)} (7 products), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g}, share of the per-row tolerance dq "
+            f"{r['shares']['dq']:.0%} dk {r['shares']['dk']:.0%} dv {r['shares']['dv']:.0%}; bit-equal on a second call")
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_qwen3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
+    """Drive the Qwen3-VL family's training path on phase 14's checkpoint:
+    K6's backward at the decoder's shapes; Qwen3-VL-4B read by
+    ``load_retriever(family="colqwen3", remat=True)`` and trained through
+    ``ColModelTraining`` from ``configs/train_colqwen3.yaml``'s loss and LoRA
+    (4 steps at batch 8 over 32 pages: 72 K6 backward launches a step, all
+    at D=128), the plain route, ``evaluate()`` (a 320-wide bf16 index, K5),
+    the merged export read back and served, a run resumed from step 2, a
+    step timed with and without remat and profiled, one step over a
+    stored-int8 frozen vision tower (its deepstack mergers included); then
+    one BiQwen3 step at full width cut to 2 + 2 layers. ColQwen3 trains with
+    ``mask_non_image_embeddings`` (:data:`QWEN3_TIED_MARGIN`): the
+    ColbertLoss of the first step and of the int8 step, each with fresh
+    adapters, must lie that far from ln 8. Returns the launches over the path, K6's
+    backward rows and the rest."""
+    import dataclasses
+    import math
+    import os
+    import shutil
+
+    from colpali_tpu_torch.auto import load_retriever
+    from colpali_tpu_torch.data.collator import VisualRetrieverCollator
+    from colpali_tpu_torch.losses import BiEncoderLoss, ColbertLoss
+    from colpali_tpu_torch.models.common import hf_init_
+    from colpali_tpu_torch.models.layers import QDense
+    from colpali_tpu_torch.models.qwen3_vl import BiQwen3, ColQwen3
+    from colpali_tpu_torch.processors.bi import BiQwen3Processor
+    from colpali_tpu_torch.training import trainer
+    from colpali_tpu_torch.training.lora import LoraAdapters
+    from colpali_tpu_torch.training.orchestrator import ColModelTraining, ColModelTrainingConfig
+
+    held = free_memory("phase qwen3 training")
+    t_phase = time.perf_counter()
+    cfg = qwen3_config()
+    v, t = cfg.vision, cfg.text
+    train_config = trainer.TrainConfig(learning_rate=QWEN_LR, warmup_steps=0, total_steps=2500)
+    train_set = smol_dataset(QWEN3_TRAIN_PAGES, SEED + 85)
+    eval_set = smol_dataset(QWEN3_EVAL_PAGES, SEED + 86, first=QWEN3_TRAIN_PAGES)
+    extra = dict(held_gib_at_start=held)
+    model, processor = load_retriever(ckpt, family="colqwen3", device=device, remat=True,
+                                      mask_non_image_embeddings=True)
+    batch = trainer.to_device(VisualRetrieverCollator(processor)([train_set[i] for i in range(TRAIN_BATCH)]), device)
+    k6_bwd = qwen3_bwd_cases(device, batch, cfg)
+    tied = math.log(TRAIN_BATCH)
+    spread = page_score_spread(model, batch, cfg.image_token_id, ColbertLoss(temperature=0.02))
+    log(f"  Qwen3-VL-4B, the first batch's in-batch scores: page tokens kept, {spread['unmasked']['on_template']:.1%} "
+        f"of the query tokens' maxima on the template that opens every page, least spread of a query's scores across "
+        f"the pages {spread['unmasked']['min_spread']:.5f}, the recipe's ColbertLoss {spread['unmasked']['loss']:.4f}; "
+        f"non-image tokens masked (as trained here), {spread['masked']['on_template']:.1%}, "
+        f"{spread['masked']['min_spread']:.5f} and {spread['masked']['loss']:.4f} (ln {TRAIN_BATCH} = {tied:.4f})")
+    extra["score_spread"] = spread
+    sampled = ["model.language_model.layers.0.self_attn.q_proj.weight",
+               f"model.language_model.layers.{t.num_hidden_layers - 1}.mlp.down_proj.weight",
+               "model.visual.deepstack_merger_2.linear_fc1.weight", "head.custom_text_proj.weight"]
+    base_before = {k: model.state_dict()[k].clone() for k in sampled}
+
+    recipe = functools.partial(recipe_config, train_set=train_set, train_config=train_config, device=device)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        app = ColModelTraining(ColModelTrainingConfig(**recipe(
+            "train_colqwen3.yaml", f"{tmp}/run", model, processor, eval_dataset=eval_set,
+            eval_batch_size=TRAIN_BATCH, max_steps=QWEN3_TRAIN_STEPS, save_steps=QWEN3_RESUME_AT,
+            save_total_limit=QWEN3_TRAIN_STEPS)))
+        peft, loss_fn = app.config.peft, app.config.loss_func
+        if not isinstance(loss_fn, ColbertLoss) or loss_fn.temperature != 0.02 or peft.rank != 32:
+            raise AssertionError(f"train_colqwen3.yaml's loss and LoRA: {loss_fn}, {peft}")
+        n_adapters, n_trainable = len(app.state.adapters.paths), sum(p.numel() for p in app.state.params)
+        seen, moved = [], []
+
+        def on_step(step, metrics):
+            seen.append((step, float(metrics["loss"]), float(metrics["grad_norm"])))
+            if step == 1:
+                moved.extend(bool(b.detach().abs().max() > 0) for b in app.state.adapters.b)
+
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with counted_plain_k6() as plain_calls:
+            summary = app.train(on_step=on_step)
+        torch.cuda.synchronize()
+        train_launches = launch_counts()
+        peak_train = torch.cuda.max_memory_allocated() / 2**30
+        by_dim = {d: n for d, n in train_launches["bwd_by_head_dim"].items() if n}
+        per_step = 2 * t.num_hidden_layers  # a query and a page forward a step need a gradient, through the text
+        if [s for s, _, _ in seen] != list(range(1, QWEN3_TRAIN_STEPS + 1)) or \
+                not all(np.isfinite(l) and l > 0 and np.isfinite(g) and g > 0 for _, l, g in seen):
+            raise AssertionError(f"Qwen3-VL-4B steps: {seen}")
+        if len(moved) != n_adapters or not all(moved):
+            raise AssertionError(f"{moved.count(False)} of {n_adapters} adapters did not move in step 1")
+        if not all(torch.equal(model.state_dict()[k], w) for k, w in base_before.items()):
+            raise AssertionError("a frozen base weight changed")
+        if abs(seen[0][1] - tied) < QWEN3_TIED_MARGIN:
+            raise AssertionError(f"Qwen3-VL-4B step 1: ColbertLoss {seen[0][1]:.6f}, within {QWEN3_TIED_MARGIN} of "
+                                 f"ln {TRAIN_BATCH} = {tied:.6f}: the pages score alike")
+        if by_dim != {t.head_dim: QWEN3_TRAIN_STEPS * per_step} or plain_calls[0]:
+            raise AssertionError(f"K6 backward over {QWEN3_TRAIN_STEPS} LoRA steps: {by_dim}, {plain_calls[0]} calls of "
+                                 f"the plain version; expected {per_step} a step at D={t.head_dim}")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] Qwen3-VL-4B, ColModelTraining from train_colqwen3.yaml "
+            f"({smi}): {n_adapters} adapted layers, {n_trainable / 1e6:.2f} M trainable parameters, "
+            f"{type(loss_fn).__name__}(temperature {loss_fn.temperature}), LoRA r{peft.rank} a{peft.alpha:g} dropout "
+            f"{peft.dropout}, remat, batch {TRAIN_BATCH}; "
+            + ", ".join(f"step {s} loss {l:.4f} grad_norm {g:.4f}" for s, l, g in seen)
+            + f"; {summary['train_samples_per_second']:.2f} examples/s with collation and checkpoints; K6 forward "
+            f"{train_launches['flash_attention']}, backward {train_launches['flash_attention_bwd']} ({per_step} a "
+            f"step, by head dim {by_dim}), K6's plain version called {plain_calls[0]} times; peak memory "
+            f"{peak_train:.2f} GiB")
+        extra["route"] = hold_routes("Qwen3-VL-4B LoRA", app.state, batch, loss_fn, peft)
+
+        reset_launches()  # the comparison launched K6 too: it does not count
+        t0 = time.perf_counter()
+        metrics = app.evaluate()
+        t_eval = time.perf_counter() - t0
+        eval_launches = launch_counts()
+        index = app.eval_index
+        if not {"eval_loss", "eval_ndcg@1", "eval_ndcg@5"} <= set(metrics) or \
+                not all(np.isfinite(x) for x in metrics.values()) or not eval_launches["maxsim_bf16"] or \
+                (index.dtype, index.num_docs, index.dim, index._store.device.type) != \
+                ("bf16", QWEN3_EVAL_PAGES, QWEN3_DIM, device.type):
+            raise AssertionError(f"evaluate(): {metrics}, index {index.dtype} {index.num_docs} x {index.dim}, "
+                                 f"{eval_launches}")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] evaluate(): {QWEN3_EVAL_PAGES} held-out pages in {t_eval:.1f} "
+            f"s, bf16 index {index.num_docs} x {index.doc_tokens} x {index.dim} built on the card and searched by K5 "
+            f"({eval_launches['maxsim_bf16']} launch(es)); " + ", ".join(f"{k} {x:.4f}" for k, x in sorted(metrics.items())))
+        app.save()
+        merged = app.state.adapters.merged_state_dict(model)
+        app.close()
+        readback = export_readback(device, f"{tmp}/run", merged, cfg, ColQwen3, "colqwen3", "Qwen3-VL-4B",
+                                   dim=QWEN3_DIM)
+        del merged
+        os.remove(f"{tmp}/run/model.safetensors")
+
+        os.makedirs(f"{tmp}/resumed/checkpoints")
+        shutil.copy(f"{tmp}/run/checkpoints/step_{QWEN3_RESUME_AT}.pt", f"{tmp}/resumed/checkpoints/")
+        resumed = ColModelTraining(ColModelTrainingConfig(**recipe(
+            "train_colqwen3.yaml", f"{tmp}/resumed", model, processor, max_steps=QWEN3_RESUME_AT + 1,
+            save_steps=100, resume_from_checkpoint=True)))
+        tail = []
+        resumed.train(on_step=lambda step, m: tail.append((step, float(m["loss"]))))
+        resumed.close()
+        first = seen[QWEN3_RESUME_AT][1]
+        if resumed.state.step != QWEN3_RESUME_AT + 1 or [s for s, _ in tail] != [QWEN3_RESUME_AT + 1] or \
+                abs(tail[0][1] - first) > RESUME_LOSS_RTOL * abs(first):
+            raise AssertionError(f"resumed run: {tail}, the first run's step {QWEN3_RESUME_AT + 1} loss {first}")
+        log(f"  resumed from step {QWEN3_RESUME_AT}: step {QWEN3_RESUME_AT + 1} loss {tail[0][1]:.8f} vs {first:.8f} in "
+            f"the first run (limit {RESUME_LOSS_RTOL} relative)")
+
+        # a step at batch 8 with and without remat, and a profile of one
+        adapters = LoraAdapters(model, peft, seed=SEED + 1)
+        state = trainer.create_train_state(model, train_config, adapters)
+        steps = {}
+        for remat in (True, False):
+            model.set_remat(remat)
+            steps["remat" if remat else "no_remat"] = r = timed_steps(state, batch, loss_fn, peft, SEED, steps=2)
+            log(f"  Qwen3-VL-4B LoRA step, batch {TRAIN_BATCH}, remat {'on' if remat else 'off'} ({smi}): "
+                f"{r['wall']:.1f} ms/step ({TRAIN_BATCH / r['wall'] * 1e3:.2f} examples/s without collation), forward "
+                f"{r['forward']:.1f} ms, backward {r['backward']:.1f} ms, optimizer {r['optimizer']:.1f} ms, host and "
+                f"idle {r['wall'] - r['forward'] - r['backward'] - r['optimizer']:.1f} ms, peak memory "
+                f"{r['peak_gib']:.2f} GiB ({r['allocated_before_gib']:.2f} GiB held before the step)")
+        model.set_remat(True)
+        step_fn = trainer.make_train_step(loss_fn, peft=peft, seed=SEED)
+        steps["profile"] = kernel_breakdown(f"one Qwen3-VL-4B LoRA step, batch {TRAIN_BATCH}, remat on",
+                                            lambda: step_fn(state, batch)["loss"].item())
+        adapters.detach()
+        del state, adapters
+        extra.update(losses=[l for _, l, _ in seen], grad_norms=[g for _, _, g in seen], eval=metrics,
+                     examples_per_s_end_to_end=summary["train_samples_per_second"], peak_train_gib=peak_train,
+                     step_ms=steps, checkpoint_readback=readback, resumed_loss=tail[0][1], trainable=n_trainable,
+                     launches_per_step={"flash_attention_bwd": per_step})
+
+        # one step over a stored-int8 frozen vision tower, deepstack mergers included (it stays int8 from here on)
+        qapp = ColModelTraining(ColModelTrainingConfig(**recipe(
+            "train_colqwen3.yaml", f"{tmp}/quant", model, processor, max_steps=1, save_steps=100,
+            quantize_frozen_base=True)))
+        stored = [name for name, m in model.named_modules() if isinstance(m, QDense) and m.stored]
+        if len(stored) != QWEN3_VISION_STORED or not all(n.startswith("model.visual.") for n in stored) or \
+                not any(".deepstack_merger_2." in n for n in stored):
+            raise AssertionError(f"quantize_frozen_base stored {len(stored)} layers, expected the vision tower's "
+                                 f"{QWEN3_VISION_STORED} with its deepstack mergers")
+        reset_launches()
+        qseen = []
+        qapp.train(on_step=lambda step, m: qseen.append(float(m["loss"])))
+        torch.cuda.synchronize()
+        quant_launches = launch_counts()
+        qapp.close()
+        if quant_launches["int8_gemm"] != QWEN3_VISION_STORED or not quant_launches["quantize_rows"] or \
+                len(qseen) != 1 or not np.isfinite(qseen[0]) or abs(qseen[0] - tied) < QWEN3_TIED_MARGIN or \
+                quant_launches["bwd_by_head_dim"][t.head_dim] != per_step:
+            raise AssertionError(f"quantize_frozen_base step {qseen}, launches {quant_launches}; expected "
+                                 f"{QWEN3_VISION_STORED} Q1b launches, {per_step} K6 backward launches and a loss "
+                                 f"{QWEN3_TIED_MARGIN} from ln {TRAIN_BATCH}")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] quantize_frozen_base: {len(stored)} stored-int8 vision layers "
+            f"(3 deepstack mergers among them); one step, loss {qseen[0]:.4f}; Q1a {quant_launches['quantize_rows']} "
+            f"and Q1b {quant_launches['int8_gemm']} launches, K6 backward {quant_launches['flash_attention_bwd']}")
+        extra["quantize_frozen_base"] = dict(stored_layers=len(stored), loss=qseen[0], launches=quant_launches)
+        del model, app, qapp, resumed
+        torch.cuda.empty_cache()
+
+    # one BiQwen3 LoRA step at full width cut to 2 vision blocks (both tapped) + 2 text layers, its recipe's loss
+    cut = dataclasses.replace(cfg, vision=dataclasses.replace(v, depth=2, deepstack_visual_indexes=(0, 1)),
+                              text=dataclasses.replace(t, num_hidden_layers=2))
+    bmodel = BiQwen3(cut, device=device, dtype=torch.bfloat16, remat=True)
+    hf_init_(bmodel, torch.Generator(device=device).manual_seed(SEED + 88))
+    bproc = BiQwen3Processor(processor.tokenizer, num_grid_per_side=v.num_grid_per_side, max_num_visual_tokens=768,
+                             device=device)
+    with tempfile.TemporaryDirectory() as out:
+        bapp = ColModelTraining(ColModelTrainingConfig(
+            model=bmodel, processor=bproc, loss_func=BiEncoderLoss(), train_datasets=[train_set], output_dir=out,
+            global_batch_size=TRAIN_BATCH, log_steps=1, save_steps=100, peft=peft, train=train_config, seed=SEED,
+            device=device, max_steps=1))
+        reset_launches()
+        bseen = []
+        with counted_plain_k6() as plain_calls:
+            bapp.train(on_step=lambda step, m: bseen.append(float(m["loss"])))
+        torch.cuda.synchronize()
+        bi_launches = launch_counts()
+        bapp.close()
+    expect = {t.head_dim: 2 * 2}  # a query and a page forward, 2 text layers; the frozen tower takes none
+    if len(bseen) != 1 or not np.isfinite(bseen[0]) or plain_calls[0] or \
+            {d: n for d, n in bi_launches["bwd_by_head_dim"].items() if n} != expect:
+        raise AssertionError(f"BiQwen3 LoRA step: loss {bseen}, launches {bi_launches}, plain calls {plain_calls[0]}; "
+                             f"expected K6 backward {expect}")
+    log(f"  [{time.perf_counter() - t_phase:.0f} s] BiQwen3 at full width, 2 + 2 layers (deepstack after both vision "
+        f"blocks), one LoRA step through ColModelTraining (BiEncoderLoss): loss {bseen[0]:.4f}; K6 backward {expect}")
+    extra["biqwen3"] = dict(loss=bseen[0], launches=bi_launches)
+    del bmodel, bapp
+    torch.cuda.empty_cache()
+    extra["seconds"] = time.perf_counter() - t_phase
+    log(f"phase qwen3 training: {extra['seconds']:.1f} s")
+    launches = dict(flash_attention_bwd=train_launches["flash_attention_bwd"],
+                    flash_attention=train_launches["flash_attention"] + eval_launches["flash_attention"],
+                    maxsim_bf16=eval_launches["maxsim_bf16"], quantize_rows=quant_launches["quantize_rows"],
+                    int8_gemm=quant_launches["int8_gemm"])
+    extra["launches_by_head_dim"] = {str(d): n for d, n in by_dim.items()}
+    return launches, k6_bwd, extra
 
 
 def main() -> int:
@@ -4810,6 +5536,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as gemma_dir:  # phase 12's Gemma3-4B checkpoint, which phase 13 trains
         gemma_launches, gemma_timings, gemma_extra = timed("12 Gemma3 family", phase_gemma3, device, smi, gemma_dir)
         gt_launches, gt_extra = timed("13 Gemma3 training", phase_gemma3_training, device, smi, gemma_dir)
+    with tempfile.TemporaryDirectory() as qwen3_dir:  # phase 14's Qwen3-VL-4B checkpoint, which phase 15 trains
+        qwen3_launches, qwen3_timings, qwen3_extra = timed("14 Qwen3-VL family", phase_qwen3, device, smi, qwen3_dir)
+        q3t_launches, q3t_bwd, q3t_extra = timed("15 Qwen3-VL training", phase_qwen3_training, device, smi, qwen3_dir)
     timings["flash_attention"] = dict(k6["siglip"], gemma_page=k6["gemma_page"], gemma_query=k6["gemma_query"])
     timings["flash_attention_bwd"] = dict(k6_bwd["gemma_page"], gemma_query=k6_bwd["gemma_query"],
                                           gemma_query_padded=k6_bwd["gemma_query_padded"], siglip=k6_bwd["siglip"])
@@ -4868,12 +5597,24 @@ def main() -> int:
             entry["gemma3"] = gemma_timings[name]
         if name in gt_launches:  # over phase 13's path: Gemma3-4B's LoRA steps, eval and quantized-base step
             entry["launches_gemma3_training"] = gt_launches[name]
+        if name in qwen3_launches:  # over phase 14's path: Qwen3-VL-4B's pages, /search_text and serve.py
+            entry["launches_qwen3_slice"] = qwen3_launches[name]
+        if name == "flash_attention":  # phase 14's K6 launches by head dim (D=72 and D=128) and its cases
+            entry.update(launches_qwen3_by_head_dim=qwen3_extra["launches_by_head_dim"],
+                         qwen3=qwen3_timings["flash_attention"])
+        elif name in qwen3_timings:  # Q1a/Q1b at its widths; K3 and K10 at D=320
+            entry["qwen3"] = qwen3_timings[name]
+        if name in q3t_launches:  # over phase 15's path: Qwen3-VL-4B's LoRA steps, eval and quantized-base step
+            entry["launches_qwen3_training"] = q3t_launches[name]
+        if name == "flash_attention_bwd":  # phase 15: by head dim over the LoRA steps (D=128), and its cases
+            entry.update(launches_qwen3_training_by_head_dim=q3t_extra["launches_by_head_dim"], qwen3_training=q3t_bwd)
         kernels.append(dict(entry, **timings[name]))
     print(json.dumps({"kernels": kernels, "pages_per_min": extra["pages_per_min"],
                       "forward_check": extra["forward_check"], "page_profile": extra["page_profile"],
                       "training": train_extra, "stored_int8": quant_extra, "qwen": qwen_extra,
                       "qwen_training": qt_extra, "colsmol": smol_extra, "colsmol_training": st_extra,
-                      "gemma3": gemma_extra, "gemma3_training": gt_extra, "phase_seconds": seconds,
+                      "gemma3": gemma_extra, "gemma3_training": gt_extra, "qwen3": qwen3_extra,
+                      "qwen3_training": q3t_extra, "phase_seconds": seconds,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -11,8 +11,8 @@ processor with the family's ``from_pretrained``::
 
 The port holds the weights in the module, so it returns ``(model,
 processor)`` where JAX returns ``(model, variables, processor)``. The
-``colpali``, ``colqwen2``, ``colqwen2_5``, ``colidefics3`` and ``colgemma3``
-families are ported (their Col models, as in JAX: a Bi model is built from its class);
+``colpali``, ``colqwen2``, ``colqwen2_5``, ``colqwen3``, ``colidefics3`` and
+``colgemma3`` families are ported (their Col models, as in JAX: a Bi model is built from its class);
 the other families are detected and raise. No hub download is made.
 """
 
@@ -36,23 +36,25 @@ _FAMILIES: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "colmodernvbert": (("modernvbert",), ("modernvbert",)),
 }
 # family -> (model class, config class, processor class, loader in core.hf_loader, exporter in core.hf_export,
-#            processor defaults)
-_PORTED: Dict[str, Tuple[str, str, str, str, str, Dict[str, Any]]] = {
+#            default head dim, processor defaults)
+_PORTED: Dict[str, Tuple[str, str, str, str, str, int, Dict[str, Any]]] = {
     "colpali": ("models.paligemma.ColPali", "models.configs.PaliGemmaConfig", "processors.colpali.ColPaliProcessor",
-                "load_colpali_params", "export_colpali_state_dict", {}),
+                "load_colpali_params", "export_colpali_state_dict", 128, {}),
     "colqwen2": ("models.qwen2_vl.ColQwen2", "models.qwen2_vl.Qwen2VLConfig", "processors.qwen2_vl.ColQwen2Processor",
-                 "load_colqwen2_params", "export_colqwen2_state_dict", {"max_num_visual_tokens": 768}),
+                 "load_colqwen2_params", "export_colqwen2_state_dict", 128, {"max_num_visual_tokens": 768}),
     "colqwen2_5": ("models.qwen2_5_vl.ColQwen2_5", "models.qwen2_5_vl.Qwen25VLConfig",
                    "processors.qwen2_5_vl.ColQwen2_5Processor", "load_colqwen25_params",
-                   "export_colqwen25_state_dict", {"max_num_visual_tokens": 768}),
+                   "export_colqwen25_state_dict", 128, {"max_num_visual_tokens": 768}),
+    "colqwen3": ("models.qwen3_vl.ColQwen3", "models.qwen3_vl.Qwen3VLConfig", "processors.qwen3_vl.ColQwen3Processor",
+                 "load_colqwen3_params", "export_colqwen3_state_dict", 320, {"max_num_visual_tokens": 768}),
     "colidefics3": ("models.idefics3.ColIdefics3", "models.idefics3.Idefics3Config",
                     "processors.idefics3.ColIdefics3Processor", "load_colidefics3_params",
-                    "export_colidefics3_state_dict", {}),
+                    "export_colidefics3_state_dict", 128, {}),
     "colgemma3": ("models.gemma3.ColGemma3", "models.gemma3.Gemma3Config", "processors.gemma3.ColGemma3Processor",
-                  "load_colgemma3_params", "export_colgemma3_state_dict", {}),
+                  "load_colgemma3_params", "export_colgemma3_state_dict", 128, {}),
 }
 # where each family that is not ported yet waits in ROADMAP.md
-_NOT_PORTED = {f: "Queue 1 item 8" for f in ("colqwen3", "colmodernvbert", "colqwen3_5", "colqwen_omni")}
+_NOT_PORTED = {f: "Queue 1 item 8" for f in ("colmodernvbert", "colqwen3_5", "colqwen_omni")}
 
 
 def _resolve(dotted: str):
@@ -83,7 +85,7 @@ def exporter_for(config: Any) -> str:
     config class's name (so the JAX package's config of that name matches
     too)."""
     name = type(config).__name__
-    for _, config_path, _, _, exporter, _ in _PORTED.values():
+    for _, config_path, _, _, exporter, _, _ in _PORTED.values():
         if config_path.rpartition(".")[2] == name:
             return exporter
     raise ValueError(f"no ported family has the model config {name}; {', '.join(sorted(_PORTED))} are ported")
@@ -105,7 +107,8 @@ def load_retriever(
 
     ``dtype`` is the model's parameter and compute type (the port has one
     type for both: ``param_dtype`` may only repeat it). ``dim``: the head's
-    width (else the config's ``embedding_dim``, else 128). ``strict``: an
+    width (else the config's ``embedding_dim``, else the family's: 320 for
+    ColQwen3, 128 for the others). ``strict``: an
     unmatched checkpoint key raises. ``processor_kwargs`` go to
     ``from_pretrained`` over ``device=device`` (pass ``tokenizer=`` where
     ``transformers`` is missing). ``model_kwargs`` go to the model class.
@@ -115,7 +118,7 @@ def load_retriever(
     served through kernels Q1a and Q1b, about 0.6 of the bf16 weights'
     bytes on the card. SigLIP's patch embedding, the k/v projections under
     512 wide, the embeddings, Gemma3's raw ``mm_input_projection`` and the
-    128-d head stay in ``dtype``. The
+    retrieval head (128 or 320 wide) stay in ``dtype``. The
     Qwen families' processors default to ``max_num_visual_tokens=768``,
     as in JAX."""
     from colpali_tpu_torch.core import hf_loader
@@ -130,10 +133,10 @@ def load_retriever(
                                   f"(ROADMAP.md {_NOT_PORTED[family]}); {', '.join(sorted(_PORTED))} are")
     if param_dtype is not None and param_dtype != dtype:
         raise ValueError(f"the port computes in its parameters' dtype: param_dtype={param_dtype} != dtype={dtype}")
-    model_path, config_path, proc_path, loader, _, proc_defaults = _PORTED[family]
+    model_path, config_path, proc_path, loader, _, default_dim, proc_defaults = _PORTED[family]
     config = _resolve(config_path).from_hf_config(hf_cfg)
-    model = _resolve(model_path)(config, dim=dim or hf_cfg.get("embedding_dim") or 128, device=device, dtype=dtype,
-                                 **model_kwargs)
+    model = _resolve(model_path)(config, dim=dim or hf_cfg.get("embedding_dim") or default_dim, device=device,
+                                 dtype=dtype, **model_kwargs)
     model.load_state_dict(getattr(hf_loader, loader)(checkpoint_dir, strict=strict))
     if quantize:
         quantize_params(model)

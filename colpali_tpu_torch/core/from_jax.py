@@ -1,6 +1,6 @@
 """Carry a JAX parameter tree over to the port's state dict.
 
-The JAX package's ``ColPali``, ``ColQwen2``, ``ColQwen2_5``,
+The JAX package's ``ColPali``, ``ColQwen2``, ``ColQwen2_5``, ``ColQwen3``,
 ``ColIdefics3`` or ``ColGemma3`` params, or those of a Bi model (``DenseHead``'s ``head/proj``
 included), a nested dict with numpy leaves as ``jax.tree.map(np.asarray,
 variables)`` gives them, become the state dict of the port's model of the
@@ -15,6 +15,8 @@ same name:
   ``Dense``, is taken as it is (the RMSNorms' ``weight``, the q/k norms
   and the four norms of a block included, keep their names);
 - flax ``LayerNorm`` ``scale`` becomes ``weight`` (``bias`` stays);
+- Qwen3-VL's learned position table ``pos_embed/embedding`` becomes
+  ``pos_embed.weight`` and its ``deepstack_merger_{k}`` keep their names;
 - unrolled ``layers_{i}`` and ``blocks_{i}`` become ``layers.{i}`` and ``blocks.{i}``;
 - a stored-int8 tree (``quantize_params``' ``(qp, qc)``): each int8
   ``kernel (K, N)`` becomes the int8 ``weight (N, K)`` and the ``quant``

@@ -27,6 +27,7 @@ from colpali_tpu_torch.core.hf_loader import (
     PALIGEMMA_RULES,
     QWEN2_VL_RULES,
     QWEN25_VL_RULES,
+    QWEN3_VL_RULES,
     _RuleT,
     t_conv2d,
     t_conv3d_patch,
@@ -198,6 +199,14 @@ def export_colqwen25_state_dict(state_dict: Mapping[str, torch.Tensor], channels
                                 strict: bool = True) -> Dict[str, torch.Tensor]:
     """The port's ``ColQwen2_5`` state dict -> HF torch-layout state dict."""
     return _export_qwen(state_dict, QWEN25_VL_RULES, channels, temporal_patch_size, patch_size, strict)
+
+
+def export_colqwen3_state_dict(state_dict: Mapping[str, torch.Tensor], channels: int = 3, temporal_patch_size: int = 2,
+                               patch_size: int = 16, strict: bool = True) -> Dict[str, torch.Tensor]:
+    """The port's ``ColQwen3`` (or ``BiQwen3``) state dict -> HF
+    torch-layout state dict (the vision qkv fused, as HF Qwen3-VL ships it;
+    the deepstack mergers as ``deepstack_merger_list.{k}``)."""
+    return _export_qwen(state_dict, QWEN3_VL_RULES, channels, temporal_patch_size, patch_size, strict)
 
 
 def export_colidefics3_state_dict(state_dict: Mapping[str, torch.Tensor],

@@ -1,6 +1,6 @@
 """HF checkpoint -> the port's state dict (counterpart of
-:mod:`colpali_tpu.core.hf_loader`: the PaliGemma, Qwen2-VL, Idefics3 and
-Gemma3 families).
+:mod:`colpali_tpu.core.hf_loader`: the PaliGemma, Qwen2-VL, Qwen3-VL,
+Idefics3 and Gemma3 families).
 
 Checkpoint keys are first normalized across transformers-version layouts
 and merged-LoRA exports (:data:`PALIGEMMA_KEY_REMAPS`, unmerged LoRA
@@ -261,6 +261,42 @@ def load_colqwen25_params(checkpoint_dir: str, strict: bool = True) -> Dict[str,
     """A (Col)Qwen2.5-VL HF checkpoint directory -> the port's ``ColQwen2_5``
     state dict."""
     return _load_qwen(checkpoint_dir, QWEN25_VL_RULES, strict)
+
+
+# --- the Qwen3-VL family -------------------------------------------------------
+
+_DEEPSTACK = r"visual\.deepstack_merger_list\.(\d+)\."
+QWEN3_VL_RULES: Tuple[_RuleT, ...] = (
+    # --- vision tower: a biased patch embedding, the learned position table, LayerNorm blocks, deepstack ---
+    (r"visual\.patch_embed\.proj\.weight", "model.visual.patch_embed.weight", t_conv3d_patch),
+    (r"visual\.patch_embed\.proj\.bias", "model.visual.patch_embed.bias", t_id),
+    (r"visual\.pos_embed\.weight", "model.visual.pos_embed.weight", t_id),
+    (_QBLOCK + r"norm([12])\.weight", "model.visual.blocks.{i}.norm{j}.weight", t_id),
+    (_QBLOCK + r"norm([12])\.bias", "model.visual.blocks.{i}.norm{j}.bias", t_id),
+    # a fused qkv is split by split_fused_qkv before the rules
+    (_QBLOCK + r"attn\.(q|k|v)_proj\.weight", "model.visual.blocks.{i}.attn.{j}_proj.weight", t_id),
+    (_QBLOCK + r"attn\.(q|k|v)_proj\.bias", "model.visual.blocks.{i}.attn.{j}_proj.bias", t_id),
+    (_QBLOCK + r"attn\.proj\.weight", "model.visual.blocks.{i}.attn.o_proj.weight", t_id),
+    (_QBLOCK + r"attn\.proj\.bias", "model.visual.blocks.{i}.attn.o_proj.bias", t_id),
+    (_QBLOCK + r"mlp\.linear_fc([12])\.weight", "model.visual.blocks.{i}.linear_fc{j}.weight", t_id),
+    (_QBLOCK + r"mlp\.linear_fc([12])\.bias", "model.visual.blocks.{i}.linear_fc{j}.bias", t_id),
+    (r"visual\.merger\.norm\.weight", "model.visual.merger.norm.weight", t_id),
+    (r"visual\.merger\.norm\.bias", "model.visual.merger.norm.bias", t_id),
+    (r"visual\.merger\.linear_fc([12])\.weight", "model.visual.merger.linear_fc{i}.weight", t_id),
+    (r"visual\.merger\.linear_fc([12])\.bias", "model.visual.merger.linear_fc{i}.bias", t_id),
+    (_DEEPSTACK + r"norm\.weight", "model.visual.deepstack_merger_{i}.norm.weight", t_id),
+    (_DEEPSTACK + r"norm\.bias", "model.visual.deepstack_merger_{i}.norm.bias", t_id),
+    (_DEEPSTACK + r"linear_fc([12])\.weight", "model.visual.deepstack_merger_{i}.linear_fc{j}.weight", t_id),
+    (_DEEPSTACK + r"linear_fc([12])\.bias", "model.visual.deepstack_merger_{i}.linear_fc{j}.bias", t_id),
+    # --- Qwen3 text decoder: q/k norms, no projection biases ---
+    (_QLAYER + r"self_attn\.(q|k)_norm\.weight", "model.language_model.layers.{i}.self_attn.{j}_norm.weight", t_id),
+) + tuple(rule for rule in _QWEN2_TEXT_RULES if not rule[0].endswith(r"self_attn\.(q|k|v)_proj\.bias"))
+
+
+def load_colqwen3_params(checkpoint_dir: str, strict: bool = True) -> Dict[str, torch.Tensor]:
+    """A (Col)Qwen3-VL HF checkpoint directory -> the port's ``ColQwen3``
+    state dict (in the checkpoint's dtypes, on the CPU)."""
+    return _load_qwen(checkpoint_dir, QWEN3_VL_RULES, strict)
 
 
 # --- the Idefics3/SmolVLM family ---------------------------------------------

@@ -27,7 +27,9 @@
 // Design (hopper.cuh):
 // - Products are wgmma m64nNk32 s8 x s8 -> s32, A = 64 doc rows, B = N query
 //   tokens, both K-major in shared memory (128-byte swizzle; 64-byte at
-//   D = 64). Each doc block goes through an mbarrier ring, loaded by TMA
+//   D = 64 and at D = 320, whose 320-byte rows are not a whole number of
+//   128-byte atoms: five 64-byte chunks a row, five TMA boxes a block).
+//   Each doc block goes through an mbarrier ring, loaded by TMA
 //   from a 3-D map (D, 128 rows, block) that both layouts share: block
 //   (tile, t) is tile * tile_stride + t * token_stride, so K10 differs from
 //   K3 only in those two numbers and gives its scores bit for bit. The
@@ -84,8 +86,8 @@ struct Int8Args {
 };
 
 template <int D>
-__host__ __device__ constexpr int chunk_bytes() {  // bytes of a swizzled row: 128, or 64 at D = 64
-  return D < 128 ? D : 128;
+__host__ __device__ constexpr int chunk_bytes() {  // bytes of a swizzled row chunk: 128, or 64 (D = 64 and 320)
+  return D % 128 == 0 ? 128 : 64;
 }
 
 template <int D, int N, int ROWS>
@@ -280,7 +282,10 @@ cudaError_t launch(const void* q, const void* qscale, const void* store, const v
   a.slots = slots;
   a.lanes = ROWS == 128 ? 1 : 2 * ((slots + 1) / 2);
   a.ctas_per_lane = std::max(1, std::min(n_tiles, sms / a.lanes));
+  // as many stages as shared memory holds, up to kMaxStages: at D = 320, 4 or 5 whole blocks beside one query
+  // tile, or 7 halves beside two
   a.stages = static_cast<int>(std::min<size_t>(kMaxStages, (kSmemLimit - L::fixed()) / L::per_stage()));
+  static_assert((kSmemLimit - L::fixed()) / L::per_stage() >= 2, "shared memory holds fewer than 2 stages");
   const size_t smem = L::fixed() + a.stages * L::per_stage();
   err = colpali_allow_smem(maxsim_int8_kernel<D, N, ROWS>, smem);
   if (err != cudaSuccess) return err;
@@ -309,6 +314,7 @@ cudaError_t dispatch(const void* q, const void* qscale, const void* store, const
     case 64: return dispatch_n<64>(q, qscale, store, dscale, out, b, nq, np, nt, token_major, s);
     case 128: return dispatch_n<128>(q, qscale, store, dscale, out, b, nq, np, nt, token_major, s);
     case 256: return dispatch_n<256>(q, qscale, store, dscale, out, b, nq, np, nt, token_major, s);
+    case 320: return dispatch_n<320>(q, qscale, store, dscale, out, b, nq, np, nt, token_major, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -316,7 +322,7 @@ cudaError_t dispatch(const void* q, const void* qscale, const void* store, const
 }  // namespace
 
 // Queries (b * nq, d) int8 and (b * nq) fp32 scales with nq a multiple of 8
-// up to 128 (the wrapper pads and splits longer queries), d 64, 128 or 256;
+// up to 128 (the wrapper pads and splits longer queries), d 64, 128, 256 or 320;
 // every pointer 16-byte aligned.
 // K3: tile-major store (n_tiles, Np, 128, D), scales (n_tiles, Np, 128).
 extern "C" int colpali_maxsim_int8(const void* q, const void* qscale, const void* store, const void* dscale, void* out,

@@ -12,9 +12,11 @@ int or a sorted list of bucket sizes (the smallest bucket that fits wins):
 ``pad_seq_to`` for the token axes (input_ids / attention_mask /
 position_ids), ``pad_patches_to`` for the visual patch axis of
 dynamic-resolution families (``pixel_values (B, P, D)`` with patch_mask /
-vision_hpos / vision_wpos, and Qwen2.5-VL's window_id, padded with the
-processor's pad id -1: the JAX package leaves window_id unpadded, which
-hands the tower ids of the wrong length). Values may be numpy arrays or tensors (a
+vision_hpos / vision_wpos, Qwen2.5-VL's window_id, padded with the
+processor's pad id -1, and Qwen3-VL's position-table taps ``pos_idx`` /
+``pos_weight (B, P, 4)``, padded with 0 along their patch axis: the JAX
+package leaves window_id, pos_idx and pos_weight unpadded, which hands the
+tower arrays of the wrong length). Values may be numpy arrays or tensors (a
 processor that stages pixels on the device returns tensors); tensors are
 padded with ``torch``, where they are.
 """
@@ -178,4 +180,8 @@ class VisualRetrieverCollator:
                     key = f"{prefix}{name}"
                     if key in batch:
                         out[key] = _pad_axis(batch[key], -1, target, fill)
+                for name in ("pos_idx", "pos_weight"):  # (B, P, 4): the patch axis is the second last
+                    key = f"{prefix}{name}"
+                    if key in batch:
+                        out[key] = _pad_axis(batch[key], -2, target)
         return out

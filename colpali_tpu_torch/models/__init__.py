@@ -38,3 +38,11 @@ from colpali_tpu_torch.models.qwen2_vl import (  # noqa: F401
     Qwen2VLConfig,
     Qwen2VLVisionConfig,
 )
+from colpali_tpu_torch.models.qwen3_vl import (  # noqa: F401
+    BiQwen3,
+    ColQwen3,
+    Qwen3TextConfig,
+    Qwen3VLBackbone,
+    Qwen3VLConfig,
+    Qwen3VLVisionConfig,
+)

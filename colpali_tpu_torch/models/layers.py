@@ -271,12 +271,14 @@ class Attention(nn.Module):
     ``attn_bias`` instead runs :func:`biased_attention` (no kernel: the JAX
     package runs it on XLA) and cannot be combined with them. ``scale``
     defaults to ``head_dim**-0.5``; ``qk_norm_eps`` adds per-head RMSNorms
-    ``q_norm``/``k_norm`` over the head dim (Gemma's, with the unit offset),
-    applied before rope."""
+    ``q_norm``/``k_norm`` over the head dim, applied before rope: Gemma's,
+    with the unit offset, or with ``qk_norm_offset=False`` Qwen3's (the
+    weight is the scale)."""
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int, num_kv_heads: Optional[int] = None,
                  use_bias: bool = False, out_bias: Optional[bool] = None, scale: Optional[float] = None,
-                 qk_norm_eps: Optional[float] = None, device: Device = "cuda", dtype: torch.dtype = torch.float32):
+                 qk_norm_eps: Optional[float] = None, qk_norm_offset: bool = True, device: Device = "cuda",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads or num_heads
@@ -289,8 +291,8 @@ class Attention(nn.Module):
         self.v_proj = QDense(hidden_size, kv, bias=use_bias, **kw)
         self.o_proj = QDense(num_heads * head_dim, hidden_size, bias=use_bias if out_bias is None else out_bias, **kw)
         if qk_norm_eps is not None:
-            self.q_norm = RMSNorm(head_dim, eps=qk_norm_eps, **kw)
-            self.k_norm = RMSNorm(head_dim, eps=qk_norm_eps, **kw)
+            self.q_norm = RMSNorm(head_dim, eps=qk_norm_eps, add_unit_offset=qk_norm_offset, **kw)
+            self.k_norm = RMSNorm(head_dim, eps=qk_norm_eps, add_unit_offset=qk_norm_offset, **kw)
 
     def forward(
         self,

@@ -140,14 +140,14 @@ class Qwen2VLConfig:
         )
 
 
-def from_export_config(cls, vision_cls, cfg: Mapping[str, Any]):
+def from_export_config(cls, vision_cls, cfg: Mapping[str, Any], text_cls=Qwen2TextConfig):
     """A Qwen config from its ``dataclasses.asdict`` form (JSON lists back to
     tuples), as ``training.checkpointing.save_pretrained`` writes it."""
     def fields(d):
         return {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
 
     rest = {k: v for k, v in cfg.items() if k in {f.name for f in dataclasses.fields(cls)} - {"vision", "text"}}
-    return cls(vision=vision_cls(**fields(cfg["vision"])), text=Qwen2TextConfig(**fields(cfg["text"])), **rest)
+    return cls(vision=vision_cls(**fields(cfg["vision"])), text=text_cls(**fields(cfg["text"])), **rest)
 
 
 def vision_rope(hpos: torch.Tensor, wpos: torch.Tensor, head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:

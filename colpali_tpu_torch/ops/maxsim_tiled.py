@@ -79,6 +79,8 @@ def _tile_step(per_tile: int) -> int:
 
 # -- K3: full-int8 exact sweep -------------------------------------------------
 
+INT8_DIMS = (64, 128, 256, 320)  # the widths K3 (and K10) are built for on the card
+
 
 def maxsim_int8mxu_tiled_plain(
     query_int8: torch.Tensor,
@@ -136,8 +138,8 @@ def _maxsim_int8_cuda(kernel: CudaKernel, query_int8: torch.Tensor, query_scales
     check_cuda("query_scales", query_scales, torch.float32, dev)
     check_cuda("store", store, torch.int8, dev)
     check_cuda("scales", scales, torch.float32, dev)
-    if d not in (64, 128, 256):
-        raise ValueError(f"the int8 kernel takes dim 64, 128 or 256, got {d}")
+    if d not in INT8_DIMS:
+        raise ValueError(f"the int8 kernel takes dim {', '.join(map(str, INT8_DIMS))}, got {d}")
     if b * nq * nt * np_ == 0:
         return torch.zeros((b, nt * DOC_TILE), dtype=torch.float32, device=dev)
     piece = DOC_TILE if nq > DOC_TILE else -(-nq // 8) * 8

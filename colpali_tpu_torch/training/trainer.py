@@ -116,8 +116,10 @@ def to_device(batch: Batch, device) -> Dict[str, torch.Tensor]:
 
 
 # the inputs of a prefixed sub-batch that the models' forwards take beside ids and mask: the pages' pixels, the
-# Qwen2-VL family's vision geometry, window ids and M-RoPE positions, and the Idefics3 family's tile validity
-MODEL_INPUTS = ("pixel_values", "vision_hpos", "vision_wpos", "patch_mask", "window_id", "position_ids", "tile_mask")
+# Qwen2-VL family's vision geometry, window ids and M-RoPE positions, Qwen3-VL's position-table taps, and the
+# Idefics3 family's tile validity
+MODEL_INPUTS = ("pixel_values", "vision_hpos", "vision_wpos", "patch_mask", "window_id", "pos_idx", "pos_weight",
+                "position_ids", "tile_mask")
 
 
 def forward_prefixed(model: nn.Module, batch: Batch, prefix: str) -> torch.Tensor:

@@ -4,8 +4,9 @@
 hash-based processor, a synthetic dataset, and an HF-layout checkpoint of a
 Qwen-family model with a word-level tokenizer whose special tokens sit at
 Qwen2's ids (:func:`write_qwen_checkpoint`), of a ColIdefics3 with
-Idefics3's specials (:func:`write_idefics3_checkpoint`) or of a seeded
-ColGemma3 at any ``Gemma3Config`` with Gemma3's
+Idefics3's specials (:func:`write_idefics3_checkpoint`), of a seeded
+ColQwen3 at any ``Qwen3VLConfig`` with Qwen2's (:func:`write_qwen3_checkpoint`)
+or of a seeded ColGemma3 at any ``Gemma3Config`` with Gemma3's
 (:func:`write_gemma3_checkpoint`), which ``load_retriever`` reads through
 ``transformers``."""
 
@@ -207,6 +208,51 @@ def write_qwen_checkpoint(directory: str, model, tokenizer, max_num_visual_token
                    "size": {"shortest_edge": 56 * 56, "longest_edge": max_num_visual_tokens * factor**2},
                    "image_mean": list(CLIP_MEAN), "image_std": list(CLIP_STD)}, f)
     tokenizer.save_pretrained(directory)
+
+
+def qwen3_hf_config(config) -> dict:
+    """The HF ``config.json`` of a ``Qwen3VLConfig``, laid out as
+    ``scripts/gate_families.py`` writes it: ``vision_config``,
+    ``text_config`` with the interleaved M-RoPE under ``rope_scaling``, and
+    the special token ids."""
+    text = {k: _hf_number(v) for k, v in dataclasses.asdict(config.text).items() if k != "mrope_section"}
+    vision = {k: list(v) if isinstance(v, tuple) else _hf_number(v)
+              for k, v in dataclasses.asdict(config.vision).items()}
+    return {"model_type": "qwen3_vl", "architectures": ["ColQwen3"], "vision_config": vision,
+            "text_config": {**text, "rope_scaling": {"rope_type": "default", "mrope_interleaved": True,
+                                                     "mrope_section": list(config.text.mrope_section)}},
+            "image_token_id": config.image_token_id, "vision_start_token_id": config.vision_start_token_id,
+            "video_token_id": config.video_token_id}
+
+
+def write_qwen3_checkpoint(directory: str, config, seed: int = 0, words: Sequence[str] = (), device="cuda") -> None:
+    """A ColQwen3 of ``config`` (320-wide head) with seeded random bf16
+    weights (HF's convention, :func:`~colpali_tpu_torch.models.common.hf_init_`),
+    built on ``device``, as an HF-format checkpoint in ``directory``:
+    ``model.safetensors`` by the port's exporter, ``config.json``
+    (:func:`qwen3_hf_config`), ``preprocessor_config.json`` (the config's
+    patches, mean and std 0.5, Qwen3-VL's pixel bounds of 65,536 and
+    16,777,216) and :func:`qwen_word_tokenizer`'s files over the page
+    prompt's words and ``words``."""
+    from colpali_tpu_torch.models.common import hf_init_
+    from colpali_tpu_torch.models.qwen3_vl import ColQwen3
+    from colpali_tpu_torch.processors.qwen2_vl import ColQwen2Processor
+    from colpali_tpu_torch.training.checkpointing import save_pretrained
+
+    model = ColQwen3(config, device=device, dtype=torch.bfloat16)
+    hf_init_(model, torch.Generator(device=device).manual_seed(seed))
+    save_pretrained(directory, model.state_dict(), config=config)
+    del model
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(qwen3_hf_config(config), f)
+    v = config.vision
+    with open(os.path.join(directory, "preprocessor_config.json"), "w") as f:
+        json.dump({"patch_size": v.patch_size, "merge_size": v.spatial_merge_size,
+                   "temporal_patch_size": v.temporal_patch_size,
+                   "size": {"shortest_edge": 65536, "longest_edge": 16777216},
+                   "image_mean": [0.5, 0.5, 0.5], "image_std": [0.5, 0.5, 0.5]}, f)
+    prompt = ColQwen2Processor.visual_prompt_prefix.replace("\n", " ").split()
+    qwen_word_tokenizer([w for w in (*prompt, *words) if "<|" not in w]).save_pretrained(directory)
 
 
 def idefics3_hf_config(config) -> dict:

@@ -132,9 +132,15 @@ def test_k3_matches_plain(dev, d, b, nq, np_):
 K3_GRID = [(b, nq, d, 7, 3) for b in (1, 3, 8) for nq in (16, 32, 64) for d in (64, 128, 256)]
 K3_SHAPES = [(8, 64, 128, 1, 131), (8, 64, 128, 64, 133), (1, 32, 128, 64, 131), (3, 16, 256, 1040, 1),
              (8, 64, 128, 1040, 2), (8, 32, 64, 64, 133), (1, 64, 256, 7, 1), (8, 16, 128, 64, 1)]
+# D=320 (ColQwen3's head: five 64-byte swizzle chunks a row) on each side of every plan threshold: B * Nq of 32,
+# 40 and 64 (whole blocks, N = 32 / 64), 128 (N = 128, one slot), then 3 and 8 queries of 64 and 2 of 128 (half
+# blocks, 2 to 4 slots), a query of 200 tokens (two pieces), tile counts around the 132 SMs, up to 1,040 doc tokens
+K3_D320 = [(1, 32, 320, 7, 3), (1, 40, 320, 7, 3), (1, 64, 320, 64, 131), (2, 64, 320, 7, 3), (1, 128, 320, 7, 2),
+           (3, 64, 320, 64, 133), (8, 64, 320, 64, 3), (2, 128, 320, 7, 3), (1, 200, 320, 16, 2),
+           (8, 16, 320, 1040, 1)]
 
 
-@pytest.mark.parametrize("b,nq,d,np_,nt", K3_GRID + K3_SHAPES)
+@pytest.mark.parametrize("b,nq,d,np_,nt", K3_GRID + K3_SHAPES + K3_D320)
 def test_k3_and_k10_match_plain_bit_equal_and_repeatable(dev, b, nq, d, np_, nt):
     store, scales = _store(dev, nt, np_, d, seed=b + nq + d + np_)
     q = torch.randn((b, nq, d), generator=_gen(dev, 7), device=dev)
@@ -799,11 +805,12 @@ def test_k6_with_window_segments_matches_plain(dev, pad):
         _assert_k6_close(got[rows], want[rows])
 
 
-@pytest.mark.parametrize("h,hkv", [(12, 2), (16, 2)])
+@pytest.mark.parametrize("h,hkv", [(12, 2), (16, 2), (32, 8)])
 @pytest.mark.parametrize("s", [64, 760])
 def test_k6_causal_gqa_with_left_padding_matches_plain(dev, h, hkv, s):
     """The decoder's attention: causal, D=128, rows left-padded by 0 to
-    7 x 17 tokens (segment 0) and a query bucket's right padding."""
+    7 x 17 tokens (segment 0) and a query bucket's right padding; GQA 12/2
+    and 16/2 (Qwen2-VL-2B, Qwen2.5-VL-3B) and 32/8 (Qwen3-VL-4B)."""
     b, d = 8, 128
     g = _gen(dev, h + s)
     q, k, v = (torch.randn((b, s, n, d), generator=g, device=dev).to(torch.bfloat16) for n in (h, hkv, hkv))
@@ -830,6 +837,8 @@ QWEN_BWD_CASES = [
     (8, 64, 16, 2, 128, "left", True),  # the collated queries of Qwen2.5-VL-3B
     (8, 760, 16, 2, 128, "left", True),  # its decoder over pages, rows left-padded
     (8, 760, 12, 2, 128, "left", True),  # Qwen2-VL-2B's decoder
+    (8, 64, 32, 8, 128, "left", True),  # Qwen3-VL-4B's collated queries: GQA ratio 4
+    (8, 800, 32, 8, 128, "left", True),  # its decoder over pages
     (3, 480, 16, 16, 80, "window", False),  # the vision towers' windowed blocks
     (3, 480, 16, 16, 80, "full", False),  # their full-attention blocks (pad patches in segment -1)
 ]
@@ -1187,6 +1196,32 @@ def test_k6_at_gemma3_vision_shape_matches_plain_and_is_bit_equal(dev, b, s, h, 
     again = flash_attention(q, k, v, seg, d**-0.5)
     assert fa.FORWARD_LAUNCHES_BY_HEAD_DIM[72] == before + 2 and torch.equal(got, again)
     _assert_k6_close(got, flash_attention_plain(q, k, v, seg, d**-0.5))
+
+
+QWEN3_VISION_CASES = [
+    # b, s, valid patches of each row (the patch mask as segment ids: pad patches see pad patches)
+    (2, 3072, (3072, 2001)),  # Qwen3-VL-4B's tower over a 1,275 x 1,650 page (768 merged tokens) and a smaller one
+    (3, 1040, (1040, 1040, 16)),  # three pages of unequal sizes, one nearly all padding
+]
+
+
+@pytest.mark.parametrize("b,s,lengths", QWEN3_VISION_CASES)
+def test_k6_at_qwen3_vision_shape_matches_plain_and_is_bit_equal(dev, b, s, lengths):
+    """K6 at D=72 over Qwen3-VL-4B's vision tower (16 heads), the patch mask
+    as the segments, against its plain version by K6's rule with the RMS per
+    query row (a page of 16 patches gives rows of order 1 beside long pages'
+    rows of RMS ~sqrt(e / S), as the causal rows do), two calls bit-equal."""
+    from colpali_tpu_torch.ops import flash_attention as fa
+
+    h, d = 16, 72
+    g = _gen(dev, s + b)
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    seg = (torch.arange(s, device=dev)[None] < torch.tensor(lengths, device=dev)[:, None]).to(torch.int32)
+    before = fa.FORWARD_LAUNCHES_BY_HEAD_DIM[72]
+    got = flash_attention(q, k, v, seg, d**-0.5)
+    again = flash_attention(q, k, v, seg, d**-0.5)
+    assert fa.FORWARD_LAUNCHES_BY_HEAD_DIM[72] == before + 2 and torch.equal(got, again)
+    _assert_close_per_row(got, flash_attention_plain(q, k, v, seg, d**-0.5), torch.ones_like(seg, dtype=torch.bool))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -4,8 +4,9 @@ package to the other is a change of the import).
 - Every name that a reference ``__init__`` exports from a module the port
   has, and that module defines, is exported at the same path of the port
   (the same object). Modules not ported yet, and names of ported modules
-  that wait (JAX's functional LoRA, ``BiQwen3Processor``), are skipped.
-- The ``_target_``s of the eight training recipes resolve in the port
+  that wait (JAX's functional LoRA, the Qwen3.5 processors of
+  ``processors.qwen3_vl``), are skipped.
+- The ``_target_``s of the nine training recipes resolve in the port
   (``configs._resolve`` reads ``colpali_tpu.`` as ``colpali_tpu_torch.``), all but
   ``utils.dataset_loading.load_train_set`` (ROADMAP.md Queue 1 item 9);
   ``load_config``, which ``python -m colpali_tpu_torch.train`` calls,
@@ -45,16 +46,18 @@ def test_every_ported_name_is_exported_where_the_reference_exports_it():
         if not (REPO / Path(*_port_name(module).split("."))).with_suffix(".py").exists():
             continue  # a module not ported yet (ROADMAP.md Queue 1)
         if not hasattr(importlib.import_module(_port_name(module)), name):
-            continue  # a name of a ported module that waits (JAX's functional LoRA, BiQwen3Processor)
+            continue  # a name of a ported module that waits (JAX's functional LoRA, the Qwen3.5 processors)
         assert getattr(importlib.import_module(_port_name(package)), name) is \
             getattr(importlib.import_module(_port_name(module)), name), f"{_port_name(package)}.{name}"
         exported += 1
-    assert exported >= 89
+    assert exported >= 97
     from colpali_tpu_torch import load_retriever as top  # noqa: F401
     from colpali_tpu_torch.models import BiIdefics3, BiPaliProj, ColIdefics3, ColQwen2_5  # noqa: F401
     from colpali_tpu_torch.models import BiGemma3, ColGemma3, Gemma3Backbone, Gemma3Config  # noqa: F401
     from colpali_tpu_torch.processors import BiGemma3Processor, BiGemmaProcessor3, ColGemma3Processor  # noqa: F401
     from colpali_tpu_torch.processors import BiQwen2_5_Processor, ColGemmaProcessor3, ColIdefics3Processor  # noqa: F401
+    from colpali_tpu_torch.models import BiQwen3, ColQwen3, Qwen3TextConfig, Qwen3VLBackbone, Qwen3VLConfig  # noqa: F401
+    from colpali_tpu_torch.processors import BiQwen3Processor, ColQwen3Processor  # noqa: F401
     from colpali_tpu_torch.training import ColModelTraining, ColModelTrainingConfig, LoraSpec, TrainConfig  # noqa: F401
 
 
@@ -71,7 +74,7 @@ def _targets(node):
 
 @pytest.mark.parametrize("recipe", ["train_colpali.yaml", "train_colqwen2.yaml", "train_colqwen2_5.yaml",
                                     "train_colidefics3.yaml", "train_bipali.yaml", "train_biidefics3.yaml",
-                                    "train_colgemma3.yaml", "train_bigemma3.yaml"])
+                                    "train_colgemma3.yaml", "train_bigemma3.yaml", "train_colqwen3.yaml"])
 def test_recipe_targets_resolve_in_the_port(recipe):
     targets = sorted(set(_targets(yaml.safe_load((REPO / "configs" / recipe).read_text()))))
     missing = []
