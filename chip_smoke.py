@@ -4,10 +4,12 @@
 The serving path runs for ColPali-3B (phases 3, 4 and 7), for the
 Qwen2-VL family, ColQwen2.5-3B and ColQwen2-2B (phase 8), for the
 Idefics3/SmolVLM family, colSmol-256M, with the single-vector Bi models
-(phase 10), for the Gemma3 family, Gemma3-4B (phase 12), and for the
-Qwen3-VL family, Qwen3-VL-4B (phase 14); training for ColPali-3B (phase 5),
-the Qwen2-VL family (phase 9), the Idefics3 family with the Bi models
-(phase 11), the Gemma3 family (phase 13) and the Qwen3-VL family (phase 15).
+(phase 10), for the Gemma3 family, Gemma3-4B (phase 12), for the Qwen3-VL
+family, Qwen3-VL-4B (phase 14), and for the ModernVBert family,
+ModernVBERT-base (phase 16); training for ColPali-3B (phase 5), the
+Qwen2-VL family (phase 9), the Idefics3 family with the Bi models (phase
+11), the Gemma3 family (phase 13), the Qwen3-VL family (phase 15) and the
+ModernVBert family (phase 17).
 
 Run from the repository root with no arguments:
 
@@ -134,7 +136,10 @@ Phases (a few lines of output each, then two JSON lines):
    holding ``q * scale``, a step timed); ColQwen2-2B's 2 LoRA steps and its
    route check; one full fine-tuning step of ColQwen2.5 at full width cut
    to 4 vision blocks and 2 text layers (batch 8), through the D=80
-   backward, its gradient against the plain route.
+   backward, its gradient against the plain route, the recipe loss over
+   the pages' image tokens at least 0.05 from ln 8 (with page tokens kept
+   it reads ln 8: every maximum on the shared causal template) and moved
+   by the step.
 
 10. the Idefics3/SmolVLM family (after phase 9): colSmol-256M at its
    published widths (SigLIP-B/16-512 12 x 768, pixel shuffle by 4, a
@@ -256,8 +261,48 @@ Phases (a few lines of output each, then two JSON lines):
    remat and a profile of one, one step over a stored-int8 frozen vision
    tower (171 layers, the deepstack mergers among them); one BiQwen3 LoRA
    step at full width cut to 2 + 2 layers.
-   Each phase from 8 on logs the GiB held on the card as it starts; every
-   phase's seconds are logged as it ends and listed in the JSON line.
+16. the ModernVBert family (after phase 15): ModernVBERT-base at its
+   published widths and depth (SigLIP-B/16-512 12 x 768, 12 heads of 64,
+   pixel shuffle by 4, a 12,288 -> 768 connector; a bidirectional ModernBERT
+   encoder 22 x 768, 12 heads of 64, GeGLU 2 x 1,152, global attention on
+   every third layer and a window of 128 on the others; vocab 50,368 with
+   128 additional ids holding the tile tokens; 0.244 B seeded random bf16
+   parameters) written by ``utils.testing.write_modernvbert_checkpoint`` and
+   read back by ``load_retriever(family="colmodernvbert")`` in bf16 and with
+   ``quantize=True`` (205 stored-int8 layers); the encoder's biased
+   attention (no kernel, as in JAX) at B=8 S=866 H=12 D=64, global and
+   local, beside SDPA on the same boolean mask; Q1a/Q1b bit-equal to their
+   plain versions at the (M, K, N) of a page forward and the query forwards
+   and timed; 12 K6 launches a page forward (D=64, every tile of the padded
+   batch; K6 at this shape is held and timed in phase 10) and none a query
+   forward, 22 biased attention calls a forward (8 global, 14 local); 16
+   seeded pages (13 tiles, 866 tokens each) through ``embed_dataset`` on both
+   models, a two-tier int8 index behind ``make_handler`` for each, the 4
+   planted pages at rank 1 on the tiered and the exact route of
+   ``/search_text``, ``serve.py --checkpoint --family colmodernvbert``
+   answering one, no K6 launch through its plain version; K1-K3 against
+   plain on both indexes; the K6 route against the plain route, stored int8
+   against bf16 and a query alone against the same query in a bucketed
+   batch, per token; an 8-page forward and encode x1/x8 timed in turns, two
+   profiles; BiModernVBert at full width through both routes, its
+   processor's ``score`` and against fp32.
+17. ModernVBert training (after phase 16, on its checkpoint):
+   ModernVBERT-base read by ``load_retriever(family="colmodernvbert",
+   remat=True)`` and trained through ``ColModelTraining`` from
+   ``configs/train_colmodernvbert.yaml`` (its ``ColbertLoss(temperature=
+   0.02)`` and LoRA r32 over JAX's 133 kernels; batch 8, 4 steps over 32
+   pages): the frozen tower's 12 K6 forward launches a step, no backward
+   (the encoder's attention is biased), step 1's loss at least 0.05 from ln
+   8; one step against the plain route, ``evaluate()`` over 16 pages (bf16
+   index, K5), the merged export read back by ``load_retriever`` and
+   served, a run resumed from step 2 repeating step 3's loss, a step with
+   and without remat and a profile of one, one step over a stored-int8
+   frozen vision tower (72 layers; the connector stays bf16), one
+   BiModernVBert LoRA step at full width and depth.
+   Each phase from 8 on logs the GiB held on the card as it starts (past 1
+   GiB, with the chain of referrers that holds the largest module trees);
+   every phase's seconds are logged as it ends and listed in the JSON line,
+   and the script's total before it.
 
 Every K6 and K11 case prints, beside its time by CUDA events, TFLOP/s,
 the share of its bound, and SDPA with a boolean mask and, where the
@@ -396,13 +441,69 @@ def log(msg: str) -> None:
 def free_memory(phase: str) -> float:
     """Collect what an earlier phase left in reference cycles before the next
     phase allocates, and log (and return) the GiB still allocated on the
-    card. Servers are closed with ``RetrievalServer.server_close``, which
-    stops the batcher threads that hold their indexes and models."""
+    card; past 1 GiB, also what holds it (:func:`memory_holders`). Servers
+    are closed with ``RetrievalServer.server_close``, which stops the
+    batcher threads that hold their indexes and models."""
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() / 2**30
     log(f"{phase}: {held:.2f} GiB held on the card as it starts")
+    if held > 1.0:
+        for line in memory_holders():
+            log(f"  held: {line}")
     return held
+
+
+def _describe(obj) -> str:
+    """A short name of a referrer: a frame or generator by its function, a
+    thread by its name, a dict by the object whose ``__dict__`` it is."""
+    import types
+
+    if isinstance(obj, types.FrameType):
+        return f"frame {obj.f_code.co_name} ({obj.f_code.co_filename.rsplit('/', 1)[-1]}:{obj.f_lineno})"
+    if isinstance(obj, types.GeneratorType):
+        return f"generator {obj.gi_code.co_qualname}"
+    if isinstance(obj, dict):
+        owners = [o for o in gc.get_referrers(obj) if getattr(o, "__dict__", None) is obj]
+        return f"{type(owners[0]).__name__}.__dict__" if owners else f"dict ({len(obj)} keys)"
+    return type(obj).__name__
+
+
+def memory_holders(top: int = 4, depth: int = 8) -> list:
+    """What keeps the largest module trees on the card alive: for each
+    top-level ``nn.Module`` holding over 0.1 GiB of CUDA parameters and
+    buffers, a chain of referrers up from it, ``depth`` steps (frames and
+    generators followed first, then objects' ``__dict__``), which ends
+    where nothing more refers: a running thread's frame, a module global."""
+    import sys
+    import types
+
+    here = sys._getframe()
+    modules = [o for o in gc.get_objects() if isinstance(o, torch.nn.Module)]
+    children = {id(c) for m in modules for c in m.children()}
+    sized = []
+    for m in modules:
+        if id(m) in children:
+            continue
+        gib = sum(t.numel() * t.element_size() for t in (*m.parameters(), *m.buffers()) if t.is_cuda) / 2**30
+        if gib > 0.1:
+            sized.append((gib, m))
+    mine = {id(here), id(modules), id(sized), *(id(gm) for gm in sized)}
+    lines = []
+    for gib, m in sorted(sized, key=lambda gm: -gm[0])[:top]:
+        chain, obj = [], m
+        for _ in range(depth):
+            refs = [r for r in gc.get_referrers(obj) if id(r) not in mine]
+            if not refs:
+                break
+            refs.sort(key=lambda r: (not isinstance(r, (types.FrameType, types.GeneratorType)),
+                                     not isinstance(r, dict)))
+            mine.add(id(refs))
+            chain.append(" | ".join(_describe(r) for r in refs[:3]))
+            obj = refs[0]
+        lines.append(f"{type(m).__name__} ({gib:.2f} GiB on the card) <- " + " <- ".join(chain))
+        del chain, obj, refs
+    return lines
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -2953,6 +3054,11 @@ FULL_FT_BATCH = 8  # the recipe's batch: it fits since the served handlers' batc
 # 28 layers), where ColPali's 18 layers read 0.9999: bf16 roundings of two routes through random weights. The
 # gradient limit is at about 3x the larger gap (the limit written before any run, 0.999, was a guess)
 QWEN_ROUTE_LOSS_RTOL, QWEN_ROUTE_GRAD_COS = 1e-2, 0.99
+# ColbertLoss's least distance from ln B, where every page of a batch scores alike and a step carries no
+# ranking (phases 9, 13, 15 and 17). On random weights the full fine-tuning batch reads the recipe loss as ln 8 exactly
+# with page tokens kept (every query token's maximum on the causal template that opens every page), so 9 (e)
+# holds the recipe loss over the pages' image tokens, as mask_non_image_embeddings scores them
+TIED_MARGIN = 0.05
 
 
 def launch_counts() -> dict:
@@ -3182,6 +3288,7 @@ def phase_qwen_training(device: torch.device, smi: str, ckpt: str) -> tuple:
     checkpoint. Returns the launches over the path, K6's backward timings
     and the rest."""
     import dataclasses
+    import math
     import os
     import shutil
 
@@ -3411,9 +3518,28 @@ def phase_qwen_training(device: torch.device, smi: str, ckpt: str) -> tuple:
                                                                   total_steps=100, weight_decay=0.0))
     # the plain route keeps each vision block's fp32 logits for its backward (4.5 GB a block at batch 8)
     batch = {k: v[:, :FULL_FT_BATCH] if k.endswith("position_ids") else v[:FULL_FT_BATCH] for k, v in batch.items()}
+    image = (batch["doc_input_ids"] == cut.image_token_id)[..., None]
+
+    def image_only(q, d):  # the recipe loss over the pages' image tokens (mask_non_image_embeddings' scores)
+        return loss_fn(q, d * image.to(d.dtype))
+
+    tied = math.log(FULL_FT_BATCH)
+    spread = page_score_spread(full, batch, cut.image_token_id, loss_fn)
+    margin = abs(spread["masked"]["loss"] - tied)
+    log(f"  full fine-tuning batch, in-batch scores: page tokens kept, the recipe loss {spread['unmasked']['loss']:.6f} "
+        f"(ln {FULL_FT_BATCH} = {tied:.6f}), {spread['unmasked']['on_template']:.1%} of the query tokens' maxima "
+        f"outside the image tokens, least spread {spread['unmasked']['min_spread']:.5f}; over the image tokens alone "
+        f"{spread['masked']['loss']:.6f} ({margin:.4f} from ln {FULL_FT_BATCH}, limit {TIED_MARGIN}), least spread "
+        f"{spread['masked']['min_spread']:.5f}")
+    if margin < TIED_MARGIN:
+        raise AssertionError(f"full fine-tuning: the recipe loss over the image tokens {spread['masked']['loss']:.6f} "
+                             f"lies within {TIED_MARGIN} of ln {FULL_FT_BATCH}: the pages score alike")
+    with torch.no_grad():
+        before_step = trainer.compute_loss(full, batch, image_only, False)[0].item()
     reset_launches()
     route_full = hold_routes(f"full fine-tuning ({FULL_FT_VISION_DEPTH} vision blocks, {FULL_FT_TEXT_LAYERS} text "
-                             f"layers, batch {FULL_FT_BATCH})", fstate, batch, loss_fn, None)
+                             f"layers, batch {FULL_FT_BATCH}; recipe loss over the image tokens)", fstate, batch,
+                             image_only, None)
     e_launches = launch_counts()  # both losses' kernel routes: one page forward each
     # the step on the smooth probe: the recipe loss's max over page tokens can leave the whole tower without a
     # gradient where no image token is picked, as on random weights
@@ -3424,16 +3550,23 @@ def phase_qwen_training(device: torch.device, smi: str, ckpt: str) -> tuple:
     no_grad = [n for n, p in full.named_parameters() if p.grad is None or not bool(p.grad.abs().max() > 0)]
     fstate.apply_gradients()
     unmoved = [n for n, p in full.named_parameters() if torch.equal(p.detach(), before[n])]
+    with torch.no_grad():
+        after = trainer.compute_loss(full, batch, image_only, False)[0].item()
     expect80 = 2 * FULL_FT_VISION_DEPTH  # a page forward a loss, each block's attention once
-    if no_grad or unmoved or e_launches["bwd_by_head_dim"][v25.head_dim] != expect80:
+    if no_grad or unmoved or e_launches["bwd_by_head_dim"][v25.head_dim] != expect80 or \
+            after == before_step or not np.isfinite(after):
         raise AssertionError(f"full fine-tuning: parameters without a gradient {no_grad[:4]}, not moved {unmoved[:4]}; "
-                             f"launches {e_launches}, expected {expect80} at D={v25.head_dim}")
+                             f"launches {e_launches}, expected {expect80} at D={v25.head_dim}; the recipe loss over "
+                             f"the image tokens {before_step} before the step, {after} after")
     n_full = sum(p.numel() for p in full.parameters())
     log(f"  full fine-tuning, ColQwen2.5 at full width cut to {FULL_FT_VISION_DEPTH} vision blocks (block "
         f"{FULL_FT_VISION_DEPTH - 1} full attention) and {FULL_FT_TEXT_LAYERS} text layers ({n_full / 1e9:.3f} B "
         f"parameters, batch {FULL_FT_BATCH}): every parameter took a gradient and moved in one step on the smooth "
-        f"probe; K6 backward by head dim over the two route checks' kernel routes {e_launches['bwd_by_head_dim']}")
-    extra["full_fine_tuning"] = dict(params=n_full, route=route_full, launches=e_launches)
+        f"probe (loss {loss.item():.6f}); the recipe loss over the image tokens {before_step:.6f} before it, "
+        f"{after:.6f} after; K6 backward by head dim over the two route checks' kernel routes "
+        f"{e_launches['bwd_by_head_dim']}")
+    extra["full_fine_tuning"] = dict(params=n_full, route=route_full, launches=e_launches, score_spread=spread,
+                                     image_loss=[before_step, after])
     fstate.model.zero_grad(set_to_none=True)
     del full, fstate, before, batch
     torch.cuda.empty_cache()
@@ -4588,38 +4721,45 @@ def phase_gemma3(device: torch.device, smi: str, ckpt: str) -> tuple:
 GEMMA_TRAIN_PAGES = 32  # four batches of 8
 GEMMA_EVAL_PAGES = 16
 GEMMA_TRAIN_STEPS, GEMMA_BI_STEPS = 4, 2
-# the least distance of a ColbertLoss from ln B (every page of a batch scoring alike, where a step carries no
-# ranking). On seeded random weights every query token's hard max falls on the 4 template tokens that open every
-# page (<bos><start_of_turn>user\n; causal, so the same in all pages), and the loss reads ln 8 exactly; phase 13
-# trains with mask_non_image_embeddings, which scores a page by its 256 image tokens alone
-GEMMA_TIED_MARGIN = 0.05
+# TIED_MARGIN holds the ColbertLoss off ln B. On seeded random weights every query token's hard max falls on the 4
+# template tokens that open every Gemma3 page (<bos><start_of_turn>user\n; causal, so the same in all pages), and the
+# loss reads ln 8 exactly; phase 13 trains with mask_non_image_embeddings, which scores a page by its 256 image tokens
 
 
 def page_score_spread(model, batch: dict, image_token: int, loss_fn=None) -> dict:
     """The in-batch MaxSim scores (normalized by the query's length) of a
     collated batch under ``model``, with the page's non-image tokens kept
-    and masked: the least spread of a query's scores across the pages, the
-    share of query tokens whose best page token lies before the image block
-    (the template, the same in every page), and given ``loss_fn`` its value
-    on the batch."""
+    and masked (zeroed, as ``mask_non_image_embeddings`` does, on any
+    model): the least spread of a query's scores across the pages, the
+    share of query tokens whose best page token lies outside the image
+    tokens (the template, the same in every page), and given ``loss_fn``
+    its value on the batch."""
     from colpali_tpu_torch.training.trainer import forward_prefixed
 
     out = {}
-    keep = model.mask_non_image_embeddings
     valid = batch["query_attention_mask"].bool()
-    first = int((batch["doc_input_ids"][0] == image_token).nonzero()[0])
+    image = batch["doc_input_ids"] == image_token
+    masking = getattr(model, "mask_non_image_embeddings", False)
+    if masking:
+        model.mask_non_image_embeddings = False
+    try:
+        with torch.no_grad():
+            q = forward_prefixed(model, batch, "query_").float()
+            d_kept = forward_prefixed(model, batch, "doc_").float()
+    finally:
+        if masking:
+            model.mask_non_image_embeddings = True
     with torch.no_grad():
-        q = forward_prefixed(model, batch, "query_").float()
         for masked in (False, True):
-            model.mask_non_image_embeddings = masked
-            d = forward_prefixed(model, batch, "doc_").float()
+            d = d_kept * image[..., None] if masked else d_kept
             best, at = torch.einsum("bnd,csd->bcns", q, d).max(-1)
             scores = best.sum(-1) / valid.sum(1, keepdim=True)
+            on_template = ~torch.gather(image[None, :, None, :].expand(q.shape[0], -1, q.shape[1], -1), 3,
+                                        at[..., None])[..., 0]
             out["masked" if masked else "unmasked"] = dict(
                 min_spread=(scores.max(1).values - scores.min(1).values).min().item(),
-                on_template=(at[valid[:, None].expand_as(at)] < first).float().mean().item(),
+                on_template=on_template[valid[:, None].expand_as(at)].float().mean().item(),
                 **({} if loss_fn is None else {"loss": loss_fn(q, d).item()}))
-    model.mask_non_image_embeddings = keep
     return out
 
 
@@ -4633,7 +4773,7 @@ def phase_gemma3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
     back and served, a step timed with and without remat and profiled, one
     step over a stored-int8 frozen vision tower; then BiGemma3 from
     ``train_bigemma3.yaml`` (2 steps). ColGemma3 trains with
-    ``mask_non_image_embeddings`` (:data:`GEMMA_TIED_MARGIN`): the
+    ``mask_non_image_embeddings`` (:data:`TIED_MARGIN`): the
     ColbertLoss of the first step and of the stored-int8 step, each taken
     with fresh adapters, must lie that far from ln 8 (the eval's, after 4
     steps that flatten the scores, need not). Returns the launches over the
@@ -4703,8 +4843,8 @@ def phase_gemma3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
             raise AssertionError(f"Gemma3-4B steps: {seen}")
         if len(moved) != n_adapters or not all(moved):
             raise AssertionError(f"{moved.count(False)} of {n_adapters} adapters did not move in step 1")
-        if abs(seen[0][1] - tied) < GEMMA_TIED_MARGIN:
-            raise AssertionError(f"Gemma3-4B step 1: ColbertLoss {seen[0][1]:.6f}, within {GEMMA_TIED_MARGIN} of "
+        if abs(seen[0][1] - tied) < TIED_MARGIN:
+            raise AssertionError(f"Gemma3-4B step 1: ColbertLoss {seen[0][1]:.6f}, within {TIED_MARGIN} of "
                                  f"ln {TRAIN_BATCH} = {tied:.6f}: the pages score alike")
         if train_launches["flash_attention"] != GEMMA_TRAIN_STEPS * per_step or \
                 train_launches["flash_attention_bwd"] or plain_calls[0]:
@@ -4780,7 +4920,7 @@ def phase_gemma3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
         quant_launches = launch_counts()
         qapp.close()
         if quant_launches["int8_gemm"] != vision_stored or not quant_launches["quantize_rows"] or \
-                len(qseen) != 1 or not np.isfinite(qseen[0]) or abs(qseen[0] - tied) < GEMMA_TIED_MARGIN or \
+                len(qseen) != 1 or not np.isfinite(qseen[0]) or abs(qseen[0] - tied) < TIED_MARGIN or \
                 quant_launches["flash_attention"] != per_step:
             raise AssertionError(f"quantize_frozen_base step {qseen}, launches {quant_launches}; expected "
                                  f"{vision_stored} Q1b launches and {per_step} K6 launches")
@@ -5228,11 +5368,9 @@ def phase_qwen3(device: torch.device, smi: str, ckpt: str) -> tuple:
 QWEN3_TRAIN_PAGES = 32  # four batches of 8
 QWEN3_EVAL_PAGES = 16
 QWEN3_TRAIN_STEPS, QWEN3_RESUME_AT = 4, 2
-# ColbertLoss's least distance from ln B (GEMMA_TIED_MARGIN's rule): the first step's and the int8 step's. The first
-# H100 run, page tokens kept, read 2.1266 at step 1 (0.047 from ln 8; 7.0% of the query tokens' maxima on the
-# template that opens every page, a query's least score spread 0.0114): phase 15 trains with
-# mask_non_image_embeddings, as phase 13 does
-QWEN3_TIED_MARGIN = 0.05
+# TIED_MARGIN holds the first step's loss and the int8 step's. The first H100 run, page tokens kept, read 2.1266 at
+# step 1 (0.047 from ln 8; 7.0% of the query tokens' maxima on the template that opens every page, a query's least
+# score spread 0.0114): phase 15 trains with mask_non_image_embeddings, as phase 13 does
 
 
 def qwen3_bwd_cases(device: torch.device, batch: dict, cfg) -> dict:
@@ -5269,7 +5407,7 @@ def phase_qwen3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
     step timed with and without remat and profiled, one step over a
     stored-int8 frozen vision tower (its deepstack mergers included); then
     one BiQwen3 step at full width cut to 2 + 2 layers. ColQwen3 trains with
-    ``mask_non_image_embeddings`` (:data:`QWEN3_TIED_MARGIN`): the
+    ``mask_non_image_embeddings`` (:data:`TIED_MARGIN`): the
     ColbertLoss of the first step and of the int8 step, each with fresh
     adapters, must lie that far from ln 8. Returns the launches over the path, K6's
     backward rows and the rest."""
@@ -5348,8 +5486,8 @@ def phase_qwen3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
             raise AssertionError(f"{moved.count(False)} of {n_adapters} adapters did not move in step 1")
         if not all(torch.equal(model.state_dict()[k], w) for k, w in base_before.items()):
             raise AssertionError("a frozen base weight changed")
-        if abs(seen[0][1] - tied) < QWEN3_TIED_MARGIN:
-            raise AssertionError(f"Qwen3-VL-4B step 1: ColbertLoss {seen[0][1]:.6f}, within {QWEN3_TIED_MARGIN} of "
+        if abs(seen[0][1] - tied) < TIED_MARGIN:
+            raise AssertionError(f"Qwen3-VL-4B step 1: ColbertLoss {seen[0][1]:.6f}, within {TIED_MARGIN} of "
                                  f"ln {TRAIN_BATCH} = {tied:.6f}: the pages score alike")
         if by_dim != {t.head_dim: QWEN3_TRAIN_STEPS * per_step} or plain_calls[0]:
             raise AssertionError(f"K6 backward over {QWEN3_TRAIN_STEPS} LoRA steps: {by_dim}, {plain_calls[0]} calls of "
@@ -5359,6 +5497,7 @@ def phase_qwen3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
             f"{type(loss_fn).__name__}(temperature {loss_fn.temperature}), LoRA r{peft.rank} a{peft.alpha:g} dropout "
             f"{peft.dropout}, remat, batch {TRAIN_BATCH}; "
             + ", ".join(f"step {s} loss {l:.4f} grad_norm {g:.4f}" for s, l, g in seen)
+            + f" (step 1 {abs(seen[0][1] - tied):.4f} from ln {TRAIN_BATCH}, limit {TIED_MARGIN})"
             + f"; {summary['train_samples_per_second']:.2f} examples/s with collation and checkpoints; K6 forward "
             f"{train_launches['flash_attention']}, backward {train_launches['flash_attention_bwd']} ({per_step} a "
             f"step, by head dim {by_dim}), K6's plain version called {plain_calls[0]} times; peak memory "
@@ -5442,11 +5581,11 @@ def phase_qwen3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
         quant_launches = launch_counts()
         qapp.close()
         if quant_launches["int8_gemm"] != QWEN3_VISION_STORED or not quant_launches["quantize_rows"] or \
-                len(qseen) != 1 or not np.isfinite(qseen[0]) or abs(qseen[0] - tied) < QWEN3_TIED_MARGIN or \
+                len(qseen) != 1 or not np.isfinite(qseen[0]) or abs(qseen[0] - tied) < TIED_MARGIN or \
                 quant_launches["bwd_by_head_dim"][t.head_dim] != per_step:
             raise AssertionError(f"quantize_frozen_base step {qseen}, launches {quant_launches}; expected "
                                  f"{QWEN3_VISION_STORED} Q1b launches, {per_step} K6 backward launches and a loss "
-                                 f"{QWEN3_TIED_MARGIN} from ln {TRAIN_BATCH}")
+                                 f"{TIED_MARGIN} from ln {TRAIN_BATCH}")
         log(f"  [{time.perf_counter() - t_phase:.0f} s] quantize_frozen_base: {len(stored)} stored-int8 vision layers "
             f"(3 deepstack mergers among them); one step, loss {qseen[0]:.4f}; Q1a {quant_launches['quantize_rows']} "
             f"and Q1b {quant_launches['int8_gemm']} launches, K6 backward {quant_launches['flash_attention_bwd']}")
@@ -5491,6 +5630,590 @@ def phase_qwen3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
                     int8_gemm=quant_launches["int8_gemm"])
     extra["launches_by_head_dim"] = {str(d): n for d, n in by_dim.items()}
     return launches, k6_bwd, extra
+
+
+# -- phase 16: the ModernVBert family, ColModernVBert at ModernVBERT-base (run after phase 15) ----------------------
+
+MVB_PAGES = 16  # two batches of 8
+MVB_PLANTED = (1, 6, 10, 13)  # pages whose docs also hold QUERIES[i]'s tokens, i = 0..3
+MVB_FILLER_DOCS = 2_048  # seeded filler docs of DOC_TOKENS tokens beside the pages (at least CANDIDATES)
+MVB_TILES = 13  # a 1,275 x 1,650 page within the longest edge of 2,048: 4 x 3 tiles of 512 px and the global view
+
+
+def modernvbert_config():
+    """ModernVBERT-base (``ModernVBERT/colmodernvbert``: SigLIP2-base-patch16-512 and ettin-encoder-150m, the
+    JAX package's defaults, ``colpali_tpu/models/modernvbert.py:50-151``): vision 12 x 768 (12 heads of 64, MLP
+    3,072, 512 px tiles of 16 px patches), pixel shuffle by 4 (64 tokens a tile, a 12,288 -> 768 connector), a
+    ModernBERT encoder 22 x 768 (12 heads of 64, GeGLU 2 x 1,152, global attention on every third layer at rope
+    theta 160,000, the others within 64 tokens at 10,000), vocab 50,368 and 128 additional ids."""
+    from colpali_tpu_torch.models.modernvbert import ModernVBertConfig
+
+    return ModernVBertConfig()
+
+
+def modernvbert_stored_layers(cfg, vision_only: bool = False) -> int:
+    """ModernVBert's stored-int8 layers (JAX's quantize_params over the same tree, tests/test_torch_modernvbert.py:
+    205 at ModernVBERT-base): 6 a SigLIP layer (q/k/v/o, fc1, fc2), the connector, 6 an encoder layer (q/k/v/o, Wi,
+    Wo); the patch embedding, the two embedding tables and the 128-d head stay bf16. ``quantize_frozen_base``
+    stores the tower's alone."""
+    return cfg.vision.num_hidden_layers * 6 + (0 if vision_only else 1 + cfg.text.num_hidden_layers * 6)
+
+
+@contextlib.contextmanager
+def counted_biased_attention():
+    """The encoder's biased attention calls while the block runs, global
+    (a ``(B, 1, 1, S)`` key bias) and local (``(B, 1, S, S)``) apart."""
+    from colpali_tpu_torch.models import layers
+
+    calls, biased = {"global": 0, "local": 0}, layers.biased_attention
+
+    def counted(q, k, v, attn_bias, *args, **kwargs):
+        calls["global" if attn_bias.shape[-2] == 1 else "local"] += 1
+        return biased(q, k, v, attn_bias, *args, **kwargs)
+
+    with mock.patch.object(layers, "biased_attention", counted):
+        yield calls
+
+
+def modernbert_attention_cases(gen: torch.Generator, device: torch.device, feed: dict, cfg) -> dict:
+    """The encoder's biased attention (no kernel: XLA's einsum route in JAX)
+    at a page batch's shape, under its global and its local bias, each
+    beside SDPA with the same mask as booleans: CUDA events, the bound over
+    the attended pairs, the gap to SDPA."""
+    from colpali_tpu_torch.models.layers import biased_attention
+    from colpali_tpu_torch.models.modernvbert import modernbert_attention_biases
+
+    t = cfg.text
+    mask = feed["attention_mask"]
+    b, s = mask.shape
+    h, d = t.num_attention_heads, t.head_dim
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
+    scale = d**-0.5
+    out = {}
+    for name, bias in zip(("global", "local"), modernbert_attention_biases(mask, t.local_attention)):
+        allowed = bias == 0
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+        def sdpa(allowed=allowed):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed, scale=scale)
+
+        gap = (biased_attention(q, k, v, bias, scale).float() - sdpa().transpose(1, 2).float()).abs().max().item()
+        pairs = allowed.expand(b, 1, s, s).sum().item()
+        nbytes = 2 * 4 * q.numel() + 4 * bias.numel()
+        r = dict(ms=time_ms(lambda bias=bias: biased_attention(q, k, v, bias, scale)), library_ms=time_ms(sdpa),
+                 max_abs_vs_sdpa=gap, **bound(nbytes, 4 * pairs * h * d, "bf16"),
+                 shape=f"B={b} S={s} H={h} D={d}, {name}" + (f" (|q - k| <= {t.local_attention // 2})"
+                                                            if name == "local" else ""))
+        out[name] = r = dict(r, **rates(4 * pairs * h * d, r))
+        log(f"phase modernvbert: biased attention, {r['shape']}: {r['ms']:.3f} ms (no kernel, as in JAX), SDPA on "
+            f"the same boolean mask {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max abs "
+            f"vs SDPA {gap:.3g}")
+    return out
+
+
+def phase_modernvbert(device: torch.device, smi: str, ckpt: str) -> tuple:
+    """Drive the ModernVBert family's serving path: ModernVBERT-base written
+    by ``write_modernvbert_checkpoint`` into ``ckpt`` (kept for phase 17) and
+    read back by ``load_retriever(family="colmodernvbert")`` in bf16 and
+    stored int8; Q1a/Q1b at the path's (M, K, N); the encoder's biased
+    attention timed; pages through ``embed_dataset``, ``/search_text``
+    through ``make_handler`` over a two-tier int8 index and ``serve.py
+    --checkpoint --family colmodernvbert``; K1-K3 held on both indexes; the
+    K6 route against the plain route, stored int8 against bf16, a query
+    alone against the same query in a bucketed batch; forward and encode
+    timings and profiles; then BiModernVBert at full width. K6 at this
+    tower's shape (B=104 S=1,024 H=12 D=64) is held and timed in phase 10:
+    counted here. Returns the launches over the path, the kernel rows and
+    the rest."""
+    import os
+    import threading
+
+    from colpali_tpu_torch import serve
+    from colpali_tpu_torch.auto import load_retriever
+    from colpali_tpu_torch.evaluation.evaluator import embed_dataset
+    from colpali_tpu_torch.models.layers import QDense
+    from colpali_tpu_torch.models.modernvbert import BiModernVBert
+    from colpali_tpu_torch.processors.modernvbert import BiModernVBertProcessor
+    from colpali_tpu_torch.retrieval.serving import QueryEncoder
+    from colpali_tpu_torch.retrieval.store import CorpusIndex
+    from colpali_tpu_torch.serve import RetrievalServer
+    from colpali_tpu_torch.utils.testing import write_modernvbert_checkpoint
+
+    held = free_memory("phase modernvbert")
+    t_phase = time.perf_counter()
+    cfg = modernvbert_config()
+    v, t = cfg.vision, cfg.text
+    pages = make_pages(MVB_PAGES, SEED + 90)
+    extra = dict(held_gib_at_start=held)
+    t0 = time.perf_counter()
+    write_modernvbert_checkpoint(ckpt, cfg, seed=SEED + 91, words=" ".join(QUERIES).split(), device=device)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, processor = load_retriever(ckpt, family="colmodernvbert", device=device)
+    torch.cuda.synchronize()
+    t_bf16 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qmodel, qproc = load_retriever(ckpt, family="colmodernvbert", device=device, quantize=True)
+    torch.cuda.synchronize()
+    t_int8 = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    stored = sum(isinstance(m, QDense) and m.stored for m in qmodel.modules())
+    bytes_int8, bytes_bf16 = (sum(x.numel() * x.element_size() for x in m.state_dict().values())
+                              for m in (qmodel, model))
+    log(f"phase modernvbert: ModernVBERT-base, vision {v.num_hidden_layers} x {v.hidden_size} (MLP "
+        f"{v.intermediate_size}, {v.num_attention_heads} heads x {v.head_dim}, {v.image_size} px tiles of "
+        f"{v.num_patches} patches), pixel shuffle {cfg.pixel_shuffle_factor} ({cfg.image_seq_len} tokens a tile, "
+        f"connector {v.hidden_size * cfg.pixel_shuffle_factor**2} -> {t.hidden_size}), ModernBERT {t.num_hidden_layers} "
+        f"x {t.hidden_size} ({t.num_attention_heads} heads x {t.head_dim}, GeGLU 2 x {t.intermediate_size}, global "
+        f"every {t.global_attn_every_n_layers} layers, window {t.local_attention}), vocab {t.vocab_size} + "
+        f"{cfg.additional_vocab_size}: {n_params / 1e9:.3f} B params; HF checkpoint written in {t_write:.1f} s, "
+        f"load_retriever {t_bf16:.1f} s (bf16), {t_int8:.1f} s (quantize=True: {stored} stored-int8 layers, "
+        f"{bytes_int8 / 1e9:.3f} GB against {bytes_bf16 / 1e9:.3f} GB)")
+    if stored != modernvbert_stored_layers(cfg):
+        raise AssertionError(f"load_retriever(quantize=True): {stored} stored-int8 layers, expected "
+                             f"{modernvbert_stored_layers(cfg)}")
+    batch = pages[:PAGE_BATCH]
+    feed = {k: torch.as_tensor(x).to(device) for k, x in processor.process_images(batch, device_pixels=True).items()}
+    n_tiles = int(feed["tile_mask"].sum(1).max())
+    n_image = (feed["input_ids"] == cfg.image_token_id).sum(1)
+    page_tokens = feed["input_ids"].shape[1]
+    if n_tiles != MVB_TILES or not bool((n_image == MVB_TILES * cfg.image_seq_len).all()) or \
+            not bool((feed["input_ids"] >= t.vocab_size).any()):
+        raise AssertionError(f"a {PAGE_HW[1]} x {PAGE_HW[0]} page: {n_tiles} tiles, {n_image.tolist()} image tokens; "
+                             f"expected {MVB_TILES} tiles and ids past the base vocabulary")
+    encoders = {"bf16": QueryEncoder(model, processor), "int8": QueryEncoder(qmodel, qproc)}
+    for enc in encoders.values():
+        enc.warmup()
+    attention = modernbert_attention_cases(torch.Generator(device=device).manual_seed(SEED + 92), device, feed, cfg)
+
+    # Q1a/Q1b at the (M, K, N) of one stored-int8 page forward and the query forwards (x8, x1), by hooks
+    with torch.inference_mode():
+        page_mkn = q1_path_shapes(qmodel, lambda: qmodel(**feed))
+        model(**feed)  # the bf16 model's first page forward, so that the path below runs warm
+    query_mkn = q1_path_shapes(qmodel, lambda: (encoders["int8"].encode(QUERIES),
+                                                encoders["int8"].encode(QUERIES[:1])))
+    if any(k % 16 or n % 16 for _, k, n in page_mkn + query_mkn):
+        raise AssertionError(f"a ModernVBERT-base width that is not a multiple of 16: {page_mkn + query_mkn}")
+    checks = q1_checks(device, page_mkn + query_mkn, edge_ks=(1152, 12288))
+    log(f"phase modernvbert: Q1a and Q1b bit-equal to their plain versions in {checks['q1b_cases']} Q1b cases at the "
+        f"page forward's (M, K, N) {page_mkn} and the query forwards' {query_mkn} (every K and N a multiple of 16); "
+        "Q1a on edge rows at K 1,152 and 12,288")
+    q1_rows, q1_gemms = q1_timing(device, page_mkn + query_mkn)
+    extra["q1_checks"] = dict(checks, page_forward_mkn=page_mkn, query_forward_mkn=query_mkn)
+
+    # K6 and the biased route, one page forward and one query forward
+    per_forward = {}
+    for name, run in (("page", lambda: model(**feed)), ("query", lambda: encoders["bf16"].encode(QUERIES))):
+        reset_launches()
+        with torch.inference_mode(), counted_biased_attention() as biased:
+            run()
+        per_forward[name] = dict(k6={d: n for d, n in fa.FORWARD_LAUNCHES_BY_HEAD_DIM.items() if n}, biased=biased)
+    n_global = sum(t.is_global(i) for i in range(t.num_hidden_layers))
+    want_biased = {"global": n_global, "local": t.num_hidden_layers - n_global}
+    if per_forward["page"]["k6"] != {v.head_dim: v.num_hidden_layers} or per_forward["query"]["k6"] or \
+            any(f["biased"] != want_biased for f in per_forward.values()):
+        raise AssertionError(f"a page and a query forward: {per_forward}; expected K6 {v.num_hidden_layers} at "
+                             f"D={v.head_dim} a page forward and none a query forward, the biased route {want_biased}")
+    log(f"phase modernvbert: a page forward launches K6 {per_forward['page']['k6']} (every tile of the batch, "
+        f"{int(feed['tile_mask'].numel())}, through the tower), a query forward {per_forward['query']['k6']}; the "
+        f"biased route {want_biased} a forward")
+
+    # the path, counted: pages embedded, /search_text through make_handler on each model, serve.py
+    reset_launches()
+    with counted_plain_k6() as plain_calls:
+        t0 = time.perf_counter()
+        embs = {"bf16": embed_dataset(model, processor, pages, batch_size=PAGE_BATCH)}
+        t_embed_bf16 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        embs["int8"] = embed_dataset(qmodel, qproc, pages, batch_size=PAGE_BATCH)
+        t_embed_int8 = time.perf_counter() - t0
+        for label, es in embs.items():
+            for e in es:
+                if e.shape != (page_tokens, DIM) or not np.isfinite(e).all() or \
+                        np.abs(np.linalg.norm(e, axis=-1) - 1).max() > 1e-2:
+                    raise AssertionError(f"{label} page embedding {e.shape}: not {page_tokens} finite unit rows")
+        gen = torch.Generator(device=device).manual_seed(SEED + 93)
+        filler = torch.randn((MVB_FILLER_DOCS, DOC_TOKENS, DIM), generator=gen, device=device)
+        filler = (filler / filler.norm(dim=-1, keepdim=True)).cpu().numpy()
+        served, corpora = {}, {}
+        for label, enc in encoders.items():
+            planted_q = enc.encode(QUERIES[: len(MVB_PLANTED)])
+            docs = [np.concatenate([e, planted_q[MVB_PLANTED.index(i)]]) if i in MVB_PLANTED else e
+                    for i, e in enumerate(embs[label])] + list(filler)
+            corpora[label] = docs
+            index = CorpusIndex(docs, dtype="int8", prefilter="binary", coarse_pool=COARSE_POOL, device=device)
+            httpd = RetrievalServer(("127.0.0.1", 0), serve.make_handler(
+                index, [f"doc_{i}" for i in range(index.num_docs)], encoder=enc))
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            url = f"http://127.0.0.1:{httpd.server_port}"
+            try:
+                tiered = [_http(url, "/search_text", {"queries": [q], "k": 10})
+                          for q in QUERIES[: len(MVB_PLANTED)]]  # one a request: the tiered route
+                exact = _http(url, "/search_text", {"queries": QUERIES, "k": 10})  # 8 > 4: the exact route
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+            for out in (*tiered, exact):
+                _check_ranked(f"/search_text ({label})", out, len(out["doc_ids"]))
+            top = ([out["doc_ids"][0][0] for out in tiered], [row[0] for row in exact["doc_ids"][: len(MVB_PLANTED)]])
+            if top[0] != list(MVB_PLANTED) or top[1] != list(MVB_PLANTED):
+                raise AssertionError(f"{label} /search_text at rank 1: tiered {top[0]}, exact {top[1]}, planted "
+                                     f"{list(MVB_PLANTED)}")
+            served[label] = (index, planted_q)
+        npz = f"{ckpt}/corpus.npz"
+        np.savez(npz, **{f"emb_{i}": d for i, d in enumerate(corpora["int8"])})
+        t0 = time.perf_counter()
+        httpd = serve.make_server([npz, "--port", "0", "--device", str(device), "--prefilter", "--checkpoint", ckpt,
+                                   "--family", "colmodernvbert"])
+        t_serve = time.perf_counter() - t0
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            cli = _http(f"http://127.0.0.1:{httpd.server_port}", "/search_text", {"queries": [QUERIES[0]], "k": 10})
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        os.remove(npz)
+        if cli["doc_ids"][0][0] != MVB_PLANTED[0]:
+            raise AssertionError(f"serve.py --family colmodernvbert: rank 1 {cli['doc_ids'][0][0]}, planted "
+                                 f"{MVB_PLANTED[0]}")
+    launches = read_launches("ModernVBert family", ("flash_attention", "quantize_rows", "int8_gemm", "binary_maxsim",
+                                                    "gather_rerank", "maxsim_int8"))
+    by_dim = {d: n for d, n in fa.FORWARD_LAUNCHES_BY_HEAD_DIM.items() if n}
+    page_forwards = 2 * (MVB_PAGES // PAGE_BATCH)  # embed_dataset on each model
+    if plain_calls[0] or by_dim != {v.head_dim: page_forwards * v.num_hidden_layers}:
+        raise AssertionError(f"ModernVBert path: K6 launches by head dim {by_dim}, {plain_calls[0]} calls of K6's "
+                             f"plain version; expected {v.num_hidden_layers} at D={v.head_dim} a page forward, "
+                             f"{page_forwards} page forwards, none a query forward")
+    log(f"  [{time.perf_counter() - t_phase:.0f} s] path: {MVB_PAGES} pages ({page_tokens} tokens, {MVB_TILES} tiles "
+        f"each) through embed_dataset, each model warm (bf16 {MVB_PAGES / t_embed_bf16 * 60:.0f} pages/min, stored "
+        f"int8 {MVB_PAGES / t_embed_int8 * 60:.0f}); a {served['int8'][0].num_docs}-doc x "
+        f"{served['int8'][0].doc_tokens}-token two-tier int8 index behind make_handler for each model: each of "
+        f"{len(MVB_PLANTED)} planted pages at rank 1 on the tiered and the exact route of /search_text; serve.py "
+        f"--checkpoint --family colmodernvbert (stored int8) started in {t_serve:.1f} s and found it too; launches "
+        f"{launches}, K6 by head dim {by_dim}, K6's plain version called {plain_calls[0]} times")
+    del corpora, filler
+
+    # K1, K2 and K3 against their plain versions on each served index (not counted)
+    k123 = {}
+    for label, (index, planted_q) in served.items():
+        held_k = hold_k123(index, served_queries(planted_q, device))
+        k123[label] = {k: held_k[k] for k in ("k1_err", "k2_err", "k3_err")}
+        log(f"phase modernvbert: K1, K2 and K3 against their plain versions on the {label} index ({index.num_docs} "
+            f"docs x Np={index.doc_tokens}, the {len(planted_q)} planted queries at Nq={SERVED_TOKENS}): max abs err "
+            f"K1 {held_k['k1_err']:.3g} (bit for bit), K2 {held_k['k2_err']:.3g}, K3 {held_k['k3_err']:.3g} (rtol "
+            f"{RTOL}, atol {ATOL})")
+    del served, index, held_k
+    torch.cuda.empty_cache()
+
+    # checks beside the path (not counted): K6 route vs plain route, stored int8 vs bf16, a query alone vs batched
+    route = dict(
+        pages=forward_check(f"ModernVBERT-base page forward ({PAGE_BATCH} pages)",
+                            lambda: embed_dataset(model, processor, batch, batch_size=PAGE_BATCH)),
+        queries=forward_check(f"ModernVBERT-base query forward ({len(QUERIES)} queries)",
+                              lambda: encoders["bf16"].encode(QUERIES)))
+    for name, r in route.items():
+        log(f"    shares of the limits: mean cos {share(1 - r['mean_cos'], 1 - FORWARD_COS_MEAN)}, min cos "
+            f"{share(1 - r['min_cos'], 1 - FORWARD_COS_MIN)}, max abs {share(r['max_abs'], FORWARD_ATOL)}")
+    accuracy = {
+        "pages": cos_check(f"{PAGE_BATCH} pages, stored int8 vs bf16", embs["int8"][:PAGE_BATCH],
+                           embs["bf16"][:PAGE_BATCH], INT8_COS_MEAN, INT8_COS_MIN),
+        "queries": cos_check(f"{len(QUERIES)} queries, stored int8 vs bf16", encoders["int8"].encode(QUERIES),
+                             encoders["bf16"].encode(QUERIES), INT8_COS_MEAN, INT8_COS_MIN),
+        "alone": cos_check(f"{len(QUERIES)} queries each encoded alone vs in one bucketed batch (left pads, then "
+                           "right pads)", [encoders["bf16"].encode([q])[0] for q in QUERIES],
+                           encoders["bf16"].encode(QUERIES), FORWARD_COS_MEAN, FORWARD_COS_MIN)}
+
+    # end to end, bf16 and stored int8 in turns: one forward of 8 pages (CUDA events), encode x1 / x8
+    e2e = {}
+    for label in ("bf16", "int8", "int8 again", "bf16 again"):
+        m, enc = (model, encoders["bf16"]) if label.startswith("bf16") else (qmodel, encoders["int8"])
+        r = dict(page_forward_ms=forward_ms(m, feed))
+        for b_, texts in (("x1", QUERIES[:1]), ("x8", QUERIES)):
+            enc.encode(texts)
+            walls = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                enc.encode(texts)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            r[f"encode_{b_}_ms"] = float(np.median(walls))
+        r["pages_per_min_forward"] = PAGE_BATCH / r["page_forward_ms"] * 6e4
+        e2e[label] = r
+        log(f"  {label} ({smi}): forward of {PAGE_BATCH} pages {r['page_forward_ms']:.1f} ms "
+            f"({r['pages_per_min_forward']:.0f} pages/min of forward alone), encode x1 {r['encode_x1_ms']:.2f} ms, "
+            f"x8 {r['encode_x8_ms']:.2f} ms")
+    with torch.inference_mode():
+        profiles = {label: kernel_breakdown(f"one {label} ModernVBERT-base forward of {PAGE_BATCH} pages",
+                                            lambda m=m: m(**feed)) for label, m in (("bf16", model),
+                                                                                   ("stored-int8", qmodel))}
+    query_feed = {k: torch.as_tensor(x).to(device) for k, x in processor.process_queries(QUERIES).items()}
+    del encoders, qmodel, embs
+    torch.cuda.empty_cache()
+
+    # BiModernVBert at full width on the checkpoint's backbone: the K6 route against the plain route and against fp32
+    bmodel = BiModernVBert(cfg, device=device, dtype=torch.bfloat16).eval()
+    bmodel.load_state_dict({k: x for k, x in model.state_dict().items() if k.startswith("model.")})
+    del model
+    torch.cuda.empty_cache()
+    bproc = BiModernVBertProcessor.from_pretrained(ckpt, device=device)
+    bi_feeds = [feed, query_feed]
+    bi = bi_check("BiModernVBert (ModernVBERT-base, mean pooling)", bmodel, bi_feeds, device, bproc.score,
+                  BI_PLANTED)
+    fp32 = BiModernVBert(cfg, device=device, dtype=torch.float32).eval()
+    fp32.load_state_dict(bmodel.state_dict())
+    bi["fp32"] = bi_fp32_check("BiModernVBert (ModernVBERT-base)", bmodel, fp32, bi_feeds, device)
+    del bmodel, fp32, feed, query_feed, bi_feeds
+    torch.cuda.empty_cache()
+    extra.update(biased_attention=attention, k123=k123, params=n_params, stored_int8_layers=stored,
+                 weight_bytes_int8=bytes_int8, weight_bytes_bf16=bytes_bf16, page_tokens=page_tokens, tiles=MVB_TILES,
+                 route_check=route, int8_vs_bf16=accuracy, end_to_end=e2e, page_profile=profiles, bimodernvbert=bi,
+                 per_forward={name: dict(k6={str(d): n for d, n in f["k6"].items()}, biased=f["biased"])
+                              for name, f in per_forward.items()},
+                 launches_by_head_dim={str(d): n for d, n in by_dim.items()},
+                 pages_per_min=dict(bf16=MVB_PAGES / t_embed_bf16 * 60, int8=MVB_PAGES / t_embed_int8 * 60),
+                 write_load_seconds=dict(write=t_write, bf16=t_bf16, int8=t_int8))
+    extra["seconds"] = time.perf_counter() - t_phase
+    log(f"phase modernvbert: {extra['seconds']:.1f} s")
+    timings = {"quantize_rows": dict(shapes=q1_rows), "int8_gemm": dict(shapes=q1_gemms)}
+    return launches, timings, extra
+
+
+# -- phase 17: ModernVBert training (run after phase 16, on its checkpoint) ------------------------------------------
+
+MVB_TRAIN_PAGES = 32  # four batches of 8
+MVB_EVAL_PAGES = 16
+MVB_TRAIN_STEPS, MVB_RESUME_AT = 4, 2
+# train with the pages' non-image tokens kept: the encoder is bidirectional, so the template that opens every page
+# sees that page's image tokens (phases 13 and 15 mask them: their causal templates score alike)
+MVB_MASK_NON_IMAGE = False
+
+
+def phase_modernvbert_training(device: torch.device, smi: str, ckpt: str) -> tuple:
+    """Drive the ModernVBert family's training path on phase 16's checkpoint:
+    ModernVBERT-base read by ``load_retriever(family="colmodernvbert",
+    remat=True)`` and trained through ``ColModelTraining`` from
+    ``configs/train_colmodernvbert.yaml``'s loss and LoRA (4 steps at batch 8
+    over 32 pages: the frozen tower's K6 forward, 12 launches a step, and no
+    K6 backward, the encoder's attention being biased), the plain route,
+    ``evaluate()`` (K5), the merged export read back and served, a run
+    resumed from step 2, a step timed with and without remat and profiled,
+    one step over a stored-int8 frozen vision tower, one BiModernVBert step.
+    The ColbertLoss of the first step and of the int8 step, each with fresh
+    adapters, must lie :data:`TIED_MARGIN` from ln 8. Returns the launches
+    over the path and the rest."""
+    import math
+    import os
+    import shutil
+
+    from colpali_tpu_torch.auto import load_retriever
+    from colpali_tpu_torch.data.collator import VisualRetrieverCollator
+    from colpali_tpu_torch.losses import BiEncoderLoss, ColbertLoss
+    from colpali_tpu_torch.models.layers import QDense
+    from colpali_tpu_torch.models.modernvbert import BiModernVBert, ColModernVBert
+    from colpali_tpu_torch.processors.modernvbert import BiModernVBertProcessor
+    from colpali_tpu_torch.training import trainer
+    from colpali_tpu_torch.training.lora import LoraAdapters
+    from colpali_tpu_torch.training.orchestrator import ColModelTraining, ColModelTrainingConfig
+
+    held = free_memory("phase modernvbert training")
+    t_phase = time.perf_counter()
+    cfg = modernvbert_config()
+    v = cfg.vision
+    train_config = trainer.TrainConfig(learning_rate=QWEN_LR, warmup_steps=0, total_steps=2500)
+    train_set = smol_dataset(MVB_TRAIN_PAGES, SEED + 94)
+    eval_set = smol_dataset(MVB_EVAL_PAGES, SEED + 95, first=MVB_TRAIN_PAGES)
+    extra = dict(held_gib_at_start=held)
+    model, processor = load_retriever(ckpt, family="colmodernvbert", device=device, remat=True,
+                                      mask_non_image_embeddings=MVB_MASK_NON_IMAGE)
+    batch = trainer.to_device(VisualRetrieverCollator(processor)([train_set[i] for i in range(TRAIN_BATCH)]), device)
+    tied = math.log(TRAIN_BATCH)
+    spread = page_score_spread(model, batch, cfg.image_token_id, ColbertLoss(temperature=0.02))
+    log(f"  ModernVBERT-base, the first batch's in-batch scores: page tokens kept, "
+        f"{spread['unmasked']['on_template']:.1%} of the query tokens' maxima outside the image tokens, least spread "
+        f"of a query's scores across the pages {spread['unmasked']['min_spread']:.5f}, the recipe's ColbertLoss "
+        f"{spread['unmasked']['loss']:.4f}; non-image tokens masked, {spread['masked']['on_template']:.1%}, "
+        f"{spread['masked']['min_spread']:.5f} and {spread['masked']['loss']:.4f} (ln {TRAIN_BATCH} = {tied:.4f}); "
+        f"trained with them {'masked' if MVB_MASK_NON_IMAGE else 'kept'}")
+    extra["score_spread"] = spread
+    sampled = ["model.text_model.layers.0.attn.q_proj.weight", f"model.text_model.layers.{cfg.text.num_hidden_layers - 1}.Wo.weight",
+               "model.embeddings.additional_embedding.weight", "head.custom_text_proj.weight"]
+    base_before = {k: model.state_dict()[k].clone() for k in sampled}
+    recipe = functools.partial(recipe_config, train_set=train_set, train_config=train_config, device=device)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        app = ColModelTraining(ColModelTrainingConfig(**recipe(
+            "train_colmodernvbert.yaml", f"{tmp}/run", model, processor, eval_dataset=eval_set,
+            eval_batch_size=TRAIN_BATCH, max_steps=MVB_TRAIN_STEPS, save_steps=MVB_RESUME_AT,
+            save_total_limit=MVB_TRAIN_STEPS)))
+        peft, loss_fn = app.config.peft, app.config.loss_func
+        if not isinstance(loss_fn, ColbertLoss) or loss_fn.temperature != 0.02 or peft.rank != 32:
+            raise AssertionError(f"train_colmodernvbert.yaml's loss and LoRA: {loss_fn}, {peft}")
+        n_adapters, n_trainable = len(app.state.adapters.paths), sum(p.numel() for p in app.state.params)
+        lora_layers = 6 * cfg.text.num_hidden_layers + 1  # q/k/v/o, Wi, Wo a layer and the head: JAX's 133 kernels
+        if n_adapters != lora_layers or any("vision" in p for p in app.state.adapters.paths):
+            raise AssertionError(f"{n_adapters} adapted kernels, expected JAX's {lora_layers} and none in the tower")
+        seen, moved = [], []
+
+        def on_step(step, metrics):
+            seen.append((step, float(metrics["loss"]), float(metrics["grad_norm"])))
+            if step == 1:
+                moved.extend(bool(b.detach().abs().max() > 0) for b in app.state.adapters.b)
+
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with counted_plain_k6() as plain_calls, counted_biased_attention() as biased:
+            summary = app.train(on_step=on_step)
+        torch.cuda.synchronize()
+        train_launches = launch_counts()
+        peak_train = torch.cuda.max_memory_allocated() / 2**30
+        per_step = v.num_hidden_layers  # one page forward a step through the frozen tower; the queries take none
+        if [s for s, _, _ in seen] != list(range(1, MVB_TRAIN_STEPS + 1)) or \
+                not all(np.isfinite(l) and l > 0 and np.isfinite(g) and g > 0 for _, l, g in seen):
+            raise AssertionError(f"ModernVBERT-base steps: {seen}")
+        if len(moved) != n_adapters or not all(moved):
+            raise AssertionError(f"{moved.count(False)} of {n_adapters} adapters did not move in step 1")
+        if not all(torch.equal(model.state_dict()[k], w) for k, w in base_before.items()):
+            raise AssertionError("a frozen base weight changed")
+        if abs(seen[0][1] - tied) < TIED_MARGIN:
+            raise AssertionError(f"ModernVBERT-base step 1: ColbertLoss {seen[0][1]:.6f}, within {TIED_MARGIN} of "
+                                 f"ln {TRAIN_BATCH} = {tied:.6f}: the pages score alike")
+        if train_launches["flash_attention"] != MVB_TRAIN_STEPS * per_step or train_launches["flash_attention_bwd"] \
+                or plain_calls[0]:
+            raise AssertionError(f"K6 over {MVB_TRAIN_STEPS} ModernVBERT-base LoRA steps: {train_launches}, "
+                                 f"{plain_calls[0]} calls of the plain version; expected {per_step} forward launches "
+                                 "a step and no backward (the tower is frozen, the encoder's attention biased)")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] ModernVBERT-base, ColModelTraining from "
+            f"train_colmodernvbert.yaml ({smi}): {n_adapters} adapted layers, {n_trainable / 1e6:.2f} M trainable "
+            f"parameters, {type(loss_fn).__name__}(temperature {loss_fn.temperature}), LoRA r{peft.rank} "
+            f"a{peft.alpha:g} dropout {peft.dropout}, remat, batch {TRAIN_BATCH}; "
+            + ", ".join(f"step {s} loss {l:.4f} grad_norm {g:.4f}" for s, l, g in seen)
+            + f" (step 1 {abs(seen[0][1] - tied):.4f} from ln {TRAIN_BATCH}, limit {TIED_MARGIN}); "
+            f"{summary['train_samples_per_second']:.2f} examples/s with collation and checkpoints; K6 forward "
+            f"{train_launches['flash_attention']} ({per_step} a step, D={v.head_dim}), backward "
+            f"{train_launches['flash_attention_bwd']}, K6's plain version called {plain_calls[0]} times; the biased "
+            f"route {biased} (the recompute under remat included); peak memory {peak_train:.2f} GiB")
+        extra["route"] = hold_routes("ModernVBERT-base LoRA", app.state, batch, loss_fn, peft)
+
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = app.evaluate()
+        t_eval = time.perf_counter() - t0
+        eval_launches = launch_counts()
+        index = app.eval_index
+        if not {"eval_loss", "eval_ndcg@1", "eval_ndcg@5"} <= set(metrics) or \
+                not all(np.isfinite(x) for x in metrics.values()) or not eval_launches["maxsim_bf16"] or \
+                (index.dtype, index.num_docs, index._store.device.type) != ("bf16", MVB_EVAL_PAGES, device.type):
+            raise AssertionError(f"evaluate(): {metrics}, index {index.dtype} {index.num_docs}, {eval_launches}")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] evaluate(): {MVB_EVAL_PAGES} held-out pages in {t_eval:.1f} s, "
+            f"bf16 index {index.num_docs} x {index.doc_tokens} built on the card and searched by K5 "
+            f"({eval_launches['maxsim_bf16']} launch(es)); " + ", ".join(f"{k} {x:.4f}" for k, x in sorted(metrics.items())))
+        app.save()
+        merged = app.state.adapters.merged_state_dict(model)
+        app.close()
+        readback = export_readback(device, f"{tmp}/run", merged, cfg, ColModernVBert, "colmodernvbert",
+                                   "ModernVBERT-base")
+        del merged
+
+        os.makedirs(f"{tmp}/resumed/checkpoints")
+        shutil.copy(f"{tmp}/run/checkpoints/step_{MVB_RESUME_AT}.pt", f"{tmp}/resumed/checkpoints/")
+        resumed = ColModelTraining(ColModelTrainingConfig(**recipe(
+            "train_colmodernvbert.yaml", f"{tmp}/resumed", model, processor, max_steps=MVB_RESUME_AT + 1,
+            save_steps=100, resume_from_checkpoint=True)))
+        tail = []
+        resumed.train(on_step=lambda step, m: tail.append((step, float(m["loss"]))))
+        resumed.close()
+        first = seen[MVB_RESUME_AT][1]
+        if resumed.state.step != MVB_RESUME_AT + 1 or [s for s, _ in tail] != [MVB_RESUME_AT + 1] or \
+                abs(tail[0][1] - first) > RESUME_LOSS_RTOL * abs(first):
+            raise AssertionError(f"resumed run: {tail}, the first run's step {MVB_RESUME_AT + 1} loss {first}")
+        log(f"  resumed from step {MVB_RESUME_AT}: step {MVB_RESUME_AT + 1} loss {tail[0][1]:.8f} vs {first:.8f} in "
+            f"the first run (limit {RESUME_LOSS_RTOL} relative)")
+
+        # a step at batch 8 with and without remat, and a profile of one
+        adapters = LoraAdapters(model, peft, seed=SEED + 1)
+        state = trainer.create_train_state(model, train_config, adapters)
+        steps = {}
+        for remat in (True, False):
+            model.set_remat(remat)
+            steps["remat" if remat else "no_remat"] = r = timed_steps(state, batch, loss_fn, peft, SEED, steps=2)
+            log(f"  ModernVBERT-base LoRA step, batch {TRAIN_BATCH}, remat {'on' if remat else 'off'} ({smi}): "
+                f"{r['wall']:.1f} ms/step ({TRAIN_BATCH / r['wall'] * 1e3:.2f} examples/s without collation), forward "
+                f"{r['forward']:.1f} ms, backward {r['backward']:.1f} ms, optimizer {r['optimizer']:.1f} ms, host and "
+                f"idle {r['wall'] - r['forward'] - r['backward'] - r['optimizer']:.1f} ms, peak memory "
+                f"{r['peak_gib']:.2f} GiB ({r['allocated_before_gib']:.2f} GiB held before the step)")
+        model.set_remat(True)
+        step_fn = trainer.make_train_step(loss_fn, peft=peft, seed=SEED)
+        steps["profile"] = kernel_breakdown(f"one ModernVBERT-base LoRA step, batch {TRAIN_BATCH}, remat on",
+                                            lambda: step_fn(state, batch)["loss"].item())
+        adapters.detach()
+        del state, adapters
+        extra.update(losses=[l for _, l, _ in seen], grad_norms=[g for _, _, g in seen], eval=metrics,
+                     examples_per_s_end_to_end=summary["train_samples_per_second"], peak_train_gib=peak_train,
+                     step_ms=steps, checkpoint_readback=readback, resumed_loss=tail[0][1], trainable=n_trainable,
+                     biased_calls=biased, launches_per_step={"flash_attention": per_step, "flash_attention_bwd": 0})
+
+        # one step over a stored-int8 frozen vision tower (the model's tower stays int8 from here on)
+        qapp = ColModelTraining(ColModelTrainingConfig(**recipe(
+            "train_colmodernvbert.yaml", f"{tmp}/quant", model, processor, max_steps=1, save_steps=100,
+            quantize_frozen_base=True)))
+        stored = [name for name, m in model.named_modules() if isinstance(m, QDense) and m.stored]
+        vision_stored = modernvbert_stored_layers(cfg, vision_only=True)
+        if len(stored) != vision_stored or not all(n.startswith("model.vision_model.") for n in stored) or \
+                model.model.modality_projection.stored:
+            raise AssertionError(f"quantize_frozen_base stored {len(stored)} layers, expected the vision tower's "
+                                 f"{vision_stored} (the connector stays bf16)")
+        reset_launches()
+        qseen = []
+        qapp.train(on_step=lambda step, m: qseen.append(float(m["loss"])))
+        torch.cuda.synchronize()
+        quant_launches = launch_counts()
+        qapp.close()
+        if quant_launches["int8_gemm"] != vision_stored or not quant_launches["quantize_rows"] or \
+                len(qseen) != 1 or not np.isfinite(qseen[0]) or abs(qseen[0] - tied) < TIED_MARGIN or \
+                quant_launches["flash_attention"] != per_step:
+            raise AssertionError(f"quantize_frozen_base step {qseen}, launches {quant_launches}; expected "
+                                 f"{vision_stored} Q1b launches, {per_step} K6 launches and a loss {TIED_MARGIN} "
+                                 f"from ln {TRAIN_BATCH}")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] quantize_frozen_base: {len(stored)} stored-int8 vision layers "
+            f"(modality_projection stays bf16); one step, loss {qseen[0]:.4f}; Q1a {quant_launches['quantize_rows']} "
+            f"and Q1b {quant_launches['int8_gemm']} launches, K6 {quant_launches['flash_attention']}")
+        extra["quantize_frozen_base"] = dict(stored_layers=len(stored), loss=qseen[0], launches=quant_launches)
+        del model, app, qapp, resumed
+        torch.cuda.empty_cache()
+
+        # one BiModernVBert LoRA step at full width and depth, on the checkpoint's backbone
+        bmodel, _ = load_retriever(ckpt, family="colmodernvbert", device=device)
+        backbone = {k: x for k, x in bmodel.state_dict().items() if k.startswith("model.")}
+        bmodel = BiModernVBert(cfg, device=device, dtype=torch.bfloat16, remat=True)
+        bmodel.load_state_dict(backbone)
+        del backbone
+        bproc = BiModernVBertProcessor.from_pretrained(ckpt, device=device)
+        bapp = ColModelTraining(ColModelTrainingConfig(
+            model=bmodel, processor=bproc, loss_func=BiEncoderLoss(), train_datasets=[train_set],
+            output_dir=f"{tmp}/bi", global_batch_size=TRAIN_BATCH, log_steps=1, save_steps=100, peft=peft,
+            train=train_config, seed=SEED, device=device, max_steps=1))
+        reset_launches()
+        bseen = []
+        with counted_plain_k6() as plain_calls:
+            bapp.train(on_step=lambda step, m: bseen.append(float(m["loss"])))
+        torch.cuda.synchronize()
+        bi_launches = launch_counts()
+        bapp.close()
+    if len(bseen) != 1 or not np.isfinite(bseen[0]) or plain_calls[0] or bi_launches["flash_attention"] != per_step \
+            or bi_launches["flash_attention_bwd"]:
+        raise AssertionError(f"BiModernVBert LoRA step: loss {bseen}, launches {bi_launches}, plain calls "
+                             f"{plain_calls[0]}")
+    log(f"  [{time.perf_counter() - t_phase:.0f} s] BiModernVBert (ModernVBERT-base, mean pooling), one LoRA step "
+        f"through ColModelTraining (BiEncoderLoss): loss {bseen[0]:.4f}; K6 forward {bi_launches['flash_attention']}, "
+        f"backward {bi_launches['flash_attention_bwd']}")
+    extra["bimodernvbert"] = dict(loss=bseen[0], launches=bi_launches)
+    del bmodel, bapp
+    torch.cuda.empty_cache()
+    extra["seconds"] = time.perf_counter() - t_phase
+    log(f"phase modernvbert training: {extra['seconds']:.1f} s")
+    launches = dict(flash_attention=train_launches["flash_attention"] + eval_launches["flash_attention"],
+                    maxsim_bf16=eval_launches["maxsim_bf16"], quantize_rows=quant_launches["quantize_rows"],
+                    int8_gemm=quant_launches["int8_gemm"])
+    return launches, extra
 
 
 def main() -> int:
@@ -5539,6 +6262,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as qwen3_dir:  # phase 14's Qwen3-VL-4B checkpoint, which phase 15 trains
         qwen3_launches, qwen3_timings, qwen3_extra = timed("14 Qwen3-VL family", phase_qwen3, device, smi, qwen3_dir)
         q3t_launches, q3t_bwd, q3t_extra = timed("15 Qwen3-VL training", phase_qwen3_training, device, smi, qwen3_dir)
+    with tempfile.TemporaryDirectory() as mvb_dir:  # phase 16's ModernVBERT-base checkpoint, which phase 17 trains
+        mvb_launches, mvb_timings, mvb_extra = timed("16 ModernVBert family", phase_modernvbert, device, smi, mvb_dir)
+        mt_launches, mt_extra = timed("17 ModernVBert training", phase_modernvbert_training, device, smi, mvb_dir)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     timings["flash_attention"] = dict(k6["siglip"], gemma_page=k6["gemma_page"], gemma_query=k6["gemma_query"])
     timings["flash_attention_bwd"] = dict(k6_bwd["gemma_page"], gemma_query=k6_bwd["gemma_query"],
                                           gemma_query_padded=k6_bwd["gemma_query_padded"], siglip=k6_bwd["siglip"])
@@ -5608,14 +6335,22 @@ def main() -> int:
             entry["launches_qwen3_training"] = q3t_launches[name]
         if name == "flash_attention_bwd":  # phase 15: by head dim over the LoRA steps (D=128), and its cases
             entry.update(launches_qwen3_training_by_head_dim=q3t_extra["launches_by_head_dim"], qwen3_training=q3t_bwd)
+        if name in mvb_launches:  # over phase 16's path: ModernVBERT-base's pages, /search_text and serve.py
+            entry["launches_modernvbert_slice"] = mvb_launches[name]
+        if name == "flash_attention":  # phase 16's K6 launches by head dim (D=64 alone; timed at this shape in phase 10)
+            entry["launches_modernvbert_by_head_dim"] = mvb_extra["launches_by_head_dim"]
+        elif name in mvb_timings:  # Q1a/Q1b at its widths
+            entry["modernvbert"] = mvb_timings[name]
+        if name in mt_launches:  # over phase 17's path: ModernVBERT-base's LoRA steps, eval and quantized-base step
+            entry["launches_modernvbert_training"] = mt_launches[name]
         kernels.append(dict(entry, **timings[name]))
     print(json.dumps({"kernels": kernels, "pages_per_min": extra["pages_per_min"],
                       "forward_check": extra["forward_check"], "page_profile": extra["page_profile"],
                       "training": train_extra, "stored_int8": quant_extra, "qwen": qwen_extra,
                       "qwen_training": qt_extra, "colsmol": smol_extra, "colsmol_training": st_extra,
                       "gemma3": gemma_extra, "gemma3_training": gt_extra, "qwen3": qwen3_extra,
-                      "qwen3_training": q3t_extra, "phase_seconds": seconds,
-                      "seconds": time.perf_counter() - t_start}))
+                      "qwen3_training": q3t_extra, "modernvbert": mvb_extra, "modernvbert_training": mt_extra,
+                      "phase_seconds": seconds, "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

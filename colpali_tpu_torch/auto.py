@@ -11,8 +11,8 @@ processor with the family's ``from_pretrained``::
 
 The port holds the weights in the module, so it returns ``(model,
 processor)`` where JAX returns ``(model, variables, processor)``. The
-``colpali``, ``colqwen2``, ``colqwen2_5``, ``colqwen3``, ``colidefics3`` and
-``colgemma3`` families are ported (their Col models, as in JAX: a Bi model is built from its class);
+``colpali``, ``colqwen2``, ``colqwen2_5``, ``colqwen3``, ``colidefics3``,
+``colgemma3`` and ``colmodernvbert`` families are ported (their Col models, as in JAX: a Bi model is built from its class);
 the other families are detected and raise. No hub download is made.
 """
 
@@ -52,9 +52,12 @@ _PORTED: Dict[str, Tuple[str, str, str, str, str, int, Dict[str, Any]]] = {
                     "export_colidefics3_state_dict", 128, {}),
     "colgemma3": ("models.gemma3.ColGemma3", "models.gemma3.Gemma3Config", "processors.gemma3.ColGemma3Processor",
                   "load_colgemma3_params", "export_colgemma3_state_dict", 128, {}),
+    "colmodernvbert": ("models.modernvbert.ColModernVBert", "models.modernvbert.ModernVBertConfig",
+                       "processors.modernvbert.ColModernVBertProcessor", "load_colmodernvbert_params",
+                       "export_colmodernvbert_state_dict", 128, {}),
 }
 # where each family that is not ported yet waits in ROADMAP.md
-_NOT_PORTED = {f: "Queue 1 item 8" for f in ("colmodernvbert", "colqwen3_5", "colqwen_omni")}
+_NOT_PORTED = {f: "Queue 1 item 8" for f in ("colqwen3_5", "colqwen_omni")}
 
 
 def _resolve(dotted: str):
@@ -118,7 +121,8 @@ def load_retriever(
     served through kernels Q1a and Q1b, about 0.6 of the bf16 weights'
     bytes on the card. SigLIP's patch embedding, the k/v projections under
     512 wide, the embeddings, Gemma3's raw ``mm_input_projection`` and the
-    retrieval head (128 or 320 wide) stay in ``dtype``. The
+    retrieval head (128 or 320 wide) stay in ``dtype`` (ModernVBERT-base:
+    205 layers stored). The
     Qwen families' processors default to ``max_num_visual_tokens=768``,
     as in JAX."""
     from colpali_tpu_torch.core import hf_loader

@@ -1,8 +1,8 @@
 """Carry a JAX parameter tree over to the port's state dict.
 
 The JAX package's ``ColPali``, ``ColQwen2``, ``ColQwen2_5``, ``ColQwen3``,
-``ColIdefics3`` or ``ColGemma3`` params, or those of a Bi model (``DenseHead``'s ``head/proj``
-included), a nested dict with numpy leaves as ``jax.tree.map(np.asarray,
+``ColIdefics3``, ``ColGemma3`` or ``ColModernVBert`` params, or those of a Bi
+model (``DenseHead``'s ``head/proj`` included) or of ``ModernVBertForMaskedLM``, a nested dict with numpy leaves as ``jax.tree.map(np.asarray,
 variables)`` gives them, become the state dict of the port's model of the
 same name:
 
@@ -14,7 +14,8 @@ same name:
 - Gemma3's ``mm_input_projection``, a raw ``(V, T)`` parameter and no
   ``Dense``, is taken as it is (the RMSNorms' ``weight``, the q/k norms
   and the four norms of a block included, keep their names);
-- flax ``LayerNorm`` ``scale`` becomes ``weight`` (``bias`` stays);
+- flax ``LayerNorm`` ``scale`` becomes ``weight`` (``bias`` stays, where
+  there is one: ModernBERT's norms have none);
 - Qwen3-VL's learned position table ``pos_embed/embedding`` becomes
   ``pos_embed.weight`` and its ``deepstack_merger_{k}`` keep their names;
 - unrolled ``layers_{i}`` and ``blocks_{i}`` become ``layers.{i}`` and ``blocks.{i}``;
@@ -39,7 +40,8 @@ import torch
 
 _CONVERTED = ("model/language_model/", "model/vision_tower/", "model/multi_modal_projector/", "model/visual/",
               "model/vision_model/", "model/modality_projection/", "model/text_model/", "model/mm_soft_emb_norm/",
-              "model/mm_input_projection", "head/")
+              "model/mm_input_projection", "model/embeddings/", "head/", "head_dense/", "head_norm/", "decoder/",
+              "additional_fc/")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:

@@ -10,7 +10,8 @@ cannot drift from the loader; the transform is inverted (the im2col patch
 weight folds back into ``(O, C, p, p)``, Qwen's patch weight into ``(O, C,
 T, p, p)`` with the geometry passed as ``ctx``). The Qwen exporters then
 fuse the vision q/k/v back into ``attn.qkv`` and nest the keys under
-``model.`` as modern transformers does. The keys are the ones the JAX
+``model.`` as modern transformers does; the ModernVBert exporter fuses the
+text q/k/v into ``attn.Wqkv``. The keys are the ones the JAX
 package's exporter writes for the same parameters.
 """
 
@@ -24,6 +25,8 @@ import torch
 from colpali_tpu_torch.core.hf_loader import (
     GEMMA3_RULES,
     IDEFICS3_RULES,
+    MODERNVBERT_LAYER0_NORM,
+    MODERNVBERT_RULES,
     PALIGEMMA_RULES,
     QWEN2_VL_RULES,
     QWEN25_VL_RULES,
@@ -155,9 +158,11 @@ def export_colpali_state_dict(state_dict: Mapping[str, torch.Tensor], strict: bo
     return export_state_dict(state_dict, PALIGEMMA_RULES, strict=strict)
 
 
-def fuse_qkv(state: Dict[str, torch.Tensor], scope: str = r"visual\.blocks\.\d+\.attn") -> Dict[str, torch.Tensor]:
-    """Fuse split vision ``{q,k,v}_proj`` back into HF's ``qkv`` (the inverse
-    of ``hf_loader.split_fused_qkv``)."""
+def fuse_qkv(state: Dict[str, torch.Tensor], scope: str = r"visual\.blocks\.\d+\.attn",
+             fused_name: str = "qkv") -> Dict[str, torch.Tensor]:
+    """Fuse split ``{q,k,v}_proj`` under ``scope`` back into HF's fused
+    projection ``fused_name`` (the inverse of ``hf_loader.split_fused_qkv``,
+    and with ``"Wqkv"`` of ``split_fused_wqkv``)."""
     pat = re.compile(rf"({scope})\.q_proj\.(weight|bias)")
     out = dict(state)
     for key in list(out):
@@ -165,7 +170,7 @@ def fuse_qkv(state: Dict[str, torch.Tensor], scope: str = r"visual\.blocks\.\d+\
         if m is None:
             continue
         base, kind = m.group(1), m.group(2)
-        out[f"{base}.qkv.{kind}"] = torch.cat([out.pop(f"{base}.{p}_proj.{kind}") for p in "qkv"], dim=0)
+        out[f"{base}.{fused_name}.{kind}"] = torch.cat([out.pop(f"{base}.{p}_proj.{kind}") for p in "qkv"], dim=0)
     return out
 
 
@@ -226,6 +231,16 @@ def export_colgemma3_state_dict(state_dict: Mapping[str, torch.Tensor],
     return dress_keys_modern(state, ("vision_tower", "multi_modal_projector", "language_model"))
 
 
+def export_colmodernvbert_state_dict(state_dict: Mapping[str, torch.Tensor],
+                                     strict: bool = True) -> Dict[str, torch.Tensor]:
+    """The port's ``ColModernVBert`` (or ``BiModernVBert``) state dict -> HF
+    torch-layout state dict: layer 0's ``attn_norm`` (the identity in HF)
+    dropped, the text q/k/v fused into ``attn.Wqkv``."""
+    state = export_state_dict({k: v for k, v in state_dict.items() if k != MODERNVBERT_LAYER0_NORM},
+                              MODERNVBERT_RULES, strict=strict)
+    return fuse_qkv(state, scope=r"model\.text_model\.layers\.\d+\.attn", fused_name="Wqkv")
+
+
 def export_for_config(state_dict: Mapping[str, torch.Tensor], config: Any = None) -> Dict[str, torch.Tensor]:
     """Export ``state_dict`` with the exporter that
     :func:`colpali_tpu_torch.auto.exporter_for` names for ``config``'s
@@ -236,7 +251,8 @@ def export_for_config(state_dict: Mapping[str, torch.Tensor], config: Any = None
     if config is None:
         return export_colpali_state_dict(state_dict)
     export = globals()[exporter_for(config)]
-    if export in (export_colpali_state_dict, export_colidefics3_state_dict, export_colgemma3_state_dict):
+    if export in (export_colpali_state_dict, export_colidefics3_state_dict, export_colgemma3_state_dict,
+                  export_colmodernvbert_state_dict):
         return export(state_dict)
     v = config.vision
     return export(state_dict, channels=v.in_channels, temporal_patch_size=v.temporal_patch_size,

@@ -1,6 +1,6 @@
 """HF checkpoint -> the port's state dict (counterpart of
 :mod:`colpali_tpu.core.hf_loader`: the PaliGemma, Qwen2-VL, Qwen3-VL,
-Idefics3 and Gemma3 families).
+Idefics3, Gemma3 and ModernVBert families).
 
 Checkpoint keys are first normalized across transformers-version layouts
 and merged-LoRA exports (:data:`PALIGEMMA_KEY_REMAPS`, unmerged LoRA
@@ -12,7 +12,8 @@ purpose. The port keeps torch's layouts (``nn.Linear`` weights are ``(out,
 in)`` as in the checkpoint), except the patch convolutions, which the port
 runs as products: SigLIP's conv weight ``(O, C, p, p)`` becomes ``(O, p * p
 * C)`` in ``(kh, kw, c)`` order, Qwen's Conv3d ``(O, C, T, p, p)`` becomes
-``(O, C * T * p * p)``. Qwen's fused vision ``qkv`` is split first.
+``(O, C * T * p * p)``. Qwen's fused vision ``qkv`` and ModernBERT's fused
+``Wqkv`` are split first.
 
 Weights are read by the port's own safetensors reader
 (:mod:`colpali_tpu_torch.core.safetensors`): no ``safetensors`` or
@@ -403,3 +404,73 @@ def load_colgemma3_params(checkpoint_dir: str, strict: bool = True) -> Dict[str,
     state dict (in the checkpoint's dtypes, on the CPU)."""
     state = load_safetensors_dir(checkpoint_dir)
     return convert_state_dict(state, GEMMA3_RULES, GEMMA3_KEY_REMAPS, strict=strict)
+
+
+# --- the ModernVBert family ------------------------------------------------------
+
+def split_fused_wqkv(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Split ModernBERT's fused ``attn.Wqkv`` ``(3E, E)`` (and a bias) into
+    q/k/v projections."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in state_dict.items():
+        m = re.fullmatch(r"(.*\.attn)\.Wqkv\.(weight|bias)", key)
+        if m is None:
+            out[key] = value
+            continue
+        for name, part in zip("qkv", value.chunk(3, dim=0)):
+            out[f"{m.group(1)}.{name}_proj.{m.group(2)}"] = part.contiguous()
+    return out
+
+
+_MVB_VT = r"model\.vision_model\."
+_MVB_LAYER = _MVB_VT + r"encoder\.layers\.(\d+)\."
+_MVB_TEXT = r"model\.text_model\.layers\.(\d+)\."
+MODERNVBERT_RULES: Tuple[_RuleT, ...] = (
+    # --- SigLIP vision tower (the reference strips the SiglipModel wrapper: keys start at model.vision_model) ---
+    (_MVB_VT + r"embeddings\.patch_embedding\.weight", "model.vision_model.patch_embedding.weight", t_conv2d),
+    (_MVB_VT + r"embeddings\.patch_embedding\.bias", "model.vision_model.patch_embedding.bias", t_id),
+    (_MVB_VT + r"embeddings\.position_embedding\.weight", "model.vision_model.position_embedding.weight", t_id),
+    (_MVB_LAYER + r"layer_norm([12])\.weight", "model.vision_model.layers.{i}.layer_norm{j}.weight", t_id),
+    (_MVB_LAYER + r"layer_norm([12])\.bias", "model.vision_model.layers.{i}.layer_norm{j}.bias", t_id),
+    (_MVB_LAYER + r"self_attn\.(q|k|v)_proj\.weight", "model.vision_model.layers.{i}.self_attn.{j}_proj.weight", t_id),
+    (_MVB_LAYER + r"self_attn\.(q|k|v)_proj\.bias", "model.vision_model.layers.{i}.self_attn.{j}_proj.bias", t_id),
+    (_MVB_LAYER + r"self_attn\.out_proj\.weight", "model.vision_model.layers.{i}.self_attn.o_proj.weight", t_id),
+    (_MVB_LAYER + r"self_attn\.out_proj\.bias", "model.vision_model.layers.{i}.self_attn.o_proj.bias", t_id),
+    (_MVB_LAYER + r"mlp\.fc([12])\.weight", "model.vision_model.layers.{i}.mlp.fc{j}.weight", t_id),
+    (_MVB_LAYER + r"mlp\.fc([12])\.bias", "model.vision_model.layers.{i}.mlp.fc{j}.bias", t_id),
+    (_MVB_VT + r"post_layernorm\.weight", "model.vision_model.post_layernorm.weight", t_id),
+    (_MVB_VT + r"post_layernorm\.bias", "model.vision_model.post_layernorm.bias", t_id),
+    (_MVB_VT + r"head\..*", "", t_id),  # SigLIP's pooling head, unused
+    # --- connector (pixel shuffle + a bias-free projection) ---
+    (r"model\.connector\.modality_projection\.proj\.weight", "model.modality_projection.weight", t_id),
+    # --- decoupled embeddings, attached at the text model's embeddings ---
+    (r"model\.text_model\.embeddings\.tok_embeddings\.weight", "model.embeddings.tok_embeddings.weight", t_id),
+    (r"model\.text_model\.embeddings\.tok_embeddings\.additional_embedding\.weight",
+     "model.embeddings.additional_embedding.weight", t_id),
+    (r"model\.text_model\.embeddings\.norm\.weight", "model.text_model.emb_norm.weight", t_id),
+    # --- ModernBERT encoder (Wqkv split by split_fused_wqkv before the rules) ---
+    (_MVB_TEXT + r"attn\.(q|k|v)_proj\.weight", "model.text_model.layers.{i}.attn.{j}_proj.weight", t_id),
+    (_MVB_TEXT + r"attn\.Wo\.weight", "model.text_model.layers.{i}.attn.o_proj.weight", t_id),
+    (_MVB_TEXT + r"attn_norm\.weight", "model.text_model.layers.{i}.attn_norm.weight", t_id),
+    (_MVB_TEXT + r"mlp_norm\.weight", "model.text_model.layers.{i}.mlp_norm.weight", t_id),
+    (_MVB_TEXT + r"mlp\.W([io])\.weight", "model.text_model.layers.{i}.W{j}.weight", t_id),
+    (r"model\.text_model\.final_norm\.weight", "model.text_model.final_norm.weight", t_id),
+    # --- retrieval head ---
+    (r"(?:model\.)?custom_text_proj\.weight", "head.custom_text_proj.weight", t_id),
+    (r"(?:model\.)?custom_text_proj\.bias", "head.custom_text_proj.bias", t_id),
+)
+# layer 0's attn_norm is the identity in HF (no weight); the port's uniform layers keep the parameter
+MODERNVBERT_LAYER0_NORM = "model.text_model.layers.0.attn_norm.weight"
+
+
+def load_colmodernvbert_params(checkpoint_dir: str, strict: bool = True) -> Dict[str, torch.Tensor]:
+    """A (Col)ModernVBert HF checkpoint directory -> the port's
+    ``ColModernVBert`` (or ``BiModernVBert``) state dict (in the
+    checkpoint's dtypes, on the CPU); layer 0's ``attn_norm`` is synthesized
+    as ones, as JAX's loader does (its output is not used)."""
+    state = split_fused_wqkv(normalize_keys(load_safetensors_dir(checkpoint_dir), PALIGEMMA_KEY_REMAPS))
+    params = convert_state_dict(state, MODERNVBERT_RULES, (), strict=strict)
+    norm = params.get("model.text_model.layers.0.mlp_norm.weight")
+    if norm is not None:
+        params.setdefault(MODERNVBERT_LAYER0_NORM, torch.ones_like(norm))
+    return params

@@ -22,6 +22,14 @@ from colpali_tpu_torch.models.idefics3 import (  # noqa: F401
     Idefics3Config,
     Idefics3VisionConfig,
 )
+from colpali_tpu_torch.models.modernvbert import (  # noqa: F401
+    BiModernVBert,
+    ColModernVBert,
+    ModernBertTextConfig,
+    ModernVBertConfig,
+    ModernVBertForMaskedLM,
+    ModernVBertModel,
+)
 from colpali_tpu_torch.models.paligemma import BiPali, BiPaliProj, ColPali, PaliGemmaBackbone  # noqa: F401
 from colpali_tpu_torch.models.qwen2_5_vl import (  # noqa: F401
     BiQwen2_5,

@@ -28,19 +28,21 @@ def merge_image_embeddings(
 
 
 class MultiVectorHead(nn.Module):
-    """Late-interaction head: linear -> L2 normalize -> zero the padding
-    (and, given ``image_token_mask``, every non-image token). The linear is
-    named ``proj_name`` (ColIdefics3 names it ``linear``)."""
+    """Late-interaction head: linear -> L2 normalize (the norm clamped at
+    ``norm_eps``: 1e-12 for ColModernVBert, 0 for the others) -> zero the
+    padding (and, given ``image_token_mask``, every non-image token). The
+    linear is named ``proj_name`` (ColIdefics3 names it ``linear``)."""
 
     def __init__(self, hidden_size: int, dim: int = 128, device: Device = "cuda",
-                 dtype: torch.dtype = torch.float32, proj_name: str = "custom_text_proj"):
+                 dtype: torch.dtype = torch.float32, proj_name: str = "custom_text_proj", norm_eps: float = 0.0):
         super().__init__()
         self.proj_name = proj_name
+        self.norm_eps = norm_eps
         setattr(self, proj_name, QDense(hidden_size, dim, bias=True, device=device, dtype=dtype))
 
     def forward(self, hidden_states: torch.Tensor, attention_mask: torch.Tensor,
                 image_token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        proj = l2_normalize(getattr(self, self.proj_name)(hidden_states))
+        proj = l2_normalize(getattr(self, self.proj_name)(hidden_states), eps=self.norm_eps)
         proj = proj * attention_mask[..., None].to(proj.dtype)
         if image_token_mask is not None:
             proj = proj * image_token_mask[..., None].to(proj.dtype)
@@ -100,5 +102,6 @@ def hf_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             m.weight.fill_(0.0 if m.add_unit_offset else 1.0)
         elif isinstance(m, LayerNorm):
             m.weight.fill_(1.0)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
     return module

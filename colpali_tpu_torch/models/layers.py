@@ -91,20 +91,22 @@ class RMSNorm(nn.Module):
 class LayerNorm(nn.Module):
     """LayerNorm with flax's statistics: fp32 mean and ``E[x^2] - mean^2``
     variance (clamped at 0), ``(x - mean) * rsqrt(var + eps) * weight + bias``
-    in fp32, cast back to the input dtype."""
+    in fp32, cast back to the input dtype. ``bias=False`` has no bias
+    (flax's ``use_bias=False``: ModernBERT's norms)."""
 
-    def __init__(self, dim: int, eps: float = 1e-6, device: Device = "cuda", dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, eps: float = 1e-6, bias: bool = True, device: Device = "cuda",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)
         var = (xf.square().mean(dim=-1, keepdim=True) - mean.square()).clamp_min(0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        return ((xf - mean) * mul + self.bias.float()).to(x.dtype)
+        out = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.float())
+        return (out if self.bias is None else out + self.bias.float()).to(x.dtype)
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
@@ -362,7 +364,9 @@ class MLP(nn.Module):
         return self.fc2(gelu_tanh(self.fc1(x)))
 
 
-def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """``x / ||x||`` in fp32 (NaN on zero rows, as in the JAX package)."""
+def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tensor:
+    """``x / max(||x||, eps)`` in fp32: with ``eps`` 0 NaN on zero rows, as
+    in the JAX package; ColModernVBert clamps the norm at 1e-12."""
     xf = x.float()
-    return (xf / xf.square().sum(dim=dim, keepdim=True).sqrt()).to(x.dtype)
+    norm = xf.square().sum(dim=dim, keepdim=True).sqrt()
+    return (xf / (norm.clamp_min(eps) if eps > 0 else norm)).to(x.dtype)

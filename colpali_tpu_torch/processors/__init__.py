@@ -14,6 +14,7 @@ from colpali_tpu_torch.processors.gemma3 import (  # noqa: F401
     ColGemmaProcessor3,
 )
 from colpali_tpu_torch.processors.idefics3 import ColIdefics3Processor  # noqa: F401
+from colpali_tpu_torch.processors.modernvbert import BiModernVBertProcessor, ColModernVBertProcessor  # noqa: F401
 from colpali_tpu_torch.processors.qwen2_5_vl import ColQwen2_5_Processor, ColQwen2_5Processor  # noqa: F401
 from colpali_tpu_torch.processors.qwen2_vl import ColQwen2Processor  # noqa: F401
 from colpali_tpu_torch.processors.qwen3_vl import ColQwen3Processor  # noqa: F401

@@ -6,9 +6,11 @@ Qwen-family model with a word-level tokenizer whose special tokens sit at
 Qwen2's ids (:func:`write_qwen_checkpoint`), of a ColIdefics3 with
 Idefics3's specials (:func:`write_idefics3_checkpoint`), of a seeded
 ColQwen3 at any ``Qwen3VLConfig`` with Qwen2's (:func:`write_qwen3_checkpoint`)
-or of a seeded ColGemma3 at any ``Gemma3Config`` with Gemma3's
-(:func:`write_gemma3_checkpoint`), which ``load_retriever`` reads through
-``transformers``."""
+of a seeded ColGemma3 at any ``Gemma3Config`` with Gemma3's
+(:func:`write_gemma3_checkpoint`) or of a seeded ColModernVBert at any
+``ModernVBertConfig`` with its tile tokens in the additional vocabulary
+(:func:`write_modernvbert_checkpoint`), which ``load_retriever`` reads
+through ``transformers``."""
 
 from __future__ import annotations
 
@@ -393,3 +395,83 @@ def write_gemma3_checkpoint(directory: str, config, seed: int = 0, words: Sequen
     with open(os.path.join(directory, "processor_config.json"), "w") as f:
         json.dump({"image_seq_length": config.mm_tokens_per_image}, f)
     gemma3_word_tokenizer(words, config.image_token_index).save_pretrained(directory)
+
+
+MODERNVBERT_PROMPT_WORDS = ("User:", "Describe", "the", "image.", "Assistant:")
+
+
+def modernvbert_word_tokenizer(config, words: Sequence[str] = (), grid: int = 4):
+    """:func:`_word_tokenizer` for a ``ModernVBertConfig``: ``<pad>`` at 0,
+    ``<unk>`` at 1 and the prompt's and ``words``' words below the base
+    vocabulary; ``<image>`` at ``config.image_token_id`` and the other tile
+    tokens (``<global-img>``, ``<fake_token_around_image>``, the
+    ``<row_r_col_c>`` markers of grids up to ``grid`` x ``grid``),
+    ``<end_of_utterance>`` and ``<|begin_of_text|>`` at the lowest free ids
+    of the additional vocabulary, as the released checkpoint's image token
+    50,407 lies past its base vocabulary of 50,368 (so that
+    ``DecoupledEmbed``'s second table is read)."""
+    base = config.text.vocab_size
+    names = ["<global-img>", "<fake_token_around_image>", "<end_of_utterance>", "<|begin_of_text|>",
+             *(f"<row_{r}_col_{c}>" for r in range(1, grid + 1) for c in range(1, grid + 1))]
+    free = (i for i in range(base, base + config.additional_vocab_size) if i != config.image_token_id)
+    specials = {"<pad>": 0, "<unk>": 1, "<image>": config.image_token_id, **dict(zip(names, free))}
+    if len(specials) != len(names) + 3 or not base <= config.image_token_id < base + config.additional_vocab_size:
+        raise ValueError(f"{len(names) + 1} tile and prompt tokens do not fit the {config.additional_vocab_size} "
+                         f"additional ids past {base} (the image token at {config.image_token_id})")
+    return _word_tokenizer([*MODERNVBERT_PROMPT_WORDS, *words], specials, "<pad>")
+
+
+def modernvbert_hf_config(config) -> dict:
+    """The reference's composite ``config.json`` of a ``ModernVBertConfig``,
+    laid out as ``scripts/gate_families.py`` writes it: a summary of each
+    backbone (``embed_dim`` for the vision width) with ``vision_model_name``
+    / ``text_model_name`` pointing at the backbone config directories
+    ``backbones/siglip`` and ``backbones/modernbert``, relative to the
+    checkpoint."""
+    v, t = config.vision, config.text
+    return {"model_type": "modernvbert", "architectures": ["ColModernVBert"],
+            "vision_config": {"vision_model_name": os.path.join("backbones", "siglip"), "embed_dim": v.hidden_size,
+                              "image_size": v.image_size, "patch_size": v.patch_size,
+                              "num_hidden_layers": v.num_hidden_layers, "intermediate_size": v.intermediate_size},
+            "text_config": {"text_model_name": os.path.join("backbones", "modernbert"), "hidden_size": t.hidden_size,
+                            "num_hidden_layers": t.num_hidden_layers, "intermediate_size": t.intermediate_size,
+                            "vocab_size": t.vocab_size, "mlp_bias": t.mlp_bias},
+            "hidden_size": t.hidden_size, "vocab_size": t.vocab_size, "image_token_id": config.image_token_id,
+            "pixel_shuffle_factor": config.pixel_shuffle_factor,
+            "additional_vocab_size": config.additional_vocab_size, "pad_token_id": 0}
+
+
+def write_modernvbert_checkpoint(directory: str, config, seed: int = 0, words: Sequence[str] = (),
+                                 device="cuda") -> None:
+    """A ColModernVBert of ``config`` with seeded random bf16 weights (HF's
+    convention, :func:`~colpali_tpu_torch.models.common.hf_init_`), built
+    on ``device``, as an HF-format checkpoint in ``directory``:
+    ``model.safetensors`` by the port's exporter, the composite
+    ``config.json`` (:func:`modernvbert_hf_config`) and the two backbone
+    configs it names, ``preprocessor_config.json`` (the tower's tiles, a
+    longest edge of four tiles, mean and std 0.5), ``processor_config.json``
+    (``image_seq_len``) and :func:`modernvbert_word_tokenizer`'s files over
+    ``words``."""
+    from colpali_tpu_torch.models.common import hf_init_
+    from colpali_tpu_torch.models.modernvbert import ColModernVBert
+    from colpali_tpu_torch.training.checkpointing import save_pretrained
+
+    model = ColModernVBert(config, device=device, dtype=torch.bfloat16)
+    hf_init_(model, torch.Generator(device=device).manual_seed(seed))
+    save_pretrained(directory, model.state_dict(), config=config)
+    del model
+    v = config.vision
+    backbones = {"siglip": {"model_type": "siglip_vision_model", **dataclasses.asdict(v), "vision_use_head": False},
+                 "modernbert": {"model_type": "modernbert", **dataclasses.asdict(config.text), "pad_token_id": 0}}
+    for name, backbone in backbones.items():
+        os.makedirs(os.path.join(directory, "backbones", name), exist_ok=True)
+        with open(os.path.join(directory, "backbones", name, "config.json"), "w") as f:
+            json.dump(backbone, f)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(modernvbert_hf_config(config), f)
+    with open(os.path.join(directory, "preprocessor_config.json"), "w") as f:
+        json.dump({"max_image_size": {"longest_edge": v.image_size}, "size": {"longest_edge": 4 * v.image_size},
+                   "image_mean": [0.5, 0.5, 0.5], "image_std": [0.5, 0.5, 0.5]}, f)
+    with open(os.path.join(directory, "processor_config.json"), "w") as f:
+        json.dump({"image_seq_len": config.image_seq_len}, f)
+    modernvbert_word_tokenizer(config, words).save_pretrained(directory)

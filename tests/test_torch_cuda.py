@@ -1296,3 +1296,80 @@ def test_colgemma3_forward_on_card_matches_plain_route(dev):
         valid = feed["attention_mask"].bool()
         cos = torch.nn.functional.cosine_similarity(got[valid], want[valid], dim=-1)
         assert torch.isfinite(got).all() and cos.mean() >= 0.998 and cos.min() >= 0.995, (cos.mean(), cos.min())
+
+
+# -- ModernVBert: SigLIP on K6 at D=64, the bidirectional ModernBERT encoder on the biased route ---------------------
+
+def test_colmodernvbert_forward_on_card_matches_plain_route(dev, tmp_path):
+    """A small ColModernVBert (SigLIP at head dim 64: 2 layers of 128 over
+    64 px tiles; a ModernBERT encoder of 3 layers, 2 heads of 64 and a
+    window of 8) written by ``write_modernvbert_checkpoint`` and read by
+    ``load_retriever`` in bf16 on the card, through K6 and through its
+    plain version: per-token cosine mean >= 0.998, min >= 0.995; K6 runs
+    one launch a vision layer a page forward at D=64, over every tile of
+    the padded batch, and none for queries (the text attention is biased)."""
+    from unittest import mock
+
+    from colpali_tpu_torch.auto import load_retriever
+    from colpali_tpu_torch.models.configs import SiglipVisionConfig
+    from colpali_tpu_torch.models.modernvbert import ModernBertTextConfig, ModernVBertConfig
+    from colpali_tpu_torch.ops import flash_attention as fa
+    from colpali_tpu_torch.utils.testing import idefics3_training_examples, write_modernvbert_checkpoint
+
+    cfg = ModernVBertConfig(
+        vision=SiglipVisionConfig(hidden_size=128, intermediate_size=256, num_hidden_layers=2, num_attention_heads=2,
+                                  image_size=64, patch_size=16),
+        text=ModernBertTextConfig(vocab_size=128, hidden_size=128, intermediate_size=192, num_hidden_layers=3,
+                                  num_attention_heads=2, local_attention=8),
+        pixel_shuffle_factor=2, additional_vocab_size=32, image_token_id=140)
+    queries = ["what is the total revenue ?", "a", "find the quarterly report"]
+    write_modernvbert_checkpoint(str(tmp_path), cfg, seed=16, words=" ".join(queries).split(), device=dev)
+    model, proc = load_retriever(str(tmp_path), family="colmodernvbert", device=dev)
+    pages = [e["pos_target"] for e in idefics3_training_examples(3)]
+    for batch, pages_forward in ((proc.process_images(pages, device_pixels=True), True),
+                                 (proc.process_queries(queries), False)):
+        feed = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        launches = cfg.vision.num_hidden_layers if pages_forward else 0
+        before = fa.FORWARD_LAUNCHES_BY_HEAD_DIM[64]
+        with torch.inference_mode():
+            got = model(**feed).float()
+            assert fa.FORWARD_LAUNCHES_BY_HEAD_DIM[64] == before + launches
+            with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
+                want = model(**feed).float()
+        valid = feed["attention_mask"].bool()
+        cos = torch.nn.functional.cosine_similarity(got[valid], want[valid], dim=-1)
+        assert torch.isfinite(got).all() and cos.mean() >= 0.998 and cos.min() >= 0.995, (cos.mean(), cos.min())
+
+
+def test_training_stopped_early_releases_the_model(dev, tmp_path):
+    """``ColModelTraining`` stopped by ``max_steps`` before its epoch ends
+    leaves its prefetch thread nothing to hold: after ``close()`` and the
+    last reference the model's memory on the card is released."""
+    import gc
+
+    from colpali_tpu_torch.losses import ColbertPairwiseCELoss
+    from colpali_tpu_torch.models.configs import GemmaConfig, PaliGemmaConfig, SiglipVisionConfig
+    from colpali_tpu_torch.models.paligemma import ColPali
+    from colpali_tpu_torch.training.lora import LoraSpec
+    from colpali_tpu_torch.training.orchestrator import ColModelTraining, ColModelTrainingConfig
+    from colpali_tpu_torch.utils.testing import DUMMY_IMAGE_TOKEN_ID, DummyProcessor, load_dummy_dataset
+
+    cfg = PaliGemmaConfig(  # the dummy processor's 28 px images and 4 image tokens, K6 at head dim 64
+        vision=SiglipVisionConfig(hidden_size=128, intermediate_size=256, num_hidden_layers=1, num_attention_heads=2,
+                                  image_size=28, patch_size=14),
+        text=GemmaConfig(vocab_size=64, hidden_size=128, intermediate_size=256, num_hidden_layers=1,
+                         num_attention_heads=2, num_key_value_heads=1, head_dim=64),
+        projection_dim=128, image_token_index=DUMMY_IMAGE_TOKEN_ID)
+    gc.collect()
+    start = torch.cuda.memory_allocated(dev)
+    model = ColPali(cfg, device=dev, dtype=torch.bfloat16)
+    model.register_buffer("ballast", torch.zeros(256 * 2**20, dtype=torch.uint8, device=dev))  # 256 MiB to miss
+    app = ColModelTraining(ColModelTrainingConfig(
+        model=model, processor=DummyProcessor(), loss_func=ColbertPairwiseCELoss(), output_dir=str(tmp_path),
+        train_datasets=[load_dummy_dataset(16)], global_batch_size=2, max_steps=1, peft=LoraSpec(rank=2),
+        report_to="none", device=dev))
+    assert app.train()["final_step"] == 1  # one batch of the epoch's eight
+    app.close()
+    del app, model
+    gc.collect()
+    assert torch.cuda.memory_allocated(dev) - start < 64 * 2**20  # cuBLAS workspaces may stay; the ballast may not

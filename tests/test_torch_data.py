@@ -119,3 +119,31 @@ def test_dummy_dataset_and_processor_follow_jax():
     texts = ["one two three", "four"]
     for key, value in DummyProcessor().process_queries(queries=texts).items():
         np.testing.assert_array_equal(value, JaxDummyProcessor().process_queries(queries=texts)[key])
+
+
+def test_prefetch_lets_go_of_its_source_when_the_consumer_stops():
+    """A consumer that stops early (``ColModelTraining`` at ``max_steps``)
+    leaves no producer thread blocked on the full queue holding the source
+    and what it refers to."""
+    import gc
+    import threading
+    import time
+    import weakref
+
+    from colpali_tpu_torch.data.prefetch import prefetch
+
+    class Source:
+        def batches(self):
+            yield from range(10)
+
+    source = Source()
+    alive = weakref.ref(source)
+    it = prefetch(source.batches(), buffer_size=2)
+    assert [next(it) for _ in range(3)] == [0, 1, 2]
+    del it, source
+    deadline = time.monotonic() + 5
+    while alive() is not None and time.monotonic() < deadline:
+        gc.collect()
+        time.sleep(0.01)
+    assert alive() is None and not [t for t in threading.enumerate() if "producer" in t.name]
+    assert list(prefetch(iter(range(5)))) == list(range(5))  # a consumer that reads to the end
