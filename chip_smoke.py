@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, page-embedding and training paths once on one GPU.
 
-The serving path runs for ColPali-3B (phases 3, 4 and 7), for the
+The serving path runs for ColPali-3B (phases 3, 4, 7 and 18, the last
+with token pooling, the corpus tools and similarity maps), for the
 Qwen2-VL family, ColQwen2.5-3B and ColQwen2-2B (phase 8), for the
 Idefics3/SmolVLM family, colSmol-256M, with the single-vector Bi models
 (phase 10), for the Gemma3 family, Gemma3-4B (phase 12), for the Qwen3-VL
@@ -121,12 +122,16 @@ Phases (a few lines of output each, then two JSON lines):
    16/2 and 12/2 with left padding, and over the collated queries) and at
    D=80 (the vision tower, full and windowed) against its plain version
    per query row, bit-equal on a second call, timed beside SDPA's backward
-   and its bound; ColQwen2.5-3B read by ``load_retriever(remat=True)``
-   taking 4 LoRA steps through ``ColModelTraining`` (``ColbertLoss(
+   and its bound; ColQwen2.5-3B read by ``load_retriever(remat=True,
+   mask_non_image_embeddings=True)`` (with page tokens kept its recipe loss
+   reads ln 8: the maxima fall on the causal template that opens every
+   page), the first batch's recipe loss over the image tokens at least 0.05
+   from ln 8, taking 4 LoRA steps through ``ColModelTraining`` (``ColbertLoss(
    temperature=0.02)``, rank 32, alpha 32, dropout 0.1, batch 8 over 32
-   pages) with every adapter moving and the base bit-equal, 18 backward
-   launches a step (2 x 9 layers) all at D=128, one step's loss and adapter gradient
-   against the plain route, ``evaluate()`` over 16 held-out pages (bf16
+   pages) with every adapter moving, the base bit-equal and that loss
+   moved, 18 backward launches a step (2 x 9 layers) all at D=128, one
+   step's loss (not ln 8 on both routes) and adapter gradient against the
+   plain route, ``evaluate()`` over 16 held-out pages (bf16
    index, K5), the merged export read back by ``load_retriever(family=
    "colqwen2_5")`` (embeddings bit-equal to the merged weights in memory)
    and served through ``/search_text``, a run resumed from step 2
@@ -160,7 +165,9 @@ Phases (a few lines of output each, then two JSON lines):
    --family colidefics3`` answering one, every K6 launch at D=64 and none
    through its plain version; K1-K3 against plain on both indexes; the K6
    route against the plain route and stored int8 against bf16 per token;
-   forward and encode timings and two profiles; then BiIdefics3 at full
+   split-image similarity maps of 8 pages (``get_local_image_mask``)
+   against a float64 einsum; forward and encode timings and two profiles;
+   then BiIdefics3 at full
    width (on the checkpoint's backbone), BiPaliProj and BiQwen2_5 at full
    width cut to 2 + 2 layers: each vector through the K6 route against the
    plain route, and the Bi processor's ``score`` finding planted pages.
@@ -299,6 +306,26 @@ Phases (a few lines of output each, then two JSON lines):
    and without remat and a profile of one, one step over a stored-int8
    frozen vision tower (72 layers; the connector stays bf16), one
    BiModernVBert LoRA step at full width and depth.
+18. pooled ingestion and the offline corpus tools (right after phase 7, on
+   ColPali-3B and phase 7's HF checkpoint of it): 32 seeded pages (16
+   through ``prompt=``) through ``retrieval.ingest.fused_page_batches``
+   (``embed_pages_fused``'s pipeline), their device embeddings and seeded
+   unit filler docs of 1,029 tokens pooled by 3 inside two
+   ``DeviceIndexBuilder``s (Ward and k-means) into 1,024-doc two-tier int8
+   indexes at Np = 352 (sketch pooled by 2), each planted page at rank 1 on
+   their tiered and exact routes, K1-K3 against their plain versions and
+   timed at that length, the MaxSim retention of each planted query; the
+   device Ward against scipy's Ward (partition-identical on random unit
+   docs of 24-48 tokens at dims 16 and 128; the share of identical
+   partitions at page scale, with each first differing merge's gap);
+   pooling of one 8-page batch timed beside the forward; ``embed_corpus``
+   (scipy Ward on the host, stored int8, the yuv420 wire, a packed index)
+   over 16 PNG pages, ``serve.py`` booted from that index answering
+   ``/search_text`` and finding the planted pages through ``/search``;
+   ``compute_hardnegs`` (MaxSim, and through an int8 index; dense vectors
+   through the 1-token index: K3 at Np = 16), every gold page in the top
+   100 and none among the negatives; similarity maps of 4 pages against a
+   float64 einsum; ``VisualRetrieverCollator(device_pixels=True)``.
    Each phase from 8 on logs the GiB held on the card as it starts (past 1
    GiB, with the chain of referrers that holds the largest module trees);
    every phase's seconds are logged as it ends and listed in the JSON line,
@@ -2414,10 +2441,15 @@ def q1_timing(device: torch.device, mkn: list) -> tuple:
 
 def hf_checkpoint(model, directory: str) -> None:
     """The model's weights as an HF-format ColPali checkpoint that
-    ``load_retriever`` reads: ``model.safetensors`` and ``config.json``."""
+    ``load_retriever`` reads: ``model.safetensors``, ``config.json``,
+    ``preprocessor_config.json`` (448 px, mean and std 0.5) and a word-level
+    tokenizer over the prompts' and QUERIES' words with PaliGemma's special
+    ids (``python -m colpali_tpu_torch.embed_corpus`` and ``serve.py
+    --checkpoint`` load it from the directory)."""
     import dataclasses
 
     from colpali_tpu_torch.training.checkpointing import save_pretrained
+    from colpali_tpu_torch.utils.testing import paligemma_word_tokenizer
 
     cfg = model.config
     save_pretrained(directory, model.state_dict())
@@ -2425,6 +2457,11 @@ def hf_checkpoint(model, directory: str) -> None:
         json.dump({"model_type": "paligemma", "architectures": ["ColPali"],
                    "vision_config": {**dataclasses.asdict(cfg.vision), "projection_dim": cfg.projection_dim},
                    "text_config": dataclasses.asdict(cfg.text), "image_token_index": cfg.image_token_index}, f)
+    with open(f"{directory}/preprocessor_config.json", "w") as f:
+        json.dump({"size": {"height": cfg.vision.image_size, "width": cfg.vision.image_size},
+                   "image_mean": [0.5, 0.5, 0.5], "image_std": [0.5, 0.5, 0.5]}, f)
+    words = {*"Describe the image. Query:".split(), *POOL_PROMPT.split(">")[-1].split(), *" ".join(QUERIES).split()}
+    paligemma_word_tokenizer(sorted(words), cfg.image_token_index).save_pretrained(directory)
 
 
 def per_token(name: str, got: list, want: list, cos_mean: float, cos_min: float) -> dict:
@@ -2460,12 +2497,12 @@ def forward_ms(model, feed: dict) -> float:
         return time_ms(lambda: model(**feed), reps=5)
 
 
-def phase_stored_int8(device: torch.device, model, processor, smi: str) -> tuple:
+def phase_stored_int8(device: torch.device, model, processor, smi: str, ckpt: str) -> tuple:
     """Drive the stored-int8 serving path: the seeded ColPali-3B written as an
-    HF checkpoint, read back through ``load_retriever(quantize=True)``,
-    serving ``/search_text`` and embedding pages, beside the bf16 model.
-    Returns the launches over that path, Q1a/Q1b's timings and the rest."""
-    import tempfile
+    HF checkpoint in ``ckpt`` (kept for phase 18), read back through
+    ``load_retriever(quantize=True)``, serving ``/search_text`` and embedding
+    pages, beside the bf16 model. Returns the launches over that path,
+    Q1a/Q1b's timings and the rest."""
     import threading
 
     from colpali_tpu_torch import serve
@@ -2483,17 +2520,16 @@ def phase_stored_int8(device: torch.device, model, processor, smi: str) -> tuple
 
     cfg = model.config
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        hf_checkpoint(model, tmp)
-        t_save = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        qmodel, qproc = load_retriever(tmp, quantize=True, device=device,
-                                       processor_kwargs={"tokenizer": WordTokenizer(cfg.image_token_index)})
-        torch.cuda.synchronize()
-        t_load = time.perf_counter() - t0
+    hf_checkpoint(model, ckpt)
+    t_save = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qmodel, qproc = load_retriever(ckpt, quantize=True, device=device,
+                                   processor_kwargs={"tokenizer": WordTokenizer(cfg.image_token_index)})
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
     load_peak = (torch.cuda.max_memory_allocated() - before) / 2**30
     held = (torch.cuda.memory_allocated() - before) / 2**30
 
@@ -2670,6 +2706,483 @@ def phase_stored_int8(device: torch.device, model, processor, smi: str) -> tuple
     extra = dict(layers=len(stored), weight_bytes_int8=bytes_int8, weight_bytes_bf16=bytes_bf16,
                  load_seconds=t_load, load_peak_gib=load_peak, held_gib=held, accuracy=accuracy, end_to_end=e2e,
                  page_profile=profile, q1_checks=checks, pages_per_min_served=PAGES / t_embed * 60)
+    return launches, timings, extra
+
+
+# -- phase 18: pooled ingestion and the offline corpus tools (run right after phase 7) -----------------------
+
+POOL_PAGES = 32  # four batches of 8; the last two embed through prompt=
+POOL_PROMPT = "<image><bos>Describe the chart."  # as long as the default prompt: 1,029 tokens a page
+POOL_TOKENS = 1_029  # a page's tokens (1,024 image tokens and the prompt's 5), and each filler doc's
+POOL_FACTOR = 3
+POOL_DOC_TOKENS = 352  # 1,029 // 3 = 343 pooled tokens, rounded up to 16
+POOL_COARSE = 2  # the sketch pools 2 pooled tokens: 176 groups of 4 words
+POOL_INDEX_DOCS = 1_024  # the pages and seeded filler docs of 1,029 unit tokens, pooled alike
+POOL_FILLER_FIRST = 496  # filler docs added before the pages (the rest after them), each in one add()
+POOL_PLANTED = (1, 5, 9, 13, 17, 21, 25, 29)  # pages found by their own first PAGE_QUERY_TOKENS tokens
+WARD_REGIME = ((24, 37, 48), (2, 3), (16, 128), 3)  # JAX's tests/compression/test_device_ward.py: lengths,
+# pool factors, dims (theirs 16), draws
+WARD_PAGE_DOCS = 8  # random unit docs of 1,029 x 128, beside the 32 pages
+CORPUS_PAGES = 16  # the pages embed_corpus reads as PNG files
+CORPUS_PLANTED = tuple(range(0, CORPUS_PAGES, 2))
+DENSE_DOCS = 1_024  # dense vectors mined through the index of 1-token docs
+POOL_KERNELS = ("binary_maxsim", "gather_rerank", "maxsim_int8", "flash_attention", "quantize_rows", "int8_gemm")
+
+
+def unit_docs(rng, lens, dim: int) -> list:
+    docs = [rng.normal(size=(n, dim)).astype(np.float32) for n in lens]
+    return [d / np.linalg.norm(d, axis=-1, keepdims=True) for d in docs]
+
+
+def partitions(maps: list) -> list:
+    """Each doc's clusters as a set of frozensets of token indices."""
+    return [{frozenset(v[0].tolist()) for v in m.values() if len(v[0])} for m in maps]
+
+
+def first_differing_merge(x: np.ndarray, device_pairs: np.ndarray, z: np.ndarray) -> dict:
+    """Where the device's Ward on one document (``x (T, D)`` fp32, its merges
+    ``(n_merges, 2)`` as recorded) and scipy's (its linkage ``z``, float64
+    from the fp32 similarities) first merge different clusters: both
+    candidates' Ward distances in float64 from the observations ``1 - sim``,
+    their relative gap, and whether a token of either pair has an exact
+    duplicate in the document."""
+    t = x.shape[0]
+    obs = 1.0 - (x.astype(np.float64) @ x.astype(np.float64).T)
+    dev = {i: frozenset([i]) for i in range(t)}
+    sci = {i: frozenset([i]) for i in range(t)}
+    for step, (i, j) in enumerate(device_pairs.tolist()):
+        a, b = int(z[step, 0]), int(z[step, 1])
+        pair_dev, pair_sci = {dev[i], dev[j]}, {sci[a], sci[b]}
+        if pair_dev != pair_sci:
+            def ward(p, q):
+                p, q = sorted(p), sorted(q)
+                gap = obs[p].mean(axis=0) - obs[q].mean(axis=0)
+                return float(np.sqrt(2 * len(p) * len(q) / (len(p) + len(q))) * np.linalg.norm(gap))
+
+            w_dev, w_sci = ward(*pair_dev), ward(*pair_sci)
+            same_rows = {}
+            for tok in range(t):
+                same_rows.setdefault(x[tok].tobytes(), []).append(tok)
+            duplicated = {tok for group in same_rows.values() if len(group) > 1 for tok in group}
+            return dict(step=step, device=w_dev, scipy=w_sci, relative_gap=abs(w_dev - w_sci) / max(w_sci, 1e-30),
+                        duplicate_tokens=bool(duplicated & set().union(*pair_dev, *pair_sci)))
+        dev[i] = dev[i] | dev.pop(j)
+        sci[t + step] = sci.pop(a) | sci.pop(b)
+    return dict(step=None)
+
+
+def ward_at_page_scale(device: torch.device, docs: list, label: str) -> dict:
+    """The device Ward (fp32, its merges recorded) against scipy's on
+    ``docs`` (``HierarchicalTokenPooler``'s similarity products, linkage and
+    maxclust cut, 8 documents at a time): the share of identical partitions
+    and, for each doc that differs, :func:`first_differing_merge`. Not held:
+    at T = 1,029 the fp32 Gram of ~530,000 pairs can err by more than the
+    gap between the two nearest pairs."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from scipy.cluster.hierarchy import fcluster, linkage
+
+    from colpali_tpu_torch.compression import HierarchicalTokenPooler
+    from colpali_tpu_torch.compression import token_pooling as tp
+
+    t = max(len(d) for d in docs)
+    k = max(t // POOL_FACTOR, 1)
+    x = torch.zeros((len(docs), t, docs[0].shape[1]), device=device)
+    m = torch.zeros((len(docs), t), device=device)
+    for i, d in enumerate(docs):
+        x[i, : len(d)], m[i, : len(d)] = torch.from_numpy(d), 1
+    record = torch.zeros((t - k, len(docs), 2), dtype=torch.long, device=device)
+    with tp.exact_fp32_products():
+        labels = tp.ward_merges(x, m, POOL_FACTOR, record).cpu().numpy()
+    record = record.cpu().numpy()
+
+    def scipy_ward(args):
+        doc, sim = args
+        z = linkage(1 - sim, metric="euclidean", method="ward")
+        return z, fcluster(z, t=max(len(doc) // POOL_FACTOR, 1), criterion="maxclust")
+
+    sims = HierarchicalTokenPooler(device="cpu")._batched_similarities(docs)
+    with ThreadPoolExecutor(8) as ex:
+        ref = list(ex.map(scipy_ward, zip(docs, sims)))
+
+    def groups(row, n):
+        out = {}
+        for tok in range(n):
+            out.setdefault(int(row[tok]), set()).add(tok)
+        return {frozenset(g) for g in out.values()}
+
+    same, differ = 0, []
+    for i, (d, (z, cut)) in enumerate(zip(docs, ref)):
+        n = len(d)
+        if groups(labels[i], n) == groups(cut, n):
+            same += 1
+        else:
+            differ.append(dict(doc=i, **first_differing_merge(d, record[: n - max(n // POOL_FACTOR, 1), i], z)))
+    out = dict(docs=len(docs), identical=same, share=same / len(docs), differing=differ)
+    log(f"  device Ward vs scipy at page scale, {label}: {same} of {len(docs)} partitions identical "
+        f"({out['share']:.1%})" + "".join(
+            f"; doc {r['doc']}: first differing merge at step {r['step']}, Ward distances {r['device']:.9g} "
+            f"(device's pair) and {r['scipy']:.9g} (scipy's), relative gap {r['relative_gap']:.3g}, "
+            f"{'a duplicate token in the pairs' if r['duplicate_tokens'] else 'no duplicate token'}"
+            for r in differ if r.get("step") is not None))
+    return out
+
+
+def k123_at(index, q: torch.Tensor, held: dict, nq: int, label: str) -> dict:
+    """K1-K3 timed on ``index`` beside their plain versions and bounds
+    (``held``: :func:`hold_k123`'s errors and operands on the same index)."""
+    np_, c, d = index.doc_tokens, index.padded_docs, index.dim
+    npc, w = np_ // index.coarse_pool, d // 32
+    qw, qv, cand, qi, qsc = (held[k] for k in ("qw", "qv", "cand", "qi", "qsc"))
+    q1, qw1, qv1, cand1 = q[:1], qw[:1].contiguous(), qv[:1].contiguous(), cand[:1].contiguous()
+    rows = {
+        "binary_maxsim": dict(ms=time_ms(lambda: binary_maxsim_tiled(qw1, qv1, index._bwords, d)),
+                              plain_ms=time_ms(lambda: binary_maxsim_tiled_plain(qw1, qv1, index._bwords, d), 2),
+                              max_abs_err=held["k1_err"], **k1_bound(1, nq, c, npc, w),
+                              ms_graph=graph_ms(lambda: binary_maxsim_tiled(qw1, qv1, index._bwords, d)),
+                              shape=f"B=1 Nq={nq} W={w} Npc={npc} C={c} ({label})"),
+        "gather_rerank": dict(ms=time_ms(lambda: gather_rerank_tiled(q1, index._store, index._scales, cand1)),
+                              plain_ms=time_ms(lambda: gather_rerank_plain(q1, index._store, index._scales, cand1),
+                                               2),
+                              max_abs_err=held["k2_err"], **k2_bound(1, nq, cand.shape[1], np_, d, 1),
+                              ms_graph=graph_ms(lambda: gather_rerank_tiled(q1, index._store, index._scales, cand1)),
+                              shape=f"B=1 Nq={nq} c={cand.shape[1]} Np={np_} ({label})"),
+        "maxsim_int8": dict(ms=time_ms(lambda: maxsim_int8mxu_tiled(qi, qsc, index._store, index._scales)),
+                            plain_ms=time_ms(lambda: maxsim_int8mxu_tiled_plain(qi, qsc, index._store, index._scales),
+                                             2),
+                            max_abs_err=held["k3_err"],
+                            **bound(c * np_ * (d + 4) + qi.shape[0] * nq * (d + 4) + qi.shape[0] * c * 4,
+                                    2 * qi.shape[0] * nq * c * np_ * d, "int8"),
+                            shape=f"B={qi.shape[0]} Nq={nq} Np={np_} C={c} ({label})"),
+    }
+    for name, r in rows.items():
+        graph = f", from a CUDA graph {r['ms_graph']:.4f} ms" if "ms_graph" in r else ""
+        log(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms{graph}, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g}")
+    return rows
+
+
+def phase_pooling(device: torch.device, model, processor, smi: str, ckpt: str) -> tuple:
+    """Drive pooled ingestion and the offline corpus tools on phase 3's
+    ColPali-3B (bf16) and phase 7's checkpoint of it in ``ckpt``: (a) 32
+    pages through the fused page pipeline (16 with ``prompt=``), their device
+    embeddings pooled by 3 inside two ``DeviceIndexBuilder``s (Ward and
+    k-means) with seeded filler to 1,024 docs each, two-tier int8 indexes at
+    Np = 352 whose tiered and exact routes find each planted page at rank 1,
+    K1-K3 held against their plain versions at that length and the MaxSim
+    retention of each planted query; (b) the device Ward against scipy's,
+    partition-identical in JAX's test regime and the share at page scale;
+    (c) pooling timed beside the page forward; (d) ``embed_corpus`` (Ward on
+    the host, a packed index, stored int8, the yuv420 wire) -> ``serve.py``
+    booted from the index -> ``/search_text`` and ``/search``, then
+    ``compute_hardnegs`` on its embeddings (MaxSim, and through the index:
+    K3 at Np = 352) and on 1,024 dense vectors through the 1-token index (K3
+    at Np = 16); (e) similarity maps of 4 pages against a float64 einsum;
+    (f) the collator's ``device_pixels``. Returns the launches over the
+    path, K1-K3's rows and the rest."""
+    import os
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from colpali_tpu_torch import compute_hardnegs, embed_corpus, serve
+    from colpali_tpu_torch.compression import (DeviceWardTokenPooler, HierarchicalTokenPooler, kmeans_pool_padded,
+                                               ward_pool_padded)
+    from colpali_tpu_torch.compression import token_pooling as tp
+    from colpali_tpu_torch.data.collator import VisualRetrieverCollator
+    from colpali_tpu_torch.interpretability import get_similarity_maps_from_embeddings, normalize_similarity_map
+    from colpali_tpu_torch.retrieval.ingest import fused_page_batches
+    from colpali_tpu_torch.retrieval.store import CorpusIndex, DeviceIndexBuilder
+    from colpali_tpu_torch.training.trainer import to_device
+
+    t_phase = time.perf_counter()
+    extra = {}
+    path = dict.fromkeys(POOL_KERNELS, 0)
+
+    def counted(fn, *args):
+        """``fn(*args)`` on the path: its launches are added to the path's count."""
+        reset_launches()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        for name in POOL_KERNELS:
+            path[name] += KERNELS[name]["counter"].launches
+        return out
+
+    # -- (a) embed -> pool -> index on the card, Ward and k-means ------------------------------------------
+    pages = make_pages(POOL_PAGES, SEED + 180)
+    gen = torch.Generator(device=device).manual_seed(SEED + 181)
+    builders = {method: DeviceIndexBuilder(doc_tokens=POOL_DOC_TOKENS, dim=DIM, dtype="int8", prefilter="binary",
+                                           coarse_pool=POOL_COARSE, pool_factor=POOL_FACTOR, pool_method=method)
+                for method in ("ward", "kmeans")}
+    batches, page_ids = [], []
+
+    def ingest():
+        def add(emb, mask=None):
+            for builder in builders.values():
+                builder.add(emb, mask)
+
+        def filler(n):
+            x = torch.randn((n, POOL_TOKENS, DIM), generator=gen, device=device)
+            add(x / x.norm(dim=-1, keepdim=True))
+            return n
+
+        n_docs = filler(POOL_FILLER_FIRST)
+        half = POOL_PAGES // 2
+        for prompt, chunk in ((None, pages[:half]), (POOL_PROMPT, pages[half:])):
+            for emb, att in fused_page_batches(model, processor, chunk, transport="yuv420", batch_size=PAGE_BATCH,
+                                               prompt=prompt):
+                add(emb, att)  # the forward's device tensors, pooled inside the builders
+                page_ids.extend(range(n_docs, n_docs + emb.shape[0]))
+                n_docs += emb.shape[0]
+                batches.append((emb, att))
+        filler(POOL_INDEX_DOCS - n_docs)
+        return {method: builder.build() for method, builder in builders.items()}
+
+    t0 = time.perf_counter()
+    indexes = counted(ingest)
+    t_ingest = time.perf_counter() - t0
+    rows = [e[a.bool()].float().cpu().numpy() for emb, att in batches for e, a in zip(emb, att)]
+    if len(rows) != POOL_PAGES or any(r.shape != (POOL_TOKENS, DIM) or not np.isfinite(r).all() for r in rows):
+        raise AssertionError(f"page embeddings: {[r.shape for r in rows]}")
+    queries = [rows[p][:PAGE_QUERY_TOKENS] for p in POOL_PLANTED]
+    planted = [page_ids[p] for p in POOL_PLANTED]
+
+    def search_all():
+        found = {}
+        for method, index in indexes.items():
+            tiered = [int(index.search([q], k=10)[1][0, 0]) for q in queries]  # one query a search
+            scores, ids = index.exact_search(queries, k=10)
+            found[method] = dict(tiered=tiered, exact=ids[:, 0].tolist(), exact_scores=scores[:, 0])
+        return found
+
+    found = counted(search_all)
+    for method, index in indexes.items():
+        if index.doc_tokens != POOL_DOC_TOKENS or index.num_docs != POOL_INDEX_DOCS:
+            raise AssertionError(f"{method} index: {index.num_docs} docs x {index.doc_tokens}, expected "
+                                 f"{POOL_INDEX_DOCS} x {POOL_DOC_TOKENS}")
+        if found[method]["tiered"] != planted or found[method]["exact"] != planted:
+            raise AssertionError(f"{method} pooled index, rank 1: tiered {found[method]['tiered']}, exact "
+                                 f"{found[method]['exact']}, planted {planted}")
+    unpooled_bytes = indexes["ward"].nbytes * PAGE_DOC_TOKENS // POOL_DOC_TOKENS  # every array is linear in Np
+    log(f"phase pooling: {POOL_PAGES} pages of {PAGE_HW[1]} x {PAGE_HW[0]} ({rows[0].shape[0]} tokens; {POOL_PAGES // 2} "
+        f"with prompt={POOL_PROMPT!r}) through the fused page pipeline, their device embeddings and "
+        f"{POOL_INDEX_DOCS - POOL_PAGES} seeded unit filler docs pooled by {POOL_FACTOR} inside DeviceIndexBuilder "
+        f"(Ward and k-means) in {t_ingest:.1f} s; two-tier int8 indexes of {POOL_INDEX_DOCS} docs x {POOL_DOC_TOKENS} "
+        f"(sketch pooled by {POOL_COARSE}): {indexes['ward'].nbytes} bytes each, {unpooled_bytes} unpooled at "
+        f"Np={PAGE_DOC_TOKENS}; each of {len(planted)} planted pages at rank 1 on the tiered and the exact route of "
+        "both")
+
+    # K1-K3 against their plain versions at Np = 352 (not counted)
+    q = served_queries(queries[:4], device)
+    held = {method: hold_k123(index, q) for method, index in indexes.items()}
+    timings = k123_at(indexes["ward"], q, held["ward"], SERVED_TOKENS, f"the Ward-pooled page index")
+
+    # the MaxSim retention of each planted query: its score on the pooled page over its score on the page
+    retention = {}
+    x = torch.from_numpy(np.stack([rows[p] for p in POOL_PLANTED])).to(device)
+    qx = torch.from_numpy(np.stack(queries)).to(device)
+    for method, fn in (("ward", ward_pool_padded), ("kmeans", kmeans_pool_padded)):
+        pooled = fn(x, torch.ones(x.shape[:2], device=device), POOL_FACTOR)[0]
+        with tp.exact_fp32_products():
+            ratios = (torch.bmm(qx, pooled.transpose(1, 2)).amax(2).sum(1) /
+                      torch.bmm(qx, x.transpose(1, 2)).amax(2).sum(1)).tolist()
+        retention[method] = ratios
+        log(f"  MaxSim retention, {method}: " + ", ".join(f"{r:.4f}" for r in ratios)
+            + f" (mean {np.mean(ratios):.4f}); the index's exact score of the planted page "
+            + ", ".join(f"{s:.2f}" for s in found[method]["exact_scores"]) + f" of {PAGE_QUERY_TOKENS}")
+    extra.update(ingest_s=t_ingest, index_bytes=indexes["ward"].nbytes, index_bytes_unpooled=unpooled_bytes,
+                 retention=retention, k123_errors={m: {k: h[k] for k in ("k1_err", "k2_err", "k3_err")}
+                                                   for m, h in held.items()})
+    del indexes, held, builders
+    torch.cuda.empty_cache()
+
+    # -- (b) the device Ward against scipy's ----------------------------------------------------------------
+    lens, factors, dims, draws = WARD_REGIME
+    rng = np.random.default_rng(SEED + 182)
+    regime = 0
+    for dim in dims:
+        for pool_factor in factors:
+            for _ in range(draws):
+                docs = unit_docs(rng, lens, dim)
+                got = DeviceWardTokenPooler(device=device).pool_embeddings(docs, pool_factor=pool_factor,
+                                                                           return_dict=True)
+                want = HierarchicalTokenPooler(device="cpu").pool_embeddings(docs, pool_factor=pool_factor,
+                                                                             return_dict=True)
+                if partitions(got.cluster_id_to_indices) != partitions(want.cluster_id_to_indices):
+                    raise AssertionError(f"device Ward vs scipy, docs of {lens} tokens at dim {dim}, pool factor "
+                                         f"{pool_factor}: the partitions differ")
+                regime += len(docs)
+    log(f"  device Ward vs scipy's HierarchicalTokenPooler: {regime} random unit docs of {lens} tokens at dims "
+        f"{dims} and pool factors {factors}, every partition identical")
+    extra["ward_vs_scipy"] = dict(
+        regime_docs=regime,
+        random=ward_at_page_scale(device, unit_docs(rng, [POOL_TOKENS] * WARD_PAGE_DOCS, DIM),
+                                  f"{WARD_PAGE_DOCS} random unit docs"),
+        pages=ward_at_page_scale(device, rows, f"the {POOL_PAGES} pages"))
+
+    # -- (c) pooling timed beside the page forward ----------------------------------------------------------
+    emb, att = batches[0]
+    tok = processor._tokenize([processor._expand_image_prompt(processor.visual_prompt_prefix)] * PAGE_BATCH)
+    feed = dict(input_ids=torch.from_numpy(tok["input_ids"]).to(device),
+                attention_mask=torch.from_numpy(tok["attention_mask"]).to(device),
+                pixel_values=torch.rand((PAGE_BATCH, processor.image_size, processor.image_size, 3), generator=gen,
+                                        device=device) * 2 - 1)
+    t = dict(forward_ms=forward_ms(model, feed),
+             ward_ms=time_ms(lambda: ward_pool_padded(emb, att, POOL_FACTOR), reps=1),
+             kmeans_ms=time_ms(lambda: kmeans_pool_padded(emb, att, POOL_FACTOR), reps=2))
+    t.update(pages_per_min_ward=PAGE_BATCH / (t["forward_ms"] + t["ward_ms"]) * 6e4,
+             pages_per_min_kmeans=PAGE_BATCH / (t["forward_ms"] + t["kmeans_ms"]) * 6e4,
+             pages_per_min_unpooled=PAGE_BATCH / t["forward_ms"] * 6e4)
+    log(f"  pooling one batch of {PAGE_BATCH} pages ({smi}): Ward {t['ward_ms']:.1f} ms, k-means {t['kmeans_ms']:.1f} "
+        f"ms, the bf16 forward {t['forward_ms']:.1f} ms; forward and pooling {t['pages_per_min_ward']:.0f} pages/min "
+        f"(Ward), {t['pages_per_min_kmeans']:.0f} (k-means), {t['pages_per_min_unpooled']:.0f} unpooled")
+    extra["timing"] = t
+    del feed
+
+    # -- (d) the entry points: embed_corpus -> packed index -> serve.py; compute_hardnegs --------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(f"{tmp}/pages")
+        with ThreadPoolExecutor(8) as ex:  # PIL's encoder lets go of the interpreter
+            list(ex.map(lambda i: Image.fromarray(pages[i]).save(f"{tmp}/pages/page_{i:02d}.png", compress_level=0),
+                        range(CORPUS_PAGES)))
+        out, idx = f"{tmp}/corpus.npz", f"{tmp}/index.npz"
+        t0 = time.perf_counter()
+        counted(embed_corpus.main, ["colpali", ckpt, f"{tmp}/pages", out, "--pool-factor", str(POOL_FACTOR),
+                                    "--pooler", "ward", "--save-index", idx, "--index-prefilter",
+                                    "--index-coarse-pool", str(POOL_COARSE), "--quantize", "--transport", "yuv420",
+                                    "--device", str(device)])
+        t_corpus = time.perf_counter() - t0
+        pooled = compute_hardnegs.load_embeddings(out)
+        if len(pooled) != CORPUS_PAGES or any(len(e) > POOL_DOC_TOKENS or not np.isfinite(e).all() for e in pooled):
+            raise AssertionError(f"embed_corpus: {[e.shape for e in pooled]}")
+        corpus_q = [pooled[i][:PAGE_QUERY_TOKENS] for i in CORPUS_PLANTED]
+        t0 = time.perf_counter()
+        httpd = counted(serve.make_server, [idx, "--port", "0", "--checkpoint", ckpt, "--family", "colpali",
+                                            "--device", str(device)])
+        t_serve = time.perf_counter() - t0
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{httpd.server_port}"
+
+        def requests():
+            text = _http(url, "/search_text", {"queries": QUERIES[:2], "k": 5})
+            tiered = [_http(url, "/search", {"embeddings": [q.tolist()], "k": 5}) for q in corpus_q[:4]]
+            exact = _http(url, "/search", {"embeddings": [q.tolist() for q in corpus_q], "k": 5})  # 8 > 4: exact
+            return text, tiered, exact
+
+        try:
+            text, tiered, exact = counted(requests)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        _check_ranked("/search_text (the packed index)", text, 2)
+        top = ([r["doc_ids"][0][0] for r in tiered], [row[0] for row in exact["doc_ids"]])
+        if top[0] != list(CORPUS_PLANTED[:4]) or top[1] != list(CORPUS_PLANTED):
+            raise AssertionError(f"serve.py on embed_corpus's index, rank 1: tiered {top[0]}, exact {top[1]}, "
+                                 f"planted {list(CORPUS_PLANTED)}")
+        log(f"  embed_corpus (Ward on the host, stored int8, yuv420) over {CORPUS_PAGES} PNG pages in {t_corpus:.1f} "
+            f"s: {sum(len(e) for e in pooled)} pooled tokens; serve.py booted from its packed index with "
+            f"--checkpoint in {t_serve:.1f} s answered /search_text and found each planted page at rank 1 through "
+            "/search (tiered and exact)")
+
+        np.savez(f"{tmp}/queries.npz", **{f"emb_{i}": q_ for i, q_ in enumerate(corpus_q)})
+        with open(f"{tmp}/gold.json", "w") as f:
+            json.dump(list(CORPUS_PLANTED), f)
+        drng = np.random.default_rng(SEED + 183)
+        dense = drng.normal(size=(DENSE_DOCS, DIM)).astype(np.float32)
+        dense /= np.linalg.norm(dense, axis=-1, keepdims=True)
+        dense_gold = [int(g) for g in drng.choice(DENSE_DOCS, 64, replace=False)]
+        dense_q = dense[dense_gold] + 0.3 * drng.normal(size=(64, DIM)).astype(np.float32) / np.sqrt(DIM)
+        np.savez(f"{tmp}/dense_docs.npz", embeddings=dense)
+        np.savez(f"{tmp}/dense_queries.npz", embeddings=dense_q)
+        with open(f"{tmp}/dense_gold.json", "w") as f:
+            json.dump(dense_gold, f)
+        mined = {}
+        for name, args in (("maxsim", [f"{tmp}/queries.npz", out, f"{tmp}/gold.json", "--multi-vector"]),
+                           ("maxsim via index", [f"{tmp}/queries.npz", out, f"{tmp}/gold.json", "--multi-vector",
+                                                 "--via-index"]),
+                           ("dense", [f"{tmp}/dense_queries.npz", f"{tmp}/dense_docs.npz", f"{tmp}/dense_gold.json"]),
+                           ("dense via index", [f"{tmp}/dense_queries.npz", f"{tmp}/dense_docs.npz",
+                                                f"{tmp}/dense_gold.json", "--via-index"])):
+            jsonl = f"{tmp}/{name.replace(' ', '_')}.jsonl"
+            counted(compute_hardnegs.main, [*args[:3], jsonl, *args[3:], "--device", str(device)])
+            with open(jsonl) as f:
+                mined[name] = [json.loads(line) for line in f]
+        for name, res in mined.items():
+            gold = CORPUS_PLANTED if name.startswith("maxsim") else dense_gold
+            if not all(r["gold_in_top_100"] for r in res) or any(g in r["negative_passages"] for g, r in zip(gold, res)):
+                raise AssertionError(f"compute_hardnegs ({name}): a gold doc missed the top 100 or is a negative")
+        overlap = {kind: float(np.mean([len(set(a["negative_passages"][:10]) & set(b["negative_passages"][:10])) / 10
+                                        for a, b in zip(mined[kind], mined[f"{kind} via index"])]))
+                   for kind in ("maxsim", "dense")}
+        log(f"  compute_hardnegs: every gold page in the top 100 and no gold id among the negatives, MaxSim over the "
+            f"{CORPUS_PAGES} pooled pages ({len(CORPUS_PLANTED)} queries) and {DENSE_DOCS} dense vectors (64 queries), "
+            f"each on the score matrix and through an int8 index (K3 at Np={POOL_DOC_TOKENS} and, 1-token docs, "
+            f"Np=16); top-10 negatives shared by the two routes {overlap['maxsim']:.1%} (MaxSim) and "
+            f"{overlap['dense']:.1%} (dense)")
+        extra.update(embed_corpus_s=t_corpus, serve_start_s=t_serve, hardneg_top10_overlap=overlap)
+        # K3 at Np = 16 (dense vectors as 1-token docs), timed apart
+        index16 = CorpusIndex(list(dense[:, None]), dtype="int8", device=device)
+        qi, qsc = quantize_per_token(torch.from_numpy(dense_q[:8, None]).to(device))
+        got16 = maxsim_int8mxu_tiled(qi, qsc, index16._store, index16._scales)
+        want16 = maxsim_int8mxu_tiled_plain(qi, qsc, index16._store, index16._scales)
+        torch.testing.assert_close(got16, want16, rtol=RTOL, atol=ATOL)
+        c16 = index16.padded_docs
+        timings["maxsim_int8"]["one_token_docs"] = r16 = dict(
+            ms=time_ms(lambda: maxsim_int8mxu_tiled(qi, qsc, index16._store, index16._scales)),
+            ms_graph=graph_ms(lambda: maxsim_int8mxu_tiled(qi, qsc, index16._store, index16._scales)),
+            plain_ms=time_ms(lambda: maxsim_int8mxu_tiled_plain(qi, qsc, index16._store, index16._scales), 2),
+            max_abs_err=(got16 - want16).abs().max().item(),
+            **bound(c16 * 16 * (DIM + 4) + 8 * (DIM + 4) + 8 * c16 * 4, 2 * 8 * 1 * c16 * 16 * DIM, "int8"),
+            shape=f"B=8 Nq=1 Np=16 C={c16} (dense vectors as 1-token docs)")
+        log(f"  maxsim_int8 [{r16['shape']}]: kernel {r16['ms']:.4f} ms, from a CUDA graph {r16['ms_graph']:.4f} ms, "
+            f"plain {r16['plain_ms']:.3f} ms, bound {r16['bound_ms']:.5f} ms ({r16['bound_by']}), max_abs_err "
+            f"{r16['max_abs_err']:.3g}")
+        del index16
+
+    launches = {name: n for name, n in path.items()}
+    if not all(launches.values()):
+        raise AssertionError(f"pooling phase: a kernel of the path was not launched: {launches}")
+
+    # -- (e) similarity maps of 4 pages --------------------------------------------------------------------
+    image = batches[0][0][:4].float().cpu().numpy()
+    mask = processor.get_image_mask({"input_ids": tok["input_ids"][:4]})
+    qmaps = np.stack([rows[p][:PAGE_QUERY_TOKENS] for p in range(4)])
+    n_patches = processor.get_n_patches(PAGE_HW)
+    maps = get_similarity_maps_from_embeddings(image, qmaps, n_patches, mask)
+    err = 0.0
+    for i, m in enumerate(maps):
+        grid = image[i][mask[i]].astype(np.float64).reshape(n_patches[1], n_patches[0], -1)  # (y, x, dim)
+        want = np.einsum("nd,yxd->nxy", qmaps[i].astype(np.float64), grid)
+        err = max(err, float(np.abs(m - want).max()))
+    norm = normalize_similarity_map(maps[0])
+    side = processor.image_size // 14  # SigLIP's 14 px patches: 32 a side at 448 px
+    if n_patches != (side, side) or maps[0].shape != (qmaps.shape[1], side, side) or err > 1e-5 or \
+            not (norm.min() >= 0.0 and 0.999 <= norm.max() <= 1.0):
+        raise AssertionError(f"similarity maps: n_patches {n_patches}, {maps[0].shape}, error {err} against a float64 "
+                             f"einsum, normalized range {norm.min()}..{norm.max()}")
+    log(f"  similarity maps of 4 pages ({n_patches[0]} x {n_patches[1]} patches, {PAGE_QUERY_TOKENS} query tokens): "
+        f"within {err:.3g} of a float64 einsum (limit 1e-5); normalized to {norm.min():.3g}..{norm.max():.6f}")
+
+    # -- (f) the collator's device pixels ------------------------------------------------------------------
+    examples = [{"query": QUERIES[i], "pos_target": pages[i]} for i in range(PAGE_BATCH)]
+    batch = VisualRetrieverCollator(processor, device_pixels=True)(examples)
+    pix = batch["doc_pixel_values"]
+    ref = processor.process_images(pages[:PAGE_BATCH], host_resize=True)["pixel_values"]
+    pix_err = float(np.abs(pix.cpu().numpy() - ref).max()) if isinstance(pix, torch.Tensor) else None
+    fed = to_device(batch, device)
+    with torch.inference_mode():
+        out_ = model(input_ids=fed["doc_input_ids"], attention_mask=fed["doc_attention_mask"],
+                     pixel_values=fed["doc_pixel_values"])
+    if not isinstance(pix, torch.Tensor) or pix.device.type != device.type or pix_err > 1e-6 or \
+            fed["doc_pixel_values"] is not pix or not torch.isfinite(out_).all():
+        raise AssertionError(f"collator device_pixels: {type(pix)} on {getattr(pix, 'device', None)}, error {pix_err}")
+    log(f"  VisualRetrieverCollator(device_pixels=True): {PAGE_BATCH} pages' pixel_values a tensor on {pix.device} within "
+        f"{pix_err:.3g} of the processor's host-resize pixels (limit 1e-6), taken by to_device as it is; one forward "
+        f"{tuple(out_.shape)}")
+    log(f"  path launches {launches}; phase {time.perf_counter() - t_phase:.1f} s")
+    del batches, batch, fed, out_
+    torch.cuda.empty_cache()
     return launches, timings, extra
 
 
@@ -3059,6 +3572,9 @@ QWEN_ROUTE_LOSS_RTOL, QWEN_ROUTE_GRAD_COS = 1e-2, 0.99
 # with page tokens kept (every query token's maximum on the causal template that opens every page), so 9 (e)
 # holds the recipe loss over the pages' image tokens, as mask_non_image_embeddings scores them
 TIED_MARGIN = 0.05
+# a route check's loss that reads ln B on both routes: an exact tie moves ColbertLoss off ln B by fp32 rounding alone
+# (phase 9's unmasked run read 2.079442 on both routes, ln 8 = 2.0794415); a batch that ranks moves it further
+TIED_ATOL = 1e-4
 
 
 def launch_counts() -> dict:
@@ -3195,17 +3711,22 @@ def qwen_bwd_cases(device: torch.device, batch: dict, cfg25, cfg2) -> dict:
     return out
 
 
-def hold_routes(name: str, state, batch, recipe_loss, peft, probe=None) -> dict:
+def hold_routes(name: str, state, batch, recipe_loss, peft, probe=None, tied=None) -> dict:
     """:func:`route_gap` on the recipe loss (its value held) and on the
     smooth probe (its value and gradient cosine held): by default InfoNCE
     over the smooth max of the late-interaction scores; a single-vector
-    model passes its own."""
+    model passes its own. Given ``tied`` (ln B for ColbertLoss), a recipe
+    loss within :data:`TIED_ATOL` of it on both routes fails: every page
+    scores alike there, and the two routes would agree whatever K6 did."""
     from colpali_tpu_torch.losses import ColbertLoss
 
     out = {}
     for what, fn in (("recipe loss", recipe_loss), ("smooth probe", probe or ColbertLoss(use_smooth_max=True))):
         (k, *_), (p, *_), r = route_gap(state, batch, fn, peft)
         out[what] = r
+        if tied is not None and what == "recipe loss" and max(abs(k - tied), abs(p - tied)) < TIED_ATOL:
+            raise AssertionError(f"{name}, kernel route vs plain route: the recipe loss {k:.6f} vs {p:.6f} reads "
+                                 f"{tied:.6f} on both routes: every page scores alike, a comparison that cannot fail")
         held = what == "smooth probe"
         log(f"  {name}, kernel route vs plain route, {what}: loss {k:.6f} vs {p:.6f} (relative "
             f"{r['loss_relative']:.2e}, limit {QWEN_ROUTE_LOSS_RTOL}, {share(r['loss_relative'], QWEN_ROUTE_LOSS_RTOL)}), "
@@ -3311,14 +3832,28 @@ def phase_qwen_training(device: torch.device, smi: str, ckpt: str) -> tuple:
     loss_fn = ColbertLoss(temperature=0.02)
     train_config = trainer.TrainConfig(learning_rate=QWEN_LR, warmup_steps=0, total_steps=2500)
     t0 = time.perf_counter()
-    model, processor = load_retriever(ckpt, family="colqwen2_5", device=device, remat=True)
+    model, processor = load_retriever(ckpt, family="colqwen2_5", device=device, remat=True,
+                                      mask_non_image_embeddings=True)
     torch.cuda.synchronize()
-    log(f"phase qwen training: ColQwen2.5-3B read by load_retriever(remat=True) in {time.perf_counter() - t0:.1f} s")
+    log(f"phase qwen training: ColQwen2.5-3B read by load_retriever(remat=True, mask_non_image_embeddings=True) in "
+        f"{time.perf_counter() - t0:.1f} s")
     train_set = page_dataset(QWEN_TRAIN_PAGES, SEED + 41)
     eval_set = page_dataset(QWEN_EVAL_PAGES, SEED + 42, first=QWEN_TRAIN_PAGES)
     batch = trainer.to_device(VisualRetrieverCollator(processor)([train_set[i] for i in range(TRAIN_BATCH)]), device)
     k6_bwd = qwen_bwd_cases(device, batch, cfg25, cfg2)
-    extra = {}
+    tied = math.log(TRAIN_BATCH)
+    spread = page_score_spread(model, batch, cfg25.image_token_id, loss_fn)
+    margin = abs(spread["masked"]["loss"] - tied)
+    log(f"  ColQwen2.5-3B, the first batch's in-batch scores: page tokens kept, the recipe loss "
+        f"{spread['unmasked']['loss']:.6f} (ln {TRAIN_BATCH} = {tied:.6f}), {spread['unmasked']['on_template']:.1%} of "
+        f"the query tokens' maxima outside the image tokens, least spread {spread['unmasked']['min_spread']:.5f}; "
+        f"non-image tokens masked (as trained here) {spread['masked']['loss']:.6f} ({margin:.4f} from ln {TRAIN_BATCH}, "
+        f"limit {TIED_MARGIN}), {spread['masked']['on_template']:.1%}, least spread "
+        f"{spread['masked']['min_spread']:.5f}")
+    if margin < TIED_MARGIN:
+        raise AssertionError(f"ColQwen2.5-3B LoRA: the recipe loss over the image tokens {spread['masked']['loss']:.6f} "
+                             f"lies within {TIED_MARGIN} of ln {TRAIN_BATCH}: the pages score alike")
+    extra = dict(score_spread=spread)
 
     sampled = ["model.language_model.layers.0.self_attn.q_proj.weight",
                f"model.language_model.layers.{t25.num_hidden_layers - 1}.mlp.down_proj.weight",
@@ -3350,6 +3885,12 @@ def phase_qwen_training(device: torch.device, smi: str, ckpt: str) -> tuple:
         peak_train = torch.cuda.max_memory_allocated() / 2**30
         by_dim = train_launches["bwd_by_head_dim"]
         passes = QWEN_TRAIN_STEPS * 2  # a query and a page forward a step need a gradient
+        app.state.adapters.clear_masks()
+        with torch.no_grad():
+            trained = trainer.compute_loss(model.eval(), batch, loss_fn, False)[0].item()
+        if trained == spread["masked"]["loss"] or not np.isfinite(trained):
+            raise AssertionError(f"ColQwen2.5-3B LoRA: {QWEN_TRAIN_STEPS} steps left the recipe loss over the image tokens "
+                                 f"at {trained} (before them {spread['masked']['loss']})")
         if [s for s, _, _ in seen] != list(range(1, QWEN_TRAIN_STEPS + 1)) or \
                 not all(np.isfinite(l) and l > 0 and np.isfinite(g) and g > 0 for _, l, g in seen):
             raise AssertionError(f"ColQwen2.5-3B steps: {seen}")
@@ -3366,8 +3907,11 @@ def phase_qwen_training(device: torch.device, smi: str, ckpt: str) -> tuple:
             + ", ".join(f"step {s} loss {l:.4f} grad_norm {g:.4f}" for s, l, g in seen)
             + f"; {summary['train_samples_per_second']:.2f} examples/s with collation and checkpoints; K6 forward "
             f"{train_launches['flash_attention']}, backward {train_launches['flash_attention_bwd']} (by head dim "
-            f"{by_dim}); peak memory {peak_train:.2f} GiB")
-        extra["route_lora_25"] = hold_routes("ColQwen2.5-3B LoRA", app.state, batch, loss_fn, peft)
+            f"{by_dim}); peak memory {peak_train:.2f} GiB; the recipe loss over the image tokens on the first batch "
+            f"{spread['masked']['loss']:.6f} before the steps, {trained:.6f} after")
+        extra["trained_loss"] = trained
+        extra["route_lora_25"] = hold_routes("ColQwen2.5-3B LoRA (non-image tokens masked)", app.state, batch, loss_fn,
+                                             peft, tied=tied)
 
         reset_launches()  # the comparison launched K6 too: it does not count
         t0 = time.perf_counter()
@@ -3698,6 +4242,39 @@ def counted_plain_k6():
         yield calls
 
 
+def split_map_check(processor, feed: dict, model, queries: list) -> dict:
+    """``interpretability.get_split_image_similarity_maps`` on a batch of
+    split pages (``feed``, embedded by ``model``) with the processor's
+    ``get_local_image_mask``, held at 1e-5 against a float64 einsum over
+    the tiles' tokens laid out on the page's grid here (tile rows, then
+    each tile's token rows)."""
+    from colpali_tpu_torch.interpretability import get_split_image_similarity_maps
+
+    with torch.inference_mode():
+        image = model(**feed).float().cpu().numpy()
+    local = processor.get_local_image_mask({k: v.cpu().numpy() for k, v in feed.items() if k != "pixel_values"})
+    n_patches = processor.get_n_patches(PAGE_HW)
+    q = np.zeros((len(queries), max(len(x) for x in queries), image.shape[-1]), np.float32)
+    for i, x in enumerate(queries):
+        q[i, : len(x)] = x
+    maps = get_split_image_similarity_maps(image, q, n_patches, local, processor.image_seq_len)
+    side = int(round(processor.image_seq_len ** 0.5))
+    err = 0.0
+    for i, got in enumerate(maps):
+        grid = np.zeros((*n_patches, image.shape[-1]))
+        for pos, token in enumerate(image[i][local[i]].astype(np.float64)):
+            tile, inner = divmod(pos, side * side)
+            (ty, tx), (py, px) = divmod(tile, n_patches[0] // side), divmod(inner, side)
+            grid[tx * side + px, ty * side + py] = token
+        err = max(err, float(np.abs(got - np.einsum("nd,xyd->nxy", q[i].astype(np.float64), grid)).max()))
+    if len(maps) != len(queries) or maps[0].shape != (q.shape[1], *n_patches) or err > 1e-5:
+        raise AssertionError(f"split-image similarity maps: {len(maps)} of {maps[0].shape}, error {err} against a "
+                             "float64 einsum (limit 1e-5)")
+    log(f"  split-image similarity maps of {len(maps)} pages ({n_patches[0]} x {n_patches[1]} patches from the local "
+        f"tiles): within {err:.3g} of a float64 einsum (limit 1e-5)")
+    return dict(n_patches=list(n_patches), max_abs_err=err)
+
+
 def phase_colsmol(device: torch.device, smi: str) -> tuple:
     """Drive the Idefics3/SmolVLM family's serving path: colSmol-256M written
     as an HF checkpoint and read back by ``load_retriever(family=
@@ -3890,6 +4467,8 @@ def phase_colsmol(device: torch.device, smi: str) -> tuple:
                                embs["bf16"][:PAGE_BATCH], INT8_COS_MEAN, INT8_COS_MIN),
             "queries": cos_check(f"{len(QUERIES)} queries, stored int8 vs bf16", encoders["int8"].encode(QUERIES),
                                  encoders["bf16"].encode(QUERIES), INT8_COS_MEAN, INT8_COS_MIN)}
+
+        extra["split_maps"] = split_map_check(processor, feed, model, encoders["bf16"].encode(QUERIES))
 
         # end to end, bf16 and stored int8 in turns: one forward of 8 pages (CUDA events), encode x1 / x8
         e2e = {}
@@ -6245,8 +6824,11 @@ def main() -> int:
     del encoder
     train_slice, train_steps, k6_bwd, eval_index, train_extra = timed("5 training", phase_training, device, model,
                                                                       processor, smi)
-    quant_launches, quant_timings, quant_extra = timed("7 stored int8", phase_stored_int8, device, model, processor,
-                                                       smi)
+    with tempfile.TemporaryDirectory() as colpali_dir:  # phase 7's ColPali-3B checkpoint, which phase 18 reads
+        quant_launches, quant_timings, quant_extra = timed("7 stored int8", phase_stored_int8, device, model,
+                                                           processor, smi, colpali_dir)
+        pool_launches, pool_timings, pool_extra = timed("18 pooled ingestion", phase_pooling, device, model,
+                                                        processor, smi, colpali_dir)
     timings.update(quant_timings)
     del model, processor
     free_memory("phase qwen")
@@ -6343,6 +6925,10 @@ def main() -> int:
             entry["modernvbert"] = mvb_timings[name]
         if name in mt_launches:  # over phase 17's path: ModernVBERT-base's LoRA steps, eval and quantized-base step
             entry["launches_modernvbert_training"] = mt_launches[name]
+        if name in pool_launches:  # over phase 18's path: pooled ingestion, embed_corpus, serve.py, compute_hardnegs
+            entry["launches_pooling_slice"] = pool_launches[name]
+        if name in pool_timings:  # K1-K3 at the pooled page length (Np = 352), K3 also over 1-token docs (Np = 16)
+            entry["pooled"] = pool_timings[name]
         kernels.append(dict(entry, **timings[name]))
     print(json.dumps({"kernels": kernels, "pages_per_min": extra["pages_per_min"],
                       "forward_check": extra["forward_check"], "page_profile": extra["page_profile"],
@@ -6350,6 +6936,7 @@ def main() -> int:
                       "qwen_training": qt_extra, "colsmol": smol_extra, "colsmol_training": st_extra,
                       "gemma3": gemma_extra, "gemma3_training": gt_extra, "qwen3": qwen3_extra,
                       "qwen3_training": q3t_extra, "modernvbert": mvb_extra, "modernvbert_training": mt_extra,
+                      "pooling": pool_extra,
                       "phase_seconds": seconds, "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

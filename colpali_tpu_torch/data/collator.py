@@ -23,6 +23,7 @@ padded with ``torch``, where they are.
 
 from __future__ import annotations
 
+import inspect
 import random
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -86,12 +87,26 @@ class VisualRetrieverCollator:
         pad_seq_to: Optional[PadSpec] = None,
         pad_patches_to: Optional[PadSpec] = None,
         rng: Optional[random.Random] = None,
+        device_pixels: bool = False,
     ):
+        """``device_pixels=True``: a processor whose ``process_images``
+        takes ``device_pixels`` keeps ``pixel_values`` a tensor on its
+        device (resized there, or on the host first where it takes
+        ``host_resize``), so the pixels are not copied back to the host
+        and up again; other processors ignore it."""
         self.processor = processor
         self.max_length = max_length
         self.pad_seq_to = pad_seq_to
         self.pad_patches_to = pad_patches_to
         self._rng = rng or random
+        self._image_kwargs = {}
+        if device_pixels:
+            params = inspect.signature(processor.process_images).parameters
+            device_pixels = "device_pixels" in params
+            if device_pixels:
+                self._image_kwargs = dict(device_pixels=True, **({"host_resize": True} if "host_resize" in params
+                                                                 else {}))
+        self.device_pixels = device_pixels
 
     def __call__(self, examples: List[Dict[str, Any]]) -> Dict[str, Any]:
         queries: List[str] = []
@@ -143,7 +158,7 @@ class VisualRetrieverCollator:
             if isinstance(flat[0], str):
                 proc = self.processor.process_texts(texts=flat)
             elif _is_image(flat[0]):
-                proc = self.processor.process_images(images=flat)
+                proc = self.processor.process_images(images=flat, **self._image_kwargs)
             else:
                 raise ValueError(f"Unsupported batch type: {type(flat[0])}.")
             proc = {
@@ -153,7 +168,7 @@ class VisualRetrieverCollator:
                 for k, v in proc.items()
             }
         elif _is_image(first):
-            proc = self.processor.process_images(images=list(batch))
+            proc = self.processor.process_images(images=list(batch), **self._image_kwargs)
         else:
             raise ValueError(f"Unsupported batch type: {type(first)}.")
         return prefix_keys(proc, key_prefix)

@@ -8,15 +8,16 @@ Pages become ColPali page embeddings through one pipeline:
   pages, in pinned memory when the model is on the card;
 - one upload per group (``non_blocking=True``);
 - on the device: unpack, YUV420 -> RGB, normalize, the model forward, for
-  each of the group's ``chunk`` batches, and one download of the group's
-  embeddings.
+  each of the group's ``chunk`` batches; :func:`embed_pages_fused`
+  downloads each batch's embeddings, :func:`fused_page_batches` hands them
+  over where they lie.
 
 All pages share one prompt, so the token ids are uploaded once.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence
+from typing import Any, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +36,7 @@ from colpali_tpu_torch.processors.image_processing import (
 TRANSPORTS = ("rgb-u8", "yuv420", "gray")
 
 
-def embed_pages_fused(
+def fused_page_batches(
     model: torch.nn.Module,
     processor: Any,
     pages: Sequence[Any],
@@ -44,28 +45,23 @@ def embed_pages_fused(
     batch_size: int = 8,
     chunk: int = 1,
     reducing_gap: Optional[float] = None,
-) -> List[np.ndarray]:
-    """Embed ``pages`` (PIL images or uint8 arrays) with ``model`` (a
-    ColPali on its parameters' device) -> per-page ``(n_tokens, dim)`` float32
-    embeddings of the prompt's valid tokens.
-
-    ``processor`` is a fixed-resolution ColPali processor (``image_size``,
-    ``image_mean``/``image_std``, ``visual_prompt_prefix``,
-    ``_expand_image_prompt``, ``_tokenize``). ``chunk``: forward batches per
-    upload and download. ``reducing_gap``: PIL's box pre-reduce for the
-    host resize (None: exact single-pass bicubic)."""
+    prompt: Optional[str] = None,
+) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """The pipeline of :func:`embed_pages_fused`, a forward batch at a time:
+    ``(embeddings (n, S, D), attention_mask (n, S))`` where the model lies,
+    the final group's padding rows dropped. A consumer on the device (a
+    ``DeviceIndexBuilder``) takes the embeddings without a host round trip."""
     if transport not in TRANSPORTS:
         raise ValueError(f"transport must be one of {TRANSPORTS}, got {transport!r}")
     if not pages:
-        return []
+        return
     device = next(model.parameters()).device
     size = int(processor.image_size)
     mean, std = processor.image_mean, processor.image_std
 
-    tok = processor._tokenize([processor._expand_image_prompt(processor.visual_prompt_prefix)] * batch_size)
+    tok = processor._tokenize([processor._expand_image_prompt(prompt or processor.visual_prompt_prefix)] * batch_size)
     ids = torch.from_numpy(np.asarray(tok["input_ids"])).to(device)
     att = torch.from_numpy(np.asarray(tok["attention_mask"])).to(device)
-    mask_row = np.asarray(tok["attention_mask"])[0].astype(bool)
 
     group_pages = batch_size * chunk
     n_pages = len(pages)
@@ -97,14 +93,44 @@ def embed_pages_fused(
             x = pix.float()
         return normalize_pixels(x, mean, std)
 
+    done = 0
+    for host in prefetch((stage(g) for g in range(n_groups)), buffer_size=2):
+        pix = host.to(device, non_blocking=True)
+        for c in range(chunk):
+            n = min(batch_size, n_pages - done)
+            if n <= 0:
+                break
+            with torch.inference_mode():  # not across the yield: the consumer runs in its own mode
+                emb = model(input_ids=ids, attention_mask=att, pixel_values=decode(pix[c]))
+            done += n
+            yield emb[:n], att[:n]
+
+
+def embed_pages_fused(
+    model: torch.nn.Module,
+    processor: Any,
+    pages: Sequence[Any],
+    *,
+    transport: str = "yuv420",
+    batch_size: int = 8,
+    chunk: int = 1,
+    reducing_gap: Optional[float] = None,
+    prompt: Optional[str] = None,
+) -> List[np.ndarray]:
+    """Embed ``pages`` (PIL images or uint8 arrays) with ``model`` (a
+    ColPali on its parameters' device) -> per-page ``(n_tokens, dim)`` float32
+    embeddings of the prompt's valid tokens.
+
+    ``processor`` is a fixed-resolution ColPali processor (``image_size``,
+    ``image_mean``/``image_std``, ``visual_prompt_prefix``,
+    ``_expand_image_prompt``, ``_tokenize``). ``chunk``: forward batches per
+    upload. ``reducing_gap``: PIL's box pre-reduce for the host resize
+    (None: exact single-pass bicubic). ``prompt``: the text around the image
+    tokens (the processor's ``visual_prompt_prefix`` when None), as
+    ``process_images(context_prompts=[prompt])`` takes it."""
     out: List[np.ndarray] = []
-    with torch.inference_mode():
-        for host in prefetch((stage(g) for g in range(n_groups)), buffer_size=2):
-            pix = host.to(device, non_blocking=True)
-            emb = torch.stack([model(input_ids=ids, attention_mask=att, pixel_values=decode(pix[c]))
-                               for c in range(chunk)])
-            emb = emb.float().cpu().numpy()
-            for row in emb.reshape(-1, *emb.shape[-2:]):
-                if len(out) < n_pages:
-                    out.append(row[mask_row])
+    for emb, att in fused_page_batches(model, processor, pages, transport=transport, batch_size=batch_size,
+                                       chunk=chunk, reducing_gap=reducing_gap, prompt=prompt):
+        emb, valid = emb.float().cpu().numpy(), att.bool().cpu().numpy()
+        out.extend(row[keep] for row, keep in zip(emb, valid))
     return out

@@ -22,6 +22,7 @@ lower index first (the coarse scores are integers, so ties are common).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -449,16 +450,32 @@ class DeviceIndexBuilder:
         dim: embedding dimension.
         dtype / prefilter / coarse_pool / quantize_queries: as in
             :class:`CorpusIndex`.
-        pool_factor: on-device token pooling during ingestion; not ported
-            yet (it needs ``compression/token_pooling``): anything above 1
-            raises.
+        pool_factor: token pooling during ingestion: each added batch is
+            pooled where it lies before it is quantized and packed, so
+            embed -> pool -> index never leaves the device. ``doc_tokens``
+            then bounds the pooled length (``S // pool_factor``).
+        pool_method: ``"ward"`` (default), exact Ward clustering
+            (:func:`~colpali_tpu_torch.compression.token_pooling.ward_pool_padded`,
+            the partitions of the scipy ``HierarchicalTokenPooler``), or
+            ``"kmeans"``, spherical k-means over ``pool_iters`` rounds
+            (:func:`~colpali_tpu_torch.compression.token_pooling.kmeans_pool_padded`),
+            cheaper and keeping less of MaxSim.
     """
 
     def __init__(self, doc_tokens: int, dim: int, dtype: str = "int8", prefilter: Optional[str] = None,
-                 pool_factor: Optional[int] = None, coarse_pool: int = 1, quantize_queries: bool = True):
+                 pool_factor: Optional[int] = None, pool_iters: int = 10, pool_method: str = "ward",
+                 coarse_pool: int = 1, quantize_queries: bool = True):
+        self._pool = None
         if pool_factor is not None and pool_factor > 1:
-            raise NotImplementedError("DeviceIndexBuilder(pool_factor > 1) needs compression/token_pooling, "
-                                      "which is not ported yet; pool upstream")
+            from colpali_tpu_torch.compression.token_pooling import kmeans_pool_padded, ward_pool_padded
+
+            if pool_method == "ward":
+                self._pool = functools.partial(ward_pool_padded, pool_factor=pool_factor)
+            elif pool_method == "kmeans":
+                self._pool = functools.partial(kmeans_pool_padded, pool_factor=pool_factor, iters=pool_iters)
+            else:
+                raise ValueError(f"pool_method must be 'ward' or 'kmeans', got {pool_method!r}")
+        self.pool_factor = pool_factor
         if dtype not in ("bf16", "int8"):
             raise ValueError(f"Unsupported index dtype: {dtype}")
         if prefilter not in (None, "binary"):
@@ -484,10 +501,16 @@ class DeviceIndexBuilder:
 
     def add(self, embeddings: torch.Tensor, mask: Optional[torch.Tensor] = None) -> None:
         """Ingest ``(B, S, D)`` embeddings (a padded model output); tokens
-        where ``mask (B, S)`` is 0 are zeroed, the score-neutral padding."""
+        where ``mask (B, S)`` is 0 are zeroed, the score-neutral padding.
+        With ``pool_factor`` the batch is pooled first (a mask of ones when
+        none is given)."""
         if self._built:
             raise RuntimeError("DeviceIndexBuilder already finalized by build(); create a new one "
                                "(or use CorpusIndex.extend) to add more docs")
+        if self._pool is not None:
+            mask = torch.ones(embeddings.shape[:2], device=embeddings.device) if mask is None else \
+                torch.as_tensor(mask, device=embeddings.device).float()
+            embeddings, mask, _ = self._pool(embeddings, mask)
         b, s, d = embeddings.shape
         if d != self.dim:
             raise ValueError(f"dim mismatch: index {self.dim}, batch {d}")

@@ -21,6 +21,15 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k].to(torch.int32)
 
 
+def as_numpy(x) -> np.ndarray:
+    """A numpy array of an array or a tensor on any device (bf16, which
+    numpy lacks, widened to fp32)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
+
+
 def round_up(x: int, multiple: int) -> int:
     """Round ``x`` up to the nearest multiple of ``multiple``."""
     if multiple <= 0:

@@ -152,6 +152,19 @@ def qwen_word_tokenizer(words: Sequence[str]):
     return _word_tokenizer(words, QWEN2_SPECIAL_TOKENS, "<|endoftext|>")
 
 
+# PaliGemma's special tokens at their ids in the released tokenizer (<image> at the config's image_token_index)
+PALIGEMMA_SPECIAL_TOKENS = {"<pad>": 0, "<eos>": 1, "<bos>": 2, "<unk>": 3}
+
+
+def paligemma_word_tokenizer(words: Sequence[str], image_token_id: int = 257152):
+    """:func:`_word_tokenizer` with :data:`PALIGEMMA_SPECIAL_TOKENS` and
+    ``<image>`` at ``image_token_id``, ``<pad>``, ``<bos>`` and ``<eos>``
+    named: what ``ColPaliProcessor.from_pretrained`` loads from a
+    checkpoint directory."""
+    return _word_tokenizer(words, {**PALIGEMMA_SPECIAL_TOKENS, "<image>": image_token_id}, "<pad>",
+                           bos_token="<bos>", eos_token="<eos>")
+
+
 # Idefics3's special tokens at the ids of scripts/validate_checkpoint.py's colSmol tokenizer (the <row_r_col_c>
 # markers of grids up to 6 x 6 at 49,153-49,188), and a pad token of its own
 IDEFICS3_SPECIAL_TOKENS = {"<global-img>": 49152,

@@ -1373,3 +1373,91 @@ def test_training_stopped_early_releases_the_model(dev, tmp_path):
     del app, model
     gc.collect()
     assert torch.cuda.memory_allocated(dev) - start < 64 * 2**20  # cuBLAS workspaces may stay; the ballast may not
+
+
+# token pooling on the card (colpali_tpu_torch.compression): the regime of the JAX package's
+# tests/compression/test_device_ward.py, random unit docs of 24, 37 and 48 tokens at pool factors 2 and 3
+def _unit_docs(seed, lens, dim):
+    rng = np.random.default_rng(seed)
+    docs = [rng.normal(size=(n, dim)).astype(np.float32) for n in lens]
+    return [d / np.linalg.norm(d, axis=-1, keepdims=True) for d in docs]
+
+
+@pytest.mark.parametrize("dim", [16, 128])
+@pytest.mark.parametrize("pool_factor", [2, 3])
+def test_device_ward_on_the_card_partitions_as_scipy(dev, pool_factor, dim):
+    """Partition-identical to the scipy pooler with TF32 on for the process:
+    the pooler turns it off around its own products and back on after."""
+    from colpali_tpu_torch.compression import DeviceWardTokenPooler, HierarchicalTokenPooler
+
+    for trial in range(3):
+        docs = _unit_docs(trial, [24, 37, 48], dim)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got = DeviceWardTokenPooler(device=dev).pool_embeddings(docs, pool_factor=pool_factor, return_dict=True)
+            assert torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        ref = HierarchicalTokenPooler(device="cpu").pool_embeddings(docs, pool_factor=pool_factor, return_dict=True)
+        for g, r in zip(got.cluster_id_to_indices, ref.cluster_id_to_indices):
+            assert {frozenset(v[0].tolist()) for v in g.values()} == \
+                {frozenset(v[0].tolist()) for v in r.values() if len(v[0])}
+        for g, r in zip(got.pooled_embeddings, ref.pooled_embeddings):
+            np.testing.assert_allclose(g[np.lexsort(g.T)], r[np.lexsort(r.T)], atol=5e-6)
+
+
+@pytest.mark.parametrize("pool_factor", [2, 3])
+def test_kmeans_and_ward_on_the_card_match_the_cpu(dev, pool_factor):
+    """The padded device functions on the card against themselves on the
+    CPU (the CPU route is held to JAX in tests/test_torch_token_pooling.py):
+    the same assignments, pooled rows at 1e-5."""
+    from colpali_tpu_torch.compression import kmeans_pool_padded, ward_pool_padded
+
+    docs = _unit_docs(9, [24, 37, 48], 128)
+    x = torch.zeros((3, 48, 128))
+    mask = torch.zeros((3, 48))
+    for i, d in enumerate(docs):
+        x[i, : len(d)], mask[i, : len(d)] = torch.from_numpy(d), 1
+    for fn in (ward_pool_padded, kmeans_pool_padded):
+        got = fn(x.to(dev), mask.to(dev), pool_factor)
+        want = fn(x, mask, pool_factor)
+        assert torch.equal(got[1].cpu(), want[1])
+        assert torch.equal(got[2].cpu()[mask > 0], want[2][mask > 0])
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-5)
+
+
+# the lengths that pooling gives K1-K3: a ColPali page pooled by 3 (343 tokens padded to Np = 352, its sign
+# sketch pooled by 2 to 176 groups of 4 words), and dense vectors as 1-token docs (Np = 16)
+@pytest.mark.parametrize("b,nq", [(1, 64), (4, 64), (8, 32)])
+def test_k1_k2_k3_at_the_pooled_page_length(dev, b, nq):
+    nt, np_ = 9, 352
+    g = _gen(dev, b + nq)
+    qw = torch.randint(-(2**31), 2**31 - 1, (b, nq, 4), generator=g, device=dev, dtype=torch.int32)
+    qv = (torch.rand((b, nq), generator=g, device=dev) > 0.2).float()
+    dw = torch.randint(-(2**31), 2**31 - 1, (nt, 4, np_ // 2, 128), generator=g, device=dev, dtype=torch.int32)
+    assert torch.equal(binary_maxsim_tiled(qw, qv, dw, 128), binary_maxsim_tiled_plain(qw, qv, dw, 128))
+    store, scales = _store(dev, nt, np_, 128, seed=b)
+    q = torch.randn((b, nq, 128), generator=_gen(dev, 5), device=dev)
+    cand = torch.randint(0, nt * 128, (b, 1024), generator=_gen(dev, 6), device=dev, dtype=torch.int32)
+    torch.testing.assert_close(gather_rerank_int8(q, store, scales, cand), gather_rerank_plain(q, store, scales, cand),
+                               rtol=RTOL, atol=ATOL)
+    qi, qs = quantize_per_token(q)
+    torch.testing.assert_close(maxsim_int8mxu_tiled(qi, qs, store, scales),
+                               maxsim_int8mxu_tiled_plain(qi, qs, store, scales), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_k3_over_one_token_docs(dev, b):
+    """Dense vectors mined through an index of 1-token docs: each doc one
+    valid token and 15 zero ones of scale 1, queries one token each."""
+    store, scales = _store(dev, 8, 16, 128, seed=b)
+    store[:, 1:], scales[:, 1:] = 0, 1.0
+    q = torch.randn((b, 1, 128), generator=_gen(dev, b), device=dev)
+    qi, qs = quantize_per_token(q)
+    got = maxsim_int8mxu_tiled(qi, qs, store, scales)
+    torch.testing.assert_close(got, maxsim_int8mxu_tiled_plain(qi, qs, store, scales), rtol=RTOL, atol=ATOL)
+    index = CorpusIndex(list(q[:, 0, None].cpu().numpy()) * 3, dtype="int8", device=dev)
+    assert index.doc_tokens == 16
+    launches = MAXSIM_INT8.launches
+    _, ids = index.search(list(q.cpu().numpy()), k=1)
+    assert MAXSIM_INT8.launches > launches and (ids[:, 0] % b).tolist() == list(range(b))

@@ -133,3 +133,69 @@ def test_embed_pages_fused_rejects_unknown_transport(stacks):
     with pytest.raises(ValueError, match="transport"):
         embed_pages_fused(stacks[3], stacks[4], [_page(0)], transport="jpeg")
     assert embed_pages_fused(stacks[3], stacks[4], []) == []
+
+
+def test_embed_pages_fused_with_a_prompt_matches_jax_and_process_images(stacks):
+    """``prompt=`` replaces the processor's prefix: the page embeds as
+    ``process_images(context_prompts=[prompt])`` does through the model
+    (rgb-u8: the same PIL resize on both routes)."""
+    jax_model, variables, jax_proc, model, proc = stacks
+    pages = [_page(20 + i) for i in range(3)]
+    prompt = "<image><bos>Describe the chart on this page"
+    got = embed_pages_fused(model, proc, pages, transport="rgb-u8", batch_size=2, prompt=prompt)
+    want = jax_embed_pages_fused(jax_model.apply, variables, jax_proc, pages, transport="rgb-u8", batch_size=2,
+                                 prompt=prompt)
+    default = embed_pages_fused(model, proc, pages[:1], transport="rgb-u8", batch_size=2)
+    assert got[0].shape == (16 + 8, 32) and default[0].shape == (16 + 5, 32)  # 6 prompt words against 3
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=2e-5)
+    batch = proc.process_images(pages, context_prompts=[prompt] * 3, host_resize=True)
+    with torch.no_grad():
+        direct = model(input_ids=torch.from_numpy(batch["input_ids"]).long(),
+                       attention_mask=torch.from_numpy(batch["attention_mask"]),
+                       pixel_values=torch.from_numpy(batch["pixel_values"])).numpy()
+    for row, g in zip(direct, got):
+        np.testing.assert_allclose(g, row[batch["attention_mask"][0].astype(bool)], atol=2e-5)
+
+
+def test_collator_device_pixels_matches_jax(stacks):
+    """``VisualRetrieverCollator(device_pixels=True)`` keeps the pages'
+    pixels a tensor where the processor lies (resized on the host first, as
+    JAX's passes ``host_resize``), equal to JAX's device route and to the
+    processor's own host-resize pixels; ``to_device`` takes the tensor as
+    it is. A processor without the parameter ignores the flag."""
+    from colpali_tpu.data.collator import VisualRetrieverCollator as JaxCollator
+    from colpali_tpu_torch.data.collator import VisualRetrieverCollator
+    from colpali_tpu_torch.training.trainer import to_device
+
+    _, _, jax_proc, _, proc = stacks
+    pages = [_page(30 + i) for i in range(3)]
+    examples = [{"query": f"query {i}", "pos_target": p, "neg_target": [pages[(i + 1) % 3]]}
+                for i, p in enumerate(pages)]
+    got = VisualRetrieverCollator(proc, device_pixels=True)(examples)
+    want = JaxCollator(jax_proc, device_pixels=True)(examples)
+    plain = VisualRetrieverCollator(proc)(examples)
+    assert set(got) == set(want) == set(plain)
+    for key in ("doc_pixel_values", "neg_doc_pixel_values"):
+        assert isinstance(got[key], torch.Tensor) and got[key].device == proc.device
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), atol=1e-6)
+    assert got["neg_doc_pixel_values"].shape == (3, 1, SIZE, SIZE, 3)
+    np.testing.assert_allclose(got["doc_pixel_values"].numpy(),
+                               proc.process_images(pages, host_resize=True)["pixel_values"], atol=1e-6)
+    assert isinstance(plain["doc_pixel_values"], np.ndarray)
+    for key in ("query_input_ids", "doc_input_ids", "doc_attention_mask"):
+        np.testing.assert_array_equal(got[key], want[key])
+    moved = to_device(got, proc.device)
+    assert moved["doc_pixel_values"] is got["doc_pixel_values"] and moved["doc_input_ids"].dtype == torch.int64
+
+    class NoDevicePixels:
+        def __init__(self, proc):
+            self.proc = proc
+
+        def __getattr__(self, name):
+            return getattr(self.proc, name)
+
+        def process_images(self, images):
+            return self.proc.process_images(images)
+
+    assert not VisualRetrieverCollator(NoDevicePixels(proc), device_pixels=True).device_pixels

@@ -36,7 +36,9 @@ def test_every_module_imports_without_jax():
     for module in ("training.orchestrator", "training.lora", "losses.late_interaction", "evaluation.evaluator",
                    "data.collator", "configs", "train", "ops.maxsim_token_major", "ops.flash_seqmajor",
                    "core.safetensors", "core.hf_loader", "core.hf_export", "auto", "ops.quant_dense",
-                   "models.qwen2_vl", "models.qwen2_5_vl", "processors.qwen2_vl", "processors.qwen2_5_vl"):
+                   "models.qwen2_vl", "models.qwen2_5_vl", "processors.qwen2_vl", "processors.qwen2_5_vl",
+                   "compression.token_pooling", "retrieval.hardneg", "interpretability.similarity_maps",
+                   "interpretability.split_image", "embed_corpus", "compute_hardnegs"):
         assert (REPO / "colpali_tpu_torch" / (module.replace(".", "/") + ".py")).exists()
 
 

@@ -211,8 +211,10 @@ def test_device_index_builder_bytes_equal_the_jax_builder(kw):
 
 
 def test_device_index_builder_validation():
-    with pytest.raises(NotImplementedError, match="token_pooling"):
-        DeviceIndexBuilder(doc_tokens=16, dim=DIM, pool_factor=2)
+    with pytest.raises(ValueError, match="pool_method must be 'ward' or 'kmeans'"):
+        DeviceIndexBuilder(doc_tokens=16, dim=DIM, pool_factor=2, pool_method="max")
+    with pytest.raises(ValueError, match="pool_method must be"):
+        JaxBuilder(doc_tokens=16, dim=DIM, pool_factor=2, pool_method="max")
     with pytest.raises(ValueError, match="coarse_pool must be >= 1"):
         DeviceIndexBuilder(doc_tokens=16, dim=DIM, prefilter="binary", coarse_pool=0)
     with pytest.raises(ValueError, match="requires prefilter"):
