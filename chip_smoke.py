@@ -2793,7 +2793,7 @@ def ward_at_page_scale(device: torch.device, docs: list, label: str) -> dict:
         x[i, : len(d)], m[i, : len(d)] = torch.from_numpy(d), 1
     record = torch.zeros((t - k, len(docs), 2), dtype=torch.long, device=device)
     with tp.exact_fp32_products():
-        labels = tp.ward_merges(x, m, POOL_FACTOR, record).cpu().numpy()
+        labels = tp._ward_merges(x, m, POOL_FACTOR, record).cpu().numpy()
     record = record.cpu().numpy()
 
     def scipy_ward(args):
@@ -3036,7 +3036,27 @@ def phase_pooling(device: torch.device, model, processor, smi: str, ckpt: str) -
              pages_per_min_unpooled=PAGE_BATCH / t["forward_ms"] * 6e4)
     log(f"  pooling one batch of {PAGE_BATCH} pages ({smi}): Ward {t['ward_ms']:.1f} ms, k-means {t['kmeans_ms']:.1f} "
         f"ms, the bf16 forward {t['forward_ms']:.1f} ms; forward and pooling {t['pages_per_min_ward']:.0f} pages/min "
-        f"(Ward), {t['pages_per_min_kmeans']:.0f} (k-means), {t['pages_per_min_unpooled']:.0f} unpooled")
+        f"(Ward), {t['pages_per_min_kmeans']:.0f} (k-means), {t['pages_per_min_unpooled']:.0f} unpooled, from the "
+        "pieces' times")
+
+    def ingest_rate(factor: int, method: str = "ward") -> float:
+        """Pages/min of the loop a user runs: the fused page pipeline (host staging on its prefetch thread, the
+        upload, the forward) feeding a builder's add() (pooling, quantizing, packing), wall time to the last add."""
+        builder = DeviceIndexBuilder(doc_tokens=POOL_DOC_TOKENS if factor > 1 else PAGE_DOC_TOKENS, dim=DIM,
+                                     dtype="int8", prefilter="binary", coarse_pool=POOL_COARSE, pool_factor=factor,
+                                     pool_method=method)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for emb, att in fused_page_batches(model, processor, pages, transport="yuv420", batch_size=PAGE_BATCH):
+            builder.add(emb, att)
+        torch.cuda.synchronize()
+        return len(pages) / (time.perf_counter() - t0) * 60
+
+    t.update(ingest_pages_per_min_ward=ingest_rate(POOL_FACTOR), ingest_pages_per_min_kmeans=ingest_rate(
+        POOL_FACTOR, "kmeans"), ingest_pages_per_min_unpooled=ingest_rate(1))
+    log(f"  the fused page pipeline feeding DeviceIndexBuilder.add() end to end over {POOL_PAGES} pages ({smi}): "
+        f"{t['ingest_pages_per_min_ward']:.0f} pages/min pooled by Ward, {t['ingest_pages_per_min_kmeans']:.0f} by "
+        f"k-means, {t['ingest_pages_per_min_unpooled']:.0f} unpooled")
     extra["timing"] = t
     del feed
 
@@ -3572,9 +3592,15 @@ QWEN_ROUTE_LOSS_RTOL, QWEN_ROUTE_GRAD_COS = 1e-2, 0.99
 # with page tokens kept (every query token's maximum on the causal template that opens every page), so 9 (e)
 # holds the recipe loss over the pages' image tokens, as mask_non_image_embeddings scores them
 TIED_MARGIN = 0.05
-# a route check's loss that reads ln B on both routes: an exact tie moves ColbertLoss off ln B by fp32 rounding alone
-# (phase 9's unmasked run read 2.079442 on both routes, ln 8 = 2.0794415); a batch that ranks moves it further
-TIED_ATOL = 1e-4
+# phase 9 (b)'s route check runs on fresh adapters, where the recipe loss over the image tokens sits 0.30 off ln 8
+# (after the 4 steps it sits 0.03 off, inside TIED_MARGIN). There the two bf16 routes read 2.378733 and 2.324554 on
+# the H100, 2.33e-2 apart, and the plain route in fp32 2.360210: the kernel route 7.85e-3 from it, the bf16 plain
+# route 1.51e-2. So the recipe loss is held against the fp32 route: the kernel route within QWEN_ROUTE_LOSS_RTOL of
+# it, and no farther from it than ROUTE_FP32_RATIO times the bf16 plain route (the ratio hold_bi_routes holds)
+ROUTE_FP32_RATIO = 1.5
+# phase 9 (b)'s 4 steps move the first batch's recipe loss by this share of it or more: twice the widest gap between
+# two bf16 routes of one state (2.33e-2); the H100 read 2.378733 -> 2.112838 (11.2%)
+STEP_MOVE_RTOL = 0.05
 
 
 def launch_counts() -> dict:
@@ -3711,30 +3737,67 @@ def qwen_bwd_cases(device: torch.device, batch: dict, cfg25, cfg2) -> dict:
     return out
 
 
-def hold_routes(name: str, state, batch, recipe_loss, peft, probe=None, tied=None) -> dict:
+def fp32_route(state, batch, loss_fn, peft, fp32_model):
+    """:func:`adapter_gradient` through the plain route in fp32:
+    ``fp32_model`` (the model of ``state`` built in fp32) takes its bf16
+    weights and adapters at its step, so the same dropout masks."""
+    from colpali_tpu_torch.training import trainer
+    from colpali_tpu_torch.training.lora import LoraAdapters
+
+    fp32_model.load_state_dict(state.model.state_dict())
+    adapters = LoraAdapters(fp32_model, peft)
+    adapters.load_tree(state.adapters.tree())
+    state32 = trainer.create_train_state(fp32_model, state.config, adapters)
+    state32.step = state.step
+    with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
+        out = adapter_gradient(state32, batch, loss_fn, peft, SEED)
+    adapters.detach()
+    return out
+
+
+def hold_routes(name: str, state, batch, recipe_loss, peft, probe=None, tied=None, fp32_model=None) -> dict:
     """:func:`route_gap` on the recipe loss (its value held) and on the
     smooth probe (its value and gradient cosine held): by default InfoNCE
     over the smooth max of the late-interaction scores; a single-vector
-    model passes its own. Given ``tied`` (ln B for ColbertLoss), a recipe
-    loss within :data:`TIED_ATOL` of it on both routes fails: every page
-    scores alike there, and the two routes would agree whatever K6 did."""
+    model passes its own. Given ``fp32_model``, the recipe loss is held
+    against the plain route in fp32 (:func:`fp32_route`) instead of the bf16
+    plain route: the kernel route within :data:`QWEN_ROUTE_LOSS_RTOL` of
+    it and no farther from it than :data:`ROUTE_FP32_RATIO` times the plain
+    route. Given ``tied`` (ln B for ColbertLoss), a recipe loss within
+    :data:`TIED_MARGIN` of it on any route fails: the pages score alike
+    there, and the routes would agree whatever K6 did."""
     from colpali_tpu_torch.losses import ColbertLoss
 
     out = {}
     for what, fn in (("recipe loss", recipe_loss), ("smooth probe", probe or ColbertLoss(use_smooth_max=True))):
         (k, *_), (p, *_), r = route_gap(state, batch, fn, peft)
         out[what] = r
-        if tied is not None and what == "recipe loss" and max(abs(k - tied), abs(p - tied)) < TIED_ATOL:
-            raise AssertionError(f"{name}, kernel route vs plain route: the recipe loss {k:.6f} vs {p:.6f} reads "
-                                 f"{tied:.6f} on both routes: every page scores alike, a comparison that cannot fail")
         held = what == "smooth probe"
-        log(f"  {name}, kernel route vs plain route, {what}: loss {k:.6f} vs {p:.6f} (relative "
-            f"{r['loss_relative']:.2e}, limit {QWEN_ROUTE_LOSS_RTOL}, {share(r['loss_relative'], QWEN_ROUTE_LOSS_RTOL)}), "
-            f"gradient cosine {r['grad_cos']:.6f}" + (f" (limit {QWEN_ROUTE_GRAD_COS}, "
-                                                      f"{share(1 - r['grad_cos'], 1 - QWEN_ROUTE_GRAD_COS)})"
-                                                      if held else " (not held: the smooth probe's is)")
-            + f", norm ratio {r['grad_norm_ratio']:.4f}")
-        if r["loss_relative"] > QWEN_ROUTE_LOSS_RTOL or (held and r["grad_cos"] < QWEN_ROUTE_GRAD_COS):
+        against_fp32 = fp32_model is not None and not held
+        if against_fp32:
+            e = fp32_route(state, batch, fn, peft, fp32_model)[0]
+            r.update(loss_fp32=e, kernel_fp32_relative=abs(k - e) / abs(e), plain_fp32_relative=abs(p - e) / abs(e))
+            log(f"  {name}, {what} on the kernel route {k:.6f}, the plain route {p:.6f} (relative "
+                f"{r['loss_relative']:.2e}, not held), the plain route in fp32 {e:.6f}: kernel to fp32 "
+                f"{r['kernel_fp32_relative']:.2e} (limit {QWEN_ROUTE_LOSS_RTOL}, "
+                f"{share(r['kernel_fp32_relative'], QWEN_ROUTE_LOSS_RTOL)}), plain to fp32 "
+                f"{r['plain_fp32_relative']:.2e} (the kernel route's limit {ROUTE_FP32_RATIO}x that), gradient cosine "
+                f"kernel to plain {r['grad_cos']:.6f} (not held: the smooth probe's is)")
+        else:
+            log(f"  {name}, kernel route vs plain route, {what}: loss {k:.6f} vs {p:.6f} (relative "
+                f"{r['loss_relative']:.2e}, limit {QWEN_ROUTE_LOSS_RTOL}, "
+                f"{share(r['loss_relative'], QWEN_ROUTE_LOSS_RTOL)}), gradient cosine {r['grad_cos']:.6f}"
+                + (f" (limit {QWEN_ROUTE_GRAD_COS}, {share(1 - r['grad_cos'], 1 - QWEN_ROUTE_GRAD_COS)})"
+                   if held else " (not held: the smooth probe's is)") + f", norm ratio {r['grad_norm_ratio']:.4f}")
+        if tied is not None and not held and \
+                min(abs(x - tied) for x in (k, p, r.get("loss_fp32", p))) < TIED_MARGIN:
+            raise AssertionError(f"{name}, kernel route vs plain route: the recipe loss {r} lies within {TIED_MARGIN} "
+                                 f"of ln B = {tied:.6f}: the pages score alike, a comparison that cannot fail")
+        if against_fp32:
+            if r["kernel_fp32_relative"] > QWEN_ROUTE_LOSS_RTOL or \
+                    r["kernel_fp32_relative"] > ROUTE_FP32_RATIO * r["plain_fp32_relative"]:
+                raise AssertionError(f"{name}, kernel route vs the plain route in fp32, {what}: {r}")
+        elif r["loss_relative"] > QWEN_ROUTE_LOSS_RTOL or (held and r["grad_cos"] < QWEN_ROUTE_GRAD_COS):
             raise AssertionError(f"{name}, kernel route vs plain route, {what}: {r}")
     return out
 
@@ -3854,6 +3917,15 @@ def phase_qwen_training(device: torch.device, smi: str, ckpt: str) -> tuple:
         raise AssertionError(f"ColQwen2.5-3B LoRA: the recipe loss over the image tokens {spread['masked']['loss']:.6f} "
                              f"lies within {TIED_MARGIN} of ln {TRAIN_BATCH}: the pages score alike")
     extra = dict(score_spread=spread)
+    # the kernel route against the plain routes on fresh adapters, where the loss sits TIED_MARGIN or more off ln 8
+    adapters = LoraAdapters(model, peft, seed=SEED + 1)
+    fp32 = ColQwen2_5(cfg25, mask_non_image_embeddings=True, device=device, dtype=torch.float32, remat=True)
+    extra["route_lora_25"] = hold_routes("ColQwen2.5-3B LoRA (fresh adapters, non-image tokens masked)",
+                                         trainer.create_train_state(model, train_config, adapters), batch, loss_fn,
+                                         peft, tied=tied, fp32_model=fp32)
+    adapters.detach()
+    del adapters, fp32
+    torch.cuda.empty_cache()
 
     sampled = ["model.language_model.layers.0.self_attn.q_proj.weight",
                f"model.language_model.layers.{t25.num_hidden_layers - 1}.mlp.down_proj.weight",
@@ -3888,9 +3960,11 @@ def phase_qwen_training(device: torch.device, smi: str, ckpt: str) -> tuple:
         app.state.adapters.clear_masks()
         with torch.no_grad():
             trained = trainer.compute_loss(model.eval(), batch, loss_fn, False)[0].item()
-        if trained == spread["masked"]["loss"] or not np.isfinite(trained):
+        moved = abs(trained - spread["masked"]["loss"]) / spread["masked"]["loss"]
+        if not moved >= STEP_MOVE_RTOL:
             raise AssertionError(f"ColQwen2.5-3B LoRA: {QWEN_TRAIN_STEPS} steps left the recipe loss over the image tokens "
-                                 f"at {trained} (before them {spread['masked']['loss']})")
+                                 f"at {trained} (before them {spread['masked']['loss']}): moved {moved:.2e}, less than "
+                                 f"{STEP_MOVE_RTOL} of it")
         if [s for s, _, _ in seen] != list(range(1, QWEN_TRAIN_STEPS + 1)) or \
                 not all(np.isfinite(l) and l > 0 and np.isfinite(g) and g > 0 for _, l, g in seen):
             raise AssertionError(f"ColQwen2.5-3B steps: {seen}")
@@ -3908,12 +3982,11 @@ def phase_qwen_training(device: torch.device, smi: str, ckpt: str) -> tuple:
             + f"; {summary['train_samples_per_second']:.2f} examples/s with collation and checkpoints; K6 forward "
             f"{train_launches['flash_attention']}, backward {train_launches['flash_attention_bwd']} (by head dim "
             f"{by_dim}); peak memory {peak_train:.2f} GiB; the recipe loss over the image tokens on the first batch "
-            f"{spread['masked']['loss']:.6f} before the steps, {trained:.6f} after")
+            f"{spread['masked']['loss']:.6f} before the steps, {trained:.6f} after (moved {moved:.1%}, limit "
+            f"{STEP_MOVE_RTOL:.0%})")
         extra["trained_loss"] = trained
-        extra["route_lora_25"] = hold_routes("ColQwen2.5-3B LoRA (non-image tokens masked)", app.state, batch, loss_fn,
-                                             peft, tied=tied)
 
-        reset_launches()  # the comparison launched K6 too: it does not count
+        reset_launches()  # the loss read after the steps launched K6 too: it does not count
         t0 = time.perf_counter()
         metrics = app.evaluate()
         t_eval = time.perf_counter() - t0
@@ -4642,14 +4715,11 @@ def hold_bi_routes(name: str, state, batch, recipe_loss, peft, probe, fp32_model
     dropout masks). The recipe loss's value and the smooth probe's are held
     against the plain route (relative 1e-2); the probe's gradient through
     the kernels is held against the fp32 gradient (cosine >= 0.99) and must
-    stand no farther from it than 1.5x the plain route's own distance. The
+    stand no farther from it than :data:`ROUTE_FP32_RATIO` times the plain route's own distance. The
     cosine between the two bf16 routes is printed, not held: with one
     vector a row the gradient reaches the adapters through one position,
     and the first H100 run read 0.98925 between them for BiIdefics3 at 30
     layers, each route 0.9916-0.9917 from the fp32 gradient."""
-    from colpali_tpu_torch.training import trainer
-    from colpali_tpu_torch.training.lora import LoraAdapters
-
     (rk, *_), (rp, *_), rr = route_gap(state, batch, recipe_loss, peft)
     log(f"  {name}, kernel route vs plain route, recipe loss: loss {rk:.6f} vs {rp:.6f} (relative "
         f"{rr['loss_relative']:.2e}, limit {QWEN_ROUTE_LOSS_RTOL}, {share(rr['loss_relative'], QWEN_ROUTE_LOSS_RTOL)}), "
@@ -4658,14 +4728,7 @@ def hold_bi_routes(name: str, state, batch, recipe_loss, peft, probe, fp32_model
         raise AssertionError(f"{name}, kernel route vs plain route, recipe loss: {rr}")
     out = dict(recipe_loss=rr)
     (k, kg, *_), (p, pg, *_), r = route_gap(state, batch, probe, peft)
-    fp32_model.load_state_dict(state.model.state_dict())
-    adapters = LoraAdapters(fp32_model, peft)
-    adapters.load_tree(state.adapters.tree())
-    state32 = trainer.create_train_state(fp32_model, state.config, adapters)
-    state32.step = state.step  # the same dropout masks
-    with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
-        e, eg, *_ = adapter_gradient(state32, batch, probe, peft, SEED)
-    adapters.detach()
+    e, eg, *_ = fp32_route(state, batch, probe, peft, fp32_model)
     kg, pg, eg = kg.double(), pg.double(), eg.double()
 
     def cos(a, b):
@@ -4677,7 +4740,7 @@ def hold_bi_routes(name: str, state, batch, recipe_loss, peft, probe, fp32_model
         f"{share(1 - r['grad_cos_fp32'], 1 - QWEN_ROUTE_GRAD_COS)}; the plain route's {r['plain_grad_cos_fp32']:.6f}), "
         f"kernel to plain {r['grad_cos']:.6f} (not held)")
     if r["loss_relative"] > QWEN_ROUTE_LOSS_RTOL or r["grad_cos_fp32"] < QWEN_ROUTE_GRAD_COS or \
-            1 - r["grad_cos_fp32"] > 1.5 * (1 - r["plain_grad_cos_fp32"]):
+            1 - r["grad_cos_fp32"] > ROUTE_FP32_RATIO * (1 - r["plain_grad_cos_fp32"]):
         raise AssertionError(f"{name}, kernel route vs plain route and fp32: {r}")
     out["smooth_probe"] = r
     return out

@@ -175,7 +175,7 @@ def _aggregate(e: torch.Tensor, m: torch.Tensor, assign: torch.Tensor, k: int):
     return mean / torch.linalg.vector_norm(mean, dim=-1, keepdim=True).clamp_min(1e-12), counts
 
 
-def ward_merges(e: torch.Tensor, m: torch.Tensor, pool_factor: int, record: Optional[torch.Tensor] = None):
+def _ward_merges(e: torch.Tensor, m: torch.Tensor, pool_factor: int, record: Optional[torch.Tensor] = None):
     """The greedy merging of :func:`ward_pool_padded` over fp32 ``e (B, T,
     D)`` and ``m (B, T)`` (TF32 off): each token's root label ``(B, T)``.
     ``record``, a ``(T - K, B, 2)`` integer tensor, takes each step's merged
@@ -238,11 +238,19 @@ def ward_merges(e: torch.Tensor, m: torch.Tensor, pool_factor: int, record: Opti
     steps = t - k  # merges_i is largest at n_i = T
     if dev.type == "cuda" and steps > 1:
         # the step's ~30 small launches cost the host more than the card: the first step runs as the warm-up,
-        # the rest replay it from a CUDA graph
+        # the rest replay it from a CUDA graph. The capture runs on a side stream in thread-local mode, not through
+        # torch.cuda.graph (which synchronizes and empties the allocator's cache on entry): another thread's CUDA
+        # calls, such as a prefetch thread's pinned allocations, neither join nor invalidate it
         merge()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            merge()
+        graph, side, main = torch.cuda.CUDAGraph(), torch.cuda.Stream(dev), torch.cuda.current_stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                merge()
+            finally:
+                graph.capture_end()
+        main.wait_stream(side)
         for _ in range(steps - 1):
             graph.replay()
     else:
@@ -260,7 +268,7 @@ def ward_pool_padded(embeddings: torch.Tensor, mask: torch.Tensor, pool_factor: 
     their squared distances come from one Gram product, and each step merges
     the closest pair over all documents at once (the first minimum of the
     flattened upper triangle, ``i < j``: scipy's tie order), updating the
-    merged row and column by Lance-Williams (:func:`ward_merges`). Ward is a
+    merged row and column by Lance-Williams (:func:`_ward_merges`). Ward is a
     reducible linkage, so stopping document ``i`` after ``n_i - k_i``
     merges, ``k_i = max(n_i // pool_factor, 1)``, is the maxclust cut.
     ``T - K`` steps of one argmin over the batch's ``T x T`` distances and
@@ -279,7 +287,7 @@ def ward_pool_padded(embeddings: torch.Tensor, mask: torch.Tensor, pool_factor: 
         m = torch.as_tensor(mask, device=dev).float()
         b, t, _ = e.shape
         k = max(t // pool_factor, 1)
-        labels = ward_merges(e, m, pool_factor)
+        labels = _ward_merges(e, m, pool_factor)
         # the surviving roots, numbered in index order (only the partition is the reference's)
         is_root = torch.zeros((b, t), device=dev).scatter_add_(1, labels, m) > 0
         rank = is_root.int().cumsum(dim=1) - 1

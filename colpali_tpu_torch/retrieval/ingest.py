@@ -9,8 +9,8 @@ Pages become ColPali page embeddings through one pipeline:
 - one upload per group (``non_blocking=True``);
 - on the device: unpack, YUV420 -> RGB, normalize, the model forward, for
   each of the group's ``chunk`` batches; :func:`embed_pages_fused`
-  downloads each batch's embeddings, :func:`fused_page_batches` hands them
-  over where they lie.
+  downloads the group's embeddings once, :func:`fused_page_batches` hands
+  each batch over where it lies.
 
 All pages share one prompt, so the token ids are uploaded once.
 """
@@ -124,13 +124,24 @@ def embed_pages_fused(
     ``processor`` is a fixed-resolution ColPali processor (``image_size``,
     ``image_mean``/``image_std``, ``visual_prompt_prefix``,
     ``_expand_image_prompt``, ``_tokenize``). ``chunk``: forward batches per
-    upload. ``reducing_gap``: PIL's box pre-reduce for the host resize
+    upload and download. ``reducing_gap``: PIL's box pre-reduce for the host resize
     (None: exact single-pass bicubic). ``prompt``: the text around the image
     tokens (the processor's ``visual_prompt_prefix`` when None), as
     ``process_images(context_prompts=[prompt])`` takes it."""
     out: List[np.ndarray] = []
-    for emb, att in fused_page_batches(model, processor, pages, transport=transport, batch_size=batch_size,
-                                       chunk=chunk, reducing_gap=reducing_gap, prompt=prompt):
-        emb, valid = emb.float().cpu().numpy(), att.bool().cpu().numpy()
+    group: List[Tuple[torch.Tensor, torch.Tensor]] = []
+
+    def download() -> None:  # the group's forwards are queued before the one synchronising copy
+        emb = torch.cat([e for e, _ in group]).float().cpu().numpy()
+        valid = torch.cat([a for _, a in group]).bool().cpu().numpy()
         out.extend(row[keep] for row, keep in zip(emb, valid))
+        group.clear()
+
+    for batch in fused_page_batches(model, processor, pages, transport=transport, batch_size=batch_size,
+                                    chunk=chunk, reducing_gap=reducing_gap, prompt=prompt):
+        group.append(batch)
+        if len(group) == chunk:
+            download()
+    if group:
+        download()
     return out

@@ -1461,3 +1461,48 @@ def test_k3_over_one_token_docs(dev, b):
     launches = MAXSIM_INT8.launches
     _, ids = index.search(list(q.cpu().numpy()), k=1)
     assert MAXSIM_INT8.launches > launches and (ids[:, 0] % b).tolist() == list(range(b))
+
+
+def test_ward_on_the_card_beside_a_thread_that_pins_memory(dev):
+    """The device Ward's CUDA graph while another thread allocates pinned
+    host buffers and uploads from them, as the fused page pipeline's
+    prefetch thread does beside DeviceIndexBuilder.add(): every call gives
+    the labels of a call made alone, and no call empties the allocator's
+    cache."""
+    import threading
+
+    from colpali_tpu_torch.compression import ward_pool_padded
+
+    docs = _unit_docs(11, [96, 120, 128, 77], 128)
+    x = torch.zeros((4, 128, 128), device=dev)
+    mask = torch.zeros((4, 128), device=dev)
+    for i, d in enumerate(docs):
+        x[i, : len(d)], mask[i, : len(d)] = torch.from_numpy(d), 1
+    want = ward_pool_padded(x, mask, 3)[2]
+    stop, errors = threading.Event(), []
+
+    def pin():
+        try:
+            stream = torch.cuda.Stream(dev)
+            with torch.cuda.stream(stream):
+                while not stop.is_set():
+                    host = torch.empty((1 << 20,), dtype=torch.uint8, pin_memory=True)
+                    host.to(dev, non_blocking=True)
+                    del host
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+
+    thread = threading.Thread(target=pin)
+    thread.start()
+    try:
+        ballast = torch.empty((256 << 20,), dtype=torch.uint8, device=dev)
+        del ballast  # freed into the allocator's cache
+        reserved = torch.cuda.memory_reserved(dev)
+        for _ in range(10):
+            got = ward_pool_padded(x, mask, 3)[2]
+            assert torch.equal(got[mask > 0], want[mask > 0])
+        assert torch.cuda.memory_reserved(dev) >= reserved
+    finally:
+        stop.set()
+        thread.join()
+    assert not errors, errors

@@ -129,6 +129,21 @@ def test_embed_pages_fused_matches_jax(stacks, transport, chunk):
         np.testing.assert_allclose(g, w, atol=2e-5)
 
 
+@pytest.mark.parametrize("chunk,groups", [(1, 3), (2, 2), (3, 1)])
+def test_embed_pages_fused_downloads_once_a_group(stacks, monkeypatch, chunk, groups):
+    """Five pages at batch 2 make three forward batches: the host takes the
+    embeddings and their mask once for each group of ``chunk`` of them."""
+    model, proc = stacks[3], stacks[4]
+    pages = [_page(10 + i) for i in range(5)]
+    want = embed_pages_fused(model, proc, pages, transport="rgb-u8", batch_size=2)
+    calls = []
+    cpu = torch.Tensor.cpu
+    monkeypatch.setattr(torch.Tensor, "cpu", lambda t, *a, **k: calls.append(tuple(t.shape)) or cpu(t, *a, **k))
+    got = embed_pages_fused(model, proc, pages, transport="rgb-u8", batch_size=2, chunk=chunk)
+    assert len(calls) == 2 * groups
+    assert [np.array_equal(g, w) for g, w in zip(got, want)] == [True] * 5
+
+
 def test_embed_pages_fused_rejects_unknown_transport(stacks):
     with pytest.raises(ValueError, match="transport"):
         embed_pages_fused(stacks[3], stacks[4], [_page(0)], transport="jpeg")
