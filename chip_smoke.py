@@ -6,8 +6,9 @@ with token pooling, the corpus tools and similarity maps), for the
 Qwen2-VL family, ColQwen2.5-3B and ColQwen2-2B (phase 8), for the
 Idefics3/SmolVLM family, colSmol-256M, with the single-vector Bi models
 (phase 10), for the Gemma3 family, Gemma3-4B (phase 12), for the Qwen3-VL
-family, Qwen3-VL-4B (phase 14), and for the ModernVBert family,
-ModernVBERT-base (phase 16); training for ColPali-3B (phase 5), the
+family, Qwen3-VL-4B (phase 14), for the ModernVBert family,
+ModernVBERT-base (phase 16), and for the Qwen3.5 family at the JAX
+package's default config (phase 19); training for ColPali-3B (phase 5), the
 Qwen2-VL family (phase 9), the Idefics3 family with the Bi models (phase
 11), the Gemma3 family (phase 13), the Qwen3-VL family (phase 15) and the
 ModernVBert family (phase 17).
@@ -230,17 +231,18 @@ Phases (a few lines of output each, then two JSON lines):
 14. the Qwen3-VL family (after phase 13): Qwen3-VL-4B at its published
    widths (vision 27 x 1,152, 16 heads of 72, 16 px patches, a 48 x 48
    learned position table read by four bilinear taps a patch, deepstack
-   mergers after blocks 8, 16 and 24; text 36 x 2,560, 32/8 heads of 128,
-   MLP 9,728, interleaved M-RoPE; a 320-wide head; 4.571 B seeded random bf16
-   parameters) written by ``utils.testing.write_qwen3_checkpoint`` and read
-   back by ``load_retriever(family="colqwen3")`` in bf16 and with
-   ``quantize=True`` (423 stored-int8 layers); K6 at the path's shapes (the
+   mergers after blocks 8, 16 and 24; text 2,560 wide, 32/8 heads of 128,
+   MLP 9,728, interleaved M-RoPE, cut to 9 of its 36 layers since phase 19
+   came; a 320-wide head; seeded random bf16 parameters) written by
+   ``utils.testing.write_qwen3_checkpoint`` and read back by
+   ``load_retriever(family="colqwen3")`` in bf16 and with ``quantize=True``
+   (234 stored-int8 layers); K6 at the path's shapes (the
    tower over 8 pages, B=8 S=2,976 D=72 with the patch mask; the decoder,
    causal GQA 32/8 at D=128 with left padding; the queries) against its
    plain version, bit-equal on a second call, beside SDPA masked and
    unmasked; Q1a/Q1b bit-equal to their plain versions at the (M, K, N) of a
-   page forward and the query forwards and timed; 27 + 36 K6 launches a page
-   forward, 36 a query forward; 16 seeded pages (744 merged tokens each)
+   page forward and the query forwards and timed; 27 + 9 K6 launches a page
+   forward, 9 a query forward; 16 seeded pages (744 merged tokens each)
    through ``embed_dataset`` on both models, a 4,112-doc two-tier int8 index
    320 wide behind ``make_handler`` for each, the 4 planted pages at rank 1
    on the tiered and the exact route of ``/search_text``, ``serve.py
@@ -260,7 +262,7 @@ Phases (a few lines of output each, then two JSON lines):
    remat=True)`` and trained through ``ColModelTraining`` from
    ``configs/train_colqwen3.yaml`` (its ``ColbertLoss(temperature=0.02)`` and
    LoRA r32 through ``configs.instantiate``; batch 8, 4 steps over 32 pages):
-   72 K6 backward launches a step, all at D=128, none through the plain
+   18 K6 backward launches a step, all at D=128, none through the plain
    version, step 1's loss at least 0.05 from ln 8; one step against the
    plain route, ``evaluate()`` over 16 pages (a 320-wide bf16 index, K5),
    the merged export read back by ``load_retriever`` and served, a run
@@ -326,6 +328,34 @@ Phases (a few lines of output each, then two JSON lines):
    through the 1-token index: K3 at Np = 16), every gold page in the top
    100 and none among the negatives; similarity maps of 4 pages against a
    float64 einsum; ``VisualRetrieverCollator(device_pixels=True)``.
+19. the Qwen3.5 family (last): ColQwen3_5 at the JAX package's default
+   config at full width and depth (Qwen3-VL-4B's tower, its merger writing
+   the decoder's 2,048; the hybrid decoder 48 x 2,048: 36 GatedDeltaNet
+   layers, 16/32 heads of 128 and a conv of 4, and 12 gated attention
+   layers, 16/2 heads of 256 with rotary over 64, on the biased route, as in
+   JAX; MLP 5,120; a 128-wide head; seeded random bf16 parameters) written
+   by ``utils.testing.write_qwen35_checkpoint`` and read back by
+   ``load_retriever(family="colqwen3_5")`` in bf16 and with
+   ``quantize=True`` (435 stored-int8 layers); Q2 (the chunked gated delta
+   rule) against its plain version at the page shape (B=8, the pages'
+   prompts) and the query shape, on fp32 inputs within 1e-4 of the output's
+   RMS and on bf16 inputs by K6's forward rule, bit-equal on a second call,
+   and a draw of 2.0 log-decay a token finite, timed beside its bound; Q1a/Q1b
+   bit-equal to their plain versions at the path's (M, K, N) and timed at
+   the decoder's; 27 K6 and 36 Q2 launches a page forward, 36 Q2 a query
+   forward; 32 seeded pages through ``embed_dataset`` on both models, a
+   two-tier int8 index behind ``make_handler`` with the 4 planted pages at
+   rank 1 on the tiered and the exact route of ``/search_text``, ``serve.py
+   --checkpoint --family colqwen3_5`` finding two, no launch through a plain
+   version; K1-K3 against plain on the index; both bf16 routes (kernels,
+   plain versions) against the plain route in fp32, the kernel route no
+   farther from it than 1.5 times the plain route (at this depth on random
+   weights bf16 alone moves the tokens), and stored int8 against bf16 layer
+   by layer (each decoder layer and the tower on the bf16 model's own
+   inputs; end to end read, not held); an 8-page forward and encode x1/x8
+   timed in turns, two profiles with Q2's share of the kernel time;
+   BiQwen3_5 at full width on the same fp32 witness, its processor's
+   ``score`` finding planted pages.
    Each phase from 8 on logs the GiB held on the card as it starts (past 1
    GiB, with the chain of referrers that holds the largest module trees);
    every phase's seconds are logged as it ends and listed in the JSON line,
@@ -389,6 +419,7 @@ from colpali_tpu_torch.ops.maxsim_tiled import (
     maxsim_tiled,
     maxsim_tiled_plain,
 )
+from colpali_tpu_torch.ops import gated_delta_rule as gdr
 from colpali_tpu_torch.ops import quant_dense as qd
 from colpali_tpu_torch.ops.quant import binarize_words, quantize_per_token
 from colpali_tpu_torch.utils.tensor_utils import top_k
@@ -445,6 +476,9 @@ KERNELS = {
                           replaces="colpali_tpu/ops/quant_dense.py:54"),
     "int8_gemm": dict(counter=qd.INT8_GEMM, route="cuda", source="colpali_tpu_torch/csrc/quant_dense.cu",
                       replaces="colpali_tpu/ops/quant_dense.py:113"),
+    "gated_delta_rule": dict(counter=gdr.GATED_DELTA_RULE, route="cuda",
+                             source="colpali_tpu_torch/csrc/gated_delta_rule.cu",
+                             replaces="colpali_tpu/models/qwen3_5.py:161"),
 }
 SERVING_KERNELS = ("binary_maxsim", "gather_rerank", "maxsim_int8", "flash_attention")  # the paths of phases 3-4
 TRAINING_KERNELS = ("maxsim_bf16", "flash_attention", "flash_attention_bwd")  # phase 5's: the steps and the eval
@@ -1444,11 +1478,20 @@ def make_pages(n: int, seed: int) -> list:
     return [rng.integers(0, 256, size=(*PAGE_HW, 3), dtype=np.uint8) for _ in range(n)]
 
 
+@contextlib.contextmanager
+def plain_route():
+    """The model kernels' plain versions patched in for a comparison (their
+    launches are not counted): K6's and Q2's."""
+    with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain), \
+            mock.patch.object(gdr, "chunk_gated_delta_rule", gdr.chunk_gated_delta_rule_plain):
+        yield
+
+
 def forward_check(name: str, embed) -> dict:
-    """``embed()`` through the K6 route and through the plain route (K6's
-    plain version patched in for the comparison only), token by token."""
+    """``embed()`` through the kernel route and through the plain route
+    (:func:`plain_route`, for the comparison only), token by token."""
     kernel = embed()
-    with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
+    with plain_route():
         plain = embed()
     a, b = np.concatenate(kernel), np.concatenate(plain)
     cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
@@ -1484,10 +1527,12 @@ def kernel_breakdown(label: str, fn) -> dict:
     if total == 0.0:
         log(f"  profile: {label} {wall_ms:.1f} ms wall; the profiler saw no device time")
         return dict(wall_ms=wall_ms)
-    classes = {"K6 forward": 0.0, "K6 backward": 0.0, "matmul": 0.0, "other": 0.0}
+    classes = {"K6 forward": 0.0, "K6 backward": 0.0, "Q2": 0.0, "matmul": 0.0, "other": 0.0}
     for name, ms in kernels.items():
         if "flash_fwd_kernel" in name:
             classes["K6 forward"] += ms
+        elif "gated_delta_rule" in name:
+            classes["Q2"] += ms
         elif "flash_bwd" in name or "delta_kernel" in name:
             classes["K6 backward"] += ms
         elif any(t in name.lower() for t in ("gemm", "cutlass", "nvjet", "xmma", "matmul")):
@@ -4277,7 +4322,7 @@ def bi_check(name: str, model, feeds: list, device: torch.device, score, planted
                     .float().cpu().numpy() for f in feeds]
 
     kernel = run()
-    with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
+    with plain_route():
         plain = run()
     a, b = np.concatenate(kernel), np.concatenate(plain)
     cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
@@ -4302,17 +4347,19 @@ def bi_pali_config():
 
 
 @contextlib.contextmanager
-def counted_plain_k6():
-    """K6's plain version counted while the block runs (``calls[0]``); on
-    the card a path must never reach it."""
-    calls, plain = [0], fa.flash_attention_plain
+def counted_plain(module=fa, name: str = "flash_attention_plain"):
+    """A kernel's plain version, ``module.name`` (K6's by default), counted
+    while the block runs (``calls[0]``); on the card a path must never
+    reach it."""
+    calls, plain = [0], getattr(module, name)
 
     def counted(*args, **kwargs):
         calls[0] += 1
         return plain(*args, **kwargs)
 
-    with mock.patch.object(fa, "flash_attention_plain", counted):
+    with mock.patch.object(module, name, counted):
         yield calls
+
 
 
 def split_map_check(processor, feed: dict, model, queries: list) -> dict:
@@ -4442,7 +4489,7 @@ def phase_colsmol(device: torch.device, smi: str) -> tuple:
         # the path, counted: pages embedded, /search_text through make_handler on each model, serve.py; K6's
         # plain version counted apart, which the path must never reach on the card
         reset_launches()
-        with counted_plain_k6() as plain_calls:
+        with counted_plain() as plain_calls:
             t0 = time.perf_counter()
             embs = {"bf16": embed_dataset(model, processor, pages, batch_size=PAGE_BATCH)}
             t_embed_bf16 = time.perf_counter() - t0
@@ -4821,7 +4868,7 @@ def phase_smol_training(device: torch.device, smi: str) -> tuple:
 
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        with counted_plain_k6() as plain_calls:
+        with counted_plain() as plain_calls:
             summary = app.train(on_step=on_step)
         torch.cuda.synchronize()
         train_launches = launch_counts()
@@ -4945,7 +4992,7 @@ def phase_smol_training(device: torch.device, smi: str) -> tuple:
             raise AssertionError(f"BiIdefics3: {pad_rows} right-padded queries, loss {type(bloss).__name__}")
         reset_launches()
         bseen = []
-        with counted_plain_k6() as plain_calls:
+        with counted_plain() as plain_calls:
             bapp.train(on_step=lambda step, m: bseen.append((float(m["loss"]), float(m["grad_norm"]))))
         torch.cuda.synchronize()
         bi_launches = launch_counts()
@@ -5005,7 +5052,7 @@ def phase_smol_training(device: torch.device, smi: str) -> tuple:
                 train=train_config, seed=SEED, device=device, max_steps=1))
             reset_launches()
             oloss = []
-            with counted_plain_k6() as plain_calls:
+            with counted_plain() as plain_calls:
                 oapp.train(on_step=lambda step, mt: oloss.append(float(mt["loss"])))
             torch.cuda.synchronize()
             o_launches = launch_counts()
@@ -5209,7 +5256,7 @@ def phase_gemma3(device: torch.device, smi: str, ckpt: str) -> tuple:
 
     # the path, counted: pages embedded, /search_text through make_handler on each model, serve.py
     reset_launches()
-    with counted_plain_k6() as plain_calls:
+    with counted_plain() as plain_calls:
         t0 = time.perf_counter()
         embs = {"bf16": embed_dataset(model, processor, pages, batch_size=PAGE_BATCH)}
         t_embed_bf16 = time.perf_counter() - t0
@@ -5474,7 +5521,7 @@ def phase_gemma3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
 
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        with counted_plain_k6() as plain_calls:
+        with counted_plain() as plain_calls:
             summary = app.train(on_step=on_step)
         torch.cuda.synchronize()
         train_launches = launch_counts()
@@ -5584,7 +5631,7 @@ def phase_gemma3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
             raise AssertionError(f"train_bigemma3.yaml's loss: {bloss}")
         reset_launches()
         bseen = []
-        with counted_plain_k6() as plain_calls:
+        with counted_plain() as plain_calls:
             bapp.train(on_step=lambda step, m: bseen.append((float(m["loss"]), float(m["grad_norm"]))))
         torch.cuda.synchronize()
         bi_launches = launch_counts()
@@ -5618,20 +5665,23 @@ QWEN3_DIM = 320  # ColQwen3's head (reference modeling_colqwen3.py:49)
 QWEN3_PAGE_TOKENS = 744
 # Qwen3-VL-4B's stored-int8 layers (JAX's quantize_params over the same tree, tests/test_torch_qwen3_vl.py): the
 # patch embedding (1,536 -> 1,152), 27 x 6 in the vision blocks, the merger's 2 and each of the 3 deepstack
-# mergers' 2, 36 x 7 in the text layers (k/v 2,560 -> 1,024 included); the 320-d head and embeddings stay bf16
+# mergers' 2, 7 in each text layer (k/v 2,560 -> 1,024 included); the 320-d head and embeddings stay bf16
 QWEN3_VISION_STORED = 1 + 27 * 6 + 2 * 4
-QWEN3_STORED_LAYERS = QWEN3_VISION_STORED + 36 * 7
+# the text decoder's depth in phases 14-15 since phase 19 came: 9 of Qwen3-VL-4B's 36 layers (every width, and so
+# every kernel shape, the published one; the tower at its full 27 blocks)
+QWEN3_TEXT_DEPTH = 9
+QWEN3_STORED_LAYERS = QWEN3_VISION_STORED + QWEN3_TEXT_DEPTH * 7
 QWEN3_SWEEP_DOCS = 262_144  # K3/K10 at D=320 over 2,048 tiles x 64 tokens x 320 (5.4 GB int8)
 
 
 def qwen3_config():
     """Qwen3-VL-4B (``Qwen/Qwen3-VL-4B-Instruct``'s widths, the JAX package's defaults,
     ``colpali_tpu/models/qwen3_vl.py:49-107``): vision 27 x 1,152 (16 heads of 72, MLP 4,304, 16 px patches, a
-    48 x 48 position table, deepstack after blocks 8, 16 and 24, out 2,560), text 36 x 2,560 (32/8 heads of 128,
-    MLP 9,728, vocab 151,936, interleaved M-RoPE (24, 20, 20))."""
-    from colpali_tpu_torch.models.qwen3_vl import Qwen3VLConfig
+    48 x 48 position table, deepstack after blocks 8, 16 and 24, out 2,560), text 2,560 wide (32/8 heads of 128,
+    MLP 9,728, vocab 151,936, interleaved M-RoPE (24, 20, 20)), cut to :data:`QWEN3_TEXT_DEPTH` of its 36 layers."""
+    from colpali_tpu_torch.models.qwen3_vl import Qwen3TextConfig, Qwen3VLConfig
 
-    return Qwen3VLConfig()
+    return Qwen3VLConfig(text=Qwen3TextConfig(num_hidden_layers=QWEN3_TEXT_DEPTH))
 
 
 def k3_k10_case(name: str, qi, qs, store, scales, check_tiles=None) -> dict:
@@ -5724,7 +5774,7 @@ def bi_fp32_check(name: str, model, fp32_model, feeds: list, device: torch.devic
                                         if k != "image_grid_thw"}).float().cpu().numpy() for f in feeds])
 
     a = run(model)
-    with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
+    with plain_route():
         b = run(fp32_model)
     cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
     out = dict(vectors=len(a), min_cos=float(cos.min()), mean_cos=float(cos.mean()))
@@ -5837,7 +5887,7 @@ def phase_qwen3(device: torch.device, smi: str, ckpt: str) -> tuple:
 
     # the path, counted: pages embedded, /search_text through make_handler on each model, serve.py
     reset_launches()
-    with counted_plain_k6() as plain_calls:
+    with counted_plain() as plain_calls:
         t0 = time.perf_counter()
         embs = {"bf16": embed_dataset(model, processor, pages, batch_size=PAGE_BATCH)}
         t_embed_bf16 = time.perf_counter() - t0
@@ -6114,7 +6164,7 @@ def phase_qwen3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
 
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        with counted_plain_k6() as plain_calls:
+        with counted_plain() as plain_calls:
             summary = app.train(on_step=on_step)
         torch.cuda.synchronize()
         train_launches = launch_counts()
@@ -6249,7 +6299,7 @@ def phase_qwen3_training(device: torch.device, smi: str, ckpt: str) -> tuple:
             device=device, max_steps=1))
         reset_launches()
         bseen = []
-        with counted_plain_k6() as plain_calls:
+        with counted_plain() as plain_calls:
             bapp.train(on_step=lambda step, m: bseen.append(float(m["loss"])))
         torch.cuda.synchronize()
         bi_launches = launch_counts()
@@ -6462,7 +6512,7 @@ def phase_modernvbert(device: torch.device, smi: str, ckpt: str) -> tuple:
 
     # the path, counted: pages embedded, /search_text through make_handler on each model, serve.py
     reset_launches()
-    with counted_plain_k6() as plain_calls:
+    with counted_plain() as plain_calls:
         t0 = time.perf_counter()
         embs = {"bf16": embed_dataset(model, processor, pages, batch_size=PAGE_BATCH)}
         t_embed_bf16 = time.perf_counter() - t0
@@ -6702,7 +6752,7 @@ def phase_modernvbert_training(device: torch.device, smi: str, ckpt: str) -> tup
 
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        with counted_plain_k6() as plain_calls, counted_biased_attention() as biased:
+        with counted_plain() as plain_calls, counted_biased_attention() as biased:
             summary = app.train(on_step=on_step)
         torch.cuda.synchronize()
         train_launches = launch_counts()
@@ -6835,7 +6885,7 @@ def phase_modernvbert_training(device: torch.device, smi: str, ckpt: str) -> tup
             train=train_config, seed=SEED, device=device, max_steps=1))
         reset_launches()
         bseen = []
-        with counted_plain_k6() as plain_calls:
+        with counted_plain() as plain_calls:
             bapp.train(on_step=lambda step, m: bseen.append(float(m["loss"])))
         torch.cuda.synchronize()
         bi_launches = launch_counts()
@@ -6856,6 +6906,458 @@ def phase_modernvbert_training(device: torch.device, smi: str, ckpt: str) -> tup
                     maxsim_bf16=eval_launches["maxsim_bf16"], quantize_rows=quant_launches["quantize_rows"],
                     int8_gemm=quant_launches["int8_gemm"])
     return launches, extra
+
+
+# -- phase 19: the Qwen3.5 family, ColQwen3_5 at the JAX package's default config (run last) ------------------------
+
+QWEN35_PAGES = 32  # four batches of 8
+QWEN35_PLANTED = (1, 9, 18, 27)  # pages whose docs also hold QUERIES[i]'s tokens, i = 0..3
+QWEN35_FILLER_DOCS = 2_048  # seeded filler docs of DOC_TOKENS tokens beside the pages (at least CANDIDATES)
+# the default config's stored-int8 layers (JAX's quantize_params over the same tree, tests/test_torch_qwen3_5.py):
+# Qwen3-VL-4B's tower (1 + 27 x 6 + 2 x 4), in_proj_qkvz and out_proj of each of the 36 GatedDeltaNet layers
+# (in_proj_ba, 2,048 -> 64, stays bf16), q/k/v/o of each of the 12 attention layers, gate/up/down everywhere
+QWEN35_STORED_LAYERS = QWEN3_VISION_STORED + 36 * (2 + 3) + 12 * (4 + 3)
+Q2_FP32_ATOL_RMS = 1e-4  # Q2 on fp32 inputs against its plain version: fp32 sums in another order
+Q2_LARGE_DECAY = 2.0  # log-decay per token of the draw that must stay finite (a chunk sums ~128, past exp's 88)
+# fp32_witness_check passes a kernel route whose 1 - cos against fp32 is within this, whatever the plain route reads
+WITNESS_FLOOR = 1e-4
+
+
+def qwen35_config():
+    """The JAX package's default ``Qwen35VLConfig`` (``colpali_tpu/models/qwen3_5.py:52-154``, what
+    ``configs/train_colqwen3_5.yaml`` builds): Qwen3-VL-4B's tower (27 x 1,152, 16 heads of 72, 16 px patches) and
+    the hybrid decoder 48 x 2,048 (36 GatedDeltaNet layers, 16/32 heads of 128, a conv of 4; 12 gated attention
+    layers, 16/2 heads of 256, rotary over 64; MLP 5,120, no experts; vocab 151,936), a 128-wide head. The default
+    tower's merger writes Qwen3-VL-4B's 2,560 wide where the decoder takes 2,048, so no page forward runs as it
+    stands: its output is set to the decoder's width, as in Qwen3.5's checkpoints."""
+    import dataclasses
+
+    from colpali_tpu_torch.models.qwen3_5 import Qwen35VLConfig
+
+    cfg = Qwen35VLConfig()
+    return dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, out_hidden_size=cfg.text.hidden_size))
+
+
+def q2_flops(b: int, s: int, hv: int, dk: int, dv: int) -> float:
+    """Q2's operations at one shape, over whole chunks of 64: the strict lower triangle of k k^T and the lower of
+    q k^T (C^2 Dk each), k S and q S (2 C Dk Dv each), the substitution and P Vnew (C^2 Dv each, triangular), the
+    state update (2 C Dk Dv), a multiply-add counted as 2."""
+    c, n = gdr.CHUNK, -(-s // gdr.CHUNK)
+    return b * hv * n * (2 * c * c * dk + 2 * c * c * dv + 6 * c * dk * dv)
+
+
+def q2_case(gen: torch.Generator, device: torch.device, b: int, s: int, cfg, dtype, log_decay: float,
+            timed: bool) -> dict:
+    """Q2 against its plain version on seeded inputs at one shape, q/k/v laid out as GatedDeltaNet's conv output
+    (strided views of one row a token): fp32 within Q2_FP32_ATOL_RMS of the plain output's RMS, bf16 by K6's
+    forward rule; bit-equal on a second call; finite. ``timed``: the kernel and the plain version by CUDA events
+    beside the bound."""
+    hk, hv, dk, dv = cfg.linear_num_key_heads, cfg.linear_num_value_heads, cfg.linear_key_head_dim, \
+        cfg.linear_value_head_dim
+    mixed = torch.randn((b, s, 2 * hk * dk + hv * dv), generator=gen, device=device).to(dtype)
+    q = mixed[..., :hk * dk].view(b, s, hk, dk)
+    k = mixed[..., hk * dk:2 * hk * dk].view(b, s, hk, dk)
+    v = mixed[..., 2 * hk * dk:].view(b, s, hv, dv)
+    g = -log_decay * (0.5 + torch.rand((b, s, hv), generator=gen, device=device))
+    beta = torch.rand((b, s, hv), generator=gen, device=device).to(dtype)
+    got = gdr.chunk_gated_delta_rule(q, k, v, g, beta)
+    want = gdr.chunk_gated_delta_rule_plain(q, k, v, g, beta)
+    torch.cuda.synchronize()
+    if not torch.equal(got, gdr.chunk_gated_delta_rule(q, k, v, g, beta)):
+        raise AssertionError(f"Q2 B={b} S={s} {dtype}: two calls differ")
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"Q2 B={b} S={s} {dtype} log-decay {log_decay}: not finite")
+    rms = want.float().square().mean().sqrt().item()
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        limit = Q2_FP32_ATOL_RMS * rms
+        ok = err.max().item() <= limit
+    else:
+        limit = K6_ATOL_RMS * rms
+        ok = bool((err <= limit + K6_RTOL * want.float().abs()).all())
+    r = dict(shape=f"B={b} S={s} Hk={hk} Hv={hv} Dk={dk} Dv={dv} {str(dtype)[6:]} log-decay {log_decay}",
+             max_abs_err=err.max().item(), atol=limit, out_rms=rms)
+    if not ok:
+        raise AssertionError(f"Q2 [{r['shape']}] against its plain version: {r}")
+    if timed:
+        nbytes = (2 * b * s * hk * dk + 2 * b * s * hv * dv + b * s * hv) * got.element_size() + b * s * hv * 4
+        r.update(ms=time_ms(lambda: gdr.chunk_gated_delta_rule(q, k, v, g, beta)),
+                 graph_ms=graph_ms(lambda: gdr.chunk_gated_delta_rule(q, k, v, g, beta)),
+                 plain_ms=time_ms(lambda: gdr.chunk_gated_delta_rule_plain(q, k, v, g, beta), reps=2),
+                 library_ms=None, **bound(nbytes, q2_flops(b, s, hv, dk, dv), "fp32"))
+    del mixed, q, k, v, g, beta, got, want, err
+    return r
+
+
+def q2_cases(device: torch.device, page_s: int, query_s: int, cfg) -> dict:
+    """Q2 at the page shape (8 pages' prompts) and the query shape (8 queries as QueryEncoder pads them), each in
+    fp32 and bf16, and a bf16 draw at Q2_LARGE_DECAY at the page shape; the bf16 cases timed."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 90)
+    out = {}
+    for name, s in (("page", page_s), ("query", query_s)):
+        for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            r = out[f"{name}_{label}"] = q2_case(gen, device, PAGE_BATCH, s, cfg, dtype, 0.3, timed=label == "bf16")
+            timing = (f": kernel {r['ms']:.3f} ms (graph {r['graph_ms']:.3f}), plain {r['plain_ms']:.3f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of it") if "ms" in r \
+                else ""
+            log(f"phase qwen3.5: Q2 [{r['shape']}] max_abs_err {r['max_abs_err']:.3g} (limit {r['atol']:.3g}, "
+                f"{r['max_abs_err'] / r['atol']:.0%}), bit-equal on a second call{timing}")
+    r = out["page_large_decay"] = q2_case(gen, device, PAGE_BATCH, page_s, cfg, torch.bfloat16, Q2_LARGE_DECAY,
+                                          timed=False)
+    log(f"phase qwen3.5: Q2 [{r['shape']}] finite, max_abs_err {r['max_abs_err']:.3g} (limit {r['atol']:.3g})")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cos(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def fp32_witness_check(name: str, embed, embed_fp32) -> dict:
+    """``embed()`` (a bf16 model, a list of (tokens, dim) arrays or of
+    vectors) through the kernel route and through the plain route, each
+    against ``embed_fp32()`` (the same weights in fp32 on the plain route),
+    token by token. At Qwen3.5's depth on random weights bf16 rounding alone
+    moves the tokens (every GatedDeltaNet head is divided by its own RMS), so
+    the two bf16 routes are held to the fp32 witness and not to each other:
+    the kernel route must stand no farther from it than
+    :data:`ROUTE_FP32_RATIO` times the plain route does, by 1 - mean cosine
+    and by 1 - min cosine (or within WITNESS_FLOOR of 1)."""
+    kernel = np.concatenate(embed())
+    with plain_route():
+        plain = np.concatenate(embed())
+        ref = np.concatenate(embed_fp32())
+    ck, cp, ckp = _cos(kernel, ref), _cos(plain, ref), _cos(kernel, plain)
+    out = dict(tokens=len(kernel), kernel_fp32_mean=float(ck.mean()), kernel_fp32_min=float(ck.min()),
+               plain_fp32_mean=float(cp.mean()), plain_fp32_min=float(cp.min()),
+               kernel_plain_mean=float(ckp.mean()), kernel_plain_min=float(ckp.min()))
+    limits = {k: max(ROUTE_FP32_RATIO * (1 - out[f"plain_fp32_{k}"]), WITNESS_FLOOR) for k in ("mean", "min")}
+    if not (np.isfinite(kernel).all() and all(1 - out[f"kernel_fp32_{k}"] <= limits[k] for k in limits)):
+        raise AssertionError(f"{name}: {out}; the kernel route's 1 - cos against fp32 must be <= {limits}")
+    log(f"  {name}, {out['tokens']} rows against the plain route in fp32: kernel route mean cos "
+        f"{out['kernel_fp32_mean']:.6f}, min {out['kernel_fp32_min']:.6f}; plain route mean "
+        f"{out['plain_fp32_mean']:.6f}, min {out['plain_fp32_min']:.6f} (the kernel route's gaps "
+        f"{share(1 - out['kernel_fp32_mean'], limits['mean'])} and {share(1 - out['kernel_fp32_min'], limits['min'])}); "
+        f"kernel vs plain route mean {out['kernel_plain_mean']:.6f}, min {out['kernel_plain_min']:.6f}")
+    return out
+
+
+def layerwise_int8_check(model, qmodel, feed: dict) -> dict:
+    """Stored int8 against bf16 where quantization acts: each decoder layer
+    of ``qmodel`` on the inputs that layer gets in ``model``'s forward of
+    ``feed``, its branch (output less input) per valid token against the bf16
+    layer's by cosine, and the tower's merged features likewise; each at
+    INT8_COS_MEAN / INT8_COS_MIN. On a whole forward the two models part
+    further than any layer does: where a GatedDeltaNet head's state is
+    dominated by its own token, its output is near ``sign(q.k) v`` after the
+    per-head RMSNorm, so a small error in ``q.k`` can flip a head, and the
+    flips compound over 48 layers (bf16 against fp32 shows the same)."""
+    inputs = []
+    hooks = [layer.register_forward_pre_hook(lambda m, args: inputs.append(args))
+             for layer in model.model.language_model.layers]
+    try:
+        with torch.inference_mode():
+            model(**feed)
+    finally:
+        for h in hooks:
+            h.remove()
+    valid = feed["attention_mask"].bool()
+    rows = []
+    with torch.inference_mode():
+        vision = [m.model.visual(*(feed[k] for k in ("pixel_values", "vision_hpos", "vision_wpos", "patch_mask",
+                                                     "pos_idx", "pos_weight")), deepstack=False)[0].float()
+                  for m in (model, qmodel)]
+        cos = F.cosine_similarity(vision[0].flatten(0, 1), vision[1].flatten(0, 1), dim=-1)
+        tower = dict(mean_cos=cos.mean().item(), min_cos=cos.min().item())
+        for i, (lb, lq, args) in enumerate(zip(model.model.language_model.layers, qmodel.model.language_model.layers,
+                                               inputs)):
+            x = args[0]
+            cos = F.cosine_similarity((lb(*args) - x)[valid].float(), (lq(*args) - x)[valid].float(), dim=-1)
+            rows.append(dict(layer=i, kind="linear" if lb.linear else "full", mean_cos=cos.mean().item(),
+                             min_cos=cos.min().item()))
+    del inputs, vision
+    worst_mean, worst_min = min(r["mean_cos"] for r in rows), min(r["min_cos"] for r in rows)
+    out = dict(tower=tower, layers=rows, worst_layer_mean_cos=worst_mean, worst_layer_min_cos=worst_min)
+    if not (min(tower["mean_cos"], worst_mean) >= INT8_COS_MEAN and min(tower["min_cos"], worst_min) >= INT8_COS_MIN):
+        raise AssertionError(f"stored int8 against bf16 layer by layer: tower {tower}, worst layer mean cos "
+                             f"{worst_mean}, min cos {worst_min}; limits {INT8_COS_MEAN}, {INT8_COS_MIN}: {rows}")
+    log(f"  stored int8 vs bf16 layer by layer ({int(valid.sum())} tokens): tower mean cos {tower['mean_cos']:.6f}, "
+        f"min {tower['min_cos']:.6f}; the decoder's {len(rows)} layers' branches, worst mean cos {worst_mean:.6f}, "
+        f"worst min {worst_min:.6f} (limits {INT8_COS_MEAN}, {INT8_COS_MIN}; shares "
+        f"{share(1 - worst_mean, 1 - INT8_COS_MEAN)}, {share(1 - worst_min, 1 - INT8_COS_MIN)})")
+    return out
+
+
+def phase_qwen35(device: torch.device, smi: str, ckpt: str) -> tuple:
+    """Drive the Qwen3.5 family's serving path: ColQwen3_5 at the default config's full width and depth written by
+    ``write_qwen35_checkpoint`` into ``ckpt`` and read back by ``load_retriever(family="colqwen3_5")`` in bf16 and
+    stored int8; Q2 against its plain version at the page and query shapes; Q1a/Q1b at the decoder's (M, K, N);
+    pages through ``embed_dataset``, ``/search_text`` through ``make_handler`` over a two-tier int8 index and
+    ``serve.py --checkpoint --family colqwen3_5``; K1-K3 held on the index; both bf16 routes against the plain
+    route in fp32 (:func:`fp32_witness_check`), stored int8 against bf16 layer by layer
+    (:func:`layerwise_int8_check`); forward and encode timings, Q2's share of the forward's kernels; BiQwen3_5 at
+    full width. Returns the launches over the path, the kernel rows and the rest."""
+    import os
+    import threading
+
+    from colpali_tpu_torch import serve
+    from colpali_tpu_torch.auto import load_retriever
+    from colpali_tpu_torch.evaluation.evaluator import embed_dataset
+    from colpali_tpu_torch.models.layers import QDense
+    from colpali_tpu_torch.models.qwen3_5 import BiQwen3_5
+    from colpali_tpu_torch.processors.bi import BiQwen3_5Processor
+    from colpali_tpu_torch.retrieval.serving import QueryEncoder
+    from colpali_tpu_torch.retrieval.store import CorpusIndex
+    from colpali_tpu_torch.serve import RetrievalServer
+    from colpali_tpu_torch.utils.testing import write_qwen35_checkpoint
+
+    held = free_memory("phase qwen3.5")
+    t_phase = time.perf_counter()
+    cfg = qwen35_config()
+    v, t = cfg.vision, cfg.text
+    n_linear = sum(t.layer_type(i) == "linear_attention" for i in range(t.num_hidden_layers))
+    pages = make_pages(QWEN35_PAGES, SEED + 91)
+    extra = dict(held_gib_at_start=held)
+    t0 = time.perf_counter()
+    write_qwen35_checkpoint(ckpt, cfg, seed=SEED + 92, words=" ".join(QUERIES).split(), device=device)
+    torch.cuda.empty_cache()
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, processor = load_retriever(ckpt, family="colqwen3_5", device=device)
+    torch.cuda.synchronize()
+    t_bf16 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qmodel, qproc = load_retriever(ckpt, family="colqwen3_5", device=device, quantize=True)
+    torch.cuda.synchronize()
+    t_int8 = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    stored = sum(isinstance(m, QDense) and m.stored for m in qmodel.modules())
+    bytes_int8, bytes_bf16 = (sum(x.numel() * x.element_size() for x in m.state_dict().values())
+                              for m in (qmodel, model))
+    log(f"phase qwen3.5: ColQwen3_5 at the default config, vision {v.depth} x {v.hidden_size} ({v.num_heads} heads x "
+        f"{v.head_dim}, {v.patch_size} px patches, out {v.out_hidden_size}), text {t.num_hidden_layers} x "
+        f"{t.hidden_size} ({n_linear} GatedDeltaNet layers, {t.linear_num_key_heads}/{t.linear_num_value_heads} heads "
+        f"of {t.linear_key_head_dim}, conv {t.linear_conv_kernel_dim}; {t.num_hidden_layers - n_linear} gated "
+        f"attention layers, {t.num_attention_heads}/{t.num_key_value_heads} heads of {t.head_dim}, rotary "
+        f"{t.rotary_dim}; MLP {t.intermediate_size}, vocab {t.vocab_size}), head {cfg.dim}: {n_params / 1e9:.3f} B "
+        f"params; HF checkpoint written in {t_write:.1f} s, load_retriever {t_bf16:.1f} s (bf16), {t_int8:.1f} s "
+        f"(quantize=True: {stored} stored-int8 layers, {bytes_int8 / 1e9:.3f} GB against {bytes_bf16 / 1e9:.3f} GB)")
+    if stored != QWEN35_STORED_LAYERS or model.head.custom_text_proj.out_features != cfg.dim:
+        raise AssertionError(f"load_retriever(quantize=True): {stored} stored-int8 layers, expected "
+                             f"{QWEN35_STORED_LAYERS}; head {model.head.custom_text_proj.out_features} wide")
+    batch = pages[:PAGE_BATCH]
+    feed = {k: torch.as_tensor(x).to(device) for k, x in processor.process_images(batch, device_pixels=True).items()
+            if k != "image_grid_thw"}
+    n_image = (feed["input_ids"] == cfg.image_token_id).sum(1)
+    if not bool((n_image == QWEN3_PAGE_TOKENS).all()):
+        raise AssertionError(f"a {PAGE_HW[1]} x {PAGE_HW[0]} page: {n_image.tolist()} merged tokens; expected "
+                             f"{QWEN3_PAGE_TOKENS}")
+    page_tokens = feed["input_ids"].shape[1]
+    encoders = {"bf16": QueryEncoder(model, processor), "int8": QueryEncoder(qmodel, qproc)}
+    for enc in encoders.values():
+        enc.warmup()
+    query_tokens = encoders["bf16"]._pad_static(processor.process_queries(QUERIES))[0]["input_ids"].shape[1]
+    q2 = q2_cases(device, page_tokens, query_tokens, t)
+
+    # Q1a/Q1b at the (M, K, N) of one stored-int8 page forward and the query forwards (x8, x1), by hooks; the
+    # tower's are phase 14's, the decoder's are new
+    with torch.inference_mode():
+        page_mkn = q1_path_shapes(qmodel, lambda: qmodel(**feed))
+        model(**feed)  # the bf16 model's first page forward, so that the path below runs warm
+    query_mkn = q1_path_shapes(qmodel, lambda: (encoders["int8"].encode(QUERIES),
+                                                encoders["int8"].encode(QUERIES[:1])))
+    text_mkn = [mkn for mkn in page_mkn if mkn[0] == PAGE_BATCH * page_tokens] + query_mkn
+    if any(k % 16 or n % 16 for _, k, n in page_mkn + query_mkn):
+        raise AssertionError(f"a width that is not a multiple of 16: {page_mkn + query_mkn}")
+    checks = q1_checks(device, page_mkn + query_mkn, edge_ks=(2048, 4096))
+    log(f"phase qwen3.5: Q1a and Q1b bit-equal to their plain versions in {checks['q1b_cases']} Q1b cases at the page "
+        f"forward's (M, K, N) {page_mkn} and the query forwards' {query_mkn}; timed at the decoder's {text_mkn}")
+    q1_rows, q1_gemms = q1_timing(device, text_mkn)
+    extra["q1_checks"] = dict(checks, page_forward_mkn=page_mkn, query_forward_mkn=query_mkn)
+
+    # K6 and Q2 launches of one page forward and one query forward
+    reset_launches()
+    with torch.inference_mode():
+        model(**feed)
+    per_page = ({d: n for d, n in fa.FORWARD_LAUNCHES_BY_HEAD_DIM.items() if n}, gdr.GATED_DELTA_RULE.launches)
+    reset_launches()
+    encoders["bf16"].encode(QUERIES)
+    per_query = ({d: n for d, n in fa.FORWARD_LAUNCHES_BY_HEAD_DIM.items() if n}, gdr.GATED_DELTA_RULE.launches)
+    if per_page != ({v.head_dim: v.depth}, n_linear) or per_query != ({}, n_linear):
+        raise AssertionError(f"launches (K6 by head dim, Q2): a page forward {per_page}, a query forward "
+                             f"{per_query}; expected ({{{v.head_dim}: {v.depth}}}, {n_linear}) and ({{}}, {n_linear})")
+
+    # the path, counted: pages embedded, /search_text through make_handler on each model, serve.py
+    reset_launches()
+    with counted_plain() as plain_k6, counted_plain(gdr, "chunk_gated_delta_rule_plain") as plain_q2:
+        t0 = time.perf_counter()
+        embs = {"bf16": embed_dataset(model, processor, pages, batch_size=PAGE_BATCH)}
+        t_embed_bf16 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        embs["int8"] = embed_dataset(qmodel, qproc, pages, batch_size=PAGE_BATCH)
+        t_embed_int8 = time.perf_counter() - t0
+        for label, es in embs.items():
+            for e in es:
+                if e.shape != (page_tokens, cfg.dim) or not np.isfinite(e).all() or \
+                        np.abs(np.linalg.norm(e, axis=-1) - 1).max() > 1e-2:
+                    raise AssertionError(f"{label} page embedding {e.shape}: not {page_tokens} finite unit rows of "
+                                         f"{cfg.dim}")
+        gen = torch.Generator(device=device).manual_seed(SEED + 93)
+        filler = torch.randn((QWEN35_FILLER_DOCS, DOC_TOKENS, cfg.dim), generator=gen, device=device)
+        filler = list((filler / filler.norm(dim=-1, keepdim=True)).cpu().numpy())
+        planted_q = encoders["int8"].encode(QUERIES[: len(QWEN35_PLANTED)])
+        docs = [np.concatenate([e, planted_q[QWEN35_PLANTED.index(i)]]) if i in QWEN35_PLANTED else e
+                for i, e in enumerate(embs["int8"])] + filler
+        index = CorpusIndex(docs, dtype="int8", prefilter="binary", coarse_pool=COARSE_POOL, device=device)
+        httpd = RetrievalServer(("127.0.0.1", 0), serve.make_handler(
+            index, [f"doc_{i}" for i in range(index.num_docs)], encoder=encoders["int8"]))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{httpd.server_port}"
+        try:
+            tiered = [_http(url, "/search_text", {"queries": [q], "k": 10}) for q in QUERIES[: len(QWEN35_PLANTED)]]
+            exact = _http(url, "/search_text", {"queries": QUERIES, "k": 10})  # 8 > 4: the exact route
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        for out in (*tiered, exact):
+            _check_ranked("/search_text (stored int8)", out, len(out["doc_ids"]))
+        top = ([out["doc_ids"][0][0] for out in tiered], [row[0] for row in exact["doc_ids"][: len(QWEN35_PLANTED)]])
+        if top[0] != list(QWEN35_PLANTED) or top[1] != list(QWEN35_PLANTED):
+            raise AssertionError(f"/search_text at rank 1: tiered {top[0]}, exact {top[1]}, planted "
+                                 f"{list(QWEN35_PLANTED)}")
+        npz = f"{ckpt}/corpus.npz"
+        np.savez(npz, **{f"emb_{i}": d for i, d in enumerate(docs)})
+        t0 = time.perf_counter()
+        httpd = serve.make_server([npz, "--port", "0", "--device", str(device), "--prefilter", "--checkpoint", ckpt,
+                                   "--family", "colqwen3_5"])
+        t_serve = time.perf_counter() - t0
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            cli = [_http(f"http://127.0.0.1:{httpd.server_port}", "/search_text", {"queries": [q], "k": 10})
+                   for q in QUERIES[:2]]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        os.remove(npz)
+        if [out["doc_ids"][0][0] for out in cli] != list(QWEN35_PLANTED[:2]):
+            raise AssertionError(f"serve.py --family colqwen3_5: rank 1 {[out['doc_ids'][0][0] for out in cli]}, "
+                                 f"planted {list(QWEN35_PLANTED[:2])}")
+    launches = read_launches("Qwen3.5 family", ("flash_attention", "gated_delta_rule", "quantize_rows", "int8_gemm",
+                                                "binary_maxsim", "gather_rerank", "maxsim_int8"))
+    by_dim = {d: n for d, n in fa.FORWARD_LAUNCHES_BY_HEAD_DIM.items() if n}
+    page_forwards = 2 * (QWEN35_PAGES // PAGE_BATCH)  # embed_dataset on each model
+    if plain_k6[0] or plain_q2[0] or by_dim != {v.head_dim: page_forwards * v.depth} or \
+            launches["gated_delta_rule"] < page_forwards * n_linear:
+        raise AssertionError(f"Qwen3.5 path: K6 by head dim {by_dim}, Q2 {launches['gated_delta_rule']}; plain "
+                             f"versions called K6 {plain_k6[0]}, Q2 {plain_q2[0]} times; expected {v.depth} K6 at "
+                             f"D={v.head_dim} and {n_linear} Q2 a page forward over {page_forwards}, and Q2 on queries")
+    log(f"  [{time.perf_counter() - t_phase:.0f} s] path: {QWEN35_PAGES} pages ({page_tokens} tokens) through "
+        f"embed_dataset, each model warm (bf16 {QWEN35_PAGES / t_embed_bf16 * 60:.0f} pages/min, stored int8 "
+        f"{QWEN35_PAGES / t_embed_int8 * 60:.0f}); a {index.num_docs}-doc x {index.doc_tokens}-token two-tier int8 "
+        f"index behind make_handler: each of {len(QWEN35_PLANTED)} planted pages at rank 1 on the tiered and the exact "
+        f"route of /search_text; serve.py --checkpoint --family colqwen3_5 (stored int8) started in {t_serve:.1f} s "
+        f"and found two; launches {launches}, K6 by head dim {by_dim}, the plain versions called K6 {plain_k6[0]}, "
+        f"Q2 {plain_q2[0]} times")
+    held_k = hold_k123(index, served_queries(planted_q, device))
+    k123 = {k: held_k[k] for k in ("k1_err", "k2_err", "k3_err")}
+    log(f"phase qwen3.5: K1, K2 and K3 against their plain versions on the index ({index.num_docs} docs x "
+        f"Np={index.doc_tokens}): max abs err K1 {k123['k1_err']:.3g} (bit for bit), K2 {k123['k2_err']:.3g}, K3 "
+        f"{k123['k3_err']:.3g} (rtol {RTOL}, atol {ATOL})")
+    del index, held_k, docs, filler
+    torch.cuda.empty_cache()
+
+    # checks beside the path (not counted): both bf16 routes against the plain route in fp32, stored int8 vs bf16
+    from colpali_tpu_torch.models.qwen3_5 import ColQwen3_5
+
+    fp32 = ColQwen3_5(cfg, device=device, dtype=torch.float32).eval()
+    fp32.load_state_dict(model.state_dict())
+    enc32 = QueryEncoder(fp32, processor)
+    route = dict(
+        pages=fp32_witness_check(f"ColQwen3_5 page forward ({PAGE_BATCH} pages)",
+                                 lambda: embed_dataset(model, processor, batch, batch_size=PAGE_BATCH),
+                                 lambda: embed_dataset(fp32, processor, batch, batch_size=PAGE_BATCH)),
+        queries=fp32_witness_check(f"ColQwen3_5 query forward ({len(QUERIES)} queries)",
+                                   lambda: encoders["bf16"].encode(QUERIES), lambda: enc32.encode(QUERIES)))
+    del fp32, enc32
+    torch.cuda.empty_cache()
+    accuracy = dict(layerwise=layerwise_int8_check(model, qmodel, feed))
+    for label, got, want in (("pages", embs["int8"][:PAGE_BATCH], embs["bf16"][:PAGE_BATCH]),
+                             ("queries", encoders["int8"].encode(QUERIES), encoders["bf16"].encode(QUERIES))):
+        cos = _cos(np.concatenate(got), np.concatenate(want))
+        accuracy[label] = dict(tokens=len(cos), mean_cos=float(cos.mean()), min_cos=float(cos.min()))
+        log(f"  {label}, stored int8 vs bf16 end to end (read, not held: see layerwise_int8_check): {len(cos)} tokens, "
+            f"mean cos {cos.mean():.6f}, min {cos.min():.6f}")
+
+    # end to end, bf16 and stored int8 in turns: one forward of 8 pages (CUDA events), encode x1 / x8
+    e2e = {}
+    for label in ("bf16", "int8", "int8 again", "bf16 again"):
+        m, enc = (model, encoders["bf16"]) if label.startswith("bf16") else (qmodel, encoders["int8"])
+        r = dict(page_forward_ms=forward_ms(m, feed))
+        for b_, texts in (("x1", QUERIES[:1]), ("x8", QUERIES)):
+            enc.encode(texts)
+            walls = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                enc.encode(texts)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            r[f"encode_{b_}_ms"] = float(np.median(walls))
+        r["pages_per_min_forward"] = PAGE_BATCH / r["page_forward_ms"] * 6e4
+        e2e[label] = r
+        log(f"  {label} ({smi}): forward of {PAGE_BATCH} pages {r['page_forward_ms']:.1f} ms "
+            f"({r['pages_per_min_forward']:.0f} pages/min of forward alone), encode x1 {r['encode_x1_ms']:.2f} ms, "
+            f"x8 {r['encode_x8_ms']:.2f} ms")
+    with torch.inference_mode():
+        profiles = {label: kernel_breakdown(f"one {label} ColQwen3_5 forward of {PAGE_BATCH} pages",
+                                            lambda m=m: m(**feed)) for label, m in (("bf16", model),
+                                                                                   ("stored-int8", qmodel))}
+    for label, prof in profiles.items():
+        if prof.get("kernels_ms"):
+            prof["q2_share"] = prof["Q2"] / prof["kernels_ms"]
+            log(f"  Q2's share of the {label} forward's kernel time: {prof['q2_share']:.1%} ({prof['Q2']:.1f} ms of "
+                f"{prof['kernels_ms']:.1f} ms, {n_linear} launches)")
+    query_feed = processor.process_queries(QUERIES)
+    del encoders, qmodel, embs
+    torch.cuda.empty_cache()
+
+    # BiQwen3_5 at full width on the checkpoint's backbone: the kernel route against the plain route and fp32
+    bmodel = BiQwen3_5(cfg, device=device, dtype=torch.bfloat16).eval()
+    bmodel.load_state_dict({k: x for k, x in model.state_dict().items() if k.startswith("model.")})
+    del model
+    torch.cuda.empty_cache()
+    bproc = BiQwen3_5Processor.from_pretrained(ckpt, device=device, max_num_visual_tokens=768)
+    fp32 = BiQwen3_5(cfg, device=device, dtype=torch.float32).eval()
+    fp32.load_state_dict(bmodel.state_dict())
+
+    def vectors(m):
+        with torch.inference_mode():
+            return [m(**{k: torch.as_tensor(x).to(device) for k, x in f.items() if k != "image_grid_thw"})
+                    .float().cpu().numpy() for f in (feed, query_feed)]
+
+    bi = fp32_witness_check("BiQwen3_5 (default config, last pooling)", lambda: vectors(bmodel), lambda: vectors(fp32))
+    page_vecs, query_vecs = vectors(bmodel)
+    for i, p in enumerate(BI_PLANTED):  # page p's vector replaced by query i's: the score finds it at rank 1
+        page_vecs[p] = query_vecs[i]
+    bi["top"] = bproc.score(list(query_vecs[: len(BI_PLANTED)]), list(page_vecs)).argmax(axis=1).tolist()
+    if bi["top"] != list(BI_PLANTED) or page_vecs.shape[1] != t.hidden_size:
+        raise AssertionError(f"BiQwen3_5: score's rank 1 {bi['top']}, planted {list(BI_PLANTED)}; vectors of "
+                             f"{page_vecs.shape[1]}")
+    log(f"  BiQwen3_5: {len(page_vecs)} page and {len(query_vecs)} query vectors of {page_vecs.shape[1]}; its "
+        f"processor's score finds each planted page at rank 1 {bi['top']}")
+    del bmodel, fp32, feed, query_feed
+    torch.cuda.empty_cache()
+    extra.update(q2=q2, k123=k123, params=n_params, stored_int8_layers=stored, weight_bytes_int8=bytes_int8,
+                 weight_bytes_bf16=bytes_bf16, page_tokens=page_tokens, query_tokens=query_tokens, route_check=route,
+                 int8_vs_bf16=accuracy, end_to_end=e2e, page_profile=profiles, biqwen3_5=bi,
+                 per_page_forward=dict(k6_by_head_dim={str(d): n for d, n in per_page[0].items()}, q2=per_page[1]),
+                 per_query_forward=dict(k6_by_head_dim={}, q2=per_query[1]),
+                 launches_by_head_dim={str(d): n for d, n in by_dim.items()},
+                 pages_per_min=dict(bf16=QWEN35_PAGES / t_embed_bf16 * 60, int8=QWEN35_PAGES / t_embed_int8 * 60),
+                 write_load_seconds=dict(write=t_write, bf16=t_bf16, int8=t_int8))
+    extra["seconds"] = time.perf_counter() - t_phase
+    log(f"phase qwen3.5: {extra['seconds']:.1f} s")
+    timings = {"gated_delta_rule": dict(q2["page_bf16"], query=q2["query_bf16"]),
+               "quantize_rows": dict(shapes=q1_rows), "int8_gemm": dict(shapes=q1_gemms)}
+    return launches, timings, extra
 
 
 def main() -> int:
@@ -6910,6 +7412,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as mvb_dir:  # phase 16's ModernVBERT-base checkpoint, which phase 17 trains
         mvb_launches, mvb_timings, mvb_extra = timed("16 ModernVBert family", phase_modernvbert, device, smi, mvb_dir)
         mt_launches, mt_extra = timed("17 ModernVBert training", phase_modernvbert_training, device, smi, mvb_dir)
+    free_memory("phase qwen3.5")
+    with tempfile.TemporaryDirectory() as q35_dir:  # phase 19's checkpoint
+        q35_launches, q35_timings, q35_extra = timed("19 Qwen3.5 family", phase_qwen35, device, smi, q35_dir)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     timings["flash_attention"] = dict(k6["siglip"], gemma_page=k6["gemma_page"], gemma_query=k6["gemma_query"])
     timings["flash_attention_bwd"] = dict(k6_bwd["gemma_page"], gemma_query=k6_bwd["gemma_query"],
@@ -6992,6 +7497,16 @@ def main() -> int:
             entry["launches_pooling_slice"] = pool_launches[name]
         if name in pool_timings:  # K1-K3 at the pooled page length (Np = 352), K3 also over 1-token docs (Np = 16)
             entry["pooled"] = pool_timings[name]
+        if name == "gated_delta_rule":  # Q2: over phase 19's path alone
+            entry.update(launches=q35_launches[name], launches_over="phase 19: 64 pages embedded by the bf16 and the "
+                                                                    "stored-int8 models, /search_text and serve.py")
+            timings[name] = q35_timings[name]
+        elif name in q35_launches:  # over phase 19's path: ColQwen3_5's pages, /search_text and serve.py
+            entry["launches_qwen35_slice"] = q35_launches[name]
+        if name == "flash_attention":  # phase 19's K6 launches by head dim (the Qwen3-VL-4B tower, D=72 alone)
+            entry["launches_qwen35_by_head_dim"] = q35_extra["launches_by_head_dim"]
+        elif name in ("quantize_rows", "int8_gemm"):  # Q1a/Q1b at the decoder's (M, K, N)
+            entry["qwen35"] = q35_timings[name]
         kernels.append(dict(entry, **timings[name]))
     print(json.dumps({"kernels": kernels, "pages_per_min": extra["pages_per_min"],
                       "forward_check": extra["forward_check"], "page_profile": extra["page_profile"],
@@ -6999,7 +7514,7 @@ def main() -> int:
                       "qwen_training": qt_extra, "colsmol": smol_extra, "colsmol_training": st_extra,
                       "gemma3": gemma_extra, "gemma3_training": gt_extra, "qwen3": qwen3_extra,
                       "qwen3_training": q3t_extra, "modernvbert": mvb_extra, "modernvbert_training": mt_extra,
-                      "pooling": pool_extra,
+                      "pooling": pool_extra, "qwen3_5": q35_extra,
                       "phase_seconds": seconds, "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

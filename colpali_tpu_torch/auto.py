@@ -11,9 +11,10 @@ processor with the family's ``from_pretrained``::
 
 The port holds the weights in the module, so it returns ``(model,
 processor)`` where JAX returns ``(model, variables, processor)``. The
-``colpali``, ``colqwen2``, ``colqwen2_5``, ``colqwen3``, ``colidefics3``,
-``colgemma3`` and ``colmodernvbert`` families are ported (their Col models, as in JAX: a Bi model is built from its class);
-the other families are detected and raise. No hub download is made.
+``colpali``, ``colqwen2``, ``colqwen2_5``, ``colqwen3``, ``colqwen3_5``,
+``colidefics3``, ``colgemma3`` and ``colmodernvbert`` families are ported
+(their Col models, as in JAX: a Bi model is built from its class); the
+other family (``colqwen_omni``) is detected and raises. No hub download is made.
 """
 
 from __future__ import annotations
@@ -47,6 +48,9 @@ _PORTED: Dict[str, Tuple[str, str, str, str, str, int, Dict[str, Any]]] = {
                    "export_colqwen25_state_dict", 128, {"max_num_visual_tokens": 768}),
     "colqwen3": ("models.qwen3_vl.ColQwen3", "models.qwen3_vl.Qwen3VLConfig", "processors.qwen3_vl.ColQwen3Processor",
                  "load_colqwen3_params", "export_colqwen3_state_dict", 320, {"max_num_visual_tokens": 768}),
+    "colqwen3_5": ("models.qwen3_5.ColQwen3_5", "models.qwen3_5.Qwen35VLConfig",
+                   "processors.qwen3_vl.ColQwen3_5Processor", "load_colqwen35_params", "export_colqwen35_state_dict",
+                   128, {"max_num_visual_tokens": 768}),
     "colidefics3": ("models.idefics3.ColIdefics3", "models.idefics3.Idefics3Config",
                     "processors.idefics3.ColIdefics3Processor", "load_colidefics3_params",
                     "export_colidefics3_state_dict", 128, {}),
@@ -57,7 +61,7 @@ _PORTED: Dict[str, Tuple[str, str, str, str, str, int, Dict[str, Any]]] = {
                        "export_colmodernvbert_state_dict", 128, {}),
 }
 # where each family that is not ported yet waits in ROADMAP.md
-_NOT_PORTED = {f: "Queue 1 item 8" for f in ("colqwen3_5", "colqwen_omni")}
+_NOT_PORTED = {"colqwen_omni": "Queue 1 item 8"}
 
 
 def _resolve(dotted: str):

@@ -1,7 +1,7 @@
 """Carry a JAX parameter tree over to the port's state dict.
 
 The JAX package's ``ColPali``, ``ColQwen2``, ``ColQwen2_5``, ``ColQwen3``,
-``ColIdefics3``, ``ColGemma3`` or ``ColModernVBert`` params, or those of a Bi
+``ColQwen3_5``, ``ColIdefics3``, ``ColGemma3`` or ``ColModernVBert`` params, or those of a Bi
 model (``DenseHead``'s ``head/proj`` included) or of ``ModernVBertForMaskedLM``, a nested dict with numpy leaves as ``jax.tree.map(np.asarray,
 variables)`` gives them, become the state dict of the port's model of the
 same name:
@@ -19,6 +19,13 @@ same name:
 - Qwen3-VL's learned position table ``pos_embed/embedding`` becomes
   ``pos_embed.weight`` and its ``deepstack_merger_{k}`` keep their names;
 - unrolled ``layers_{i}`` and ``blocks_{i}`` become ``layers.{i}`` and ``blocks.{i}``;
+  a scanned stack (``scan_layers=True``: ``layers/layer/...`` or
+  ``blocks/layer/...`` with a leading layer axis) is unrolled first, and so
+  is Qwen3.5's stack of hybrid periods (``layers/layer/sub_{j}/...`` with a
+  leading period axis: period ``p``'s ``sub_{j}`` is layer ``p * P + j``);
+- Qwen3.5's raw leaves (``conv1d_kernel (K, C)``, ``A_log``, ``dt_bias``,
+  ``norm_weight`` and the stacked experts ``gate_proj``, ``up_proj`` and
+  ``down_proj``) are taken as they are;
 - a stored-int8 tree (``quantize_params``' ``(qp, qc)``): each int8
   ``kernel (K, N)`` becomes the int8 ``weight (N, K)`` and the ``quant``
   collection's ``kernel_scale (1, N)`` its fp32 ``weight_scale (N,)``; a
@@ -62,6 +69,38 @@ def _to_tensor(leaf: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
+def _leading(tree: Mapping[str, Any]) -> int:
+    return next(np.shape(leaf)[0] for leaf in _flatten(tree).values())
+
+
+def _take(tree: Mapping[str, Any], i: int) -> Dict[str, Any]:
+    return {k: _take(v, i) if isinstance(v, Mapping) else np.asarray(v)[i] for k, v in tree.items()}
+
+
+def unroll_scanned(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX tree with scanned stacks -> the unrolled layout: ``name/layer``
+    (a leading layer axis) becomes ``name_{i}``, and ``name/layer/sub_{j}``
+    (a leading period axis over ``P`` layers) ``name_{p * P + j}``; other
+    nodes are kept."""
+    out: Dict[str, Any] = {}
+    for key, value in tree.items():
+        if not isinstance(value, Mapping):
+            out[key] = value
+        elif set(value) == {"layer"} and isinstance(value["layer"], Mapping):
+            body = value["layer"]
+            subs = [f"sub_{j}" for j in range(len(body))]
+            if set(body) == set(subs):
+                for p in range(_leading(body)):
+                    for j, sub in enumerate(subs):
+                        out[f"{key}_{p * len(subs) + j}"] = _take(body[sub], p)
+            else:
+                for i in range(_leading(body)):
+                    out[f"{key}_{i}"] = _take(body, i)
+        else:
+            out[key] = unroll_scanned(value)
+    return out
+
+
 def state_dict_from_jax(params: Mapping[str, Any],
                         quant: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
     """JAX model params -> state dict. ``params`` is the params tree, or the
@@ -69,15 +108,15 @@ def state_dict_from_jax(params: Mapping[str, Any],
     ``quant``: the ``kernel_scale`` collection of a stored-int8 tree."""
     if set(params) <= {"params", "quant"} and "params" in params:
         params, quant = params["params"], params.get("quant", quant)
-    scales = {path[:-1]: leaf for path, leaf in _flatten(quant or {}).items()}
+    scales = {path[:-1]: leaf for path, leaf in _flatten(unroll_scanned(quant or {})).items()}
     state: Dict[str, torch.Tensor] = {}
-    for path, leaf in {**_flatten(params), **{(*p, "kernel_scale"): v for p, v in scales.items()}}.items():
+    flat = _flatten(unroll_scanned(params))
+    for path, leaf in {**flat, **{(*p, "kernel_scale"): v for p, v in scales.items()}}.items():
         joined = "/".join(path)
         if not joined.startswith(_CONVERTED):
             raise ValueError(f"unexpected parameter {joined!r}")
         if "layers" in path or "blocks" in path:
-            raise ValueError(f"{joined!r}: scanned (stacked) layers are not supported; "
-                             "build the JAX model with scan_layers=False")
+            raise ValueError(f"{joined!r}: a stacked layer tree that is not a scanned stack")
         tensor = _to_tensor(leaf)
         *parts, last = path
         if last == "kernel":

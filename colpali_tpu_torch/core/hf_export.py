@@ -31,7 +31,9 @@ from colpali_tpu_torch.core.hf_loader import (
     QWEN2_VL_RULES,
     QWEN25_VL_RULES,
     QWEN3_VL_RULES,
+    QWEN35_RULES,
     _RuleT,
+    t_conv1d_depthwise,
     t_conv2d,
     t_conv3d_patch,
     t_id,
@@ -54,7 +56,8 @@ def _inv_conv3d_patch(w: torch.Tensor, ctx: Mapping[str, Any]) -> torch.Tensor:
 
 
 _INVERSES: Dict[Callable, Callable[[torch.Tensor, Mapping[str, Any]], torch.Tensor]] = {
-    t_id: lambda w, ctx: w, t_conv2d: _inv_conv2d, t_conv3d_patch: _inv_conv3d_patch}
+    t_id: lambda w, ctx: w, t_conv2d: _inv_conv2d, t_conv3d_patch: _inv_conv3d_patch,
+    t_conv1d_depthwise: lambda w, ctx: w.T[:, None, :].contiguous()}  # (K, C) -> torch Conv1d (C, 1, K)
 
 
 def _matching_paren(s: str, start: int) -> int:
@@ -212,6 +215,34 @@ def export_colqwen3_state_dict(state_dict: Mapping[str, torch.Tensor], channels:
     torch-layout state dict (the vision qkv fused, as HF Qwen3-VL ships it;
     the deepstack mergers as ``deepstack_merger_list.{k}``)."""
     return _export_qwen(state_dict, QWEN3_VL_RULES, channels, temporal_patch_size, patch_size, strict)
+
+
+def unstack_expert_weights(state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Inverse of ``hf_loader.stack_expert_weights`` on an exported state
+    dict: a stacked ``...mlp.experts.{gate,up,down}_proj`` ``(E, d_in,
+    d_out)`` becomes E per-expert ``...mlp.experts.{e}.*_proj.weight``
+    ``(d_out, d_in)``."""
+    pat = re.compile(r"(language_model\.layers\.\d+\.mlp\.experts)\.(gate|up|down)_proj")
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in state.items():
+        m = pat.fullmatch(key)
+        if m is None:
+            out[key] = value
+            continue
+        for e in range(value.shape[0]):
+            out[f"{m.group(1)}.{e}.{m.group(2)}_proj.weight"] = value[e].T.contiguous()
+    return out
+
+
+def export_colqwen35_state_dict(state_dict: Mapping[str, torch.Tensor], channels: int = 3,
+                                temporal_patch_size: int = 2, patch_size: int = 16,
+                                strict: bool = True) -> Dict[str, torch.Tensor]:
+    """The port's ``ColQwen3_5`` (or ``BiQwen3_5``) state dict -> HF
+    torch-layout state dict: the conv kernels back to ``(C, 1, K)``, the
+    stacked experts split per expert, the vision qkv fused."""
+    state = export_state_dict(state_dict, QWEN35_RULES, strict=strict,
+                              ctx=_conv3d_ctx(channels, temporal_patch_size, patch_size))
+    return dress_keys_modern(fuse_qkv(unstack_expert_weights(state)), ("visual", "language_model"))
 
 
 def export_colidefics3_state_dict(state_dict: Mapping[str, torch.Tensor],

@@ -1,6 +1,6 @@
 """HF checkpoint -> the port's state dict (counterpart of
 :mod:`colpali_tpu.core.hf_loader`: the PaliGemma, Qwen2-VL, Qwen3-VL,
-Idefics3, Gemma3 and ModernVBert families).
+Qwen3.5, Idefics3, Gemma3 and ModernVBert families).
 
 Checkpoint keys are first normalized across transformers-version layouts
 and merged-LoRA exports (:data:`PALIGEMMA_KEY_REMAPS`, unmerged LoRA
@@ -12,7 +12,9 @@ purpose. The port keeps torch's layouts (``nn.Linear`` weights are ``(out,
 in)`` as in the checkpoint), except the patch convolutions, which the port
 runs as products: SigLIP's conv weight ``(O, C, p, p)`` becomes ``(O, p * p
 * C)`` in ``(kh, kw, c)`` order, Qwen's Conv3d ``(O, C, T, p, p)`` becomes
-``(O, C * T * p * p)``. Qwen's fused vision ``qkv`` and ModernBERT's fused
+``(O, C * T * p * p)``, and Qwen3.5's depthwise Conv1d ``(C, 1, K)`` the
+JAX package's ``(K, C)`` kernel; Qwen3.5's per-expert MoE weights are
+stacked into ``(E, d_in, d_out)`` arrays. Qwen's fused vision ``qkv`` and ModernBERT's fused
 ``Wqkv`` are split first.
 
 Weights are read by the port's own safetensors reader
@@ -298,6 +300,78 @@ def load_colqwen3_params(checkpoint_dir: str, strict: bool = True) -> Dict[str, 
     """A (Col)Qwen3-VL HF checkpoint directory -> the port's ``ColQwen3``
     state dict (in the checkpoint's dtypes, on the CPU)."""
     return _load_qwen(checkpoint_dir, QWEN3_VL_RULES, strict)
+
+
+# --- the Qwen3.5 family --------------------------------------------------------
+
+def t_conv1d_depthwise(w: torch.Tensor) -> torch.Tensor:
+    """torch depthwise Conv1d weight ``(C, 1, K)`` -> the JAX package's kernel ``(K, C)``."""
+    return w[:, 0, :].T.contiguous()
+
+
+QWEN35_RULES: Tuple[_RuleT, ...] = (
+    (r"language_model\.embed_tokens\.weight", "model.language_model.embed_tokens.weight", t_id),
+    (_QLAYER + r"(input_layernorm|post_attention_layernorm)\.weight", "model.language_model.layers.{i}.{j}.weight",
+     t_id),
+    # --- gated full attention ---
+    (_QLAYER + r"self_attn\.(q|k|v|o)_proj\.weight", "model.language_model.layers.{i}.self_attn.{j}_proj.weight",
+     t_id),
+    (_QLAYER + r"self_attn\.(q|k)_norm\.weight", "model.language_model.layers.{i}.self_attn.{j}_norm.weight", t_id),
+    # --- GatedDeltaNet ---
+    (_QLAYER + r"linear_attn\.in_proj_(qkvz|ba)\.weight",
+     "model.language_model.layers.{i}.linear_attn.in_proj_{j}.weight", t_id),
+    (_QLAYER + r"linear_attn\.conv1d\.weight", "model.language_model.layers.{i}.linear_attn.conv1d_kernel",
+     t_conv1d_depthwise),
+    (_QLAYER + r"linear_attn\.A_log", "model.language_model.layers.{i}.linear_attn.A_log", t_id),
+    (_QLAYER + r"linear_attn\.dt_bias", "model.language_model.layers.{i}.linear_attn.dt_bias", t_id),
+    (_QLAYER + r"linear_attn\.norm\.weight", "model.language_model.layers.{i}.linear_attn.norm_weight", t_id),
+    (_QLAYER + r"linear_attn\.out_proj\.weight", "model.language_model.layers.{i}.linear_attn.out_proj.weight", t_id),
+    # --- dense MLPs, and MoE: the router, the shared expert and its gate, the experts stacked by
+    # stack_expert_weights before the rules (per-expert keys never reach them) ---
+    (_QLAYER + r"mlp\.(gate|up|down)_proj\.weight", "model.language_model.layers.{i}.mlp.{j}_proj.weight", t_id),
+    (_QLAYER + r"mlp\.gate\.weight", "model.language_model.layers.{i}.mlp.gate.weight", t_id),
+    (_QLAYER + r"mlp\.shared_expert_gate\.weight", "model.language_model.layers.{i}.mlp.shared_expert_gate.weight",
+     t_id),
+    (_QLAYER + r"mlp\.shared_expert\.(gate|up|down)_proj\.weight",
+     "model.language_model.layers.{i}.mlp.shared_expert.{j}_proj.weight", t_id),
+    (_QLAYER + r"mlp\.experts\.(gate|up|down)_proj", "model.language_model.layers.{i}.mlp.experts.{j}_proj", t_id),
+    (r"language_model\.norm\.weight", "model.language_model.norm.weight", t_id),
+    # --- retrieval head ---
+    (r"custom_text_proj\.weight", "head.custom_text_proj.weight", t_id),
+    (r"custom_text_proj\.bias", "head.custom_text_proj.bias", t_id),
+    # --- dropped ---
+    (r"lm_head\.weight", "", t_id),
+    (r".*rotary_emb\.inv_freq", "", t_id),
+) + tuple(rule for rule in QWEN3_VL_RULES if rule[0].startswith(r"visual\."))  # Qwen3-VL's tower, deepstack included
+
+
+def stack_expert_weights(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Replace HF's per-expert ``language_model.layers.{i}.mlp.experts.{e}.
+    {gate,up,down}_proj.weight`` ``(d_out, d_in)`` by one stacked
+    ``language_model.layers.{i}.mlp.experts.{gate,up,down}_proj`` ``(E,
+    d_in, d_out)`` each, the layout of ``StackedExperts``."""
+    pat = re.compile(r"(language_model\.layers\.\d+\.mlp\.experts)\.(\d+)\.(gate|up|down)_proj\.weight")
+    groups: Dict[Tuple[str, str], Dict[int, torch.Tensor]] = {}
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in state_dict.items():
+        m = pat.fullmatch(key)
+        if m is None:
+            out[key] = value
+        else:
+            groups.setdefault((m.group(1), m.group(3)), {})[int(m.group(2))] = value
+    for (base, proj), by_expert in groups.items():
+        if sorted(by_expert) != list(range(len(by_expert))):
+            raise ValueError(f"{base}: experts {sorted(by_expert)} are not 0..{len(by_expert) - 1}")
+        out[f"{base}.{proj}_proj"] = torch.stack([by_expert[e].T for e in range(len(by_expert))]).contiguous()
+    return out
+
+
+def load_colqwen35_params(checkpoint_dir: str, strict: bool = True) -> Dict[str, torch.Tensor]:
+    """A (Col)Qwen3.5 HF checkpoint directory -> the port's ``ColQwen3_5``
+    (or ``BiQwen3_5``) state dict (in the checkpoint's dtypes, on the CPU),
+    MoE experts stacked."""
+    state = split_fused_qkv(normalize_keys(load_safetensors_dir(checkpoint_dir), QWEN2_VL_KEY_REMAPS))
+    return convert_state_dict(stack_expert_weights(state), QWEN35_RULES, (), strict=strict)
 
 
 # --- the Idefics3/SmolVLM family ---------------------------------------------

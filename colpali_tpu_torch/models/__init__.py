@@ -46,6 +46,13 @@ from colpali_tpu_torch.models.qwen2_vl import (  # noqa: F401
     Qwen2VLConfig,
     Qwen2VLVisionConfig,
 )
+from colpali_tpu_torch.models.qwen3_5 import (  # noqa: F401
+    BiQwen3_5,
+    ColQwen3_5,
+    Qwen35TextConfig,
+    Qwen35VLBackbone,
+    Qwen35VLConfig,
+)
 from colpali_tpu_torch.models.qwen3_vl import (  # noqa: F401
     BiQwen3,
     ColQwen3,

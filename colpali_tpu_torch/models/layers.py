@@ -231,7 +231,7 @@ ATTN_LOGITS_BUDGET = 512 * 1024 * 1024
 
 
 def biased_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, attn_bias: torch.Tensor, scale: float,
-                     q_chunk: Optional[int] = None) -> torch.Tensor:
+                     q_chunk: Optional[int] = None, probs_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Attention under an additive bias: the JAX package's einsum path
     (``Attention`` with ``attn_bias``, XLA there, no Pallas kernel), for
     masks that segment ids cannot express (Gemma3's sliding window OR'd with
@@ -241,7 +241,8 @@ def biased_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, attn_bia
     to ``(B, Hkv, Sq, Sk)`` (``(B, 1, S, S)`` or a query-broadcast ``(B, 1,
     1, S)``). Query heads are grouped over their KV head; the logits are
     fp32 products times ``scale`` plus the bias in fp32, the softmax fp32,
-    cast to q's dtype before the product with v. Query rows are independent,
+    cast to ``probs_dtype`` (default q's dtype) before the product with v
+    (Qwen3.5 takes fp32 q and k and bf16 probabilities, as JAX does). Query rows are independent,
     so they run in chunks of ``q_chunk`` rows (default: as many as keep the
     fp32 logits under :data:`ATTN_LOGITS_BUDGET`, a multiple of 128, at
     least 128), which bounds memory at ``O(chunk * S)``."""
@@ -257,7 +258,8 @@ def biased_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, attn_bia
     for start in range(0, s, q_chunk):
         rows = slice(start, min(start + q_chunk, s))
         logits = torch.matmul(qg[:, :, :, rows], kt) * scale
-        probs = torch.softmax(logits + (bias[..., rows, :] if bias.shape[-2] > 1 else bias), dim=-1).to(q.dtype)
+        probs = torch.softmax(logits + (bias[..., rows, :] if bias.shape[-2] > 1 else bias), dim=-1).to(
+            probs_dtype or q.dtype)
         blocks.append(torch.matmul(probs, vt))
     out = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=3)  # (B, Hkv, G, S, D)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)

@@ -265,7 +265,9 @@ class Qwen3VisionTower(nn.Module):
             setattr(self, f"deepstack_merger_{k}", Qwen3VisionPatchMerger(cfg, postshuffle_norm=True, **kw))
         self.merger = Qwen3VisionPatchMerger(cfg, **kw)
 
-    def forward(self, patches, hpos, wpos, patch_mask, pos_idx, pos_weight):
+    def forward(self, patches, hpos, wpos, patch_mask, pos_idx, pos_weight, deepstack: bool = True):
+        """``deepstack=False`` skips the deepstack mergers (Qwen3.5 loads
+        them but does not use their features) and returns ``[]`` for them."""
         cfg = self.config
         x = self.patch_embed(patches.to(self.dtype))
         taps = self.pos_embed(pos_idx.long())  # (B, P, 4, hidden)
@@ -275,7 +277,7 @@ class Qwen3VisionTower(nn.Module):
         tapped = []
         for i, block in enumerate(self.blocks):
             x = run_layer(block, self.remat, x, segments, rope)
-            if i in cfg.deepstack_visual_indexes:
+            if deepstack and i in cfg.deepstack_visual_indexes:
                 tapped.append(x)
         deepstack = [getattr(self, f"deepstack_merger_{k}")(tap) for k, tap in enumerate(tapped)]
         return self.merger(x), deepstack

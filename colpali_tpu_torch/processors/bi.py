@@ -12,7 +12,7 @@ from colpali_tpu_torch.processors.colpali import ColPaliProcessor
 from colpali_tpu_torch.processors.idefics3 import ColIdefics3Processor
 from colpali_tpu_torch.processors.qwen2_5_vl import ColQwen2_5Processor
 from colpali_tpu_torch.processors.qwen2_vl import ColQwen2Processor
-from colpali_tpu_torch.processors.qwen3_vl import ColQwen3Processor
+from colpali_tpu_torch.processors.qwen3_vl import ColQwen3_5Processor, ColQwen3Processor
 
 
 class BiPaliProcessor(ColPaliProcessor):
@@ -38,6 +38,13 @@ class BiQwen2_5_Processor(ColQwen2_5Processor):  # noqa: N801 (the reference's n
 
 class BiQwen3Processor(ColQwen3Processor):
     """reference processing_biqwen3.py:9-37."""
+
+    def score(self, qs, ps, **kwargs) -> np.ndarray:
+        return self.score_single_vector(qs, ps)
+
+
+class BiQwen3_5Processor(ColQwen3_5Processor):  # noqa: N801 (the reference's name)
+    """reference processing_biqwen3_5.py:9-37."""
 
     def score(self, qs, ps, **kwargs) -> np.ndarray:
         return self.score_single_vector(qs, ps)

@@ -62,3 +62,9 @@ class ColQwen3Processor(ColQwen2Processor):
         batch["pos_idx"] = pos_idx
         batch["pos_weight"] = pos_weight
         return batch
+
+
+class ColQwen3_5Processor(ColQwen3Processor):  # noqa: N801 (the reference's name)
+    """The Qwen3.5 retriever's processor (reference
+    processing_colqwen3_5.py:12-121): ColQwen3's pipeline unchanged, the
+    Qwen3.5 backbone reusing Qwen3-VL's vision tower and geometry."""

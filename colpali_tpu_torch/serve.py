@@ -187,8 +187,8 @@ def make_server(argv=None) -> RetrievalServer:
                         help="after building, persist the packed index here and keep serving")
     parser.add_argument("--checkpoint", help="HF-format retriever checkpoint dir: loads the model and "
                         "processor in-process and enables POST /search_text")
-    parser.add_argument("--family", help="checkpoint family: colpali, colqwen2, colqwen2_5, colqwen3, colidefics3, "
-                        "colgemma3 or colmodernvbert (else detected from its config.json)")
+    parser.add_argument("--family", help="checkpoint family: colpali, colqwen2, colqwen2_5, colqwen3, colqwen3_5, "
+                        "colidefics3, colgemma3 or colmodernvbert (else detected from its config.json)")
     parser.add_argument("--no-quantize", action="store_true",
                         help="with --checkpoint: serve the checkpoint's bf16 weights instead of stored int8")
     args = parser.parse_args(argv)

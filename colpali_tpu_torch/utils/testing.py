@@ -270,6 +270,75 @@ def write_qwen3_checkpoint(directory: str, config, seed: int = 0, words: Sequenc
     qwen_word_tokenizer([w for w in (*prompt, *words) if "<|" not in w]).save_pretrained(directory)
 
 
+def qwen35_hf_config(config) -> dict:
+    """The HF ``config.json`` of a ``Qwen35VLConfig``, laid out as
+    ``scripts/gate_families.py`` writes it: ``vision_config``,
+    ``text_config`` (M-RoPE sections, when set, under ``rope_scaling``),
+    ``dim`` and the special token ids."""
+    text = {k: list(v) if isinstance(v, tuple) else _hf_number(v) for k, v in dataclasses.asdict(config.text).items()
+            if k not in ("mrope_section", "moe_capacity_factor") and v is not None}
+    if config.text.mrope_section:
+        text["rope_scaling"] = {"rope_type": "default", "mrope_section": list(config.text.mrope_section)}
+    vision = {k: list(v) if isinstance(v, tuple) else _hf_number(v)
+              for k, v in dataclasses.asdict(config.vision).items()}
+    return {"model_type": "qwen3_5", "architectures": ["ColQwen3_5"], "vision_config": vision, "text_config": text,
+            "dim": config.dim, "image_token_id": config.image_token_id,
+            "vision_start_token_id": config.vision_start_token_id}
+
+
+@torch.no_grad()
+def _qwen35_init(model, generator: torch.Generator):
+    """:func:`~colpali_tpu_torch.models.common.hf_init_`, and HF Qwen3-Next's
+    draws for the parameters outside linears and norms: each GatedDeltaNet's
+    conv kernel from uniform(+-K^-0.5) (a Conv1d's default), ``A_log`` =
+    log(uniform(0, 16)), ``dt_bias`` and ``norm_weight`` one; stacked
+    experts from normal(0, 0.02)."""
+    from colpali_tpu_torch.models.common import hf_init_
+    from colpali_tpu_torch.models.qwen3_5 import GatedDeltaNet, StackedExperts
+
+    hf_init_(model, generator)
+    for m in model.modules():
+        if isinstance(m, GatedDeltaNet):
+            k = m.conv1d_kernel.shape[0]
+            m.conv1d_kernel.uniform_(-k**-0.5, k**-0.5, generator=generator)
+            m.A_log.copy_(torch.empty_like(m.A_log).uniform_(0.0, 16.0, generator=generator).log())
+            m.dt_bias.fill_(1.0)
+            m.norm_weight.fill_(1.0)
+        elif isinstance(m, StackedExperts):
+            for p in (m.gate_proj, m.up_proj, m.down_proj):
+                p.normal_(0.0, 0.02, generator=generator)
+    return model
+
+
+def write_qwen35_checkpoint(directory: str, config, seed: int = 0, words: Sequence[str] = (),
+                            device="cuda") -> None:
+    """A ColQwen3_5 of ``config`` with seeded random bf16 weights
+    (HF Qwen3-Next's draws, :func:`_qwen35_init`), built on ``device``, as an HF-format checkpoint
+    in ``directory``: ``model.safetensors`` by the port's exporter,
+    ``config.json`` (:func:`qwen35_hf_config`), ``preprocessor_config.json``
+    (as :func:`write_qwen3_checkpoint` writes it) and
+    :func:`qwen_word_tokenizer`'s files over the page prompt's words and
+    ``words``."""
+    from colpali_tpu_torch.models.qwen3_5 import ColQwen3_5
+    from colpali_tpu_torch.processors.qwen2_vl import ColQwen2Processor
+    from colpali_tpu_torch.training.checkpointing import save_pretrained
+
+    model = ColQwen3_5(config, device=device, dtype=torch.bfloat16)
+    _qwen35_init(model, torch.Generator(device=device).manual_seed(seed))
+    save_pretrained(directory, model.state_dict(), config=config)
+    del model
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(qwen35_hf_config(config), f)
+    v = config.vision
+    with open(os.path.join(directory, "preprocessor_config.json"), "w") as f:
+        json.dump({"patch_size": v.patch_size, "merge_size": v.spatial_merge_size,
+                   "temporal_patch_size": v.temporal_patch_size,
+                   "size": {"shortest_edge": 65536, "longest_edge": 16777216},
+                   "image_mean": [0.5, 0.5, 0.5], "image_std": [0.5, 0.5, 0.5]}, f)
+    prompt = ColQwen2Processor.visual_prompt_prefix.replace("\n", " ").split()
+    qwen_word_tokenizer([w for w in (*prompt, *words) if "<|" not in w]).save_pretrained(directory)
+
+
 def idefics3_hf_config(config) -> dict:
     """The HF ``config.json`` of an ``Idefics3Config``: ``vision_config``,
     ``text_config`` (``head_dim`` implied by the heads, no q/k/v bias),

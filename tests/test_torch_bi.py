@@ -5,8 +5,9 @@ route (no Pallas).
 - ``DenseHead`` over every pooling mode (mean, cls, last) x projection (none
   or 24 wide) x Matryoshka cut (none or 12) on a right-padded batch: atol
   2e-5 (mean pooling sums in fp32 in both packages).
-- ``BiPali``, ``BiPaliProj``, ``BiQwen2``, ``BiQwen2_5`` and ``BiIdefics3``
-  at toy width, the JAX parameters carried over by ``core/from_jax.py``, on
+- ``BiPali``, ``BiPaliProj``, ``BiQwen2``, ``BiQwen2_5``, ``BiQwen3_5`` (a
+  GatedDeltaNet layer and a gated attention layer) and ``BiIdefics3`` at
+  toy width, the JAX parameters carried over by ``core/from_jax.py``, on
   pages and queries: atol 2e-5 on the L2-normalized vectors.
 - The Bi processors' ``score`` (``score_single_vector``) against JAX's:
   atol 1e-6 (the same fp32 products); a Bi model's HF export (by its
@@ -30,6 +31,8 @@ from colpali_tpu.models import idefics3 as ji
 from colpali_tpu.models import paligemma as jp
 from colpali_tpu.models import qwen2_5_vl as jq25
 from colpali_tpu.models import qwen2_vl as jq
+from colpali_tpu.models import qwen3_5 as jq35
+from colpali_tpu.models import qwen3_vl as jq3
 from colpali_tpu.models.common import DenseHead as JaxDenseHead
 from colpali_tpu.models.configs import DenseHeadConfig as JaxDenseHeadConfig
 from colpali_tpu.processors import bi as jbi
@@ -40,6 +43,8 @@ from colpali_tpu_torch.models import idefics3 as ti
 from colpali_tpu_torch.models import paligemma as tp
 from colpali_tpu_torch.models import qwen2_5_vl as tq25
 from colpali_tpu_torch.models import qwen2_vl as tq
+from colpali_tpu_torch.models import qwen3_5 as tq35
+from colpali_tpu_torch.models import qwen3_vl as tq3
 from colpali_tpu_torch.models.common import DenseHead
 from colpali_tpu_torch.models.configs import DenseHeadConfig
 from colpali_tpu_torch.processors import bi
@@ -180,6 +185,29 @@ def test_biqwen_matches_jax(family):
     jax_apply, variables, model = _port_from_jax(jax_model, model, pages)
     _assert_matches(jax_apply, variables, model, pages)
     _assert_matches(jax_apply, variables, model, proc.process_queries(QUERIES))
+
+
+QWEN3_VISION = dict(depth=1, hidden_size=32, num_heads=2, intermediate_size=64, out_hidden_size=48, patch_size=14,
+                    num_position_embeddings=16, deepstack_visual_indexes=(0,))
+QWEN35_TEXT = dict(vocab_size=64, hidden_size=48, intermediate_size=96, num_hidden_layers=2, num_attention_heads=4,
+                   num_key_value_heads=2, head_dim=16, linear_num_value_heads=4, linear_num_key_heads=2,
+                   linear_key_head_dim=8, linear_value_head_dim=8, linear_conv_kernel_dim=2, full_attention_interval=2)
+
+
+def test_biqwen3_5_matches_jax_and_its_processor_scores():
+    jax_cfg = jq35.Qwen35VLConfig(vision=jq3.Qwen3VLVisionConfig(**QWEN3_VISION),
+                                  text=jq35.Qwen35TextConfig(**QWEN35_TEXT), image_token_id=5, vision_start_token_id=4)
+    cfg = tq35.Qwen35VLConfig(vision=tq3.Qwen3VLVisionConfig(**QWEN3_VISION), text=tq35.Qwen35TextConfig(**QWEN35_TEXT),
+                              image_token_id=5, vision_start_token_id=4)
+    proc = bi.BiQwen3_5Processor(StubTokenizer(QWEN_SPECIALS), patch_size=14, num_grid_per_side=4,
+                                 max_num_visual_tokens=16, device="cpu")
+    pages = proc.process_images(_pages(((56, 84), (56, 56))))
+    jax_apply, variables, model = _port_from_jax(jq35.BiQwen3_5(jax_cfg), tq35.BiQwen3_5(cfg, device="cpu"), pages)
+    assert [layer.linear for layer in model.model.language_model.layers] == [True, False]
+    got = _assert_matches(jax_apply, variables, model, pages)
+    queries = _assert_matches(jax_apply, variables, model, proc.process_queries(QUERIES[:2]))
+    assert got.shape == (2, 48)
+    np.testing.assert_allclose(proc.score(list(queries), list(got)), queries @ got.T, atol=1e-5)
 
 
 @pytest.fixture(scope="module")

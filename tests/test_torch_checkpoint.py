@@ -180,10 +180,10 @@ def test_load_retriever_refuses_what_is_not_ported(ckpt, tmp_path):
     quantized, _ = load_retriever(ckpt, quantize=True, dtype=torch.float32, device="cpu")
     plain, _ = load_retriever(ckpt, dtype=torch.float32, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(quantized.state_dict().values(), plain.state_dict().values()))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):  # colqwen3_5 waits; colmodernvbert is ported
-        load_retriever(ckpt, family="colqwen3_5", device="cpu")
-    assert {"colpali", "colqwen2", "colqwen2_5", "colqwen3", "colidefics3", "colgemma3", "colmodernvbert"} <= \
-        set(_PORTED)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):  # colqwen_omni waits; colqwen3_5 is ported
+        load_retriever(ckpt, family="colqwen_omni", device="cpu")
+    assert {"colpali", "colqwen2", "colqwen2_5", "colqwen3", "colqwen3_5", "colidefics3", "colgemma3",
+            "colmodernvbert"} <= set(_PORTED)
     for cfg in ({"model_type": "paligemma"}, {"model_type": "qwen2_vl"}, {"architectures": ["ColQwen2_5Omni"]},
                 {"architectures": ["ColSmol"]}, {"model_type": "gemma3"}):
         assert detect_family(cfg) == jax_detect_family(cfg)

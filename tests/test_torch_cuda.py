@@ -1506,3 +1506,63 @@ def test_ward_on_the_card_beside_a_thread_that_pins_memory(dev):
         stop.set()
         thread.join()
     assert not errors, errors
+
+
+# Q2, the chunked gated delta rule: fp32 inputs within 1e-4 of the plain output's RMS (fp32 sums in another order,
+# the substitution in place of the triangular solve); bf16 inputs by K6's forward rule (both round the fp32 result
+# to bf16 once)
+Q2_FP32_ATOL_RMS = 1e-4
+Q2_CASES = [  # b, s, hk, hv, dv, log-decay per token
+    (2, 150, 2, 4, 128, 0.1), (1, 1, 1, 1, 64, 0.1), (8, 32, 16, 32, 128, 0.1), (2, 200, 2, 4, 192, 2.0),
+    (1, 753, 16, 32, 128, 0.3)]
+
+
+def _q2_inputs(dev, b, s, hk, hv, dv, log_decay, dtype, seed=0):
+    """q, k and v as views of one conv-output row per token, as GatedDeltaNet passes them."""
+    g_ = _gen(dev, seed)
+    key_dim = hk * 128
+    mixed = torch.randn((b, s, 2 * key_dim + hv * dv), generator=g_, device=dev).to(dtype)
+    q = mixed[..., :key_dim].view(b, s, hk, 128)
+    k = mixed[..., key_dim:2 * key_dim].view(b, s, hk, 128)
+    v = mixed[..., 2 * key_dim:].view(b, s, hv, dv)
+    g = -log_decay * (0.5 + torch.rand((b, s, hv), generator=g_, device=dev))
+    beta = torch.rand((b, s, hv), generator=g_, device=dev).to(dtype)
+    return q, k, v, g, beta
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,s,hk,hv,dv,log_decay", Q2_CASES)
+def test_q2_gated_delta_rule_matches_plain(dev, b, s, hk, hv, dv, log_decay, dtype):
+    from colpali_tpu_torch.ops.gated_delta_rule import (
+        GATED_DELTA_RULE,
+        chunk_gated_delta_rule,
+        chunk_gated_delta_rule_plain,
+    )
+
+    q, k, v, g, beta = _q2_inputs(dev, b, s, hk, hv, dv, log_decay, dtype)
+    before = GATED_DELTA_RULE.launches
+    got = chunk_gated_delta_rule(q, k, v, g, beta)
+    torch.cuda.synchronize()
+    assert GATED_DELTA_RULE.launches == before + 1 and got.dtype == dtype and got.shape == (b, s, hv, dv)
+    want = chunk_gated_delta_rule_plain(q, k, v, g, beta)
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    rms = want.float().square().mean().sqrt().item()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=Q2_FP32_ATOL_RMS * rms)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=K6_RTOL, atol=K6_ATOL_RMS * rms)
+    assert torch.equal(chunk_gated_delta_rule(q, k, v, g, beta), got)  # one order of sums
+
+
+def test_q2_refuses_a_gradient_and_what_it_does_not_take(dev):
+    from colpali_tpu_torch.ops.gated_delta_rule import chunk_gated_delta_rule
+
+    q, k, v, g, beta = _q2_inputs(dev, 1, 70, 2, 4, 128, 0.1, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        chunk_gated_delta_rule(q, k, v.detach().requires_grad_(), g, beta)
+    with torch.no_grad():
+        chunk_gated_delta_rule(q, k, v.detach().requires_grad_(), g, beta)
+    with pytest.raises(ValueError, match="Dk"):
+        chunk_gated_delta_rule(q[..., :64], k[..., :64], v, g, beta)
+    with pytest.raises(TypeError):
+        chunk_gated_delta_rule(q, k, v, g.bfloat16(), beta)

@@ -6,7 +6,7 @@ package to the other is a change of the import).
   (the same object). Modules not ported yet, and names of ported modules
   that wait (JAX's functional LoRA, the Qwen3.5 processors of
   ``processors.qwen3_vl``), are skipped.
-- The ``_target_``s of the ten training recipes resolve in the port
+- The ``_target_``s of the eleven training recipes resolve in the port
   (``configs._resolve`` reads ``colpali_tpu.`` as ``colpali_tpu_torch.``), all but
   ``utils.dataset_loading.load_train_set`` (ROADMAP.md Queue 1 item 9);
   ``load_config``, which ``python -m colpali_tpu_torch.train`` calls,
@@ -78,7 +78,7 @@ def _targets(node):
 @pytest.mark.parametrize("recipe", ["train_colpali.yaml", "train_colqwen2.yaml", "train_colqwen2_5.yaml",
                                     "train_colidefics3.yaml", "train_bipali.yaml", "train_biidefics3.yaml",
                                     "train_colgemma3.yaml", "train_bigemma3.yaml", "train_colqwen3.yaml",
-                                    "train_colmodernvbert.yaml"])
+                                    "train_colmodernvbert.yaml", "train_colqwen3_5.yaml"])
 def test_recipe_targets_resolve_in_the_port(recipe):
     targets = sorted(set(_targets(yaml.safe_load((REPO / "configs" / recipe).read_text()))))
     missing = []

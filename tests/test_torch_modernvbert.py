@@ -356,7 +356,7 @@ def test_load_retriever_and_serve_read_write_modernvbert_checkpoint_like_jax(loa
     cfg = loaded[3].config
     cfg = dataclasses.replace(cfg, additional_vocab_size=32)  # room for the grid markers of 4 x 4 tiles
     write_modernvbert_checkpoint(str(tmp_path), cfg, seed=4, words=" ".join(QUERIES).split(), device="cpu")
-    assert "colmodernvbert" in _PORTED and set(_NOT_PORTED) == {"colqwen3_5", "colqwen_omni"}
+    assert "colmodernvbert" in _PORTED and set(_NOT_PORTED) == {"colqwen_omni"}
     assert detect_family({"architectures": ["ColModernVBert"]}) == "colmodernvbert"
     model, proc = load_retriever(str(tmp_path), dtype=torch.float32, device="cpu")
     assert type(model) is tm.ColModernVBert and model.config == cfg and proc.image_token_id == cfg.image_token_id

@@ -256,7 +256,7 @@ def test_load_retriever_registry_row_matches_jax(ckpt):
     model, proc = load_retriever(ckpt, dtype=torch.float32, device="cpu")
     assert type(model) is tq.ColQwen3 and model.head.custom_text_proj.out_features == 320
     assert proc.max_pixels == 768 * 28 * 28  # max_num_visual_tokens 768 at this checkpoint's 14 px patches
-    assert "colqwen3" in _PORTED and set(_NOT_PORTED) == {"colqwen3_5", "colqwen_omni"}
+    assert "colqwen3" in _PORTED and set(_NOT_PORTED) == {"colqwen_omni"}
     for cfg in ({"model_type": "qwen3_vl"}, {"model_type": "qwen3_vl_moe"}, {"architectures": ["ColQwen3"]}):
         assert detect_family(cfg) == jax_detect_family(cfg) == "colqwen3"
 
