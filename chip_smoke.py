@@ -10,8 +10,8 @@ family, Qwen3-VL-4B (phase 14), for the ModernVBert family,
 ModernVBERT-base (phase 16), and for the Qwen3.5 family at the JAX
 package's default config (phase 19); training for ColPali-3B (phase 5), the
 Qwen2-VL family (phase 9), the Idefics3 family with the Bi models (phase
-11), the Gemma3 family (phase 13), the Qwen3-VL family (phase 15) and the
-ModernVBert family (phase 17).
+11), the Gemma3 family (phase 13), the Qwen3-VL family (phase 15), the
+ModernVBert family (phase 17) and the Qwen3.5 family (phase 20).
 
 Run from the repository root with no arguments:
 
@@ -328,7 +328,7 @@ Phases (a few lines of output each, then two JSON lines):
    through the 1-token index: K3 at Np = 16), every gold page in the top
    100 and none among the negatives; similarity maps of 4 pages against a
    float64 einsum; ``VisualRetrieverCollator(device_pixels=True)``.
-19. the Qwen3.5 family (last): ColQwen3_5 at the JAX package's default
+19. the Qwen3.5 family: ColQwen3_5 at the JAX package's default
    config at full width and depth (Qwen3-VL-4B's tower, its merger writing
    the decoder's 2,048; the hybrid decoder 48 x 2,048: 36 GatedDeltaNet
    layers, 16/32 heads of 128 and a conv of 4, and 12 gated attention
@@ -356,6 +356,29 @@ Phases (a few lines of output each, then two JSON lines):
    timed in turns, two profiles with Q2's share of the kernel time;
    BiQwen3_5 at full width on the same fp32 witness, its processor's
    ``score`` finding planted pages.
+20. Qwen3.5 training (last): Q2's backward (``csrc/gated_delta_rule_bwd.cu``)
+   against its plain backward at the page shape (B=8, the pages' prompts,
+   q/k/v strided views of the conv's output) and the query shape, in fp32
+   and bf16, each of the five gradients within 1e-3 of its RMS (a bf16 ulp
+   more for bf16 outputs), bit-equal on a second call, and a draw of 2.0
+   log-decay a token finite, timed beside its bound and its plain
+   backward; ColQwen3_5 at the default config's widths with the decoder cut
+   to ``QWEN35_TRAIN_DEPTH`` (12 of 48 layers: 9 GatedDeltaNet, 3 gated
+   attention; the tower at its 27 blocks) written by
+   ``write_qwen35_checkpoint``, read by ``load_retriever(family=
+   "colqwen3_5", remat=True, mask_non_image_embeddings=True)``; the routes
+   on fresh adapters against the plain route in fp32 (``hold_routes(
+   fp32_model=)``, and the in-batch scores and tokens, which concentrate
+   where a single loss value does not: ``route_scores_check``); 4 LoRA steps through ``ColModelTraining`` from
+   ``configs/train_colqwen3_5.yaml``'s loss and LoRA (r32, a32; batch 8
+   over 32 pages of four sizes, ``mixed_size_dataset``), step 1's loss at
+   least 0.05 from ln 8 and step 1's batch's loss moved 5% or more, Q2's backward on every GatedDeltaNet
+   layer behind the first adapter (16 launches a step) and no plain
+   version; ``evaluate()`` over 16 pages (bf16 index, K5); the merged export
+   read back by ``load_retriever`` and served; a run resumed from step 2
+   repeating step 3's loss; a step with and without remat and a profile of
+   one (Q2's backward its own class); one step over a stored-int8 frozen
+   tower; one BiQwen3_5 LoRA step at the same widths and depth.
    Each phase from 8 on logs the GiB held on the card as it starts (past 1
    GiB, with the chain of referrers that holds the largest module trees);
    every phase's seconds are logged as it ends and listed in the JSON line,
@@ -479,6 +502,9 @@ KERNELS = {
     "gated_delta_rule": dict(counter=gdr.GATED_DELTA_RULE, route="cuda",
                              source="colpali_tpu_torch/csrc/gated_delta_rule.cu",
                              replaces="colpali_tpu/models/qwen3_5.py:161"),
+    "gated_delta_rule_bwd": dict(counter=gdr.GATED_DELTA_RULE_BWD, route="cuda",
+                                 source="colpali_tpu_torch/csrc/gated_delta_rule_bwd.cu",
+                                 replaces="colpali_tpu/models/qwen3_5.py:161"),
 }
 SERVING_KERNELS = ("binary_maxsim", "gather_rerank", "maxsim_int8", "flash_attention")  # the paths of phases 3-4
 TRAINING_KERNELS = ("maxsim_bf16", "flash_attention", "flash_attention_bwd")  # phase 5's: the steps and the eval
@@ -1527,10 +1553,12 @@ def kernel_breakdown(label: str, fn) -> dict:
     if total == 0.0:
         log(f"  profile: {label} {wall_ms:.1f} ms wall; the profiler saw no device time")
         return dict(wall_ms=wall_ms)
-    classes = {"K6 forward": 0.0, "K6 backward": 0.0, "Q2": 0.0, "matmul": 0.0, "other": 0.0}
+    classes = {"K6 forward": 0.0, "K6 backward": 0.0, "Q2": 0.0, "Q2 backward": 0.0, "matmul": 0.0, "other": 0.0}
     for name, ms in kernels.items():
         if "flash_fwd_kernel" in name:
             classes["K6 forward"] += ms
+        elif "gated_delta_rule_bwd" in name:
+            classes["Q2 backward"] += ms
         elif "gated_delta_rule" in name:
             classes["Q2"] += ms
         elif "flash_bwd" in name or "delta_kernel" in name:
@@ -1939,10 +1967,10 @@ def adapter_gradient(state, batch, loss_fn, peft, seed: int):
 def route_gap(state, batch, loss_fn, peft) -> tuple:
     """:func:`adapter_gradient` (loss, flattened gradient of what ``state``
     trains, embeddings) through the kernels and through the plain route (K6
-    and its backward replaced by K6's plain version), from the same state,
-    batch and masks, and their gaps."""
+    and Q2 and their backwards replaced by their plain versions), from the
+    same state, batch and masks, and their gaps."""
     kernel = adapter_gradient(state, batch, loss_fn, peft, SEED)
-    with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
+    with plain_route():
         plain = adapter_gradient(state, batch, loss_fn, peft, SEED)
     a, b = kernel[1].double(), plain[1].double()  # fp64: a cosine over 10^8-10^9 entries
     return kernel, plain, dict(loss_relative=abs(kernel[0] - plain[0]) / abs(plain[0]),
@@ -3649,10 +3677,11 @@ STEP_MOVE_RTOL = 0.05
 
 
 def launch_counts() -> dict:
-    """The launches since :func:`reset_launches` that phase 9 reads."""
+    """The launches since :func:`reset_launches` that the training phases read."""
     return dict(flash_attention=fa.FLASH_ATTENTION.launches, flash_attention_bwd=fa.FLASH_ATTENTION_BWD.launches,
                 bwd_by_head_dim=dict(fa.BACKWARD_LAUNCHES_BY_HEAD_DIM), maxsim_bf16=MAXSIM_BF16.launches,
-                quantize_rows=qd.QUANTIZE_ROWS.launches, int8_gemm=qd.INT8_GEMM.launches)
+                quantize_rows=qd.QUANTIZE_ROWS.launches, int8_gemm=qd.INT8_GEMM.launches,
+                gated_delta_rule=gdr.GATED_DELTA_RULE.launches, gated_delta_rule_bwd=gdr.GATED_DELTA_RULE_BWD.launches)
 
 
 def k6_bwd_row_case(gen: torch.Generator, device: torch.device, b: int, s: int, h: int, hkv: int, d: int,
@@ -3794,7 +3823,7 @@ def fp32_route(state, batch, loss_fn, peft, fp32_model):
     adapters.load_tree(state.adapters.tree())
     state32 = trainer.create_train_state(fp32_model, state.config, adapters)
     state32.step = state.step
-    with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
+    with plain_route():
         out = adapter_gradient(state32, batch, loss_fn, peft, SEED)
     adapters.detach()
     return out
@@ -6938,6 +6967,14 @@ def qwen35_config():
     return dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, out_hidden_size=cfg.text.hidden_size))
 
 
+def qwen35_cut_config():
+    """:func:`qwen35_config` with the decoder cut to QWEN35_TRAIN_DEPTH layers (phase 20)."""
+    import dataclasses
+
+    cfg = qwen35_config()
+    return dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=QWEN35_TRAIN_DEPTH))
+
+
 def q2_flops(b: int, s: int, hv: int, dk: int, dv: int) -> float:
     """Q2's operations at one shape, over whole chunks of 64: the strict lower triangle of k k^T and the lower of
     q k^T (C^2 Dk each), k S and q S (2 C Dk Dv each), the substitution and P Vnew (C^2 Dv each, triangular), the
@@ -7360,6 +7397,428 @@ def phase_qwen35(device: torch.device, smi: str, ckpt: str) -> tuple:
     return launches, timings, extra
 
 
+# -- phase 20: Qwen3.5 training (run after phase 19) ------------------------------------------------------------------
+
+# the decoder cut to 12 of the default config's 48 layers: three hybrid periods, 9 GatedDeltaNet and 3 gated attention
+# layers (the tower keeps its 27 blocks), so that the script stays near its time budget
+QWEN35_TRAIN_DEPTH = 12
+QWEN35_TRAIN_PAGES = 32  # four batches of 8
+QWEN35_PAGE_SCALES = (1.0, 0.5, 0.35, 0.25)  # page sides as shares of PAGE_HW (mixed_size_dataset)
+QWEN35_EVAL_PAGES = 16
+QWEN35_TRAIN_STEPS, QWEN35_RESUME_AT = 4, 2
+QWEN35_VISION_STORED = QWEN3_VISION_STORED  # quantize_frozen_base: Qwen3-VL-4B's tower, its deepstack mergers included
+# Q2's backward against its plain backward: each gradient within 1e-3 of its own RMS (fp32 sums in another order over
+# the reverse scan), with bf16 inputs one bf16 ulp of the value more (the kernel writes dq, dk, dv and dbeta in bf16)
+Q2_BWD_ATOL_RMS = 1e-3
+
+
+def q2_bwd_flops(b: int, s: int, hv: int, dk: int, dv: int) -> float:
+    """Q2's backward's operations at one shape, over whole chunks of 64, counted as :func:`q2_flops` counts the
+    forward's (triangles as half squares, a multiply-add as 2). What the saved states do not give is recomputed:
+    k k^T and q k^T (C^2 Dk each), k S and q S (2 C Dk Dv each), the forward substitution (C^2 Dv). Then the
+    backward: Kd dS' (2 C Dk Dv), P^T dO and the back substitution (C^2 Dv each), dP and dT (C^2 Dv each), the
+    triangles' products into dq and dk (4 C^2 Dk), e^G dO S^T, Kd-side dS'^T and dKS S^T (6 C Dk Dv), and dS
+    (4 C Dk Dv)."""
+    c, n = gdr.CHUNK, -(-s // gdr.CHUNK)
+    return b * hv * n * (6 * c * c * dk + 5 * c * c * dv + 16 * c * dk * dv)
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def q2_bwd_case(gen: torch.Generator, device: torch.device, b: int, s: int, cfg, dtype, log_decay: float,
+                timed: bool) -> dict:
+    """Q2's backward kernel against its plain backward on seeded inputs at one shape, q/k/v laid out as
+    GatedDeltaNet's conv output (strided views of one row a token), the chunks' states from the forward kernel:
+    each of the five gradients within Q2_BWD_ATOL_RMS of its RMS (and a bf16 ulp for bf16 outputs), bit-equal on a
+    second call, finite. ``timed``: the kernel and the plain backward by CUDA events beside the bound."""
+    hk, hv, dk, dv = cfg.linear_num_key_heads, cfg.linear_num_value_heads, cfg.linear_key_head_dim, \
+        cfg.linear_value_head_dim
+    mixed = torch.randn((b, s, 2 * hk * dk + hv * dv), generator=gen, device=device).to(dtype)
+    q = mixed[..., :hk * dk].view(b, s, hk, dk)
+    k = mixed[..., hk * dk:2 * hk * dk].view(b, s, hk, dk)
+    v = mixed[..., 2 * hk * dk:].view(b, s, hv, dv)
+    g = -log_decay * (0.5 + torch.rand((b, s, hv), generator=gen, device=device))
+    beta = torch.rand((b, s, hv), generator=gen, device=device).to(dtype)
+    d_out = torch.randn((b, s, hv, dv), generator=gen, device=device).to(dtype)
+    states = torch.empty((b, hv, -(-s // gdr.CHUNK), dk, dv), dtype=torch.float32, device=device)
+    gdr._forward_cuda(q, k, v, g, beta, states)
+
+    def kernel():
+        return gdr.chunk_gated_delta_rule_backward(q, k, v, g, beta, states, d_out)
+
+    got = kernel()
+    want = gdr.chunk_gated_delta_rule_backward_plain(q, k, v, g, beta, d_out)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, kernel())):
+        raise AssertionError(f"Q2 backward B={b} S={s} {dtype}: two calls differ")
+    shares, errs = {}, {}
+    for name, x, w in zip(("dq", "dk", "dv", "dg", "dbeta"), got, want):
+        if not (torch.isfinite(x).all() and torch.isfinite(w).all()):
+            raise AssertionError(f"Q2 backward B={b} S={s} {dtype} log-decay {log_decay}: {name} not finite")
+        rms = w.square().mean().sqrt().item()
+        limit = Q2_BWD_ATOL_RMS * rms + (_bf16_ulp(w) if x.dtype == torch.bfloat16 else 0.0)
+        err = (x.float() - w).abs()
+        errs[name] = err.max().item()
+        shares[name] = (err / limit).max().item()
+    r = dict(shape=f"B={b} S={s} Hk={hk} Hv={hv} Dk={dk} Dv={dv} {str(dtype)[6:]} log-decay {log_decay}",
+             max_abs_err=max(errs.values()), max_abs_err_by_grad=errs, share_of_limit=shares)
+    if max(shares.values()) > 1.0:
+        raise AssertionError(f"Q2 backward [{r['shape']}] against its plain backward: {r}")
+    if timed:
+        esize = q.element_size()
+        nbytes = ((2 * b * s * hk * dk + 2 * b * s * hv * dv + b * s * hv) * esize * 2 + 2 * b * s * hv * 4
+                  + states.numel() * 4)
+        r.update(ms=time_ms(kernel), plain_ms=time_ms(
+            lambda: gdr.chunk_gated_delta_rule_backward_plain(q, k, v, g, beta, d_out), reps=2),
+                 library_ms=None, **bound(nbytes, q2_bwd_flops(b, s, hv, dk, dv), "fp32"))
+    del mixed, q, k, v, g, beta, d_out, states, got, want
+    return r
+
+
+def q2_bwd_cases(device: torch.device, page_s: int, query_s: int, cfg) -> dict:
+    """Q2's backward at the page shape (8 pages' prompts) and the query shape (8 collated queries), each in fp32
+    and bf16, the bf16 cases timed, and a bf16 draw at Q2_LARGE_DECAY at the page shape."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 96)
+    out = {}
+    for name, s in (("page", page_s), ("query", query_s)):
+        for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            r = out[f"{name}_{label}"] = q2_bwd_case(gen, device, PAGE_BATCH, s, cfg, dtype, 0.3,
+                                                     timed=label == "bf16")
+            timing = (f": kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                      f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of it") if "ms" in r else ""
+            log(f"phase qwen3.5 training: Q2 backward [{r['shape']}] max_abs_err "
+                + ", ".join(f"{k} {e:.3g}" for k, e in r["max_abs_err_by_grad"].items())
+                + " (share of the limit " + ", ".join(f"{k} {x:.0%}" for k, x in r["share_of_limit"].items())
+                + f"), bit-equal on a second call{timing}")
+    r = out["page_large_decay"] = q2_bwd_case(gen, device, PAGE_BATCH, page_s, cfg, torch.bfloat16, Q2_LARGE_DECAY,
+                                              timed=False)
+    log(f"phase qwen3.5 training: Q2 backward [{r['shape']}] finite, largest share of the limit "
+        f"{max(r['share_of_limit'].values()):.0%}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def route_scores_check(name: str, model, fp32_model, batch: dict) -> dict:
+    """The first batch's query and page embeddings and in-batch MaxSim scores (the recipe loss's inputs) through
+    ``model``'s kernel route and its plain route, each against the plain route in fp32 (``fp32_model`` given
+    ``model``'s weights): the kernel route's mean |score - fp32 score| and its 1 - mean cosine per token (the
+    queries' valid tokens and the pages' image tokens) no more than ROUTE_FP32_RATIO times the plain route's (or
+    within WITNESS_FLOOR of 1 for the cosine). On a model that bf16 alone moves (Qwen3.5) a single loss value
+    sits on either side of its fp32 value at random, route by route; these means over many scores and tokens
+    do not."""
+    from colpali_tpu_torch.training.trainer import forward_prefixed
+
+    fp32_model.load_state_dict(model.state_dict())
+    valid = torch.cat([batch["query_attention_mask"].bool().flatten(),
+                       (batch["doc_input_ids"] == model.config.image_token_id).flatten()])
+
+    def embed(m):
+        with torch.no_grad():
+            q, d = (forward_prefixed(m, batch, p).float() for p in ("query_", "doc_"))
+        scores = torch.einsum("bnd,csd->bcns", q, d).max(-1).values.sum(-1)
+        return scores, torch.cat([q.flatten(0, 1), d.flatten(0, 1)])[valid]
+
+    sk, ek = embed(model)
+    with plain_route():
+        sp, ep = embed(model)
+        sf, ef = embed(fp32_model)
+    out = dict(score_gap_kernel=(sk - sf).abs().mean().item(), score_gap_plain=(sp - sf).abs().mean().item(),
+               score_scale=sf.abs().mean().item(),
+               cos_kernel=F.cosine_similarity(ek, ef, dim=-1).mean().item(),
+               cos_plain=F.cosine_similarity(ep, ef, dim=-1).mean().item(), tokens=int(valid.sum()))
+    cos_limit = max(ROUTE_FP32_RATIO * (1 - out["cos_plain"]), WITNESS_FLOOR)
+    if not (out["score_gap_kernel"] <= ROUTE_FP32_RATIO * out["score_gap_plain"] and 1 - out["cos_kernel"] <= cos_limit):
+        raise AssertionError(f"{name}: the kernel route against the plain route in fp32 {out}; limits "
+                             f"{ROUTE_FP32_RATIO} x the plain route's score gap and {cos_limit} on 1 - cos")
+    log(f"  {name}, against the plain route in fp32: in-batch scores (mean |score| {out['score_scale']:.3f}) off by "
+        f"{out['score_gap_kernel']:.4e} on the kernel route, {out['score_gap_plain']:.4e} on the plain route "
+        f"({share(out['score_gap_kernel'], ROUTE_FP32_RATIO * out['score_gap_plain'])}); {out['tokens']} tokens' mean "
+        f"cos {out['cos_kernel']:.6f} and {out['cos_plain']:.6f} ({share(1 - out['cos_kernel'], cos_limit)})")
+    return out
+
+
+def mixed_size_dataset(n: int, seed: int, first: int = 0):
+    """``n`` seeded noise pages whose sides cycle through QWEN35_PAGE_SCALES of PAGE_HW (744, ~510, ~250 and ~125
+    merged tokens at Qwen3.5's 768-token budget), with QUERIES in turn. Pages of one size look alike to Qwen3.5 on
+    random weights: a query's MaxSim scores over 8 of them lie within 0.012-0.017 of each other, so the recipe loss
+    (temperature 0.02) lands on either side of ln 8 by the draw's luck (PR 19: -0.184 to +0.172 over eight
+    checkpoint seeds, the fp32 route of one 0.043 off, inside TIED_MARGIN). A page's best match over more tokens
+    scores higher for every query; scores that differ by page put the loss above ln 8 by their logsumexp less
+    their mean, whatever the draw. Real corpora mix page sizes too."""
+    from colpali_tpu_torch.data.dataset import ColPaliEngineDataset
+
+    rng = np.random.default_rng(seed)
+    pages = []
+    for i in range(n):
+        scale = QWEN35_PAGE_SCALES[(first + i) % len(QWEN35_PAGE_SCALES)]
+        hw = (round(PAGE_HW[0] * scale), round(PAGE_HW[1] * scale))
+        pages.append(rng.integers(0, 256, size=(*hw, 3), dtype=np.uint8))
+    return ColPaliEngineDataset([{"query": QUERIES[(first + i) % len(QUERIES)], "pos_target": page}
+                                 for i, page in enumerate(pages)])
+
+
+def phase_qwen35_training(device: torch.device, smi: str, ckpt: str) -> tuple:
+    """Drive the Qwen3.5 family's training path: Q2's backward against its plain backward at the page and query
+    shapes; ColQwen3_5 at the default config's full width with the decoder cut to QWEN35_TRAIN_DEPTH layers,
+    written by ``write_qwen35_checkpoint`` into ``ckpt``, read by ``load_retriever(family="colqwen3_5",
+    remat=True, mask_non_image_embeddings=True)`` and trained through ``ColModelTraining`` from
+    ``configs/train_colqwen3_5.yaml``'s loss and LoRA (4 steps at batch 8 over 32 pages: Q2's backward kernel on
+    every GatedDeltaNet layer behind the first adapter, never a plain version); the routes held against the plain
+    route in fp32 on fresh adapters; ``evaluate()`` (bf16 index, K5); the merged export read back and served; a run
+    resumed from step 2; a step timed with and without remat and profiled; one step over a stored-int8 frozen
+    tower; one BiQwen3_5 step. Returns the launches over the path, Q2's backward rows and the rest."""
+    import math
+    import os
+    import shutil
+
+    from colpali_tpu_torch.auto import load_retriever
+    from colpali_tpu_torch.losses import BiEncoderLoss, ColbertLoss
+    from colpali_tpu_torch.models.layers import QDense
+    from colpali_tpu_torch.models.qwen3_5 import BiQwen3_5, ColQwen3_5
+    from colpali_tpu_torch.processors.bi import BiQwen3_5Processor
+    from colpali_tpu_torch.training import trainer
+    from colpali_tpu_torch.training.lora import LoraAdapters
+    from colpali_tpu_torch.training.orchestrator import ColModelTraining, ColModelTrainingConfig
+    from colpali_tpu_torch.utils.testing import write_qwen35_checkpoint
+
+    held = free_memory("phase qwen3.5 training")
+    t_phase = time.perf_counter()
+    full, cfg = qwen35_config(), qwen35_cut_config()
+    v, t = cfg.vision, cfg.text
+    linear = [i for i in range(t.num_hidden_layers) if t.layer_type(i) == "linear_attention"]
+    # a GatedDeltaNet layer takes a gradient once an adapter lies before it: every one but a first layer's
+    per_step = 2 * sum(i > 0 for i in linear)  # a query and a page forward a step
+    extra = dict(held_gib_at_start=held, depth=QWEN35_TRAIN_DEPTH)
+    write_qwen35_checkpoint(ckpt, cfg, seed=SEED + 97, words=" ".join(QUERIES).split(), device=device)
+    torch.cuda.empty_cache()
+    train_config = trainer.TrainConfig(learning_rate=QWEN_LR, warmup_steps=0, total_steps=2500)
+    train_set = mixed_size_dataset(QWEN35_TRAIN_PAGES, SEED + 98)
+    eval_set = mixed_size_dataset(QWEN35_EVAL_PAGES, SEED + 99, first=QWEN35_TRAIN_PAGES)
+    model, processor = load_retriever(ckpt, family="colqwen3_5", device=device, remat=True,
+                                      mask_non_image_embeddings=True)
+    tied = math.log(TRAIN_BATCH)
+    recipe = functools.partial(recipe_config, train_set=train_set, train_config=train_config, device=device)
+    sampled = ["model.language_model.layers.1.linear_attn.in_proj_qkvz.weight",
+               f"model.language_model.layers.{t.num_hidden_layers - 1}.mlp.down_proj.weight",
+               f"model.visual.blocks.{v.depth // 2}.linear_fc1.weight", "head.custom_text_proj.weight"]
+    base_before = {k: model.state_dict()[k].clone() for k in sampled}
+    with tempfile.TemporaryDirectory() as tmp:
+        app = ColModelTraining(ColModelTrainingConfig(**recipe(
+            "train_colqwen3_5.yaml", f"{tmp}/run", model, processor, eval_dataset=eval_set,
+            eval_batch_size=TRAIN_BATCH, max_steps=QWEN35_TRAIN_STEPS, save_steps=QWEN35_RESUME_AT,
+            save_total_limit=QWEN35_TRAIN_STEPS)))
+        peft, loss_fn = app.config.peft, app.config.loss_func
+        if not isinstance(loss_fn, ColbertLoss) or loss_fn.temperature != 0.02 or \
+                (peft.rank, peft.alpha) != (32, 32):
+            raise AssertionError(f"train_colqwen3_5.yaml's loss and LoRA: {loss_fn}, {peft}")
+        batch = trainer.to_device(next(iter(app.batches(0))), device)  # step 1's batch
+        page_s, query_s = batch["doc_input_ids"].shape[1], batch["query_input_ids"].shape[1]
+        q2_bwd = q2_bwd_cases(device, page_s, query_s, t)
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] ColQwen3_5 at the default config's widths, the decoder cut to "
+            f"{t.num_hidden_layers} of {full.text.num_hidden_layers} layers ({len(linear)} GatedDeltaNet, "
+            f"{t.num_hidden_layers - len(linear)} gated attention), the tower's {v.depth} blocks: "
+            f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params; pages of {page_s} tokens, queries of "
+            f"{query_s}")
+        spread = page_score_spread(model, batch, cfg.image_token_id, loss_fn)
+        margin = abs(spread["masked"]["loss"] - tied)
+        log(f"  step 1's batch's in-batch scores: page tokens kept, the recipe loss {spread['unmasked']['loss']:.6f}, "
+            f"{spread['unmasked']['on_template']:.1%} of the query tokens' maxima outside the image tokens; non-image "
+            f"tokens masked (as trained here) {spread['masked']['loss']:.6f} ({margin:.4f} from ln {TRAIN_BATCH}, "
+            f"limit {TIED_MARGIN}), least spread {spread['masked']['min_spread']:.5f}")
+        if margin < TIED_MARGIN:
+            raise AssertionError(f"ColQwen3_5 LoRA: the recipe loss over the image tokens "
+                                 f"{spread['masked']['loss']:.6f} lies within {TIED_MARGIN} of ln {TRAIN_BATCH}: the "
+                                 f"pages score alike")
+        extra["score_spread"] = spread
+        # the kernel route against the plain routes on the run's fresh adapters and step 1's dropout masks, held to
+        # the plain route in fp32 (phase 9's rule: bf16 alone moves this model's tokens, phase 19)
+        fp32 = ColQwen3_5(cfg, mask_non_image_embeddings=True, device=device, dtype=torch.float32, remat=True)
+        extra["route_scores"] = route_scores_check("ColQwen3_5 (the base, non-image tokens masked)", model, fp32,
+                                                   batch)
+        reset_launches()
+        extra["route"] = hold_routes("ColQwen3_5 LoRA (fresh adapters, non-image tokens masked)", app.state, batch,
+                                     loss_fn, peft, tied=tied, fp32_model=fp32)
+        if gdr.GATED_DELTA_RULE_BWD.launches != 2 * per_step:  # the recipe loss and the smooth probe's kernel routes
+            raise AssertionError(f"route check: {gdr.GATED_DELTA_RULE_BWD.launches} Q2 backward launches, expected "
+                                 f"{2 * per_step}")
+        del fp32
+        torch.cuda.empty_cache()
+        n_adapters, n_trainable = len(app.state.adapters.paths), sum(p.numel() for p in app.state.params)
+        seen, moved = [], []
+
+        def on_step(step, metrics):
+            seen.append((step, float(metrics["loss"]), float(metrics["grad_norm"])))
+            if step == 1:
+                moved.extend(bool(b.detach().abs().max() > 0) for b in app.state.adapters.b)
+
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with counted_plain(gdr, "chunk_gated_delta_rule_plain") as plain_fwd, \
+                counted_plain(gdr, "chunk_gated_delta_rule_backward_plain") as plain_bwd, \
+                counted_plain() as plain_k6:
+            summary = app.train(on_step=on_step)
+        torch.cuda.synchronize()
+        train_launches = launch_counts()
+        peak_train = torch.cuda.max_memory_allocated() / 2**30
+        app.state.adapters.clear_masks()
+        with torch.no_grad():
+            trained = trainer.compute_loss(model.eval(), batch, loss_fn, False)[0].item()
+        model.train()
+        step_move = abs(trained - spread["masked"]["loss"]) / spread["masked"]["loss"]
+        if [s for s, _, _ in seen] != list(range(1, QWEN35_TRAIN_STEPS + 1)) or \
+                not all(np.isfinite(l) and l > 0 and np.isfinite(g) and g > 0 for _, l, g in seen):
+            raise AssertionError(f"ColQwen3_5 steps: {seen}")
+        if len(moved) != n_adapters or not all(moved):
+            raise AssertionError(f"{moved.count(False)} of {n_adapters} adapters did not move in step 1")
+        if not all(torch.equal(model.state_dict()[k], w) for k, w in base_before.items()):
+            raise AssertionError("a frozen base weight changed")
+        if abs(seen[0][1] - tied) < TIED_MARGIN or not step_move >= STEP_MOVE_RTOL:
+            raise AssertionError(f"ColQwen3_5: step 1's loss {seen[0][1]:.6f} (ln {TRAIN_BATCH} = {tied:.6f}, margin "
+                                 f"{TIED_MARGIN}); the first batch's recipe loss {spread['masked']['loss']:.6f} -> "
+                                 f"{trained:.6f} after the steps ({step_move:.1%}, at least {STEP_MOVE_RTOL:.0%})")
+        if train_launches["gated_delta_rule_bwd"] != QWEN35_TRAIN_STEPS * per_step or \
+                plain_fwd[0] or plain_bwd[0] or plain_k6[0] or train_launches["flash_attention_bwd"]:
+            raise AssertionError(f"Q2 over {QWEN35_TRAIN_STEPS} LoRA steps: {train_launches}; plain calls: Q2 "
+                                 f"{plain_fwd[0]}, its backward {plain_bwd[0]}, K6 {plain_k6[0]}; expected {per_step} "
+                                 f"Q2 backward launches a step and no K6 backward (the tower is frozen)")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] ColQwen3_5, ColModelTraining from train_colqwen3_5.yaml "
+            f"({smi}): {n_adapters} adapted layers, {n_trainable / 1e6:.2f} M trainable parameters, "
+            f"{type(loss_fn).__name__}(temperature {loss_fn.temperature}), LoRA r{peft.rank} a{peft.alpha:g} dropout "
+            f"{peft.dropout}, remat, non-image tokens masked, batch {TRAIN_BATCH}; "
+            + ", ".join(f"step {s} loss {l:.4f} grad_norm {g:.4f}" for s, l, g in seen)
+            + f" (step 1 {abs(seen[0][1] - tied):.4f} from ln {TRAIN_BATCH}, limit {TIED_MARGIN}); the first batch's "
+            f"recipe loss {spread['masked']['loss']:.6f} -> {trained:.6f} ({step_move:.1%}, limit "
+            f"{STEP_MOVE_RTOL:.0%}); {summary['train_samples_per_second']:.2f} examples/s with collation and "
+            f"checkpoints; Q2 {train_launches['gated_delta_rule']} launches, its backward "
+            f"{train_launches['gated_delta_rule_bwd']} ({per_step} a step), K6 {train_launches['flash_attention']} "
+            f"(the frozen tower), no plain version called; peak memory {peak_train:.2f} GiB")
+
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = app.evaluate()
+        t_eval = time.perf_counter() - t0
+        eval_launches = launch_counts()
+        index = app.eval_index
+        if not {"eval_loss", "eval_ndcg@1", "eval_ndcg@5"} <= set(metrics) or \
+                not all(np.isfinite(x) for x in metrics.values()) or not eval_launches["maxsim_bf16"] or \
+                (index.dtype, index.num_docs, index.dim, index._store.device.type) != \
+                ("bf16", QWEN35_EVAL_PAGES, DIM, device.type):
+            raise AssertionError(f"evaluate(): {metrics}, index {index.dtype} {index.num_docs} x {index.dim}, "
+                                 f"{eval_launches}")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] evaluate(): {QWEN35_EVAL_PAGES} held-out pages in "
+            f"{t_eval:.1f} s, bf16 index {index.num_docs} x {index.doc_tokens} x {index.dim} searched by K5 "
+            f"({eval_launches['maxsim_bf16']} launch(es)); " + ", ".join(f"{k} {x:.4f}" for k, x in sorted(metrics.items())))
+        app.save()
+        merged = app.state.adapters.merged_state_dict(model)
+        app.close()
+        readback = export_readback(device, f"{tmp}/run", merged, cfg, ColQwen3_5, "colqwen3_5", "ColQwen3_5")
+        del merged
+        os.remove(f"{tmp}/run/model.safetensors")
+
+        os.makedirs(f"{tmp}/resumed/checkpoints")
+        shutil.copy(f"{tmp}/run/checkpoints/step_{QWEN35_RESUME_AT}.pt", f"{tmp}/resumed/checkpoints/")
+        resumed = ColModelTraining(ColModelTrainingConfig(**recipe(
+            "train_colqwen3_5.yaml", f"{tmp}/resumed", model, processor, max_steps=QWEN35_RESUME_AT + 1,
+            save_steps=100, resume_from_checkpoint=True)))
+        tail = []
+        resumed.train(on_step=lambda step, m: tail.append((step, float(m["loss"]))))
+        resumed.close()
+        first = seen[QWEN35_RESUME_AT][1]
+        if resumed.state.step != QWEN35_RESUME_AT + 1 or [s for s, _ in tail] != [QWEN35_RESUME_AT + 1] or \
+                abs(tail[0][1] - first) > RESUME_LOSS_RTOL * abs(first):
+            raise AssertionError(f"resumed run: {tail}, the first run's step {QWEN35_RESUME_AT + 1} loss {first}")
+        log(f"  resumed from step {QWEN35_RESUME_AT}: step {QWEN35_RESUME_AT + 1} loss {tail[0][1]:.8f} vs "
+            f"{first:.8f} in the first run (limit {RESUME_LOSS_RTOL} relative)")
+
+        # a step at batch 8 with and without remat, and a profile of one
+        adapters = LoraAdapters(model, peft, seed=SEED + 1)
+        state = trainer.create_train_state(model, train_config, adapters)
+        steps = {}
+        for remat in (True, False):
+            model.set_remat(remat)
+            steps["remat" if remat else "no_remat"] = r = timed_steps(state, batch, loss_fn, peft, SEED, steps=2)
+            log(f"  ColQwen3_5 LoRA step, batch {TRAIN_BATCH}, remat {'on' if remat else 'off'} ({smi}): "
+                f"{r['wall']:.1f} ms/step ({TRAIN_BATCH / r['wall'] * 1e3:.2f} examples/s without collation), forward "
+                f"{r['forward']:.1f} ms, backward {r['backward']:.1f} ms, optimizer {r['optimizer']:.1f} ms, host and "
+                f"idle {r['wall'] - r['forward'] - r['backward'] - r['optimizer']:.1f} ms, peak memory "
+                f"{r['peak_gib']:.2f} GiB ({r['allocated_before_gib']:.2f} GiB held before the step)")
+        model.set_remat(True)
+        step_fn = trainer.make_train_step(loss_fn, peft=peft, seed=SEED)
+        steps["profile"] = kernel_breakdown(f"one ColQwen3_5 LoRA step, batch {TRAIN_BATCH}, remat on",
+                                            lambda: step_fn(state, batch)["loss"].item())
+        adapters.detach()
+        del state, adapters
+        extra.update(losses=[l for _, l, _ in seen], grad_norms=[g for _, _, g in seen], eval=metrics,
+                     loss_after_steps=trained, step_move=step_move,
+                     examples_per_s_end_to_end=summary["train_samples_per_second"], peak_train_gib=peak_train,
+                     step_ms=steps, checkpoint_readback=readback, resumed_loss=tail[0][1], trainable=n_trainable,
+                     adapted_layers=n_adapters, launches_per_step={"gated_delta_rule_bwd": per_step})
+
+        # one step over a stored-int8 frozen vision tower (it stays int8 from here on; BiQwen3_5 takes the bf16 one)
+        col_state = {k: x for k, x in model.state_dict().items() if k.startswith("model.")}
+        qapp = ColModelTraining(ColModelTrainingConfig(**recipe(
+            "train_colqwen3_5.yaml", f"{tmp}/quant", model, processor, max_steps=1, save_steps=100,
+            quantize_frozen_base=True)))
+        stored = [name for name, m in model.named_modules() if isinstance(m, QDense) and m.stored]
+        if len(stored) != QWEN35_VISION_STORED or not all(n.startswith("model.visual.") for n in stored):
+            raise AssertionError(f"quantize_frozen_base stored {len(stored)} layers, expected the vision tower's "
+                                 f"{QWEN35_VISION_STORED}")
+        reset_launches()
+        qseen = []
+        qapp.train(on_step=lambda step, m: qseen.append(float(m["loss"])))
+        torch.cuda.synchronize()
+        quant_launches = launch_counts()
+        qapp.close()
+        if not quant_launches["int8_gemm"] or not quant_launches["quantize_rows"] or len(qseen) != 1 or \
+                not np.isfinite(qseen[0]) or quant_launches["gated_delta_rule_bwd"] != per_step:
+            raise AssertionError(f"quantize_frozen_base step {qseen}, launches {quant_launches}; expected Q1b "
+                                 f"launches and {per_step} Q2 backward launches")
+        log(f"  [{time.perf_counter() - t_phase:.0f} s] quantize_frozen_base: {len(stored)} stored-int8 vision layers; "
+            f"one step, loss {qseen[0]:.4f}; Q1a {quant_launches['quantize_rows']} and Q1b "
+            f"{quant_launches['int8_gemm']} launches, Q2 backward {quant_launches['gated_delta_rule_bwd']}")
+        extra["quantize_frozen_base"] = dict(stored_layers=len(stored), loss=qseen[0], launches=quant_launches)
+        del model, app, qapp, resumed
+        torch.cuda.empty_cache()
+
+    # one BiQwen3_5 LoRA step at the same widths and depth, on the checkpoint's backbone
+    bmodel = BiQwen3_5(cfg, device=device, dtype=torch.bfloat16, remat=True)
+    bmodel.load_state_dict(col_state)
+    del col_state
+    bproc = BiQwen3_5Processor(processor.tokenizer, num_grid_per_side=v.num_grid_per_side, max_num_visual_tokens=768,
+                               device=device)
+    with tempfile.TemporaryDirectory() as out:
+        bapp = ColModelTraining(ColModelTrainingConfig(
+            model=bmodel, processor=bproc, loss_func=BiEncoderLoss(), train_datasets=[train_set], output_dir=out,
+            global_batch_size=TRAIN_BATCH, log_steps=1, save_steps=100, peft=peft, train=train_config, seed=SEED,
+            device=device, max_steps=1))
+        reset_launches()
+        bseen = []
+        with counted_plain(gdr, "chunk_gated_delta_rule_backward_plain") as plain_calls:
+            bapp.train(on_step=lambda step, m: bseen.append(float(m["loss"])))
+        torch.cuda.synchronize()
+        bi_launches = launch_counts()
+        bapp.close()
+    if len(bseen) != 1 or not np.isfinite(bseen[0]) or plain_calls[0] or \
+            bi_launches["gated_delta_rule_bwd"] != per_step:
+        raise AssertionError(f"BiQwen3_5 LoRA step: loss {bseen}, launches {bi_launches}, plain calls {plain_calls[0]}; "
+                             f"expected {per_step} Q2 backward launches")
+    log(f"  [{time.perf_counter() - t_phase:.0f} s] BiQwen3_5 at the same widths and depth, one LoRA step through "
+        f"ColModelTraining (BiEncoderLoss): loss {bseen[0]:.4f}; Q2 backward {bi_launches['gated_delta_rule_bwd']}")
+    extra["biqwen3_5"] = dict(loss=bseen[0], launches=bi_launches)
+    del bmodel, bapp
+    torch.cuda.empty_cache()
+    extra["seconds"] = time.perf_counter() - t_phase
+    log(f"phase qwen3.5 training: {extra['seconds']:.1f} s")
+    launches = dict(gated_delta_rule_bwd=train_launches["gated_delta_rule_bwd"],
+                    gated_delta_rule=train_launches["gated_delta_rule"],
+                    flash_attention=train_launches["flash_attention"] + eval_launches["flash_attention"],
+                    maxsim_bf16=eval_launches["maxsim_bf16"], quantize_rows=quant_launches["quantize_rows"],
+                    int8_gemm=quant_launches["int8_gemm"])
+    return launches, q2_bwd, extra
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script only runs on a GPU", file=sys.stderr)
@@ -7415,6 +7874,10 @@ def main() -> int:
     free_memory("phase qwen3.5")
     with tempfile.TemporaryDirectory() as q35_dir:  # phase 19's checkpoint
         q35_launches, q35_timings, q35_extra = timed("19 Qwen3.5 family", phase_qwen35, device, smi, q35_dir)
+    free_memory("phase qwen3.5 training")
+    with tempfile.TemporaryDirectory() as q35t_dir:  # phase 20's checkpoint, the decoder cut to QWEN35_TRAIN_DEPTH
+        q35t_launches, q2_bwd, q35t_extra = timed("20 Qwen3.5 training", phase_qwen35_training, device, smi,
+                                                  q35t_dir)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     timings["flash_attention"] = dict(k6["siglip"], gemma_page=k6["gemma_page"], gemma_query=k6["gemma_query"])
     timings["flash_attention_bwd"] = dict(k6_bwd["gemma_page"], gemma_query=k6_bwd["gemma_query"],
@@ -7497,12 +7960,18 @@ def main() -> int:
             entry["launches_pooling_slice"] = pool_launches[name]
         if name in pool_timings:  # K1-K3 at the pooled page length (Np = 352), K3 also over 1-token docs (Np = 16)
             entry["pooled"] = pool_timings[name]
-        if name == "gated_delta_rule":  # Q2: over phase 19's path alone
+        if name == "gated_delta_rule":  # Q2: over phase 19's path, and over phase 20's LoRA steps apart
             entry.update(launches=q35_launches[name], launches_over="phase 19: 64 pages embedded by the bf16 and the "
                                                                     "stored-int8 models, /search_text and serve.py")
             timings[name] = q35_timings[name]
+        elif name == "gated_delta_rule_bwd":  # Q2's backward: over phase 20's LoRA steps alone
+            entry.update(launches=q35t_launches[name], launches_over=f"phase 20: {QWEN35_TRAIN_STEPS} LoRA steps of "
+                                                                     "ColQwen3_5 through ColModelTraining")
+            timings[name] = dict(q2_bwd["page_bf16"], query=q2_bwd["query_bf16"])
         elif name in q35_launches:  # over phase 19's path: ColQwen3_5's pages, /search_text and serve.py
             entry["launches_qwen35_slice"] = q35_launches[name]
+        if name in q35t_launches and name != "gated_delta_rule_bwd":  # over phase 20's LoRA steps, eval, int8 step
+            entry["launches_qwen35_training"] = q35t_launches[name]
         if name == "flash_attention":  # phase 19's K6 launches by head dim (the Qwen3-VL-4B tower, D=72 alone)
             entry["launches_qwen35_by_head_dim"] = q35_extra["launches_by_head_dim"]
         elif name in ("quantize_rows", "int8_gemm"):  # Q1a/Q1b at the decoder's (M, K, N)
@@ -7514,7 +7983,7 @@ def main() -> int:
                       "qwen_training": qt_extra, "colsmol": smol_extra, "colsmol_training": st_extra,
                       "gemma3": gemma_extra, "gemma3_training": gt_extra, "qwen3": qwen3_extra,
                       "qwen3_training": q3t_extra, "modernvbert": mvb_extra, "modernvbert_training": mt_extra,
-                      "pooling": pool_extra, "qwen3_5": q35_extra,
+                      "pooling": pool_extra, "qwen3_5": q35_extra, "qwen3_5_training": q35t_extra,
                       "phase_seconds": seconds, "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -64,8 +64,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 gated_delta_rule_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                        const float* __restrict__ g, const T* __restrict__ beta, T* __restrict__ out, int seq,
-                        int hk_heads, int hv_heads, int dv, int64_t ld_qk, int64_t ld_v) {
+                        const float* __restrict__ g, const T* __restrict__ beta, T* __restrict__ out,
+                        float* __restrict__ states, int seq, int hk_heads, int hv_heads, int dv, int64_t ld_qk,
+                        int64_t ld_v) {
   extern __shared__ float smem[];
   float* qs = smem;                  // [kC][kLdQ] l2-normalised q times Dk^-0.5
   float* ks = qs + kC * kLdQ;        // [kC][kLdQ] l2-normalised k
@@ -86,11 +87,19 @@ gated_delta_rule_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   const int v0 = h * dv + vb * kBV;  // this CTA's first value column within a token's row
 
   for (int i = tid; i < kDK * kLdS; i += kThreads) st[i] = 0.f;
+  __syncthreads();
   // the 4 x 4 blocks: rows ti * 4 + r, columns tj + 16 c
   const int ti = tid >> 4, tj = tid & 15;
 
+  float* state_out = states ? states + (static_cast<int64_t>(b) * hv_heads + h) * ((seq + kC - 1) / kC) * kDK * dv +
+                                  vb * kBV : nullptr;
   for (int c0 = 0; c0 < seq; c0 += kC) {
     const int rows = min(kC, seq - c0);
+    if (state_out) {  // the state at the chunk's start, for the backward (csrc/gated_delta_rule_bwd.cu)
+      float* dst = state_out + static_cast<int64_t>(c0 / kC) * kDK * dv;
+      for (int idx = tid; idx < kDK * kBV; idx += kThreads)
+        dst[static_cast<int64_t>(idx / kBV) * dv + idx % kBV] = st[(idx / kBV) * kLdS + idx % kBV];
+    }
     // ---- load: q and k rows (a warp a row), normalised; g's in-chunk cumsum and beta
     for (int r = warp; r < 2 * kC; r += kThreads / 32) {
       const int i = r & (kC - 1);
@@ -251,15 +260,16 @@ gated_delta_rule_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* g, const void* beta, void* out, int b,
-                   int seq, int hk, int hv, int dv, int64_t ld_qk, int64_t ld_v, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, const void* g, const void* beta, void* out,
+                   void* states, int b, int seq, int hk, int hv, int dv, int64_t ld_qk, int64_t ld_v,
+                   cudaStream_t stream) {
   auto kernel = gated_delta_rule_kernel<T>;
   cudaError_t err = colpali_allow_smem(kernel, kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(dv / kBV, hv, b);
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const float*>(g),
-      static_cast<const T*>(beta), static_cast<T*>(out), seq, hk, hv, dv, ld_qk, ld_v);
+      static_cast<const T*>(beta), static_cast<T*>(out), static_cast<float*>(states), seq, hk, hv, dv, ld_qk, ld_v);
   return cudaGetLastError();
 }
 
@@ -267,14 +277,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g, c
 
 // q, k (B, S, Hk, 128) with token stride ld_qk, v (B, S, Hv, Dv) with token stride ld_v (heads contiguous within a
 // token, S tokens a batch entry), g (B, S, Hv) fp32 and beta (B, S, Hv) contiguous -> out (B, S, Hv, Dv)
-// contiguous; q, k, v, beta and out bf16 (is_bf16 = 1) or fp32. Hv a multiple of Hk, Dv a multiple of 64.
+// contiguous; q, k, v, beta and out bf16 (is_bf16 = 1) or fp32. Hv a multiple of Hk, Dv a multiple of 64. states,
+// when not null, receives the fp32 state at each chunk's start, (B, Hv, ceil(S / 64), 128, Dv), for the backward.
 extern "C" int colpali_gated_delta_rule(const void* q, const void* k, const void* v, const void* g, const void* beta,
-                                        void* out, int b, int seq, int hk, int hv, int dv, int is_bf16,
+                                        void* out, void* states, int b, int seq, int hk, int hv, int dv, int is_bf16,
                                         int64_t ld_qk, int64_t ld_v, void* stream) {
   if (b < 1 || seq < 1 || hk < 1 || hv < hk || hv % hk || dv < kBV || dv % kBV || hv > 65535 || b > 65535 ||
       ld_qk < static_cast<int64_t>(hk) * kDK || ld_v < static_cast<int64_t>(hv) * dv)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(q, k, v, g, beta, out, b, seq, hk, hv, dv, ld_qk, ld_v, s)
-                 : launch<float>(q, k, v, g, beta, out, b, seq, hk, hv, dv, ld_qk, ld_v, s);
+  return is_bf16 ? launch<__nv_bfloat16>(q, k, v, g, beta, out, states, b, seq, hk, hv, dv, ld_qk, ld_v, s)
+                 : launch<float>(q, k, v, g, beta, out, states, b, seq, hk, hv, dv, ld_qk, ld_v, s);
 }

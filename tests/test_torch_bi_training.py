@@ -9,7 +9,9 @@ its einsum route (no Pallas).
   through the keys' own ids. ``BiPali`` (the tiny ColPali widths) with
   ``BiPairwiseCELoss``, and ``BiQwen2_5`` (``tests/qwen_lora_oracle.py``'s
   checkpoint and its keyword forward) over image negatives with
-  ``BiNegativeCELoss``. Each: the adapted kernels are the paths JAX's
+  ``BiNegativeCELoss``, and ``BiQwen3_5`` (Qwen3.5's hybrid decoder at
+  ``make_synth_colqwen35``'s widths, written by ``write_qwen35_checkpoint``)
+  with ``BiEncoderLoss``. Each: the adapted kernels are the paths JAX's
   ``init_lora_params`` picks, and two LoRA steps match JAX's at loss rtol
   1e-4, grad norm rtol 1e-3, adapters atol 1e-5, as
   ``tests/test_torch_trainer.py`` holds ColPali. ``BiIdefics3`` and
@@ -75,6 +77,7 @@ from qwen_lora_oracle import (
 )
 
 SPEC = LoraSpec(rank=RANK, alpha=ALPHA, dropout=0.0)
+QWEN35_GRAD_RTOL_RMS = 2e-2  # BiQwen3_5's adapter gradients against JAX's per leaf (see its test)
 PALI_QUERIES = ("what is the total revenue ?", "a", "find the quarterly report of the company", "chart")
 
 
@@ -174,6 +177,70 @@ def test_biqwen2_5_lora_steps_over_negatives_match_jax(tmp_path):
         np.testing.assert_allclose(got["loss"].item(), want_loss, rtol=LOSS_RTOL)
         np.testing.assert_allclose(got["grad_norm"].item(), want_norm, rtol=NORM_RTOL)
     assert_adapters(adapters, oracle.lora, start)
+
+
+def test_biqwen3_5_lora_steps_match_jax(tmp_path):
+    """BiQwen3_5 (``last`` pooling over Qwen3.5's hybrid decoder: a period of three GatedDeltaNet layers and one
+    gated attention layer, MoE on every layer) written by ``write_qwen35_checkpoint`` at the tiny widths of
+    ``make_synth_colqwen35`` and read by both packages; two LoRA steps with ``BiEncoderLoss`` against JAX's keyword
+    forward: loss, grad norm and adapters at ``tests/qwen_lora_oracle.py``'s tolerances; each leaf's adapter
+    gradient within 2e-2 of its RMS and an entry whose JAX gradient lies within that of 0 held to the Adam steps'
+    bound (``tests/test_torch_qwen2_training.py``'s rule). This checkpoint's draws (HF Qwen3-Next's: ``A_log``
+    from log U(1, 16)) leave GatedDeltaNet heads of small RMS, whose per-head RMSNorm scales the packages' fp32
+    rounding up: 1.07e-2 of a leaf's RMS was read on BiQwen3_5 and 1.0e-2 on ColQwen3_5 over the same
+    checkpoint (the losses 7e-6 apart), where ``make_synth_colqwen35``'s draws hold 1e-3."""
+    import json
+
+    from colpali_tpu.core.hf_loader import load_colqwen35_params
+    from colpali_tpu.models import qwen3_5 as jq35
+    from colpali_tpu_torch.models import qwen3_5 as tq35
+    from colpali_tpu_torch.models.qwen3_vl import Qwen3VLVisionConfig
+    from colpali_tpu_torch.utils.testing import write_qwen35_checkpoint
+    from qwen_lora_oracle import QUERIES, recording_gradients
+
+    config = tq35.Qwen35VLConfig(
+        vision=Qwen3VLVisionConfig(depth=2, hidden_size=32, num_heads=4, intermediate_size=64, out_hidden_size=48,
+                                   patch_size=14, num_position_embeddings=16, deepstack_visual_indexes=(0, 1)),
+        text=tq35.Qwen35TextConfig(hidden_size=48, intermediate_size=96, num_hidden_layers=4, num_attention_heads=4,
+                                   num_key_value_heads=2, head_dim=16, linear_num_value_heads=4,
+                                   linear_num_key_heads=2, linear_key_head_dim=8, linear_value_head_dim=8,
+                                   linear_conv_kernel_dim=2, num_experts=4, num_experts_per_tok=2,
+                                   moe_intermediate_size=32, shared_expert_intermediate_size=32))
+    path = tmp_path / "colqwen3_5"
+    write_qwen35_checkpoint(str(path), config, seed=7, words=" ".join(QUERIES).split(), device="cpu")
+    pp = json.loads((path / "preprocessor_config.json").read_text())
+    pp["size"]["shortest_edge"] = 56 * 56  # small pages
+    (path / "preprocessor_config.json").write_text(json.dumps(pp))
+    col, proc = load_retriever(str(path), family="colqwen3_5", dtype=torch.float32, device="cpu",
+                               processor_kwargs={"max_num_visual_tokens": 64})
+    model = tq35.BiQwen3_5(col.config, device="cpu").train()
+    model.load_state_dict({k: v for k, v in col.state_dict().items() if k.startswith("model.")})
+    jcfg = jq35.Qwen35VLConfig.from_hf_config(json.loads((path / "config.json").read_text()))
+    base = {"model": jax.tree.map(np.asarray, load_colqwen35_params(str(path))["model"])}
+    start = start_adapters(base)
+    batch = VisualRetrieverCollator(proc)(examples(3, seed=73))
+    oracle = JaxOracle(jq35.BiQwen3_5(jcfg, dtype=jnp.float32, param_dtype=jnp.float32), base, start,
+                       jlosses.BiEncoderLoss(), False)
+    adapters = LoraAdapters(model, SPEC)
+    assert sorted(adapters.paths) == sorted(start) and len(start) == 4 + 3 * 4
+    adapters.load_tree(lora_from_jax(start))
+    state = ttrainer.create_train_state(model, ttrainer.TrainConfig(**TRAIN), adapters)
+    step = ttrainer.make_train_step(tlosses.BiEncoderLoss(), peft=SPEC)
+    grads = recording_gradients(state)
+    near_eps = {p: {n: np.zeros(v.shape, bool) for n, v in ab.items()} for p, ab in start.items()}
+    for _ in range(2):
+        want_loss, want_norm = oracle.step(batch)
+        got = step(state, ttrainer.to_device(batch, "cpu"))
+        np.testing.assert_allclose(got["loss"].item(), want_loss, rtol=LOSS_RTOL)
+        np.testing.assert_allclose(got["grad_norm"].item(), want_norm, rtol=NORM_RTOL)
+        for p, ab in grads[-1].items():
+            for name, g in ab.items():
+                w = oracle.grads[p][name]
+                noise = QWEN35_GRAD_RTOL_RMS * np.sqrt(np.mean(np.square(w)))
+                assert np.abs(g - w).max() <= noise, f"{p}/{name}"
+                near_eps[p][name] |= np.abs(w) < noise
+    lr_sum = sum(ttrainer.learning_rate_at(state.config, count) for count in range(state.step))
+    assert_adapters(adapters, oracle.lora, start, near_eps, step_bound=2 * lr_sum)
 
 
 def test_single_vector_evaluate_is_refused_where_jax_fails(bipali, tmp_path):

@@ -1554,15 +1554,113 @@ def test_q2_gated_delta_rule_matches_plain(dev, b, s, hk, hv, dv, log_decay, dty
     assert torch.equal(chunk_gated_delta_rule(q, k, v, g, beta), got)  # one order of sums
 
 
-def test_q2_refuses_a_gradient_and_what_it_does_not_take(dev):
-    from colpali_tpu_torch.ops.gated_delta_rule import chunk_gated_delta_rule
+def test_q2_takes_a_gradient_and_refuses_what_it_does_not_take(dev):
+    from colpali_tpu_torch.ops.gated_delta_rule import GATED_DELTA_RULE_BWD, chunk_gated_delta_rule
 
     q, k, v, g, beta = _q2_inputs(dev, 1, 70, 2, 4, 128, 0.1, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        chunk_gated_delta_rule(q, k, v.detach().requires_grad_(), g, beta)
+    before = GATED_DELTA_RULE_BWD.launches
+    v = v.detach().requires_grad_()
+    chunk_gated_delta_rule(q, k, v, g, beta).float().sum().backward()
+    assert GATED_DELTA_RULE_BWD.launches == before + 1 and v.grad.shape == v.shape
     with torch.no_grad():
-        chunk_gated_delta_rule(q, k, v.detach().requires_grad_(), g, beta)
+        chunk_gated_delta_rule(q, k, v, g, beta)
     with pytest.raises(ValueError, match="Dk"):
         chunk_gated_delta_rule(q[..., :64], k[..., :64], v, g, beta)
     with pytest.raises(TypeError):
         chunk_gated_delta_rule(q, k, v, g.bfloat16(), beta)
+
+
+# Q2's backward against chunk_gated_delta_rule_backward_plain (the same reverse scan in PyTorch) on the same inputs:
+# each of the five gradients within 1e-3 of its own RMS (fp32 sums in another order over a reverse scan of up to 12
+# chunks and a fixed-order sum over the value heads of a key head), and with bf16 inputs one bf16 ulp of the value
+# more (the kernel writes dq, dk, dv and dbeta in bf16); bit-equal on a second call (no atomics)
+Q2_BWD_ATOL_RMS = 1e-3
+Q2_BWD_CASES = [  # b, s, hk, hv, dv, log-decay per token: the page and query shapes of Qwen3.5's default config,
+    # B=1 with a padded last chunk, a high decay over Dv=192 (three column blocks), one token
+    (8, 753, 16, 32, 128, 0.3), (8, 32, 16, 32, 128, 0.3), (1, 150, 2, 4, 128, 0.1), (2, 200, 2, 4, 192, 2.0),
+    (1, 1, 1, 1, 64, 0.1)]
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each element's magnitude (8 bits of mantissa)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def _q2_grads(dev, q, k, v, g, beta, d_out):
+    """(dq, dk, dv, dg, dbeta) through chunk_gated_delta_rule's autograd Function, q/k/v as views of one leaf."""
+    from colpali_tpu_torch.ops.gated_delta_rule import chunk_gated_delta_rule
+
+    mixed = torch.cat([x.flatten(2) for x in (q, k, v)], dim=-1).detach().requires_grad_()
+    hk, hv, dv = q.shape[2], v.shape[2], v.shape[3]
+    key_dim = hk * 128
+    g, beta = g.detach().requires_grad_(), beta.detach().requires_grad_()
+    out = chunk_gated_delta_rule(mixed[..., :key_dim].view(q.shape), mixed[..., key_dim:2 * key_dim].view(k.shape),
+                                 mixed[..., 2 * key_dim:].view(v.shape), g, beta)
+    out.backward(d_out)
+    dm = mixed.grad
+    return (dm[..., :key_dim].reshape(q.shape), dm[..., key_dim:2 * key_dim].reshape(k.shape),
+            dm[..., 2 * key_dim:].reshape(*v.shape[:2], hv, dv), g.grad, beta.grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,s,hk,hv,dv,log_decay", Q2_BWD_CASES)
+def test_q2_backward_matches_plain(dev, b, s, hk, hv, dv, log_decay, dtype):
+    from colpali_tpu_torch.ops.gated_delta_rule import (
+        GATED_DELTA_RULE_BWD,
+        chunk_gated_delta_rule_backward_plain,
+    )
+
+    q, k, v, g, beta = _q2_inputs(dev, b, s, hk, hv, dv, log_decay, dtype, seed=3)
+    d_out = torch.randn((b, s, hv, dv), generator=_gen(dev, 4), device=dev).to(dtype)
+    before = GATED_DELTA_RULE_BWD.launches
+    got = _q2_grads(dev, q, k, v, g, beta, d_out)
+    torch.cuda.synchronize()
+    assert GATED_DELTA_RULE_BWD.launches == before + 1
+    want = chunk_gated_delta_rule_backward_plain(q, k, v, g, beta, d_out)
+    for name, x, w in zip(("dq", "dk", "dv", "dg", "dbeta"), got, want):
+        assert torch.isfinite(x).all() and torch.isfinite(w).all(), name
+        rms = w.square().mean().sqrt().item()
+        limit = Q2_BWD_ATOL_RMS * rms + (_bf16_ulp(w) if x.dtype == torch.bfloat16 else 0.0)
+        err = (x.float() - w).abs()
+        assert bool((err <= limit).all()), (name, err.max().item(), rms)
+    again = _q2_grads(dev, q, k, v, g, beta, d_out)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))  # one order of sums
+
+
+def test_q2_gradient_through_gated_delta_net_launches_the_kernel(dev):
+    """A GatedDeltaNet at Qwen3.5's head widths (2/4 heads of 128) on the card in fp32 against the same layer on
+    the CPU (autograd through the plain version): the input's and the fp32 parameters' gradients within 1e-3 of
+    their RMS; on the card the backward kernel runs once and no plain version is called."""
+    from unittest import mock
+
+    from colpali_tpu_torch.models.qwen3_5 import GatedDeltaNet, Qwen35TextConfig
+    from colpali_tpu_torch.ops import gated_delta_rule as gdr
+
+    cfg = Qwen35TextConfig(hidden_size=256, linear_num_key_heads=2, linear_num_value_heads=4)
+    torch.manual_seed(0)
+    cpu = GatedDeltaNet(cfg, device="cpu")
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(torch.randn(p.shape) * 0.02)
+    card = GatedDeltaNet(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 150, 256)) * 0.5
+    mask = torch.ones((2, 150), dtype=torch.int32)
+    mask[1, :40] = 0  # left padding: zeroed rows, l2norm(0) = 0
+    grads = []
+    for layer, device in ((cpu, "cpu"), (card, dev)):
+        xi = x.to(device).detach().requires_grad_()
+        if device == dev:
+            before = gdr.GATED_DELTA_RULE_BWD.launches
+            with mock.patch.object(gdr, "chunk_gated_delta_rule_plain", side_effect=AssertionError("plain forward")), \
+                    mock.patch.object(gdr, "chunk_gated_delta_rule_backward_plain",
+                                      side_effect=AssertionError("plain backward")):
+                layer(xi, mask.to(device)).square().sum().backward()
+            torch.cuda.synchronize()
+            assert gdr.GATED_DELTA_RULE_BWD.launches == before + 1
+        else:
+            layer(xi, mask).square().sum().backward()
+        grads.append([xi.grad, layer.A_log.grad, layer.dt_bias.grad, layer.conv1d_kernel.grad])
+    for want, got in zip(*grads):
+        rms = want.square().mean().sqrt().item()
+        assert torch.isfinite(got).all() and (got.cpu() - want).abs().max().item() <= 1e-3 * rms

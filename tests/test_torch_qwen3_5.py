@@ -12,7 +12,10 @@ layer).
   = 128, and on a draw of about 2.0 log-decay per token (a chunk's decay
   passes 88: the exponent must be masked before ``exp``): rtol and atol
   1e-5, both finite; its gradient against ``jax.grad`` at 1e-4 (the
-  backward sums in another order).
+  backward sums in another order); Q2's plain backward (the backward
+  kernel's reverse scan) against ``jax.vjp`` at 1e-4 over Hv/Hk = 1 and 2,
+  S a multiple of 64 and not, S < 64, zeroed padding tokens and a decay of
+  2.0 a token.
 - At atol 2e-5, the checkpoint's JAX parameters moved by seeded noise and
   carried over by ``core/from_jax.py``: ``GatedDeltaNet`` (pad rows zeroed),
   ``GatedAttention``, ``SparseMoeBlock`` in both dispatch modes (capacity
@@ -157,6 +160,37 @@ def test_chunk_gated_delta_rule_plain_gradient_matches_jax():
     for t, want_grad in zip(inputs, want):
         assert torch.isfinite(t.grad).all()
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(want_grad), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,s,hk,hv,dk,dv,log_decay,zeroed", [
+    (2, 64, 2, 2, 8, 8, 0.1, False),  # Hv/Hk = 1, S a multiple of 64
+    (2, 150, 2, 4, 8, 16, 0.5, True),  # Hv/Hk = 2, a padded last chunk, zeroed padding tokens
+    (3, 37, 1, 2, 16, 8, 0.3, False),  # S < 64: one partial chunk, as a query's
+    (1, 150, 2, 4, 8, 8, 2.0, True),  # a chunk's decay past 88: every exponent masked before exp
+    (1, 70, 1, 2, 128, 128, 0.1, False)])  # Qwen3.5's head dims
+def test_chunk_gated_delta_rule_backward_plain_matches_jax_vjp(b, s, hk, hv, dk, dv, log_decay, zeroed):
+    """The plain backward (the kernel's reverse scan, not autograd) against ``jax.vjp`` of JAX's
+    ``chunk_gated_delta_rule`` (key heads repeated inside the function) with a seeded cotangent, at the existing
+    gradient test's 1e-4; finite everywhere. Zeroed tokens (``x * attention_mask`` before the projections) have
+    ``l2norm(0) = 0`` and a gradient of ``rsqrt(eps)`` times theirs."""
+    q, k, v, g, beta = _delta_inputs(s + dk + hv, b, s, hk, hv, dk, dv, log_decay)
+    if zeroed:
+        q[0, :9], k[0, :9] = 0.0, 0.0  # left padding of the first row
+    d_out = np.random.default_rng(s + 1).normal(size=(b, s, hv, dv)).astype(np.float32)
+    rep = hv // hk
+
+    def forward(qq, kk, vv, gg, bb):
+        return jq.chunk_gated_delta_rule(jnp.repeat(qq, rep, axis=2), jnp.repeat(kk, rep, axis=2), vv, gg, bb)
+
+    want = jax.jit(lambda *a: jax.vjp(forward, *a[:5])[1](a[5]))(*map(jnp.asarray, (q, k, v, g, beta, d_out)))
+    got = gdr.chunk_gated_delta_rule_backward_plain(*map(torch.from_numpy, (q, k, v, g, beta, d_out)))
+    for name, x, w in zip(("dq", "dk", "dv", "dg", "dbeta"), got, want):
+        w = np.asarray(w)
+        assert x.shape == w.shape and x.dtype == torch.float32, name
+        assert np.isfinite(w).all() and torch.isfinite(x).all(), name
+        np.testing.assert_allclose(x.numpy(), w, rtol=1e-4, atol=1e-4, err_msg=name)
+    if log_decay > 1:
+        assert -g[0, :64, 0].sum() > 88
 
 
 def test_processor_integers_match_jax(loaded):
